@@ -1,0 +1,136 @@
+"""Public wrappers around the port's CUDA kernels.
+
+``threshold_matmul`` and ``conv_threshold`` are the counterparts of
+``repro.kernels.ops.threshold_matmul`` and ``repro.kernels.ops
+.conv_threshold``. Each one checks its arguments, then:
+
+  * for CUDA tensors launches its kernel (``csrc/*.cu``, built at first
+    use) on the current stream, or raises — there is no fallback;
+  * for CPU tensors computes the same function with its plain version
+    (``kernels.ref``); that is the path the CPU tests reach.
+
+``launches`` counts kernel launches per kernel, and only those: the plain
+versions do not count, so a run can show that it went through the
+kernels (``reset_launches`` before, read after).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import conv_threshold as _ct
+from repro_torch.kernels import ref
+from repro_torch.kernels.conv_threshold import plan_conv_blocks
+
+__all__ = ["threshold_matmul", "conv_threshold", "plan_conv_blocks",
+           "launches", "reset_launches"]
+
+#: Kernel launches since the last ``reset_launches``, by kernel name.
+launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain path for device {x.device}")
+    return x.device.type
+
+
+def _raise_on_error(kernel: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
+
+
+def threshold_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
+                     thresholds: torch.Tensor) -> torch.Tensor:
+    """Fused integer dense stage (matmul + multi-threshold).
+
+    x_int (M, K) int32 codes, w_int (K, N) int8, thresholds (N, S) int32;
+    returns (M, N) int32 codes in [0, S]. Ragged shapes need no padding."""
+    kind = _device_kind(x_int)
+    _check(x_int, "x_int", torch.int32, 2, x_int.device)
+    _check(w_int, "w_int", torch.int8, 2, x_int.device)
+    _check(thresholds, "thresholds", torch.int32, 2, x_int.device)
+    m, k = x_int.shape
+    n, s = thresholds.shape
+    if w_int.shape != (k, n):
+        raise ValueError(f"w_int shape {tuple(w_int.shape)} does not match "
+                         f"x_int {tuple(x_int.shape)} and thresholds "
+                         f"{tuple(thresholds.shape)}")
+    if kind == "cpu":
+        return ref.threshold_matmul_ref(x_int, w_int, thresholds)
+    out = torch.empty((m, n), dtype=torch.int32, device=x_int.device)
+    if m == 0 or n == 0:
+        return out
+    fn = _build.entry_point("threshold_matmul")
+    err = fn(x_int.data_ptr(), w_int.data_ptr(), thresholds.data_ptr(),
+             out.data_ptr(), m, n, k, s,
+             torch.cuda.current_stream(x_int.device).cuda_stream)
+    _raise_on_error("threshold_matmul", err)
+    launches["threshold_matmul"] += 1
+    return out
+
+
+def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
+                   thresholds: torch.Tensor, *, kernel: int, stride: int,
+                   padding: str, out_h: int, out_w: int) -> torch.Tensor:
+    """Fused direct-conv integer stage: NHWC codes -> threshold codes.
+
+    x_int (N, H, W, C) int32, w2d (K*K*C, F) int8 in (kh, kw, c) order,
+    thresholds (F, S) int32. Pads on the host (the SAME split,
+    ``conv_threshold.pad_input``); one thread block covers one sample and
+    ``plan_conv_blocks`` output rows. Returns (N, out_h, out_w, F) int32
+    codes."""
+    kind = _device_kind(x_int)
+    _check(x_int, "x_int", torch.int32, 4, x_int.device)
+    _check(w2d, "w2d", torch.int8, 2, x_int.device)
+    _check(thresholds, "thresholds", torch.int32, 2, x_int.device)
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    nb, _, _, c = x_int.shape
+    f, s = thresholds.shape
+    if w2d.shape != (kernel * kernel * c, f):
+        raise ValueError(f"w2d shape {tuple(w2d.shape)} does not match "
+                         f"kernel={kernel}, C={c}, F={f}")
+    x_pad = _ct.pad_input(x_int, kernel=kernel, stride=stride,
+                          padding=padding, out_h=out_h, out_w=out_w)
+    hp, wp = x_pad.shape[1], x_pad.shape[2]
+    if (hp < (out_h - 1) * stride + kernel
+            or wp < (out_w - 1) * stride + kernel):
+        raise ValueError(f"padded input {hp}x{wp} too small for "
+                         f"out {out_h}x{out_w}, kernel={kernel}, "
+                         f"stride={stride}")
+    if kind == "cpu":
+        return ref.conv_threshold_ref(x_pad, w2d, thresholds, kernel=kernel,
+                                      stride=stride, out_h=out_h, out_w=out_w)
+    out = torch.empty((nb, out_h, out_w, f), dtype=torch.int32,
+                      device=x_int.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.entry_point("conv_threshold")
+    err = fn(x_pad.data_ptr(), w2d.data_ptr(), thresholds.data_ptr(),
+             out.data_ptr(), nb, hp, wp, c, f, kernel, stride, out_h, out_w,
+             plan_conv_blocks(out_h, out_w, f), s,
+             torch.cuda.current_stream(x_int.device).cuda_stream)
+    _raise_on_error("conv_threshold", err)
+    launches["conv_threshold"] += 1
+    return out

@@ -31,6 +31,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: takes >10s on CPU (training loops, big sweeps)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

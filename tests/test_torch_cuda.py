@@ -1,0 +1,89 @@
+"""The port's kernels on the card against their plain versions.
+
+Marked ``cuda``: they skip where no CUDA device is present (this file
+imports neither JAX nor the JAX package, so it also runs on a machine that
+has only torch). Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n,s,lo,hi", [(1024, 490, 256, 7, -127, 128),
+                                           (1024, 72, 8, 255, 0, 256),
+                                           (37, 19, 70, 1, -127, 128)])
+def test_threshold_matmul_kernel_equals_plain(cuda, m, k, n, s, lo, hi):
+    g = torch.Generator().manual_seed(m + k + n + s)
+    x = torch.randint(lo, hi, (m, k), generator=g, dtype=torch.int32)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    acc = ref.int_matmul(x, w)
+    t = torch.sort(torch.randint(int(acc.min()), int(acc.max()) + 1, (n, s),
+                                 generator=g, dtype=torch.int32), dim=1).values
+    x, w, t = x.to(cuda), w.to(cuda), t.to(cuda)
+    before = ops.launches["threshold_matmul"]
+    got = ops.threshold_matmul(x, w, t)
+    torch.cuda.synchronize()
+    assert ops.launches["threshold_matmul"] == before + 1
+    assert torch.equal(got, ref.threshold_matmul_ref(x, w, t))
+
+
+@pytest.mark.parametrize("k,stride,padding,c,w", [(1, 1, "SAME", 3, 15),
+                                                  (4, 4, "SAME", 32, 15),
+                                                  (3, 1, "VALID", 8, 15),
+                                                  (5, 2, "SAME", 1, 15),
+                                                  (3, 1, "SAME", 3, 120)])
+def test_conv_threshold_kernel_equals_plain(cuda, k, stride, padding, c, w):
+    """w = 120 gives 2-row blocks with a partial last block."""
+    g = torch.Generator().manual_seed(k * 100 + stride * 10 + c)
+    h = 15
+    x = torch.randint(0, 256, (3, h, w, c), generator=g, dtype=torch.int32)
+    w2d = torch.randint(-127, 128, (k * k * c, 6), generator=g,
+                        dtype=torch.int8)
+    t = torch.sort(torch.randint(-40000, 40000, (6, 255), generator=g,
+                                 dtype=torch.int32), dim=1).values
+    if padding == "SAME":
+        oh, ow = -(-h // stride), -(-w // stride)
+    else:
+        oh, ow = (h - k) // stride + 1, (w - k) // stride + 1
+    kw = dict(kernel=k, stride=stride, padding=padding, out_h=oh, out_w=ow)
+    want = ops.conv_threshold(x, w2d, t, **kw)          # plain, on the CPU
+    got = ops.conv_threshold(x.to(cuda), w2d.to(cuda), t.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ("kws", "ad", "ic", "cnv"))
+@pytest.mark.parametrize("lowering", ("direct", "im2col"))
+def test_goldens_on_the_card(cuda, name, lowering):
+    from repro_torch.core.qir import Graph
+    from repro_torch.deploy import compile_graph
+
+    graph = Graph.load(os.path.join(GOLDEN_DIR, f"{name}.qir.json"))
+    data = np.load(os.path.join(GOLDEN_DIR, f"{name}.golden.npz"))
+    want = [data[k] for k in sorted(data.files) if k.startswith("stage_")]
+    cm = compile_graph(graph, in_scale=graph.meta["in_scale"],
+                       conv_lowering=lowering)
+    for i, (got, w) in enumerate(zip(cm.stage_outputs(data["x"]), want)):
+        got = got.cpu().numpy()
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(got, w, err_msg=f"stage {i}")
+        else:
+            np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-5)
