@@ -3,16 +3,14 @@
 The port of ``repro.deploy.executor``'s offline half. ``compile_graph``
 lowers a QIR graph (``deploy.lower``), moves the stage schedule to the
 device and returns a ``CompiledTinyModel`` whose ``offline`` runs the whole
-batch through every stage in order (MLPerf Offline):
+batch through every stage in order (MLPerf Offline).
 
-  * on CUDA every fused integer stage launches a hand-written kernel —
-    ``threshold_matmul`` for dense stages and im2col conv stages,
-    ``conv_threshold`` for direct conv stages (``kernels.ops``). torch has
-    no int32 matmul on CUDA, and the CUDA path never reaches a plain
-    version;
-  * on the CPU fused stages run ``apply_fast`` (exact float32 GEMM/conv
-    under the 2^24 bound, exact integer otherwise), like the reference
-    with ``use_pallas=False``.
+Every fused integer stage calls a kernel wrapper — ``threshold_matmul``
+for dense stages and im2col conv stages, ``conv_threshold`` for direct conv
+stages (``kernels.ops``). On CUDA the wrapper launches its hand-written
+kernel (torch has no int32 matmul on CUDA, and the CUDA path never reaches
+a plain version); on the CPU it runs the kernel's plain version, which
+gives the integers of the reference with ``use_pallas=False``.
 
 This slice runs the staged configuration (the reference's
 ``megakernel=False``); the megakernel, the autotuner, the streaming paths
@@ -70,9 +68,7 @@ class CompiledTinyModel:
     # -- single-program (offline) path -----------------------------------
     def _apply_stage(self, s, h):
         if isinstance(s, (FusedThresholdStage, FusedConvThresholdStage)):
-            if self.device.type == "cuda":
-                return s.apply_kernel(h)
-            return s.apply_fast(h)
+            return s.apply_kernel(h)
         if isinstance(s, (IntPoolStage, FlattenStage, FloatHeadStage)):
             return s.apply_ref(h)
         if isinstance(s, RefChainStage):

@@ -12,14 +12,15 @@ the rest. Banks, scales and the exactness decisions (``mm_float``,
 ``affine``) equal the reference's bit for bit; the stages are built on
 the CPU and moved to the executor's device afterwards (``StageSchedule.to``).
 
-Each fused stage has three ways to run:
+Each fused stage has two ways to run:
   * ``apply_kernel`` — the CUDA kernels (``kernels.ops``): ``threshold_matmul``
     for dense stages and the im2col conv lowering, ``conv_threshold`` for
     direct conv stages. On CPU tensors the wrappers run their plain versions.
-  * ``apply_fast``  — the CPU path (exact float32 GEMM/conv where the 2^24
-    bound allows, exact integer otherwise; O(1) or O(log S) activation).
-  * ``apply_ref``   — the plain integer matmul and threshold count.
-The executor uses ``apply_kernel`` on CUDA and ``apply_fast`` on the CPU.
+  * ``apply_ref``    — the plain integer matmul and threshold count.
+The executor uses ``apply_kernel`` on every device. ``mm_float`` and
+``affine`` are the reference's exactness decisions for its float32 CPU
+path; the port has no such path and carries them so that its schedule
+equals the reference's.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.qir import Graph, Node, eval_node, full_fp32
 from repro_torch.core.quantizers import IntQuantizer
@@ -39,13 +39,11 @@ from repro_torch.core.streamline import (
     apply_threshold_dense,
     make_threshold_stage,
     multi_threshold,
-    multi_threshold_sorted,
     streamline_conv,
     streamline_dense,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.conv_threshold import (direct_conv_acc, int_matmul,
-                                                pad_input)
+from repro_torch.kernels.conv_threshold import int_matmul, pad_input
 
 
 def _t(a, dtype=torch.float32) -> torch.Tensor:
@@ -88,18 +86,6 @@ def _float_mm_safe(w_int, in_bits: int) -> bool:
     return worst * ((1 << in_bits) - 1) < (1 << 24)
 
 
-def _apply_act(stage: ThresholdDense, affine, acc: torch.Tensor
-               ) -> torch.Tensor:
-    """Integer activation on the accumulator, fastest exact form: the O(1)
-    affine short-cut when ``_exact_affine`` proved it exact, else the
-    sorted-bank search."""
-    if affine is not None:
-        mul, add = affine
-        q = torch.floor(acc.to(torch.float32) * mul + add)
-        return torch.clamp(q, 0, stage.n_steps).to(torch.int32)
-    return multi_threshold_sorted(acc, stage.thresholds)
-
-
 def _move(obj, device):
     """Copy of a stage dataclass with every tensor field on ``device``."""
     changes = {}
@@ -124,8 +110,8 @@ class FusedThresholdStage:
     out_dim: int
     in_scale: float
     in_bits: int = 8
-    mm_float: bool = False   # exact float32 GEMM path (see _float_mm_safe)
-    affine: Optional[tuple] = None   # exact O(1) activation (see _apply_act)
+    mm_float: bool = False   # see _float_mm_safe (parity only)
+    affine: Optional[tuple] = None   # see _exact_affine (parity only)
 
     @property
     def out_scale(self) -> float:
@@ -135,20 +121,8 @@ class FusedThresholdStage:
     def macs(self) -> int:
         return self.in_dim * self.out_dim
 
-    def _acc(self, x_int):
-        if self.mm_float:
-            return torch.matmul(x_int.to(torch.float32),
-                                self.stage.w_int.to(torch.float32)
-                                ).to(torch.int32)
-        return int_matmul(x_int, self.stage.w_int)
-
     def apply_ref(self, x_int):
         return apply_threshold_dense(self.stage, x_int)
-
-    def apply_fast(self, x_int):
-        """CPU path: exact matmul + exact activation, bit-identical to
-        ``apply_ref``."""
-        return _apply_act(self.stage, self.affine, self._acc(x_int))
 
     def apply_kernel(self, x_int):
         # int32, not int8: inter-stage codes are unsigned up to 255 with
@@ -222,11 +196,6 @@ class FusedConvThresholdStage:
         g = self.geom
         return x_int.reshape(-1, g.in_h, g.in_w, g.in_ch)
 
-    def _pad_same(self, x):
-        g = self.geom
-        return pad_input(x, kernel=g.kernel, stride=g.stride,
-                         padding=g.padding, out_h=g.out_h, out_w=g.out_w)
-
     def _cols2d(self, x_int):
         g = self.geom
         cols = im2col(self._nhwc(x_int), g.kernel, g.stride, g.padding)
@@ -240,35 +209,6 @@ class FusedConvThresholdStage:
         acc = int_matmul(self._cols2d(x_int), self.stage.w_int)
         return self._shape_out(multi_threshold(acc, self.stage.thresholds),
                                x_int.shape[0])
-
-    def apply_fast(self, x_int):
-        """CPU path, algorithm selected by ``lowering``: ``direct`` never
-        builds a patch matrix (float32 conv under the exactness bound, else
-        the exact tap accumulation); ``im2col`` builds it and multiplies."""
-        g = self.geom
-        if self.lowering == "direct":
-            x = self._nhwc(x_int)
-            if self.mm_float:
-                w4 = self.stage.w_int.to(torch.float32).reshape(
-                    g.kernel, g.kernel, g.in_ch, g.out_ch)
-                xp = self._pad_same(x.to(torch.float32))
-                acc = F.conv2d(xp.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1),
-                               stride=g.stride).permute(0, 2, 3, 1)
-                acc = acc.to(torch.int32)
-            else:
-                acc = direct_conv_acc(
-                    self._pad_same(x), self.stage.w_int, kernel=g.kernel,
-                    stride=g.stride, out_h=g.out_h, out_w=g.out_w)
-            return _apply_act(self.stage, self.affine, acc)
-        cols = self._cols2d(x_int)
-        if self.mm_float:
-            acc = torch.matmul(cols.to(torch.float32),
-                               self.stage.w_int.to(torch.float32)
-                               ).to(torch.int32)
-        else:
-            acc = int_matmul(cols, self.stage.w_int)
-        return self._shape_out(
-            _apply_act(self.stage, self.affine, acc), x_int.shape[0])
 
     def apply_kernel(self, x_int):
         g = self.geom

@@ -52,19 +52,25 @@ def band_rows(block_h: int, stride: int, kernel: int) -> int:
     return (block_h - 1) * stride + kernel
 
 
-def plan_conv_blocks(out_h: int, out_w: int, out_ch: int,
-                     target_rows: int = 256,
-                     acc_budget_bytes: int = 1 << 21) -> int:
+# The reference's TPU row-block heuristic, kept so both packages cut a conv
+# into the same row blocks: about this many output pixels per block, with
+# the block's int32 accumulator tile under this many bytes (a VMEM budget on
+# the TPU). The CUDA kernel keeps one accumulator per thread in a register;
+# here the plan only sets the grid's row count.
+TARGET_ROWS = 256
+ACC_BUDGET_BYTES = 1 << 21
+
+
+def plan_conv_blocks(out_h: int, out_w: int, out_ch: int) -> int:
     """Pick the output-row block (``repro.kernels.ops.plan_conv_blocks``).
 
     Enough rows that a block's ``block_h * out_w`` output pixels approach
-    ``target_rows``, capped so the block's int32 accumulator tile
-    (``block_h * out_w * out_ch * 4`` bytes) stays inside a budget. At least
-    1 row, never more than ``out_h``. On the card one thread block covers
-    one (sample, row block)."""
-    block_h = max(1, min(out_h, target_rows // max(out_w, 1)))
+    ``TARGET_ROWS``, capped so ``block_h * out_w * out_ch * 4`` stays within
+    ``ACC_BUDGET_BYTES``. At least 1 row, never more than ``out_h``. On the
+    card one thread block covers one (sample, row block)."""
+    block_h = max(1, min(out_h, TARGET_ROWS // max(out_w, 1)))
     while (block_h > 1
-           and block_h * out_w * max(out_ch, 1) * 4 > acc_budget_bytes):
+           and block_h * out_w * max(out_ch, 1) * 4 > ACC_BUDGET_BYTES):
         block_h -= 1
     return block_h
 
@@ -94,25 +100,21 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def direct_conv_acc(x_pad: torch.Tensor, w2d: torch.Tensor, *, kernel: int,
-                    stride: int, out_h: int, out_w: int,
-                    as_float: bool = False) -> torch.Tensor:
+                    stride: int, out_h: int, out_w: int) -> torch.Tensor:
     """The conv accumulator as shifted-window tap sums — no patch matrix.
 
-    ``x_pad`` (N, HP, WP, C) is already padded. With ``as_float`` the taps
-    accumulate in float32 (exact while partial sums stay below 2^24, the
-    ``_float_mm_safe`` bound); otherwise exactly, as ``int_matmul`` does.
-    Returns (N, out_h, out_w, F) int32."""
+    ``x_pad`` (N, HP, WP, C) is already padded. The taps accumulate exactly,
+    in float64 as ``int_matmul`` does. Returns (N, out_h, out_w, F) int32."""
     c = x_pad.shape[3]
     rh = (out_h - 1) * stride + 1
     rw = (out_w - 1) * stride + 1
-    dt = torch.float32 if as_float else torch.float64
-    x = x_pad.to(dt)
+    x = x_pad.to(torch.float64)
     acc = None
     for kh in range(kernel):
         for kw in range(kernel):
             xs = x[:, kh:kh + rh:stride, kw:kw + rw:stride, :]
             tap = (kh * kernel + kw) * c
-            t = xs @ w2d[tap:tap + c, :].to(dt)
+            t = xs @ w2d[tap:tap + c, :].to(torch.float64)
             acc = t if acc is None else acc + t
     return acc.to(torch.int32)
 

@@ -113,20 +113,26 @@ def test_compiled_cpu_matches_golden_and_reference(name, lowering):
 @pytest.mark.parametrize("name", MODELS)
 def test_apply_kernel_on_cpu_equals_apply_fast_and_ref(name):
     """The kernel entry points (plain versions on CPU tensors) give the
-    integers the CPU fast path gives, under both lowerings."""
-    _, tg, x, _ = _load(name)
+    integers of the reference's fast CPU path (exact float32 GEMM/conv,
+    affine short-cut, sorted-bank search) and of the port's ``apply_ref``,
+    stage by stage under both lowerings, and count no launch."""
+    jg, tg, x, _ = _load(name)
     for lowering in LOWERINGS:
         cm = tcompile(tg, in_scale=tg.meta["in_scale"],
                       conv_lowering=lowering, device="cpu")
+        jm = jcompile(jg, in_scale=jg.meta["in_scale"],
+                      conv_lowering=lowering, use_pallas=False,
+                      megakernel=False)
         h = torch.as_tensor(x)
         tops.reset_launches()
-        for s in cm.schedule.stages:
+        for s, js in zip(cm.schedule.stages, jm.schedule.stages):
             y = cm._apply_stage(s, h)
             if hasattr(s, "apply_kernel"):
-                np.testing.assert_array_equal(s.apply_kernel(h).numpy(),
-                                              y.numpy(), err_msg=s.name)
-                np.testing.assert_array_equal(s.apply_ref(h).numpy(),
-                                              y.numpy(), err_msg=s.name)
+                fast = np.asarray(js.apply_fast(jnp.asarray(h.numpy())))
+                np.testing.assert_array_equal(y.numpy(), fast,
+                                              err_msg=s.name)
+                np.testing.assert_array_equal(s.apply_ref(h).numpy(), fast,
+                                              err_msg=s.name)
             h = y
         assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0}
 

@@ -112,11 +112,9 @@ def test_direct_conv_acc_matches_reference(k, stride, padding):
         xp = x
     want = np.asarray(jct.direct_conv_acc(xp, w2d, kernel=k, stride=stride,
                                           out_h=oh, out_w=ow))
-    for as_float in (False, True):
-        got = tct.direct_conv_acc(torch.from_numpy(xp), torch.from_numpy(w2d),
-                                  kernel=k, stride=stride, out_h=oh, out_w=ow,
-                                  as_float=as_float)
-        np.testing.assert_array_equal(got.numpy(), want)
+    got = tct.direct_conv_acc(torch.from_numpy(xp), torch.from_numpy(w2d),
+                              kernel=k, stride=stride, out_h=oh, out_w=ow)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("h,w,stride,kernel", [(5, 5, 1, 1), (16, 16, 4, 4),
