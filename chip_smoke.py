@@ -11,26 +11,41 @@ which fails the run with a non-zero exit:
   1. build   — compile every kernel of the path from ``csrc/`` (one nvcc
                per source, in parallel), time printed;
   2. kernels — each kernel against its plain PyTorch version on the card,
-               exact integer equality, at ragged shapes, S in {1, 7, 255},
-               and K = 5 / stride 2 / C = 1;
+               exact integer equality: K1/K2 at ragged shapes, S in
+               {1, 7, 255}, K = 5 / stride 2 / C = 1; K3 on chains of 1 to
+               5 stages, ragged M, widths up to 512, S in {1, 7, 255},
+               signed first-layer codes;
   3. main path — ``compile_graph(device="cuda")`` of the full-width KWS
                MLP (490-256x3-12, 3-bit) and AD autoencoder
                (128-72-72-8-72-72-128, 8-bit), built with ``export_qmlp``
                from numpy-seeded parameters, and of the IC and CNV golden
-               graphs; launch counters set to 0, one ``offline`` call of
-               each on a 1024-row batch, counters read; then ``predict``.
-               Every fused stage's kernel is then held against its plain
-               version on its real main-path input, and every model's stage
+               graphs, each in both dispatch modes (staged,
+               ``megakernel=False``; auto, the default); launch counters
+               set to 0, one ``offline`` call of each model in each mode on
+               a 1024-row batch, counters read (staged: K1 3 / 5 times for
+               KWS / AD; auto: K3 once for KWS, AD and CNV, K1 never for
+               KWS and AD); then ``predict``. Every fused stage's kernel,
+               and every planned K3 run, is then held against its plain
+               version on its real main-path input, and every model's
                outputs against the port on the CPU (integers exact, logits
                within 1e-5);
   4. goldens — the four golden graphs on the card under both conv
                lowerings equal their ``.golden.npz`` stage outputs;
-  5. times   — per kernel and main-path shape: kernel, plain version and
-               one library call (CUDA events), with the bound from bytes
-               and int8 operations; ``offline`` ms per 1024-row batch;
-  6. full width — the kernels at the paper's IC and CNV stage shapes on
+  5. streaming — ``streaming_host``, ``streaming_compiled`` and a partly
+               filled ``submit_wave`` of each model in both modes equal
+               ``offline``: the integer codes (the schedule without its
+               float head) bit for bit, the logits within 1e-5; K3
+               launched once per ``streaming_compiled`` call in auto mode;
+  6. times   — per kernel and main-path shape: kernel, plain version and
+               library yardstick (device time: CUDA-graph replay timed with
+               CUDA events, ``time_ms``), with the bound from bytes
+               and int8 operations; K3 also beside the summed K1 times of
+               the same stages; ``offline`` ms per 1024-row batch in both
+               modes;
+  7. full width — the kernels at the paper's IC and CNV stage shapes on
                seeded codes, held against their plain versions and timed
-               (``FULL_WIDTH_CONVS``, ``FULL_WIDTH_DENSE``).
+               (``FULL_WIDTH_CONVS``, ``FULL_WIDTH_DENSE``, and K3 on CNV's
+               256-512-512 FC chain).
 
 The last lines are the kernels JSON line, the card's name and power limit
 (``nvidia-smi``), and ``{"ok": true, "device": {...}}``. Per-shape details
@@ -57,7 +72,11 @@ REPLACES = {
                          "src/repro/kernels/multi_threshold.py:163"),
     "conv_threshold": ("src/repro_torch/kernels/csrc/conv_threshold.cu",
                        "src/repro/kernels/conv_threshold.py:127"),
+    "mlp_megakernel": ("src/repro_torch/kernels/csrc/mlp_megakernel.cu",
+                       "src/repro/kernels/megakernel.py:81"),
 }
+#: the two dispatch modes of the main path: (label, ``megakernel=``)
+MODES = (("staged", False), ("auto", None))
 
 
 class SmokeFailure(Exception):
@@ -138,21 +157,35 @@ def load_models():
 
 def time_ms(fn, reps=7, inner=20):
     """Median over ``reps`` of the mean per-call device time of ``inner``
-    back-to-back calls (CUDA events), after one warm call."""
+    back-to-back calls (CUDA events), after one warm call. The calls are
+    captured once in a CUDA graph and the graph is replayed, so the time
+    is the device's: the host's dispatch of each call (Python, ctypes,
+    allocation; tens of µs) would otherwise leave the card idle between
+    small kernels and be timed instead. Weights and banks stay in L2
+    between calls, as they do between the blocks of one wave."""
     import torch
 
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     vals = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(inner):
-            fn()
+        graph.replay()
         b.record()
         b.synchronize()
         vals.append(a.elapsed_time(b) / inner)
+    del graph
     return statistics.median(vals)
 
 
@@ -205,6 +238,67 @@ def conv_case(model, stage, x, w, t, kw):
             "plain": lambda: _conv_plain(x, w, t, **kw),
             "library": _conv_library(x, w, **kw),
             "bytes": nbytes, "ops": nops}
+
+
+def chain_codes(x, weights, banks):
+    """Each stage's input codes along a dense chain (plain versions): the
+    inputs the staged K1 launches of the same run see."""
+    from repro_torch.kernels import ref
+
+    hs = [x]
+    for w, b in zip(weights[:-1], banks[:-1]):
+        hs.append(ref.threshold_matmul_ref(hs[-1], w, b))
+    return hs
+
+
+def mega_case(model, stages, x, weights, banks):
+    """A timing case for ``mlp_megakernel`` on one dense run: x (M, K_0)
+    int32, per-stage int8 weights and (N, S) banks (the stages'
+    ``thresholds``), all on the card; the kernel and its plain version
+    take the banks step-major, as the executor passes them. Beside them:
+    the staged K1 launches of the same stages, and the fp32
+    ``torch.matmul`` chain of the accumulators alone (TF32 off)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    banks_sn = [b.t().contiguous() for b in banks]
+    hs = chain_codes(x, weights, banks)
+    hf = [h.to(torch.float32) for h in hs]
+    wf = [w.to(torch.float32) for w in weights]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = x.shape[0]
+    dims = [x.shape[1]] + [w.shape[1] for w in weights]
+    nbytes = (x.numel() * 4 + m * dims[-1] * 4
+              + sum(w.numel() for w in weights)
+              + sum(b.numel() * 4 for b in banks))
+    nops = 2 * m * sum(w.shape[0] * w.shape[1] for w in weights)
+    return {"kernel": "mlp_megakernel", "model": model, "stage": stages,
+            "shape": f"M={m} dims={'-'.join(map(str, dims))} "
+                     f"S={'/'.join(str(b.shape[1]) for b in banks)}",
+            "run": lambda: ops.mlp_megakernel(x, weights, banks_sn),
+            "plain": lambda: ref.mlp_megakernel_ref(x, weights, banks_sn),
+            "library": lambda: [torch.matmul(h, w) for h, w in zip(hf, wf)],
+            "staged": lambda: [ops.threshold_matmul(h, w, b) for h, w, b
+                               in zip(hs, weights, banks)],
+            "bytes": nbytes, "ops": nops}
+
+
+def _random_chain(g, m, dims, steps, lo, hi):
+    """Seeded codes (M, dims[0]) in [lo, hi), int8 weights, and sorted
+    (N, S) banks drawn from each stage's own accumulator so counts
+    spread."""
+    import torch
+    from repro_torch.kernels import ref
+
+    x = torch.randint(lo, hi, (m, dims[0]), generator=g, dtype=torch.int32)
+    weights, banks, h = [], [], x
+    for k, n, s in zip(dims[:-1], dims[1:], steps):
+        w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        b = _banks(ref.int_matmul(h, w), n, s, g)
+        h = ref.threshold_matmul_ref(h, w, b)
+        weights.append(w)
+        banks.append(b)
+    return x, weights, banks
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +355,23 @@ def phase_kernels_synthetic():
         check(err == 0, f"conv_threshold K={kk} s={st} {pad} C={c}: err {err}")
         log(f"kernel-check conv_threshold N={nb} {h}x{wd}x{c} F={f} K={kk} "
             f"stride={st} {pad} S={s}: exact")
+    for m, dims, steps, lo, hi in [
+            (1, [1, 1], [1], -127, 128),
+            (37, [19, 70, 9], [7, 255], -127, 128),
+            (1000, [490, 256, 256, 256], [7, 7, 7], -127, 128),
+            (1023, [128, 72, 72, 8, 72, 72], [255] * 5, -127, 128),
+            (333, [33, 5, 11, 512, 3], [1, 7, 255, 7], 0, 256),
+            (129, [512, 512, 512, 500], [1, 7, 1], 0, 2)]:
+        x, ws, bs = _random_chain(g, m, dims, steps, lo, hi)
+        x, ws = x.cuda(), [w.cuda() for w in ws]
+        bs = [b.t().contiguous().cuda() for b in bs]
+        got = ops.mlp_megakernel(x, ws, bs)
+        want = ref.mlp_megakernel_ref(x, ws, bs)
+        err = int((got - want).abs().max())
+        worst["mlp_megakernel"] = max(worst["mlp_megakernel"], err)
+        check(err == 0, f"mlp_megakernel M={m} dims={dims}: max err {err}")
+        log(f"kernel-check mlp_megakernel M={m} dims={dims} S={steps}: "
+            f"exact (nonzero share {float((want > 0).float().mean()):.3f})")
     return worst
 
 
@@ -275,46 +386,67 @@ def _conv_plain(x, w, t, *, kernel, stride, padding, out_h, out_w):
 
 
 def phase_main_path(models):
-    """Counters to 0, one ``offline`` call of each of the four models on
-    the card, counters read; then ``predict``, outside the counted run.
-    Returns ({name: (model, logits, pred)}, launches, launches per model)."""
+    """Counters to 0, one ``offline`` call of each of the four models in
+    each dispatch mode on the card, counters read; then ``predict``,
+    outside the counted run. Returns ({(name, mode): (model, logits,
+    pred)}, launches, launches per "name/mode")."""
     import torch
     from repro_torch.deploy import compile_graph
     from repro_torch.kernels import ops
 
-    compiled = {n: compile_graph(g, in_scale=s, device="cuda",
-                                 conv_lowering="direct")
-                for n, g, s, _ in models}
+    compiled = {(n, mode): compile_graph(g, in_scale=s, device="cuda",
+                                         conv_lowering="direct",
+                                         megakernel=mk)
+                for n, g, s, _ in models for mode, mk in MODES}
     xs = {n: torch.as_tensor(x).cuda() for n, _, _, x in models}
     torch.cuda.synchronize()
-    per_model, logits = {}, {}
+    per_run, logits = {}, {}
     ops.reset_launches()
-    for n, _, _, _ in models:
+    for (n, mode), cm in compiled.items():
         before = dict(ops.launches)
-        logits[n] = compiled[n].offline(xs[n])
-        per_model[n] = {k: ops.launches[k] - before[k] for k in before}
+        logits[(n, mode)] = cm.offline(xs[n])
+        per_run[f"{n}/{mode}"] = {k: ops.launches[k] - before[k]
+                                  for k in before}
     torch.cuda.synchronize()
     launches = dict(ops.launches)
-    results = {n: (compiled[n], logits[n], compiled[n].predict(xs[n]))
-               for n in compiled}
-    log(f"main-path launches per offline call: {json.dumps(per_model)}")
-    log(f"main-path launches (one offline call of each of the 4 models): "
-        f"{json.dumps(launches)}")
-    check(per_model["kws"]["threshold_matmul"] == 3,
-          f"KWS offline launched threshold_matmul "
-          f"{per_model['kws']['threshold_matmul']} times, expected 3")
-    check(per_model["ad"]["threshold_matmul"] == 5,
-          f"AD offline launched threshold_matmul "
-          f"{per_model['ad']['threshold_matmul']} times, expected 5")
+    results = {key: (cm, logits[key], cm.predict(xs[key[0]]))
+               for key, cm in compiled.items()}
+    log(f"main-path launches per offline call: {json.dumps(per_run)}")
+    log(f"main-path launches (one offline call of each of the 4 models in "
+        f"each of the 2 modes): {json.dumps(launches)}")
+    for n, want in (("kws", 3), ("ad", 5)):
+        got = per_run[f"{n}/staged"]["threshold_matmul"]
+        check(got == want, f"staged {n} offline launched threshold_matmul "
+                           f"{got} times, expected {want}")
+        got = per_run[f"{n}/auto"]["threshold_matmul"]
+        check(got == 0, f"auto {n} offline launched threshold_matmul "
+                        f"{got} times, expected 0")
+    for n in ("kws", "ad", "cnv"):
+        got = per_run[f"{n}/auto"]["mlp_megakernel"]
+        check(got == 1, f"auto {n} offline launched mlp_megakernel {got} "
+                        f"times, expected 1")
+    for n, _, _, _ in models:
+        check(per_run[f"{n}/staged"]["mlp_megakernel"] == 0,
+              f"staged {n} offline launched mlp_megakernel")
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on the main path")
-    return results, launches, per_model
+    return results, launches, per_run
+
+
+def _plans(cm):
+    """The megakernel runs the planner admits for ``cm``'s segments."""
+    from repro_torch.deploy import plan_megakernel
+
+    plans = [plan_megakernel(cm.schedule.stages, seg) for seg in cm.segments]
+    return [p for p in plans if p is not None]
 
 
 def phase_main_path_checks(models, results):
-    """Stage outputs on the card equal the port on the CPU; every fused
-    stage's kernel equals its plain version on its main-path input.
-    Returns (per-stage timing cases, worst |kernel - plain| per kernel)."""
+    """Both modes' outputs on the card equal the port on the CPU; every
+    fused stage's kernel and every planned K3 run equals its plain version
+    on its main-path input. Returns (per-stage timing cases, each with the
+    number of its launches in the counted run, and the worst
+    |kernel - plain| per kernel)."""
     import numpy as np
     import torch
     from repro_torch.deploy import (FusedConvThresholdStage,
@@ -322,7 +454,8 @@ def phase_main_path_checks(models, results):
 
     cases, worst = [], dict.fromkeys(REPLACES, 0)
     for n, g, s, x in models:
-        cm, logits, pred = results[n]
+        cm, logits, pred = results[(n, "staged")]
+        auto, a_logits, a_pred = results[(n, "auto")]
         cpu = compile_graph(g, in_scale=s, device="cpu",
                             conv_lowering="direct")
         want = cpu.stage_outputs(x)
@@ -333,17 +466,36 @@ def phase_main_path_checks(models, results):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
             else:
                 check(torch.equal(a, b), f"{n} stage {i}: CUDA != CPU")
-        torch.testing.assert_close(logits.cpu(), want[-1], rtol=1e-5,
-                                   atol=1e-5)
-        check(torch.equal(pred.cpu(), torch.argmax(want[-1], dim=-1)),
-              f"{n}: predict on CUDA != argmax on CPU")
+        for mode, lg, pr in (("staged", logits, pred),
+                             ("auto", a_logits, a_pred)):
+            torch.testing.assert_close(lg.cpu(), want[-1], rtol=1e-5,
+                                       atol=1e-5)
+            check(torch.equal(pr.cpu(), torch.argmax(want[-1], dim=-1)),
+                  f"{n}[{mode}]: predict on CUDA != argmax on CPU")
         codes = [o for o in want[:-1] if not o.dtype.is_floating_point]
         nz = np.mean([float((c > 0).float().mean()) for c in codes])
         log(f"main-path {n}: {len(got)} stages equal the CPU port "
-            f"(ints exact, logits within 1e-5; mean nonzero code share "
-            f"{nz:.3f}); predict == CPU argmax")
+            f"(ints exact, logits within 1e-5 in both modes; mean nonzero "
+            f"code share {nz:.3f}); predict == CPU argmax")
+        plans = _plans(auto)
+        for p in plans:
+            run = auto.schedule.stages[p.start:p.stop]
+            xi = (torch.as_tensor(x) if p.start == 0 else want[p.start - 1])
+            xi = xi.to(torch.int32).contiguous().cuda()
+            cases.append(mega_case(n, f"{run[0].name}..{run[-1].name}", xi,
+                                   [st.stage.w_int for st in run],
+                                   [st.stage.thresholds for st in run]))
+            cases[-1]["launches"] = 1
+            k_out, p_out = cases[-1]["run"](), cases[-1]["plain"]()
+            err = int((k_out - p_out).abs().max())
+            worst["mlp_megakernel"] = max(worst["mlp_megakernel"], err)
+            check(err == 0 and torch.equal(k_out.cpu(), want[p.stop - 1]),
+                  f"{n} {cases[-1]['stage']}: megakernel != plain / CPU "
+                  f"(max err {err})")
+            log(f"kernel-check mlp_megakernel {n}/{cases[-1]['stage']} "
+                f"{cases[-1]['shape']}: exact, equals the CPU stages")
         h = torch.as_tensor(x).cuda()
-        for st, out in zip(cm.schedule.stages, got):
+        for i, (st, out) in enumerate(zip(cm.schedule.stages, got)):
             if isinstance(st, FusedThresholdStage):
                 xi = h.to(torch.int32).contiguous()
                 cases.append(tmm_case(n, st.name, xi, st.stage.w_int,
@@ -359,6 +511,10 @@ def phase_main_path_checks(models, results):
             else:
                 h = out
                 continue
+            # once in the staged run; once more in the auto run unless a
+            # planned megakernel covers the stage there
+            cases[-1]["launches"] = 1 + all(not p.start <= i < p.stop
+                                            for p in plans)
             k_out, p_out = cases[-1]["run"](), cases[-1]["plain"]()
             err = int((k_out - p_out).abs().max())
             kname = cases[-1]["kernel"]
@@ -424,22 +580,86 @@ def phase_goldens():
                 f"the .golden.npz")
 
 
+def phase_streaming(models, results):
+    """``streaming_host``, ``streaming_compiled`` and a partly filled
+    ``submit_wave`` of every model in both modes on the card, against
+    ``offline`` of the same model: the logits within 1e-5, and — through
+    the same schedule without its float head — the integer codes bit for
+    bit. Returns {"name/mode": whether the logits were bit for bit too}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.deploy import CompiledTinyModel
+    from repro_torch.kernels import ops
+
+    valid = np.arange(11) % 3 != 1           # 11 rows of a 16-row wave
+    out = {}
+    for n, _, _, x in models:
+        xc = torch.as_tensor(x).cuda()
+        for mode, mk in MODES:
+            cm = results[(n, mode)][0]
+            headless = CompiledTinyModel(
+                dataclasses.replace(cm.schedule,
+                                    stages=cm.schedule.stages[:-1]),
+                device="cuda", megakernel=mk)
+            flags = {}
+            for model, kind in ((cm, "logits"), (headless, "codes")):
+                y_off = model.offline(xc)
+                y_host, _ = model.streaming_host(xc)
+                ops.reset_launches()
+                y_cmp, st = model.streaming_compiled(xc)
+                torch.cuda.synchronize()
+                k3 = ops.launches["mlp_megakernel"]
+                want_k3 = int(mode == "auto" and n != "ic")
+                check(k3 == want_k3, f"{n}[{mode}] streaming_compiled "
+                                     f"({kind}) launched mlp_megakernel {k3} "
+                                     f"times, expected {want_k3}")
+                y_w, mask = model.submit_wave(x[:11], valid=valid)
+                y_w = y_w[torch.as_tensor(mask).cuda()]
+                y_v = y_off[:11][torch.as_tensor(valid).cuda()]
+                for label, got, want in (("streaming_host", y_host, y_off),
+                                         ("streaming_compiled", y_cmp, y_off),
+                                         ("submit_wave", y_w, y_v)):
+                    check(got.shape == want.shape, f"{n}[{mode}] {label} "
+                          f"({kind}): shape {tuple(got.shape)}")
+                    same = bool(torch.equal(got, want))
+                    if kind == "codes":
+                        check(same, f"{n}[{mode}] {label}: codes differ "
+                                    f"from offline")
+                    else:
+                        torch.testing.assert_close(got, want, rtol=1e-5,
+                                                   atol=1e-5)
+                        flags[label] = same
+            out[f"{n}/{mode}"] = flags
+            log(f"streaming {n}[{mode}]: {st.n_micro} micro-batches of "
+                f"{st.micro_batch}, megakernel runs {st.megakernel}; "
+                f"host/compiled/wave codes equal offline bit for bit, logits "
+                f"within 1e-5 (bit for bit: {flags})")
+    return out
+
+
 def time_case(c, reps=7, inner=20):
     """Kernel, plain-version and library times of one case, with its bound;
     the plain version gets 3 x 3 calls."""
     row = {k: c[k] for k in ("kernel", "model", "stage", "shape", "bytes",
                              "ops")}
+    row["launches"] = c.get("launches", 0)
     row["ms"] = time_ms(c["run"], reps=reps, inner=inner)
     row["plain_ms"] = time_ms(c["plain"], reps=3, inner=3)
     row["library_ms"] = time_ms(c["library"], reps=reps, inner=inner)
     row["bound_ms"] = bound_ms(c["bytes"], c["ops"])
     row["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_PER_S
                        >= c["ops"] / INT8_OPS_PER_S else "operations")
+    staged = ""
+    if "staged" in c:
+        row["staged_k1_ms"] = time_ms(c["staged"], reps=reps, inner=inner)
+        staged = f", staged K1 {row['staged_k1_ms']:.6f} ms"
     log(f"time {row['kernel']} {row['model']}/{row['stage']} "
         f"{row['shape']}: kernel {row['ms']:.6f} ms, plain "
         f"{row['plain_ms']:.6f} ms, library (partial) "
-        f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms "
-        f"({row['bound_by']})")
+        f"{row['library_ms']:.6f} ms{staged}, bound {row['bound_ms']:.6f} "
+        f"ms ({row['bound_by']})")
     return row
 
 
@@ -450,19 +670,21 @@ def phase_times(cases, results, models):
     rows = [time_case(c) for c in cases]
     e2e = {}
     for n, _, _, x in models:
-        cm = results[n][0]
         xc = torch.as_tensor(x).cuda()
-        cm.offline(xc)
-        torch.cuda.synchronize()
-        samples = []
-        for _ in range(21):
-            t0 = timer.now()
+        for mode, _ in MODES:
+            cm = results[(n, mode)][0]
             cm.offline(xc)
             torch.cuda.synchronize()
-            samples.append((timer.now() - t0) * 1e3)
-        e2e[n] = statistics.median(samples)
-        log(f"e2e offline {n}: {e2e[n]:.6f} ms per {x.shape[0]}-row batch "
-            f"(host clock, median of 21, synchronised)")
+            samples = []
+            for _ in range(21):
+                t0 = timer.now()
+                cm.offline(xc)
+                torch.cuda.synchronize()
+                samples.append((timer.now() - t0) * 1e3)
+            e2e[f"{n}/{mode}"] = statistics.median(samples)
+            log(f"e2e offline {n}[{mode}]: {e2e[f'{n}/{mode}']:.6f} ms per "
+                f"{x.shape[0]}-row batch (host clock, median of 21, "
+                f"synchronised)")
     return rows, e2e
 
 
@@ -532,6 +754,9 @@ def phase_full_width():
         w = torch.randint(-2, 3, (k, n), generator=g, dtype=torch.int8).cuda()
         t = _banks(ref.int_matmul(x, w), n, s, g)
         cases.append(tmm_case(model, stage, x, w, t))
+    x, ws, bs = _random_chain(g, BATCH, [256, 512, 512], [1, 1], 0, 2)
+    cases.append(mega_case("cnv", "fc0..fc1", x.cuda(),
+                           [w.cuda() for w in ws], [b.cuda() for b in bs]))
     rows = []
     for c in cases:
         err = int((c["run"]() - c["plain"]()).abs().max())
@@ -547,13 +772,18 @@ def phase_full_width():
 
 def kernels_line(rows, launches, worst):
     """One entry per kernel. ``launches`` is the counted main-path run, one
-    offline call of each of the four models; the times and the bound are
-    summed over the same launches (one per fused stage); ``max_abs_err`` is
-    the kernel's own worst |kernel - plain| over every check."""
+    offline call of each of the four models in each of the two modes; the
+    times and the bound are summed over the same launches (each main-path
+    case weighted by its launches in that run, which must add up to the
+    count); ``max_abs_err`` is the kernel's own worst |kernel - plain|
+    over every check."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["kernel"] == name]
-        total = lambda k: sum(r[k] for r in mine)  # noqa: E731
+        check(sum(r["launches"] for r in mine) == launches[name],
+              f"{name}: timed cases cover {sum(r['launches'] for r in mine)}"
+              f" launches of the {launches[name]} counted")
+        total = lambda k: sum(r[k] * r["launches"] for r in mine)  # noqa
         nbytes, nops = total("bytes"), total("ops")
         out.append({
             "name": name, "route": "cuda", "source": source,
@@ -592,18 +822,19 @@ def main() -> int:
             f"{[os.path.basename(str(p)) for p in libs]}")
         worst_syn = phase_kernels_synthetic()
         models = load_models()
-        results, launches, per_model = phase_main_path(models)
+        results, launches, per_run = phase_main_path(models)
         cases, worst_main = phase_main_path_checks(models, results)
         phase_goldens()
+        bitwise = phase_streaming(models, results)
         rows, e2e = phase_times(cases, results, models)
         wide, worst_wide = phase_full_width()
+        worst = {k: max(worst_syn[k], worst_main[k], worst_wide[k])
+                 for k in REPLACES}
+        line = kernels_line(rows, launches, worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
-    worst = {k: max(worst_syn[k], worst_main[k], worst_wide[k])
-             for k in REPLACES}
-    line = kernels_line(rows, launches, worst)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -613,8 +844,10 @@ def main() -> int:
                            "chip_smoke_details.json"), "w") as f:
         json.dump({"card": smi, "per_shape": rows, "full_width": wide,
                    "e2e_offline_ms": e2e,
-                   "launches_per_offline": per_model,
-                   "main_path_launches": launches, "kernels": line},
+                   "launches_per_offline": per_run,
+                   "main_path_launches": launches,
+                   "streaming_logits_bit_for_bit": bitwise,
+                   "kernels": line},
                   f, indent=1)
     log(json.dumps(line))
     log(smi)

@@ -1,7 +1,6 @@
 """QIR graph lowering on torch: from an interchange graph to a stage schedule.
 
-The port of ``repro.deploy.lower`` without the megakernel planner and the
-streaming segments (a later slice). ``lower_graph`` walks a
+The port of ``repro.deploy.lower``. ``lower_graph`` walks a
 ``core.qir.Graph`` and greedily fuses every
 
     Dense|Conv2D -> [BatchNorm] -> [Relu] -> Quant
@@ -21,17 +20,23 @@ The executor uses ``apply_kernel`` on every device. ``mm_float`` and
 ``affine`` are the reference's exactness decisions for its float32 CPU
 path; the port has no such path and carries them so that its schedule
 equals the reference's.
+
+``group_segments`` cuts a schedule into the executor's streaming segments
+at host boundaries, and ``plan_megakernel`` picks, per segment, the run of
+dense stages that ``kernels.ops.mlp_megakernel`` executes as one launch;
+only its admission test differs from the reference (``core.bops``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import bops
 from repro_torch.core.qir import Graph, Node, eval_node, full_fp32
 from repro_torch.core.quantizers import IntQuantizer
 from repro_torch.core.streamline import (
@@ -191,6 +196,16 @@ class FusedConvThresholdStage:
     def macs(self) -> int:
         g = self.geom
         return g.out_h * g.out_w * g.kernel * g.kernel * g.in_ch * g.out_ch
+
+    @property
+    def fifo_work(self) -> int:
+        """Per-token work driving the FIFO-depth simulation: the direct
+        kernel emits only output tiles, the im2col lowering materializes
+        patch tiles (= ``macs``)."""
+        g = self.geom
+        if self.lowering == "direct":
+            return g.out_h * g.out_w * g.out_ch
+        return self.macs
 
     def _nhwc(self, x_int):
         g = self.geom
@@ -384,6 +399,131 @@ class StageSchedule:
                 kind += f"[{s.lowering}]"
             rows.append(f"  {s.name:16s} {kind:24s} {s.in_dim:>6d} -> {s.out_dim}")
         return "\n".join(rows)
+
+
+# ---------------------------------------------------------------------------
+# segments (streaming)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """A contiguous run of stages the executor treats as one unit.
+
+    ``compiled`` segments are runs of fused/integer stages that the
+    streaming executor runs as one segment program per micro-batch wave.
+    A ``RefChainStage`` is a *host boundary*: it interprets arbitrary
+    leftover QIR nodes, so it gets its own non-compiled segment, run one
+    micro-batch at a time.
+    """
+
+    start: int   # first stage index (inclusive)
+    stop: int    # last stage index (exclusive)
+    compiled: bool
+
+    @property
+    def n_stages(self) -> int:
+        return self.stop - self.start
+
+
+def group_segments(stages: Sequence[Stage]) -> List[Segment]:
+    """Group a stage schedule into maximal compiled segments split at host
+    boundaries (``RefChainStage``). Every stage lands in exactly one segment
+    and segment order is schedule order."""
+    segments: List[Segment] = []
+    run_start = 0
+    for i, s in enumerate(stages):
+        if isinstance(s, RefChainStage):
+            if i > run_start:
+                segments.append(Segment(run_start, i, compiled=True))
+            segments.append(Segment(i, i + 1, compiled=False))
+            run_start = i + 1
+    if run_start < len(stages):
+        segments.append(Segment(run_start, len(stages), compiled=True))
+    return segments
+
+
+# ---------------------------------------------------------------------------
+# megakernel planner (one launch for a run of dense stages)
+# ---------------------------------------------------------------------------
+
+#: Fusing one stage is what ``threshold_matmul`` already does — the
+#: megakernel only pays off once there is an inter-stage boundary to delete.
+MEGAKERNEL_MIN_STAGES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class MegakernelSegment:
+    """A planned megakernel covering stages ``[start, stop)`` — a run of
+    consecutive ``FusedThresholdStage``s that the executor dispatches as
+    ONE ``mlp_megakernel`` launch. Carries the planner's byte accounting
+    (``core.bops.megakernel_residency_bytes``); ``tile_bytes`` was admitted
+    under ``core.bops.MEGAKERNEL_SMEM_BYTES``, weights and banks under
+    ``budget_bytes``."""
+
+    start: int          # first fused stage index (inclusive)
+    stop: int           # last fused stage index (exclusive)
+    block_m: int        # kernel row block the tile accounting assumed
+    weight_bytes: int   # int8 weight matrices, all stages (read via L2)
+    bank_bytes: int     # int32 threshold banks, all stages (read via L2)
+    tile_bytes: int     # in/out row blocks + two revolving FIFO tiles
+    budget_bytes: int   # cap on weight_bytes + bank_bytes (L2)
+
+    @property
+    def n_stages(self) -> int:
+        return self.stop - self.start
+
+    @property
+    def total_bytes(self) -> int:
+        return self.weight_bytes + self.bank_bytes + self.tile_bytes
+
+
+def plan_megakernel(stages: Sequence[Stage], segment: Segment, *,
+                    budget_bytes: Optional[int] = None
+                    ) -> Optional[MegakernelSegment]:
+    """Walk one compiled ``Segment`` and plan its megakernel.
+
+    Finds the longest run of consecutive ``FusedThresholdStage``s inside
+    the segment (the earlier run wins a tie), as the reference does, and
+    admits it when the kernel can take it: at most
+    ``MEGAKERNEL_MAX_STAGES`` stages, row tiles (at the kernel's row block)
+    that fit one block's shared memory (``MEGAKERNEL_SMEM_BYTES``), and
+    weights and banks that fit the L2 budget (``MEGAKERNEL_L2_BYTES``, or
+    ``budget_bytes`` when given: tests force the staged fallback with a
+    tiny one). Returns ``None`` when no run is long enough or one of these
+    fails — the executor then runs the stages one kernel each, which stays
+    the exactness reference.
+    """
+    budget = bops.MEGAKERNEL_L2_BYTES if budget_bytes is None \
+        else budget_bytes
+    if not segment.compiled:
+        return None
+    best = None          # longest run wins; earlier run breaks length ties
+    i = segment.start
+    while i < segment.stop:
+        if isinstance(stages[i], FusedThresholdStage):
+            j = i
+            while j < segment.stop and isinstance(stages[j],
+                                                  FusedThresholdStage):
+                j += 1
+            if best is None or (j - i) > (best[1] - best[0]):
+                best = (i, j)
+            i = j
+        else:
+            i += 1
+    if best is None or best[1] - best[0] < MEGAKERNEL_MIN_STAGES:
+        return None
+    block_m = bops.MEGAKERNEL_BLOCK_M
+    res = bops.megakernel_residency_bytes(stages[best[0]:best[1]],
+                                          block_m=block_m)
+    if (best[1] - best[0] > bops.MEGAKERNEL_MAX_STAGES
+            or res["tile_bytes"] > bops.MEGAKERNEL_SMEM_BYTES
+            or res["weight_bytes"] + res["bank_bytes"] > budget):
+        return None      # the kernel cannot take it: staged path
+    return MegakernelSegment(start=best[0], stop=best[1], block_m=block_m,
+                             weight_bytes=res["weight_bytes"],
+                             bank_bytes=res["bank_bytes"],
+                             tile_bytes=res["tile_bytes"],
+                             budget_bytes=budget)
 
 
 # ---------------------------------------------------------------------------

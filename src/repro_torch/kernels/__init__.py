@@ -1,8 +1,9 @@
 """repro_torch.kernels — hand-written CUDA kernels for Hopper (``csrc/``),
 their wrappers (``ops``) and their plain PyTorch versions (``ref``).
 
-Ported so far: ``ops.threshold_matmul`` and ``ops.conv_threshold`` (the
-module ``conv_threshold`` holds the latter's host helpers). Nothing here
+Ported so far: ``ops.threshold_matmul``, ``ops.conv_threshold`` (the
+module ``conv_threshold`` holds its host helpers) and
+``ops.mlp_megakernel``. Nothing here
 builds a kernel at import time; ``_build`` compiles a source the first
 time its wrapper sees a CUDA tensor.
 """

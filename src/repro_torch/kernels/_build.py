@@ -35,6 +35,9 @@ ENTRY_POINTS = {
                          [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "conv_threshold": ("conv_threshold_launch",
                        [_P, _P, _P, _P] + [_I] * 11 + [_P]),
+    # x, out, host arrays of weight and bank pointers, dims, steps
+    "mlp_megakernel": ("mlp_megakernel_launch",
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 _LOCK = threading.Lock()

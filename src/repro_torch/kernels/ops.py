@@ -1,8 +1,8 @@
 """Public wrappers around the port's CUDA kernels.
 
-``threshold_matmul`` and ``conv_threshold`` are the counterparts of
-``repro.kernels.ops.threshold_matmul`` and ``repro.kernels.ops
-.conv_threshold``. Each one checks its arguments, then:
+``threshold_matmul``, ``conv_threshold`` and ``mlp_megakernel`` are the
+counterparts of the functions of the same names in ``repro.kernels.ops``.
+Each one checks its arguments, then:
 
   * for CUDA tensors launches its kernel (``csrc/*.cu``, built at first
     use) on the current stream, or raises — there is no fallback;
@@ -16,20 +16,25 @@ kernels (``reset_launches`` before, read after).
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, Sequence
 
 import torch
 
+from repro_torch.core.bops import (MEGAKERNEL_BLOCK_M, MEGAKERNEL_MAX_STAGES,
+                                   MEGAKERNEL_SMEM_BYTES)
 from repro_torch.kernels import _build
 from repro_torch.kernels import conv_threshold as _ct
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv_threshold import plan_conv_blocks
 
-__all__ = ["threshold_matmul", "conv_threshold", "plan_conv_blocks",
-           "launches", "reset_launches"]
+__all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
+           "megakernel_smem_bytes", "plan_conv_blocks", "launches",
+           "reset_launches"]
 
 #: Kernel launches since the last ``reset_launches``, by kernel name.
-launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0}
+launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
+                            "mlp_megakernel": 0}
 
 
 def reset_launches() -> None:
@@ -133,4 +138,70 @@ def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
              torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("conv_threshold", err)
     launches["conv_threshold"] += 1
+    return out
+
+
+def megakernel_smem_bytes(dims: Sequence[int]) -> int:
+    """Shared memory of one ``mlp_megakernel`` block for the chain of
+    widths ``dims`` (K_0, N_0, ..., N_last): the input row tile and up to
+    two FIFO tiles of the widest intermediate width, int32, BM rows each.
+    Never more than the planner's ``tile_bytes``, which also counts an
+    output tile."""
+    n_stages = len(dims) - 1
+    inter = max(dims[1:-1], default=0)
+    return 4 * MEGAKERNEL_BLOCK_M * (dims[0] + min(n_stages - 1, 2) * inter)
+
+
+def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
+                   banks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A run of fused dense stages in one launch, inter-stage codes kept
+    in shared memory.
+
+    x_int (M, K_0) int32 codes; weights[d] (K_d, N_d) int8 with
+    K_{d+1} = N_d; banks[d] (S_d, N_d) int32, step-major — the transpose
+    of a stage's (N_d, S_d) ``thresholds``, so that the kernel reads one
+    step of all channels at once (the executor transposes once per plan).
+    Returns the last stage's (M, N_last) int32 codes. Ragged M needs no
+    padding."""
+    kind = _device_kind(x_int)
+    _check(x_int, "x_int", torch.int32, 2, x_int.device)
+    if len(weights) != len(banks) or not weights:
+        raise ValueError(f"{len(weights)} weight matrices for {len(banks)} "
+                         f"banks; need one of each per stage, at least one")
+    if len(weights) > MEGAKERNEL_MAX_STAGES:
+        raise ValueError(f"{len(weights)} stages; one launch takes at most "
+                         f"{MEGAKERNEL_MAX_STAGES}")
+    dims, steps = [x_int.shape[1]], []
+    for d, (w, b) in enumerate(zip(weights, banks)):
+        _check(w, f"weights[{d}]", torch.int8, 2, x_int.device)
+        _check(b, f"banks[{d}]", torch.int32, 2, x_int.device)
+        s, n = b.shape
+        if w.shape != (dims[-1], n):
+            raise ValueError(f"weights[{d}] shape {tuple(w.shape)} does not "
+                             f"follow K={dims[-1]} and banks[{d}] "
+                             f"{tuple(b.shape)}")
+        dims.append(n)
+        steps.append(s)
+    smem = megakernel_smem_bytes(dims)
+    if smem > MEGAKERNEL_SMEM_BYTES:
+        raise ValueError(f"chain {dims} needs {smem} B of shared memory per "
+                         f"block, above {MEGAKERNEL_SMEM_BYTES}")
+    if kind == "cpu":
+        return ref.mlp_megakernel_ref(x_int, weights, banks)
+    m = x_int.shape[0]
+    out = torch.empty((m, dims[-1]), dtype=torch.int32, device=x_int.device)
+    if m == 0 or dims[-1] == 0:
+        return out
+    n_st = len(weights)
+    w_ptrs = (ctypes.c_void_p * n_st)(*[w.data_ptr() for w in weights])
+    t_ptrs = (ctypes.c_void_p * n_st)(*[b.data_ptr() for b in banks])
+    c_dims = (ctypes.c_int * (n_st + 1))(*dims)
+    c_steps = (ctypes.c_int * n_st)(*steps)
+    fn = _build.entry_point("mlp_megakernel")
+    err = fn(x_int.data_ptr(), out.data_ptr(), ctypes.addressof(w_ptrs),
+             ctypes.addressof(t_ptrs), ctypes.addressof(c_dims),
+             ctypes.addressof(c_steps), n_st, m,
+             torch.cuda.current_stream(x_int.device).cuda_stream)
+    _raise_on_error("mlp_megakernel", err)
+    launches["mlp_megakernel"] += 1
     return out

@@ -87,3 +87,75 @@ def test_goldens_on_the_card(cuda, name, lowering):
             np.testing.assert_array_equal(got, w, err_msg=f"stage {i}")
         else:
             np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-5)
+
+
+def _chain(g, m, dims, steps, lo, hi):
+    """Seeded codes, weights and per-stage banks drawn from each stage's
+    own accumulator, for a chain of widths ``dims``."""
+    x = torch.randint(lo, hi, (m, dims[0]), generator=g, dtype=torch.int32)
+    weights, banks, h = [], [], x
+    for k, n, s in zip(dims[:-1], dims[1:], steps):
+        w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        acc = ref.int_matmul(h, w).reshape(-1)
+        b = torch.sort(acc[torch.randint(0, acc.numel(), (n * s,),
+                                         generator=g)].reshape(n, s),
+                       dim=1).values
+        h = ref.threshold_matmul_ref(h, w, b)
+        weights.append(w)
+        banks.append(b)
+    return x, weights, banks
+
+
+@pytest.mark.parametrize("m,dims,steps,lo,hi", [
+    (1000, [490, 256, 256, 256], [7, 7, 7], -127, 128),
+    (1024, [128, 72, 72, 8, 72, 72], [255] * 5, -127, 128),
+    (333, [33, 5, 11, 512, 3, 100], [1, 7, 255, 7, 1], 0, 256),
+    (17, [20, 16], [255], -127, 128),
+    (1, [7, 9, 4], [3, 3], 0, 8)])
+def test_mlp_megakernel_equals_plain(cuda, m, dims, steps, lo, hi):
+    """Ragged M (not a multiple of the 8-row block), widths that are and
+    are not multiples of 4, S in {1, 3, 7, 255}, signed first-layer
+    codes."""
+    g = torch.Generator().manual_seed(m + sum(dims))
+    x, weights, banks = _chain(g, m, dims, steps, lo, hi)
+    banks = [b.t().contiguous() for b in banks]          # step-major
+    want = ref.mlp_megakernel_ref(x, weights, banks)
+    before = ops.launches["mlp_megakernel"]
+    got = ops.mlp_megakernel(x.to(cuda), [w.to(cuda) for w in weights],
+                             [b.to(cuda) for b in banks])
+    torch.cuda.synchronize()
+    assert ops.launches["mlp_megakernel"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ("kws", "ad", "ic", "cnv"))
+@pytest.mark.parametrize("megakernel", (False, None))
+def test_goldens_through_every_entry_point_on_the_card(cuda, name,
+                                                       megakernel):
+    """offline, streaming_host, streaming_compiled and a partly filled
+    submit_wave on the card give the frozen outputs (integers exact,
+    logits within 1e-5); in auto mode KWS, AD and CNV launch the
+    megakernel once per offline call."""
+    from repro_torch.core.qir import Graph
+    from repro_torch.deploy import compile_graph
+
+    graph = Graph.load(os.path.join(GOLDEN_DIR, f"{name}.qir.json"))
+    data = np.load(os.path.join(GOLDEN_DIR, f"{name}.golden.npz"))
+    want = [data[k] for k in sorted(data.files) if k.startswith("stage_")][-1]
+    x = data["x"]
+    cm = compile_graph(graph, in_scale=graph.meta["in_scale"],
+                       megakernel=megakernel)
+    ops.reset_launches()
+    y = cm.offline(x)
+    torch.cuda.synchronize()
+    fused = megakernel is None and name != "ic"
+    assert ops.launches["mlp_megakernel"] == int(fused)
+    outs = [y, cm.streaming_host(x, micro_batch=3)[0],
+            cm.streaming_compiled(x, micro_batch=3)[0]]
+    for got in outs:
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
+    valid = np.array([True, False, True])
+    y_w, mask = cm.submit_wave(x[:3], valid=valid, micro_batch=4)
+    np.testing.assert_allclose(y_w.cpu().numpy()[mask], want[:3][valid],
+                               rtol=1e-5, atol=1e-5)

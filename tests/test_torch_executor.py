@@ -134,7 +134,8 @@ def test_apply_kernel_on_cpu_equals_apply_fast_and_ref(name):
                 np.testing.assert_array_equal(s.apply_ref(h).numpy(), fast,
                                               err_msg=s.name)
             h = y
-        assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0}
+        assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
+                                 "mlp_megakernel": 0}
 
 
 @pytest.mark.parametrize("name", MODELS)

@@ -189,4 +189,8 @@ def test_cpu_path_does_not_count_launches():
                         torch.ones((1, 2), dtype=torch.int8),
                         torch.zeros((2, 1), dtype=torch.int32), kernel=1,
                         stride=1, padding="VALID", out_h=3, out_w=3)
-    assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0}
+    tops.mlp_megakernel(x, [torch.ones((3, 2), dtype=torch.int8),
+                            torch.ones((2, 2), dtype=torch.int8)],
+                        [torch.zeros((1, 2), dtype=torch.int32)] * 2)
+    assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
+                             "mlp_megakernel": 0}
