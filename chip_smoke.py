@@ -45,11 +45,40 @@ which fails the run with a non-zero exit:
   7. full width — the kernels at the paper's IC and CNV stage shapes on
                seeded codes, held against their plain versions and timed
                (``FULL_WIDTH_CONVS``, ``FULL_WIDTH_DENSE``, and K3 on CNV's
-               256-512-512 FC chain).
+               256-512-512 FC chain);
+  8. attention — ``flash_attention`` (K6) against its plain version on
+               seeded q/k/v (``FLASH_CASES``): GQA 32/8 and 4/2, head dims
+               16/80/128, causal, not causal, window 32, a decode chunk
+               (q_offset > 0, Sq < Sk), ragged lengths and ``kv_len``, as
+               strided (B, S, H, D) views and contiguous; float32 within
+               1e-5, bf16 within 2e-2;
+  9. LM path — ``Model(get_config("llama3-8b"))`` at full width, bf16,
+               seeded ``init`` on the card; counters set to 0, one
+               ``prefill`` of 1 x 4096 seeded tokens (the chunked branch
+               under "auto"), counters read: exactly 32 K6 launches, no
+               other kernel, finite logits; the first and last layers' K6
+               launches held against the plain version on their real
+               inputs; prefill and decode times. Then the same config cut to
+               2 layers at full width, float32, S 512, "chunked", TF32
+               off: logits on the card equal the port on the CPU within
+               1e-4. Then ``ServeEngine`` (4 slots, max_len 256) on the
+               full-width model in float32 (TF32 off) serves 8 seeded
+               requests of 8-32 prompt tokens and 8 new tokens; every
+               request finishes with the tokens of its own sequential
+               greedy decode; last, a ``torch.profiler`` breakdown of one
+               prefill and one decode step of the bf16 model (device time
+               by kernel family, idle share, costliest kernels and host
+               ops);
+ 10. K6 times — at the main path's shape on its layer-0 inputs: kernel,
+               plain version and ``scaled_dot_product_attention`` (the
+               library yardstick, never on the path), with the bound from
+               bytes and bf16 tensor-core operations.
 
 The last lines are the kernels JSON line, the card's name and power limit
 (``nvidia-smi``), and ``{"ok": true, "device": {...}}``. Per-shape details
-go to ``chiprun_out/chip_smoke_details.json``.
+go to ``chiprun_out/chip_smoke_details.json``. Each kernel's ``launches``
+comes from its own main path's counted run: phase 3 for K1-K3, phase 9's
+prefill for K6.
 """
 
 from __future__ import annotations
@@ -67,6 +96,9 @@ BATCH = 1024
 SEED = 2022
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+LM_CONFIG = "llama3-8b"
+LM_SEQ = 4096                    # prefill length: "auto" takes K6 above 2048
 REPLACES = {
     "threshold_matmul": ("src/repro_torch/kernels/csrc/threshold_matmul.cu",
                          "src/repro/kernels/multi_threshold.py:163"),
@@ -74,7 +106,18 @@ REPLACES = {
                        "src/repro/kernels/conv_threshold.py:127"),
     "mlp_megakernel": ("src/repro_torch/kernels/csrc/mlp_megakernel.cu",
                        "src/repro/kernels/megakernel.py:81"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:96"),
 }
+#: the peak each kernel's operations are bounded by: integer codes on the
+#: int8 tensor-core rate, attention on the bf16 rate
+PEAK_OPS_PER_S = {"threshold_matmul": INT8_OPS_PER_S,
+                  "conv_threshold": INT8_OPS_PER_S,
+                  "mlp_megakernel": INT8_OPS_PER_S,
+                  "flash_attention": BF16_OPS_PER_S}
+#: the kernels of the integer path (phase 3) and of the LM path (phase 9)
+TINY_KERNELS = ("threshold_matmul", "conv_threshold", "mlp_megakernel")
+LM_KERNELS = ("flash_attention",)
 #: the two dispatch modes of the main path: (label, ``megakernel=``)
 MODES = (("staged", False), ("auto", None))
 
@@ -189,10 +232,16 @@ def time_ms(fn, reps=7, inner=20):
     return statistics.median(vals)
 
 
-def bound_ms(n_bytes, n_ops):
-    """Least time for the work: bytes over HBM rate or int8 operations over
-    the int8 peak, whichever is larger (published H100 SXM peaks)."""
-    return max(n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S) * 1e3
+def bound_ms(n_bytes, n_ops, ops_per_s=INT8_OPS_PER_S):
+    """Least time for the work: bytes over HBM rate or operations over the
+    kernel's tensor-core peak, whichever is larger (published H100 SXM
+    peaks)."""
+    return max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s) * 1e3
+
+
+def bound_by(n_bytes, n_ops, ops_per_s):
+    return ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / ops_per_s
+            else "operations")
 
 
 def tmm_cost(x, w, t):
@@ -428,8 +477,11 @@ def phase_main_path(models):
     for n, _, _, _ in models:
         check(per_run[f"{n}/staged"]["mlp_megakernel"] == 0,
               f"staged {n} offline launched mlp_megakernel")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was never launched on the main path")
+    for name in TINY_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched on the main "
+                                  f"path")
+    for name in LM_KERNELS:
+        check(launches[name] == 0, f"{name} launched on the integer path")
     return results, launches, per_run
 
 
@@ -648,16 +700,16 @@ def time_case(c, reps=7, inner=20):
     row["ms"] = time_ms(c["run"], reps=reps, inner=inner)
     row["plain_ms"] = time_ms(c["plain"], reps=3, inner=3)
     row["library_ms"] = time_ms(c["library"], reps=reps, inner=inner)
-    row["bound_ms"] = bound_ms(c["bytes"], c["ops"])
-    row["bound_by"] = ("bytes" if c["bytes"] / HBM_BYTES_PER_S
-                       >= c["ops"] / INT8_OPS_PER_S else "operations")
+    peak = PEAK_OPS_PER_S[c["kernel"]]
+    row["bound_ms"] = bound_ms(c["bytes"], c["ops"], peak)
+    row["bound_by"] = bound_by(c["bytes"], c["ops"], peak)
     staged = ""
     if "staged" in c:
         row["staged_k1_ms"] = time_ms(c["staged"], reps=reps, inner=inner)
         staged = f", staged K1 {row['staged_k1_ms']:.6f} ms"
     log(f"time {row['kernel']} {row['model']}/{row['stage']} "
         f"{row['shape']}: kernel {row['ms']:.6f} ms, plain "
-        f"{row['plain_ms']:.6f} ms, library (partial) "
+        f"{row['plain_ms']:.6f} ms, {c.get('library_is', 'library (partial)')} "
         f"{row['library_ms']:.6f} ms{staged}, bound {row['bound_ms']:.6f} "
         f"ms ({row['bound_by']})")
     return row
@@ -770,9 +822,434 @@ def phase_full_width():
     return rows, worst
 
 
+# ---------------------------------------------------------------------------
+# the LM path: K6 and the llama3-8b inference entry points
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, Sq, Sk, D, causal, window, q_offset, kv_len): GQA 32/8 and 4/2,
+# head dims 16 (reduced configs), 80 (h2o-danube) and 128 (llama3); causal,
+# not causal, window 32, a decode chunk (q_offset > 0, Sq < Sk), ragged
+# Sq/Sk, kv_len below Sk, and the main path's shape
+FLASH_CASES = [
+    (1, 32, 8, 4096, 4096, 128, True, 0, 0, None),
+    (2, 32, 8, 300, 300, 128, True, 0, 0, None),
+    (2, 4, 2, 130, 130, 16, False, 0, 0, None),
+    (1, 4, 2, 257, 257, 80, True, 32, 0, None),
+    (3, 4, 2, 100, 100, 16, True, 32, 0, None),
+    (2, 4, 2, 17, 95, 128, True, 0, 78, None),
+    (1, 32, 8, 1, 513, 128, True, 0, 512, None),
+    (1, 32, 8, 70, 133, 80, False, 0, 0, 101),
+    (2, 4, 2, 65, 200, 16, True, 32, 120, 150),
+]
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def flash_live_pairs(sq, sk, causal, window, q_offset, kv_len):
+    """Unmasked (query, key) pairs of one head: what K6 must compute."""
+    import numpy as np
+
+    kv_len = sk if kv_len is None else kv_len
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos + 1, kv_len) if causal else np.full(sq, kv_len)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_case(label, q, k, v, kw):
+    """A timing case for ``flash_attention`` on (q, k, v), (B, H, S, D)
+    views; the yardstick is one ``scaled_dot_product_attention`` call on
+    the same tensors (GQA through ``enable_gqa``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    pairs = flash_live_pairs(sq, sk, kw["causal"], kw["window"],
+                             kw["q_offset"], kw.get("kv_len"))
+    esize = q.element_size()
+    sdpa_causal = kw["causal"] and kw["window"] == 0 and sq == sk
+    check(sdpa_causal and kw.get("kv_len") in (None, sk),
+          "the SDPA yardstick takes the main path's plain causal mask only")
+    return {"kernel": "flash_attention", "model": LM_CONFIG, "stage": label,
+            "shape": f"B={b} H={h} Hkv={k.shape[1]} Sq={sq} Sk={sk} D={d} "
+                     f"{str(q.dtype).replace('torch.', '')} causal",
+            "run": lambda: ops.flash_attention(q, k, v, **kw),
+            "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            "library_is": "library (SDPA)",
+            "bytes": (q.numel() * 2 + k.numel() + v.numel()) * esize,
+            "ops": 4 * b * h * d * pairs}
+
+
+def phase_flash_synthetic():
+    """K6 against its plain version at ``FLASH_CASES`` in both dtypes, on
+    strided (B, S, H, D) views as the model passes them and on contiguous
+    (B, H, S, D) tensors. Returns the worst |kernel - plain| per dtype."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = dict.fromkeys(FLASH_TOL, 0.0)
+    for b, h, hkv, sq, sk, d, causal, window, q_off, kv_len in FLASH_CASES:
+        kw = dict(causal=causal, window=window, q_offset=q_off,
+                  kv_len=kv_len)
+        for dtype, tol in FLASH_TOL.items():
+            dt = getattr(torch, dtype)
+            q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dt)
+            k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dt)
+            v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dt)
+            views = [t.transpose(1, 2) for t in (q, k, v)]
+            want = ref.flash_attention_ref(*views, **kw).float()
+            for layout, args in (("strided", views),
+                                 ("contiguous",
+                                  [t.contiguous() for t in views])):
+                got = ops.flash_attention(*args, **kw)
+                torch.cuda.synchronize()
+                check(got.dtype == dt and got.shape == want.shape,
+                      f"flash_attention {dtype} {layout}: {got.dtype} "
+                      f"{tuple(got.shape)}")
+                err = float((got.float() - want).abs().max())
+                worst[dtype] = max(worst[dtype], err)
+                torch.testing.assert_close(got.float(), want, rtol=tol,
+                                           atol=tol)
+            log(f"kernel-check flash_attention B={b} H={h}/{hkv} Sq={sq} "
+                f"Sk={sk} D={d} causal={causal} window={window} "
+                f"q_offset={q_off} kv_len={kv_len} {dtype}: max err "
+                f"{err:.3g} (strided and contiguous, tol {tol})")
+            del q, k, v, views, want, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _device_breakdown(fn):
+    """Device time of one call of ``fn`` by kernel family, from a
+    ``torch.profiler`` trace: K6, matmuls (cuBLAS), everything else; the
+    busy time is the union of the kernels' intervals and the idle share is
+    the rest of the span from the first kernel's start to the last one's
+    end; the 8 costliest kernels and host ops (self CPU time). None when
+    the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    top = {}
+    for e in kern:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    host = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.name] = (host.get(e.name, 0.0)
+                            + e.self_cpu_time_total / 1e3)
+    by = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    for e in kern:
+        name = e.name.lower()
+        fam = ("flash_attention" if "flash_attention_kernel" in name else
+               "matmul" if any(t in name for t in ("gemm", "nvjet", "xmma",
+                                                   "cutlass", "sm90_"))
+               else "other")
+        by[fam] += e.time_range.elapsed_us() / 1e3
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    return {"kernels": len(kern), "span_ms": span / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
+            "ms_by_family": by,
+            "top_kernels_ms": dict(sorted(top.items(),
+                                          key=lambda kv: -kv[1])[:8]),
+            "top_host_ops_self_ms": dict(sorted(host.items(),
+                                                key=lambda kv: -kv[1])[:8])}
+
+
+def _host_ms(fn, n):
+    """Median host-clock ms of ``n`` synchronised calls, after one."""
+    import torch
+    from repro_torch.obs import timer
+
+    fn()
+    torch.cuda.synchronize()
+    vals = []
+    for _ in range(n):
+        t0 = timer.now()
+        fn()
+        torch.cuda.synchronize()
+        vals.append((timer.now() - t0) * 1e3)
+    return statistics.median(vals)
+
+
+def phase_lm_prefill():
+    """Full-width llama3-8b in bf16: counters to 0, one ``prefill`` of
+    1 x LM_SEQ seeded tokens, counters read; each K6 launch's inputs
+    caught (the model's own q/k/v), the first and last layers' held
+    against the plain version. Then prefill and decode times. Returns (launches, worst |kernel - plain|, K6's
+    timing case on layer 0's inputs, details); the weights are freed on
+    return."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import Model
+    from repro_torch.obs import timer
+
+    cfg = get_config(LM_CONFIG)
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    t0 = timer.now()
+    params = model.init(g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = timer.now() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"lm init {LM_CONFIG}: {n_params} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB bf16) in {init_s:.3f} s")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=g,
+                           device="cuda")
+    batch = {"tokens": tokens}
+
+    real = ops.flash_attention
+    caught = []
+
+    def catch(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        caught.append((q, k, v, kw, out))
+        return out
+
+    ops.flash_attention = catch
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+    finally:
+        ops.flash_attention = real
+    log(f"lm main-path launches (one prefill, B=1 S={LM_SEQ}): "
+        f"{json.dumps(launches)}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash_attention {launches['flash_attention']} "
+          f"times, expected {cfg.n_layers}")
+    for name in TINY_KERNELS:
+        check(launches[name] == 0, f"prefill launched {name}")
+    check(logits.shape == (1, LM_SEQ, cfg.vocab)
+          and logits.dtype == torch.float32, f"logits {logits.dtype} "
+          f"{tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+
+    worst = 0.0
+    for i in (0, len(caught) - 1):
+        q, k, v, kw, out = caught[i]
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err = float((out.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        log(f"kernel-check flash_attention layer {i} on its prefill inputs "
+            f"{tuple(q.shape)} {q.dtype} (strides {q.stride()}): max err "
+            f"{err:.3g} (tol 2e-2)")
+        del want
+    q0, k0, v0, kw0, _ = caught[0]
+    case = flash_case("prefill layer 0", q0, k0, v0, kw0)
+    case["launches"] = launches["flash_attention"]
+    del caught, logits
+    torch.cuda.empty_cache()
+
+    prefill_ms = _host_ms(lambda: model.prefill(params, batch), 3)
+    log(f"lm prefill {LM_CONFIG} bf16 B=1 S={LM_SEQ}: {prefill_ms:.3f} ms "
+        f"(host clock, median of 3, synchronised)")
+    decode = _decode_call(model, params, g)
+    decode_ms = _host_ms(decode, 10)
+    log(f"lm decode {LM_CONFIG} bf16 batch 4, cache 256: {decode_ms:.3f} ms "
+        f"per step (host clock, median of 10, synchronised)")
+    details = {"init_s": init_s, "n_params": n_params,
+               "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+               "main_path_launches": launches}
+    return launches, worst, case, details
+
+
+def _decode_call(model, params, g):
+    """One bf16 decode step of 4 slots at positions 17..200 of a 256-long
+    cache, as a closure (the cache is updated in place each call)."""
+    import torch
+
+    cache = model.cache_init(4, 256, device="cuda")
+    tok = torch.randint(0, model.cfg.vocab, (4, 1), generator=g,
+                        device="cuda")
+    cur = torch.tensor([17, 64, 100, 200], dtype=torch.int32, device="cuda")
+    return lambda: model.decode_step(params, cache, tok, cur)
+
+
+def phase_lm_profile():
+    """Last, because the profiler's tracing slows every later launch: the
+    full-width bf16 model again (same seed), one prefill and one decode
+    step under ``torch.profiler``, then decode timed once more to show the
+    tracing's after-effect. Returns the breakdowns."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    model = Model(get_config(LM_CONFIG))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = model.init(g, device="cuda")
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (1, LM_SEQ),
+                                     generator=g, device="cuda")}
+    decode = _decode_call(model, params, g)
+    model.prefill(params, batch)
+    decode()
+    out = {"prefill": _device_breakdown(lambda: model.prefill(params, batch)),
+           "decode": _device_breakdown(decode)}
+    out["decode_ms_after_profiling"] = _host_ms(decode, 10)
+    for k in ("prefill", "decode"):
+        log(f"lm profile {LM_CONFIG} bf16 {k}: {json.dumps(out[k])}")
+    log(f"lm decode after profiling: {out['decode_ms_after_profiling']:.3f} "
+        f"ms per step (host clock, median of 10, synchronised)")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_lm_depth_cut():
+    """llama3-8b at full width cut to 2 layers, float32, S 512, "chunked"
+    (K6 per layer), TF32 off: logits on the card against the port on the
+    CPU with the same weights, within 1e-4. Returns the max |diff|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import map_tree
+
+    cfg = dataclasses.replace(get_config(LM_CONFIG), n_layers=2,
+                              attn_impl="chunked", dtype="float32")
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    params = model.init(g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (1, 512), generator=g,
+                           device="cuda")
+    with full_fp32():
+        before = ops.launches["flash_attention"]
+        got = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        n_k6 = ops.launches["flash_attention"] - before
+    check(n_k6 == cfg.n_layers, f"depth-cut prefill launched K6 {n_k6} "
+                                f"times, expected {cfg.n_layers}")
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    del params
+    want = model.prefill(cpu_params, {"tokens": tokens.cpu()})
+    err = float((got.cpu() - want).abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    log(f"lm depth cut {LM_CONFIG} 2 layers float32 S=512 chunked: card "
+        f"equals the CPU port within 1e-4 (max |diff| {err:.3g}, K6 "
+        f"launched {n_k6} times)")
+    del cpu_params, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def _greedy(model, params, prompt, n_new, max_len):
+    """Sequential single-request greedy decode (the engine's ground truth,
+    as ``tests/test_serving.py`` has it)."""
+    import torch
+
+    cache = model.cache_init(1, max_len, device="cuda")
+    toks, out = list(prompt), []
+    for t in range(len(prompt) + n_new - 1):
+        tok = torch.tensor([[toks[t]]], dtype=torch.int32, device="cuda")
+        logits, cache = model.decode_step(params, cache, tok, t)
+        nxt = int(torch.argmax(logits[0, 0]))
+        if t >= len(prompt) - 1:
+            out.append(nxt)
+            if len(out) >= n_new:
+                break
+            toks.append(nxt)
+    return out
+
+
+def phase_lm_serving():
+    """``ServeEngine`` on full-width llama3-8b in float32 (TF32 off: cuBLAS
+    reduces differently by batch rows, which in bf16 can flip an argmax
+    between the batched and the sequential run): 4 slots, max_len 256, 8
+    seeded requests of 8-32 prompt tokens and 8 new tokens. Every request
+    finishes, with its own sequential greedy decode's tokens. Returns the
+    engine's stats."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.model import Model
+    from repro_torch.obs import timer
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config(LM_CONFIG), dtype="float32")
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params = model.init(g, device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in rng.integers(8, 33, 8)]
+    with full_fp32():
+        eng = ServeEngine(model, params, n_slots=4, max_len=256,
+                          device="cuda")
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        t0 = timer.now()
+        for r in reqs:
+            eng.submit(r)
+        steps = eng.run_until_drained()
+        torch.cuda.synchronize()
+        engine_s = timer.now() - t0
+        stats = eng.stats()
+        check(len(eng.finished) == len(reqs), f"{len(eng.finished)} of "
+                                              f"{len(reqs)} requests finished")
+        for r in reqs:
+            want = _greedy(model, params, r.prompt, 8, 256)
+            check(r.output == want, f"request {r.uid}: engine {r.output} != "
+                                    f"sequential {want}")
+    stats.update(steps=steps, engine_s=engine_s,
+                 prompt_tokens=int(sum(len(p) for p in prompts)),
+                 new_tokens=int(sum(len(r.output) for r in reqs)))
+    log(f"lm serving {LM_CONFIG} float32, 4 slots: {len(reqs)} requests, "
+        f"{stats['prompt_tokens']} prompt and {stats['new_tokens']} new "
+        f"tokens in {steps} engine steps, {engine_s:.3f} s; "
+        f"{stats['throughput_tok_s']:.3f} tokens/s (new tokens over the "
+        f"span, host clock); every request equals its sequential greedy "
+        f"decode")
+    del eng, params
+    torch.cuda.empty_cache()
+    return stats
+
+
+
 def kernels_line(rows, launches, worst):
-    """One entry per kernel. ``launches`` is the counted main-path run, one
-    offline call of each of the four models in each of the two modes; the
+    """One entry per kernel. ``launches`` is the counted main-path run of
+    the kernel's path: one offline call of each of the four models in each
+    of the two modes (K1-K3), one full-width llama3-8b prefill (K6); the
     times and the bound are summed over the same launches (each main-path
     case weighted by its launches in that run, which must add up to the
     count); ``max_abs_err`` is the kernel's own worst |kernel - plain|
@@ -790,8 +1267,7 @@ def kernels_line(rows, launches, worst):
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst[name], "ms": total("ms"),
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= nops / INT8_OPS_PER_S else "operations"),
+            "bound_by": bound_by(nbytes, nops, PEAK_OPS_PER_S[name]),
             "library_ms": total("library_ms"),
         })
     return {"kernels": out}
@@ -815,6 +1291,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.obs import timer
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
     try:
         t0 = timer.now()
         libs = _build.build_all()
@@ -828,18 +1308,29 @@ def main() -> int:
         bitwise = phase_streaming(models, results)
         rows, e2e = phase_times(cases, results, models)
         wide, worst_wide = phase_full_width()
+        worst_flash = phase_flash_synthetic()
+        lm_launches, worst_lm, k6_case, lm = phase_lm_prefill()
+        k6_rows = [time_case(k6_case, reps=5, inner=10)]
+        del k6_case
+        lm["depth_cut_max_diff"] = phase_lm_depth_cut()
+        lm["serving"] = phase_lm_serving()
+        lm["profile"] = phase_lm_profile()
+        log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
+            f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
+            f" ms per step (batch 4, bf16), engine "
+            f"{lm['serving']['throughput_tok_s']:.3f} tokens/s (float32, "
+            f"4 slots)")
         worst = {k: max(worst_syn[k], worst_main[k], worst_wide[k])
-                 for k in REPLACES}
-        line = kernels_line(rows, launches, worst)
+                 for k in TINY_KERNELS}
+        worst["flash_attention"] = max(worst_lm, *worst_flash.values())
+        launches = {**{k: launches[k] for k in TINY_KERNELS},
+                    **{k: lm_launches[k] for k in LM_KERNELS}}
+        line = kernels_line(rows + k6_rows, launches, worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     with open(os.path.join(ROOT, "chiprun_out",
                            "chip_smoke_details.json"), "w") as f:
         json.dump({"card": smi, "per_shape": rows, "full_width": wide,
@@ -847,7 +1338,9 @@ def main() -> int:
                    "launches_per_offline": per_run,
                    "main_path_launches": launches,
                    "streaming_logits_bit_for_bit": bitwise,
-                   "kernels": line},
+                   "flash_attention": {"max_err_by_dtype": worst_flash,
+                                       "main_path_shape": k6_rows},
+                   "lm": lm, "kernels": line},
                   f, indent=1)
     log(json.dumps(line))
     log(smi)

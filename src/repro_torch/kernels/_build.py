@@ -38,6 +38,9 @@ ENTRY_POINTS = {
     # x, out, host arrays of weight and bank pointers, dims, steps
     "mlp_megakernel": ("mlp_megakernel_launch",
                        [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    # q, k, v, out, 11 sizes and flags, host array of 12 strides, stream
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P] + [_I] * 11 + [_P, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -1,7 +1,7 @@
 """Public wrappers around the port's CUDA kernels.
 
-``threshold_matmul``, ``conv_threshold`` and ``mlp_megakernel`` are the
-counterparts of the functions of the same names in ``repro.kernels.ops``.
+``threshold_matmul``, ``conv_threshold``, ``mlp_megakernel`` and
+``flash_attention`` are the counterparts of the functions of the same names in ``repro.kernels.ops``.
 Each one checks its arguments, then:
 
   * for CUDA tensors launches its kernel (``csrc/*.cu``, built at first
@@ -17,7 +17,7 @@ kernels (``reset_launches`` before, read after).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -29,12 +29,16 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.conv_threshold import plan_conv_blocks
 
 __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
-           "megakernel_smem_bytes", "plan_conv_blocks", "launches",
-           "reset_launches"]
+           "flash_attention", "megakernel_smem_bytes", "plan_conv_blocks",
+           "launches", "reset_launches", "FLASH_HEAD_DIMS"]
 
 #: Kernel launches since the last ``reset_launches``, by kernel name.
 launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
-                            "mlp_megakernel": 0}
+                            "mlp_megakernel": 0, "flash_attention": 0}
+
+#: Head dims ``flash_attention``'s kernel is built for (16: the reduced
+#: configs; 80: h2o-danube; 128: llama3, internlm2, qwen1.5).
+FLASH_HEAD_DIMS = (16, 80, 128)
 
 
 def reset_launches() -> None:
@@ -204,4 +208,61 @@ def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
              torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("mlp_megakernel", err)
     launches["mlp_megakernel"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Flash attention with GQA, causal and sliding-window masks.
+
+    q (B, H, Sq, D), k/v (B, Hkv, Sk, D), bfloat16 or float32, D in
+    ``FLASH_HEAD_DIMS``; any strides with a contiguous last dimension (the
+    model passes its (B, S, H, D) tensors transposed, without a copy).
+    Query row i sits at position i + q_offset; keys at or beyond ``kv_len``
+    (default Sk) are masked. Returns (B, H, Sq, D) in q's dtype and
+    layout. Ragged Sq and Sk need no padding."""
+    kind = _device_kind(q)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, sk, d) or v.shape != k.shape or h % hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: need (B, H, Sq, D) and "
+                         f"(B, Hkv, Sk, D) with Hkv dividing H")
+    kv_len = sk if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= sk:
+        raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if kind == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len)
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v need a contiguous last dimension")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch {b} or heads {h} above the grid's 65535")
+    out = torch.empty_like(q)          # q's layout (contiguous if not dense)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(
+        *[t.stride(i) for t in (q, k, v, out) for i in range(3)])
+    fn = _build.entry_point("flash_attention")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+             hkv, sq, sk, d, kv_len, int(causal), window, q_offset,
+             int(q.dtype == torch.bfloat16), ctypes.addressof(strides),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error("flash_attention", err)
+    launches["flash_attention"] += 1
     return out

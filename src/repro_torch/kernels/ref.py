@@ -14,7 +14,10 @@ import torch
 from repro_torch.kernels.conv_threshold import conv_threshold_ref, int_matmul
 
 __all__ = ["multi_threshold_ref", "threshold_matmul_ref",
-           "mlp_megakernel_ref", "conv_threshold_ref", "int_matmul"]
+           "mlp_megakernel_ref", "conv_threshold_ref", "int_matmul",
+           "flash_attention_ref"]
+
+NEG_INF = -1e30
 
 
 def multi_threshold_ref(acc: torch.Tensor, thresholds: torch.Tensor
@@ -46,3 +49,33 @@ def mlp_megakernel_ref(x_int: torch.Tensor, weights, banks) -> torch.Tensor:
     for w, b in zip(weights, banks):
         h = threshold_matmul_ref(h, w, b.t())
     return h
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_len=None) -> torch.Tensor:
+    """Dense-softmax attention with GQA, causal and sliding-window masks.
+
+    q (B, H, Sq, D), k/v (B, Hkv, Sk, D); query head h reads KV head
+    h // (H / Hkv); query row i sits at position i + q_offset; keys at or
+    beyond ``kv_len`` (default Sk) are masked. Scores, statistics and the
+    weighted sum in float32, output in q's dtype. Masked scores are -1e30
+    and weigh 0, and the sum is divided by max(l, 1e-30), so a row with no
+    live key gives 0 (the kernel's rule)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kv_len = sk if kv_len is None else kv_len
+    qg = q.reshape(b, hkv, h // hkv, sq, d).to(torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) * d ** -0.5
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(sk, device=q.device)
+    ok = (k_pos < kv_len)[None, :].expand(sq, sk)
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, h, sq, d).to(q.dtype)

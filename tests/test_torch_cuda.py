@@ -159,3 +159,46 @@ def test_goldens_through_every_entry_point_on_the_card(cuda, name,
     y_w, mask = cm.submit_wave(x[:3], valid=valid, micro_batch=4)
     np.testing.assert_allclose(y_w.cpu().numpy()[mask], want[:3][valid],
                                rtol=1e-5, atol=1e-5)
+
+
+# (B, H, Hkv, Sq, Sk, D, causal, window, q_offset, kv_len): GQA 32/8 and
+# 4/2, the head dims 16/80/128, causal and not, window 32, a decode chunk
+# (q_offset > 0, Sq < Sk), ragged Sq/Sk and kv_len below Sk
+FLASH_CASES = [
+    (1, 32, 8, 300, 300, 128, True, 0, 0, None),
+    (2, 4, 2, 130, 130, 16, False, 0, 0, None),
+    (1, 4, 2, 257, 257, 80, True, 32, 0, None),
+    (2, 4, 2, 17, 95, 128, True, 0, 78, None),
+    (1, 32, 8, 70, 133, 80, False, 0, 0, 101),
+]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_equals_plain(cuda, case, dtype):
+    """Within 1e-5 in float32 (sums in another order) and 2e-2 in bf16
+    (the output's rounding), as the reference's kernel tests hold it; also
+    on the model's (B, S, H, D) layout passed as strided views."""
+    b, h, hkv, sq, sk, d, causal, window, q_offset, kv_len = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(sq * 7 + sk + d)
+    q = torch.randn(b, sq, h, d, generator=g).to(dt).to(cuda)
+    k = torch.randn(b, sk, hkv, d, generator=g).to(dt).to(cuda)
+    v = torch.randn(b, sk, hkv, d, generator=g).to(dt).to(cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.backends.cuda.matmul.allow_tf32 = False     # a full-fp32 plain
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), **kw)
+    before = ops.launches["flash_attention"]
+    for qq, kk, vv in ((q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2)),
+                       (q.transpose(1, 2).contiguous(),
+                        k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous())):
+        got = ops.flash_attention(qq, kk, vv, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    assert ops.launches["flash_attention"] == before + 2

@@ -192,5 +192,7 @@ def test_cpu_path_does_not_count_launches():
     tops.mlp_megakernel(x, [torch.ones((3, 2), dtype=torch.int8),
                             torch.ones((2, 2), dtype=torch.int8)],
                         [torch.zeros((1, 2), dtype=torch.int32)] * 2)
+    q = torch.ones((1, 2, 3, 16))
+    tops.flash_attention(q, q, q)
     assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
-                             "mlp_megakernel": 0}
+                             "mlp_megakernel": 0, "flash_attention": 0}
