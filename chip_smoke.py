@@ -72,13 +72,40 @@ which fails the run with a non-zero exit:
  10. K6 times — at the main path's shape on its layer-0 inputs: kernel,
                plain version and ``scaled_dot_product_attention`` (the
                library yardstick, never on the path), with the bound from
-               bytes and bf16 tensor-core operations.
+               bytes and bf16 tensor-core operations;
+ 11. K4, K5 — ``multi_threshold`` and ``qmatmul`` against their plain
+               versions, bit for bit: the reference's test shapes
+               (``tests/test_kernels.py``, the deep banks of
+               ``tests/test_megakernel.py``), ragged shapes, both K5
+               output dtypes, ReLU on and off, no bias, out_scale 0.03 /
+               0.07 / 0.3 (``MT_CASES``, ``QMM_CASES``);
+ 12. K1 tiles — ``threshold_matmul`` under every tile of
+               ``TMM_TILE_SIZES`` against its plain version;
+ 13. kernel bench — ``repro_torch.bench.kernel_bench``: counters to 0, its
+               checking pass (one K5 launch at 512^3, two K4 launches at
+               AD's bank and a 511-step bank), counters read; then its
+               times (kernel, plain version, library call: ``torch._int_mm``
+               and the epilogue ops, ``torch.searchsorted``), the conv
+               lowerings and megakernel-against-staged on full-width KWS
+               and AD; ``chiprun_out/BENCH_torch_kernels.json``;
+ 14. autotune — ``autotune_model`` on the four models with a temporary
+               cache: the config printed, the tuned ``offline`` codes equal
+               the untuned ones bit for bit, a second call loads the
+               config from the cache without probing;
+ 15. scenarios — ``run_all_scenarios`` on the four tuned models
+               (``compiled=cm``, ``model_cost=schedule_cost(...)``):
+               p50/p90/p99, qps, roofline and measured energy per
+               scenario beside the card's name and power limit, which must
+               equal ``core.codesign.CHIP_WATTS``; streamed codes equal
+               ``offline``; a batch-1 query's device time (CUDA-graph
+               replay) beside the SingleStream p50, and its launches.
 
-The last lines are the kernels JSON line, the card's name and power limit
-(``nvidia-smi``), and ``{"ok": true, "device": {...}}``. Per-shape details
-go to ``chiprun_out/chip_smoke_details.json``. Each kernel's ``launches``
-comes from its own main path's counted run: phase 3 for K1-K3, phase 9's
-prefill for K6.
+Phase 9's profile runs last of all. The last lines are the kernels JSON
+line, the card's name and power limit (``nvidia-smi``), and
+``{"ok": true, "device": {...}}``. Per-shape details go to
+``chiprun_out/chip_smoke_details.json``. Each kernel's ``launches`` comes
+from its own main path's counted run: phase 3 for K1-K3, phase 9's
+prefill for K6, phase 13's checking pass for K4 and K5.
 """
 
 from __future__ import annotations
@@ -88,6 +115,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -97,6 +125,8 @@ SEED = 2022
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+INT32_OPS_PER_S = 64 * 132 * 1.98e9  # H100 SXM CUDA-core int32 rate
+                                     # (64 lanes/SM, 132 SMs, 1.98 GHz)
 LM_CONFIG = "llama3-8b"
 LM_SEQ = 4096                    # prefill length: "auto" takes K6 above 2048
 REPLACES = {
@@ -108,16 +138,25 @@ REPLACES = {
                        "src/repro/kernels/megakernel.py:81"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:96"),
+    "multi_threshold": ("src/repro_torch/kernels/csrc/multi_threshold.cu",
+                        "src/repro/kernels/multi_threshold.py:81"),
+    "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
+                "src/repro/kernels/qmatmul.py:60"),
 }
-#: the peak each kernel's operations are bounded by: integer codes on the
-#: int8 tensor-core rate, attention on the bf16 rate
+#: the peak each kernel's operations are bounded by: integer MACs on the
+#: int8 tensor-core rate, attention on the bf16 rate, K4's compares on the
+#: CUDA cores' int32 rate
 PEAK_OPS_PER_S = {"threshold_matmul": INT8_OPS_PER_S,
                   "conv_threshold": INT8_OPS_PER_S,
                   "mlp_megakernel": INT8_OPS_PER_S,
-                  "flash_attention": BF16_OPS_PER_S}
-#: the kernels of the integer path (phase 3) and of the LM path (phase 9)
+                  "flash_attention": BF16_OPS_PER_S,
+                  "multi_threshold": INT32_OPS_PER_S,
+                  "qmatmul": INT8_OPS_PER_S}
+#: the kernels of the integer path (phase 3), of the LM path (phase 9) and
+#: of the kernel bench (phase 13)
 TINY_KERNELS = ("threshold_matmul", "conv_threshold", "mlp_megakernel")
 LM_KERNELS = ("flash_attention",)
+BENCH_KERNELS = ("multi_threshold", "qmatmul")
 #: the two dispatch modes of the main path: (label, ``megakernel=``)
 MODES = (("staged", False), ("auto", None))
 
@@ -139,53 +178,18 @@ def log(*a):
 # models
 # ---------------------------------------------------------------------------
 
-def mlp_graph(dims, bits, seed):
-    """A full-width QIR MLP from numpy-seeded parameters, BN statistics
-    away from the identity so the BN fold is exercised."""
-    import numpy as np
-    from repro_torch.core.qir import LayerBits, export_qmlp
-
-    rng = np.random.default_rng(seed)
-    hidden = []
-    scale, in_qmax, qmax = 1.0 / 127.0, 2 ** (bits - 1) - 1, 2 ** bits - 1
-    for i in range(len(dims) - 2):
-        fan_in, fan_out = dims[i], dims[i + 1]
-        p = {"w": (rng.standard_normal((fan_in, fan_out))
-                   * np.sqrt(2.0 / fan_in)).astype(np.float32),
-             "b": (0.05 * rng.standard_normal(fan_out)).astype(np.float32),
-             "gamma": rng.uniform(0.5, 1.5, fan_out).astype(np.float32),
-             "mu": (0.2 * rng.standard_normal(fan_out)).astype(np.float32),
-             "sigma2": rng.uniform(0.5, 2.0, fan_out).astype(np.float32)}
-        # the frozen scale covers the worst-case reach, which random inputs
-        # never approach; a BN shift of -10..20% of that reach keeps about
-        # half of every layer's codes off zero, so deep stages see
-        # non-trivial inputs
-        v = p["gamma"] / np.sqrt(p["sigma2"] + 1e-3)
-        reach = np.abs(p["w"] * v).sum(axis=0) * scale * in_qmax
-        p["beta"] = (rng.uniform(-0.1, 0.2, fan_out) * reach.max()
-                     ).astype(np.float32)
-        b_f = v * (p["b"] - p["mu"]) + p["beta"]
-        scale = 2.0 ** np.round(np.log2((reach + np.abs(b_f)).max() / qmax))
-        hidden.append(p)
-    w = rng.standard_normal((dims[-2], dims[-1])) * np.sqrt(1.0 / dims[-2])
-    # zero column sums: the codes' common offset does not pick the class
-    head = {"w": (w - w.mean(axis=0)).astype(np.float32),
-            "b": (0.01 * rng.standard_normal(dims[-1])).astype(np.float32)}
-    layers = [LayerBits(weight_bits=bits, act_bits=bits)] * (len(dims) - 2)
-    return export_qmlp(layers, hidden, head, freeze_scales=True,
-                       in_scale=1.0 / 127.0)
-
-
 def load_models():
     """(name, graph, in_scale, x) for the four models of the main path."""
     import numpy as np
+    from repro_torch.bench.models import (AD_BITS, AD_DIMS, KWS_BITS,
+                                          KWS_DIMS, mlp_graph)
     from repro_torch.core.qir import Graph
 
     rng = np.random.default_rng(SEED)
-    models = [("kws", mlp_graph([490, 256, 256, 256, 12], 3, SEED + 1),
-               1.0 / 127.0, (BATCH, 490)),
-              ("ad", mlp_graph([128, 72, 72, 8, 72, 72, 128], 8, SEED + 2),
-               1.0 / 127.0, (BATCH, 128))]
+    models = [("kws", mlp_graph(KWS_DIMS, KWS_BITS, SEED + 1, name="kws"),
+               1.0 / 127.0, (BATCH, KWS_DIMS[0])),
+              ("ad", mlp_graph(AD_DIMS, AD_BITS, SEED + 2, name="ad"),
+               1.0 / 127.0, (BATCH, AD_DIMS[0]))]
     for name in ("ic", "cnv"):
         g = Graph.load(os.path.join(GOLDEN, f"{name}.qir.json"))
         shape = tuple(g.nodes[0].attrs["in_shape"])
@@ -199,37 +203,11 @@ def load_models():
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps=7, inner=20):
-    """Median over ``reps`` of the mean per-call device time of ``inner``
-    back-to-back calls (CUDA events), after one warm call. The calls are
-    captured once in a CUDA graph and the graph is replayed, so the time
-    is the device's: the host's dispatch of each call (Python, ctypes,
-    allocation; tens of µs) would otherwise leave the card idle between
-    small kernels and be timed instead. Weights and banks stay in L2
-    between calls, as they do between the blocks of one wave."""
-    import torch
+    """Device ms per call of ``fn`` by CUDA-graph replay
+    (``repro_torch.bench.common.time_ms``)."""
+    from repro_torch.bench.common import time_ms as device_ms
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    vals = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        vals.append(a.elapsed_time(b) / inner)
-    del graph
-    return statistics.median(vals)
+    return device_ms(fn, reps=reps, inner=inner)
 
 
 def bound_ms(n_bytes, n_ops, ops_per_s=INT8_OPS_PER_S):
@@ -1245,6 +1223,290 @@ def phase_lm_serving():
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the measurement slice: K4, K5, K1's tiles, the kernel bench, the
+# autotuner and the MLPerf scenarios
+# ---------------------------------------------------------------------------
+
+# K5 cases (M, K, N, relu, bias, out_scale): tests/test_kernels.py's shapes
+# (both ReLU settings, the requant scales 0.125 / 0.5 / 0.03, no bias) and
+# ragged ones, both output dtypes, non-power-of-two out_scale
+QMM_CASES = ([(m, k, n, relu, True, None)
+              for m, k, n in [(8, 16, 8), (100, 70, 50), (128, 128, 128),
+                              (33, 200, 17), (256, 64, 192)]
+              for relu in (False, True)]
+             + [(64, 48, 40, True, True, o) for o in (0.125, 0.5, 0.03)]
+             + [(32, 32, 32, False, False, None),
+                (1, 1, 1, False, False, 0.3), (1, 3, 5, True, True, 0.07),
+                (65, 33, 129, False, True, 0.3),
+                (1000, 490, 257, True, False, 0.01),
+                (513, 1031, 63, False, True, None),
+                (512, 512, 512, True, True, 0.125)])
+# K4 cases (M, C, S): tests/test_kernels.py's, tests/test_megakernel.py's
+# deep banks (256, 300, 511), ragged ones, AD's bank
+MT_CASES = [(16, 8, 3), (37, 20, 7), (64, 12, 15), (128, 72, 255), (5, 3, 1),
+            (16, 12, 256), (24, 8, 300), (8, 40, 511), (1, 1, 1),
+            (1000, 33, 64), (97, 65, 65), (1024, 72, 255), (300, 257, 129)]
+# K1 tile checks (M, K, N, S, lo, hi), each under every tile
+TILE_CASES = [(1, 1, 1, 1, -127, 128), (37, 19, 70, 7, -127, 128),
+              (130, 65, 129, 255, 0, 256), (1024, 490, 256, 7, -127, 128),
+              (257, 300, 100, 255, 0, 256)]
+
+
+def phase_k4_k5():
+    """K4 and K5 against their plain versions on the card, bit for bit,
+    over ``MT_CASES`` and ``QMM_CASES``. Returns the worst |kernel - plain|
+    per kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 8)
+    worst = {"multi_threshold": 0, "qmatmul": 0}
+    for m, c, steps in MT_CASES:
+        acc = torch.as_tensor(rng.integers(-5000, 5000, (m, c)),
+                              dtype=torch.int32).cuda()
+        thr = torch.as_tensor(np.sort(rng.integers(-4000, 4000, (c, steps)),
+                                      axis=1), dtype=torch.int32).cuda()
+        got = ops.multi_threshold(acc, thr)
+        want = ref.multi_threshold_ref(acc, thr)
+        err = int((got - want).abs().max())
+        worst["multi_threshold"] = max(worst["multi_threshold"], err)
+        check(err == 0 and torch.equal(got, want),
+              f"multi_threshold M={m} C={c} S={steps}: max err {err}")
+        log(f"kernel-check multi_threshold M={m} C={c} S={steps}: exact")
+    for m, k, n, relu, has_bias, out_scale in QMM_CASES:
+        x = torch.as_tensor(rng.integers(-127, 128, (m, k)),
+                            dtype=torch.int8).cuda()
+        w = torch.as_tensor(rng.integers(-127, 128, (k, n)),
+                            dtype=torch.int8).cuda()
+        sc = torch.as_tensor(rng.uniform(1e-3, 1e-2, n),
+                             dtype=torch.float32).cuda()
+        b = (torch.as_tensor(rng.standard_normal(n),
+                             dtype=torch.float32).cuda() if has_bias
+             else None)
+        kw = dict(relu=relu, out_scale=out_scale)
+        got = ops.qmatmul(x, w, sc, b, **kw)
+        want = ref.qmatmul_ref(x, w, sc, b, **kw)
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"qmatmul {m}x{k}x{n}: {got.dtype} {tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        worst["qmatmul"] = max(worst["qmatmul"], err)
+        check(err == 0 and torch.equal(got, want),
+              f"qmatmul M={m} K={k} N={n} relu={relu} bias={has_bias} "
+              f"out_scale={out_scale}: max err {err}")
+        log(f"kernel-check qmatmul M={m} K={k} N={n} relu={relu} "
+            f"bias={has_bias} out_scale={out_scale} ({got.dtype}): exact")
+    return worst
+
+
+def phase_k1_tiles():
+    """Every K1 tile instantiation against the plain version (the K1
+    tiling the autotuner picks from). Returns the worst error."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator().manual_seed(SEED + 9)
+    worst = 0
+    for m, k, n, s, lo, hi in TILE_CASES:
+        x = torch.randint(lo, hi, (m, k), generator=g, dtype=torch.int32)
+        w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        t = _banks(ref.int_matmul(x, w), n, s, g)
+        x, w, t = x.cuda(), w.cuda(), t.cuda()
+        want = ref.threshold_matmul_ref(x, w, t)
+        for bm in ops.TMM_TILE_SIZES:
+            for bn in ops.TMM_TILE_SIZES:
+                got = ops.threshold_matmul(x, w, t, block_m=bm, block_n=bn)
+                err = int((got - want).abs().max())
+                worst = max(worst, err)
+                check(err == 0, f"threshold_matmul tile {bm}x{bn} M={m} "
+                                f"K={k} N={n} S={s}: max err {err}")
+        log(f"kernel-check threshold_matmul M={m} K={k} N={n} S={s}: exact "
+            f"under all {len(ops.TMM_TILE_SIZES) ** 2} tiles")
+    return worst
+
+
+def phase_kernel_bench():
+    """The kernel bench (``repro_torch.bench.kernel_bench``) on the card:
+    counters to 0, the bench's checking pass (one launch of each K4 and
+    K5 case, held exactly against the plain version and the library
+    call), counters read; then its timing pass and its conv-lowering and
+    megakernel sections, and ``BENCH_torch_kernels.json`` into
+    ``chiprun_out/``. Returns (counted launches, kernels-line rows, worst
+    |kernel - plain|, the bench's rows)."""
+    import torch
+    from repro_torch.bench import kernel_bench as kb
+    from repro_torch.bench.common import emit_json
+    from repro_torch.kernels import ops
+
+    cases = kb.kernel_cases("cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    worst = kb.check_cases(cases)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    log(f"kernel bench launches (checking pass): {json.dumps(launches)}")
+    for name in BENCH_KERNELS:
+        check(launches[name] == sum(c["kernel"] == name for c in cases),
+              f"the kernel bench launched {name} {launches[name]} times")
+    for name in TINY_KERNELS + LM_KERNELS:
+        check(launches[name] == 0, f"the kernel bench's checking pass "
+                                   f"launched {name}")
+    timed = kb.time_cases(cases)
+    rows = []
+    for r in timed:
+        d = r["derived"]
+        row = {"kernel": d["kernel"], "model": "kernel_bench",
+               "stage": r["name"], "shape": d["shape"], "bytes": d["bytes"],
+               "ops": d["ops"], "launches": 1, "ms": d["ms"],
+               "plain_ms": d["plain_ms"], "library_ms": d["library_ms"]}
+        peak = PEAK_OPS_PER_S[row["kernel"]]
+        row["bound_ms"] = bound_ms(row["bytes"], row["ops"], peak)
+        row["bound_by"] = bound_by(row["bytes"], row["ops"], peak)
+        rows.append(row)
+        log(f"time {row['kernel']} kernel_bench {row['shape']}: kernel "
+            f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, "
+            f"{d['library_is']} {row['library_ms']:.6f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    extra = kb.conv_lowering_rows("cuda") + kb.megakernel_rows("cuda")
+    for r in extra:
+        log(f"bench {r['name']}: {r['us_per_call']:.3f} us "
+            f"{json.dumps(r['derived'])}")
+    emit_json("BENCH_torch_kernels.json",
+              {"rows": timed + extra, "max_abs_err": worst,
+               "device": torch.cuda.get_device_name(0)},
+              os.path.join(ROOT, "chiprun_out"))
+    return launches, rows, worst, timed + extra
+
+
+def _headless(cm):
+    """The same tuned schedule without its float head, same dispatch: its
+    outputs are the integer codes."""
+    import dataclasses
+
+    from repro_torch.deploy import CompiledTinyModel
+
+    return CompiledTinyModel(
+        dataclasses.replace(cm.schedule, stages=cm.schedule.stages[:-1]),
+        device=cm.device, megakernel=cm.megakernel)
+
+
+def phase_autotune(models, cache):
+    """``autotune_model`` on the four models (full-width KWS and AD, the
+    IC/CNV goldens) with the cache in ``cache``: the config is printed;
+    the tuned ``offline`` equals the untuned one (codes bit for bit, logits
+    within 1e-5); a second call returns the same config from the cache
+    without probing. Returns {name: tuned compiled model}."""
+    import torch
+    from repro_torch.deploy import compile_graph
+    from repro_torch.deploy.autotune import autotune_model
+
+    def no_probe(cm, x, micro_batch):
+        raise SmokeFailure("the second autotune call probed: the cache was "
+                           "not read")
+
+    tuned = {}
+    for n, g, s, x in models:
+        xc = torch.as_tensor(x).cuda()
+        cm = compile_graph(g, in_scale=s, device="cuda",
+                           conv_lowering="direct")
+        y0, codes0 = cm.offline(xc), _headless(cm).offline(xc)
+        cfg = autotune_model(cm, batch=64, directory=cache, force=True)
+        again = autotune_model(cm, batch=64, directory=cache, force=False,
+                               probe=no_probe)
+        check(again == cfg, f"{n}: the cached config differs from the "
+                            f"searched one")
+        cm.apply_tuned(cfg)
+        y1, codes1 = cm.offline(xc), _headless(cm).offline(xc)
+        check(torch.equal(codes0, codes1),
+              f"{n}: tuned offline codes differ from untuned")
+        if y0.dtype.is_floating_point:
+            torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
+        else:
+            check(torch.equal(y0, y1), f"{n}: tuned offline differs")
+        shown = {k: getattr(cfg, k) for k in (
+            "key", "platform", "micro_batch", "block_h", "block_mn",
+            "segment_mode", "probe_ms", "block_mn_probe", "fifo_depths",
+            "modeled_cycles", "modeled_traffic_bytes", "source")}
+        shown["segment_mode_probe_ms"] = cfg.segment_mode_model.get(
+            "probe_ms")
+        log(f"autotune {n}: {json.dumps(shown)}")
+        log(f"autotune {n}: the second call loaded the config from the "
+            f"cache; tuned offline codes equal untuned bit for bit")
+        tuned[n] = cm
+    return tuned
+
+
+def phase_scenarios(models, tuned, smi):
+    """``run_all_scenarios`` on the four tuned models with ``compiled=cm``
+    and ``model_cost=schedule_cost(...)``: p50/p90/p99, qps, roofline and
+    measured energy per scenario, printed beside the card's name and power
+    limit, which must equal ``core.codesign.CHIP_WATTS``; the streamed
+    codes equal ``offline``; then the device time of one batch-1 query
+    (CUDA-graph replay, the query already on the card) beside the
+    SingleStream p50, and the kernels it launches. Returns {name: {report
+    rows, device ms, launches}}."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bops import schedule_cost
+    from repro_torch.core.codesign import CHIP_WATTS
+    from repro_torch.deploy.scenarios import run_all_scenarios
+    from repro_torch.kernels import ops
+
+    limit = float(smi.split(",")[-1].strip().split()[0])
+    check(limit == CHIP_WATTS, f"power limit {limit} W differs from the "
+                               f"energy model's {CHIP_WATTS} W")
+    out = {}
+    for n, _, _, x in models:
+        cm = tuned[n]
+        xc = torch.as_tensor(x).cuda()
+        bits = max(getattr(st, "in_bits", 8) for st in cm.schedule.stages)
+        reports = run_all_scenarios(
+            cm.offline, lambda i, x=x: x[i % len(x)], n_queries=64,
+            n_streams=8, offline_samples=BATCH, server_qps=200.0,
+            model_cost=schedule_cost(cm.schedule.stages), bits=bits,
+            compiled=cm)
+        names = [r.scenario for r in reports]
+        check(names == ["SingleStream", "MultiStream", "Offline", "Server",
+                        "StreamingOffline"], f"{n}: scenarios {names}")
+        rows = []
+        for r in reports:
+            check(all(np.isfinite([r.p50_ms, r.p90_ms, r.p99_ms,
+                                   r.throughput_qps, r.energy_proxy_uJ,
+                                   r.measured_energy_uJ]))
+                  and r.throughput_qps > 0, f"{n} {r.scenario}: {r.row()}")
+            rows.append(r.row())
+            log(f"scenario {n} {r.scenario} ({smi}): p50 {r.p50_ms:.6f} ms, "
+                f"p90 {r.p90_ms:.6f} ms, p99 {r.p99_ms:.6f} ms, "
+                f"{r.throughput_qps:.1f} qps, roofline "
+                f"{r.energy_proxy_uJ:.6f} uJ, measured "
+                f"{r.measured_energy_uJ:.3f} uJ")
+        head = _headless(cm)
+        y_s, st = head.streaming_compiled(xc,
+                                          micro_batch=cm.default_micro_batch)
+        check(torch.equal(y_s, head.offline(xc)),
+              f"{n}: streamed codes differ from offline")
+        log(f"scenario {n}: streamed codes (micro-batch {st.micro_batch}) "
+            f"equal offline bit for bit")
+        # the device's share of a SingleStream query: one batch-1 offline
+        # call on a query already on the card, by CUDA-graph replay, and
+        # the kernels it launches
+        x1 = xc[:1].contiguous()
+        before = dict(ops.launches)
+        cm.offline(x1)
+        torch.cuda.synchronize()
+        per_query = {k: ops.launches[k] - before[k] for k in before
+                     if ops.launches[k] != before[k]}
+        dev_ms = time_ms(lambda: cm.offline(x1))
+        p50 = reports[0].p50_ms
+        log(f"scenario {n} SingleStream breakdown ({smi}): device "
+            f"{dev_ms:.6f} ms of the {p50:.6f} ms p50 "
+            f"({dev_ms / p50:.1%}), launches per query "
+            f"{json.dumps(per_query)}")
+        out[n] = {"reports": rows, "single_stream_device_ms": dev_ms,
+                  "single_stream_launches": per_query}
+    return out
+
 
 def kernels_line(rows, launches, worst):
     """One entry per kernel. ``launches`` is the counted main-path run of
@@ -1314,6 +1576,14 @@ def main() -> int:
         del k6_case
         lm["depth_cut_max_diff"] = phase_lm_depth_cut()
         lm["serving"] = phase_lm_serving()
+        worst_k45 = phase_k4_k5()
+        worst_tiles = phase_k1_tiles()
+        bench_launches, bench_rows, worst_bench, bench = phase_kernel_bench()
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                prefix="autotune-", dir=os.path.join(ROOT, "build")) as cache:
+            tuned = phase_autotune(models, cache)
+        scenarios = phase_scenarios(models, tuned, smi)
         lm["profile"] = phase_lm_profile()
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
@@ -1322,10 +1592,15 @@ def main() -> int:
             f"4 slots)")
         worst = {k: max(worst_syn[k], worst_main[k], worst_wide[k])
                  for k in TINY_KERNELS}
+        worst["threshold_matmul"] = max(worst["threshold_matmul"],
+                                        worst_tiles)
         worst["flash_attention"] = max(worst_lm, *worst_flash.values())
+        for k in BENCH_KERNELS:
+            worst[k] = max(worst_k45[k], worst_bench[k])
         launches = {**{k: launches[k] for k in TINY_KERNELS},
-                    **{k: lm_launches[k] for k in LM_KERNELS}}
-        line = kernels_line(rows + k6_rows, launches, worst)
+                    **{k: lm_launches[k] for k in LM_KERNELS},
+                    **{k: bench_launches[k] for k in BENCH_KERNELS}}
+        line = kernels_line(rows + k6_rows + bench_rows, launches, worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1340,7 +1615,8 @@ def main() -> int:
                    "streaming_logits_bit_for_bit": bitwise,
                    "flash_attention": {"max_err_by_dtype": worst_flash,
                                        "main_path_shape": k6_rows},
-                   "lm": lm, "kernels": line},
+                   "lm": lm, "kernel_bench": bench,
+                   "scenarios": scenarios, "kernels": line},
                   f, indent=1)
     log(json.dumps(line))
     log(smi)

@@ -1,12 +1,23 @@
-"""Megakernel residency accounting and the residency-aware traffic model.
+"""Hardware-cost metrics: BOPs, weight memory, inference cost, schedule
+traffic, and the megakernel residency accounting.
 
-The port of the megakernel part of ``repro.core.bops`` (the rest of that
-module — ``stage_cost``, ``schedule_cost``, ``conv_input_band_bytes`` —
-comes with the measurement slice). The byte accounting is the reference's,
-function for function; ``tests/test_torch_megakernel.py`` holds it equal.
+The port of ``repro.core.bops`` (all but ``lm_model_flops``, which the
+LM roofline of ROADMAP item 9 brings). Eq. 1 / Eq. 2 of the paper:
 
-What differs is the budget. The reference admits a run when its whole
-working set (weights + banks + tiles) fits one 2 MiB VMEM cap
+  BOPs ~= m*n*k^2 * (b_a*b_w + b_a + b_w + log2(n*k^2))          (Eq. 1)
+  C     = 0.5 * (BOPs/BOPs_ref + WM/WM_ref)                      (Eq. 2)
+
+and the compiled-schedule costing (``stage_cost``, ``schedule_cost``,
+``stage_traffic_bytes``, ``conv_input_band_bytes``) that the scenario
+runtime's energy proxy and the autotuner read. Function for function the
+arithmetic is the reference's (``tests/test_torch_bops.py`` and
+``tests/test_torch_megakernel.py`` hold it equal); the reference reaches
+``repro.kernels`` for the conv helpers, the port its own
+``kernels/conv_threshold.py``, imported inside the functions because
+``kernels.ops`` imports this module.
+
+What differs is the megakernel budget. The reference admits a run when its
+whole working set (weights + banks + tiles) fits one 2 MiB VMEM cap
 (``MEGAKERNEL_VMEM_BYTES``). On the H100 a thread block has at most
 227 KB of shared memory, less than the weights alone of the full-width KWS
 (256,512 B) or the weights and banks of AD (322,656 B). So the port's
@@ -24,6 +35,197 @@ and on the kernel's limit of ``MEGAKERNEL_MAX_STAGES`` stages per launch.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Iterable, List
+
+
+def conv_bops(m: int, n: int, k: int, b_a: int, b_w: int,
+              out_hw: int = 1) -> float:
+    """Eq. 1 for one conv layer, times the number of output positions.
+
+    m: out channels, n: in channels, k: kernel size, out_hw: H_out*W_out."""
+    per_pos = m * n * k * k * (b_a * b_w + b_a + b_w
+                                + math.log2(max(n * k * k, 2)))
+    return per_pos * out_hw
+
+
+def dense_bops(m: int, n: int, b_a: int, b_w: int) -> float:
+    """Eq. 1 with k=1 (fully connected)."""
+    return conv_bops(m, n, 1, b_a, b_w, out_hw=1)
+
+
+def weight_memory_bits(n_weights: int, b_w: int) -> int:
+    """WM: total bits to store the weights."""
+    return n_weights * b_w
+
+
+def inference_cost(bops: float, wm: float, bops_ref: float,
+                   wm_ref: float) -> float:
+    """Eq. 2 relative inference cost."""
+    return 0.5 * (bops / bops_ref + wm / wm_ref)
+
+
+@dataclass
+class LayerCost:
+    name: str
+    bops: float
+    wm_bits: int
+    flops: float
+    n_params: int
+    traffic_bytes: float = 0.0   # per-query memory traffic (schedule costing)
+
+
+def dense_cost(name, in_dim, out_dim, b_a=8, b_w=8, bias=True) -> LayerCost:
+    n_w = in_dim * out_dim + (out_dim if bias else 0)
+    return LayerCost(name=name, bops=dense_bops(out_dim, in_dim, b_a, b_w),
+                     wm_bits=weight_memory_bits(n_w, b_w),
+                     flops=2.0 * in_dim * out_dim, n_params=n_w)
+
+
+def conv_cost(name, in_ch, out_ch, k, out_h, out_w, b_a=8, b_w=8,
+              bias=True) -> LayerCost:
+    n_w = k * k * in_ch * out_ch + (out_ch if bias else 0)
+    return LayerCost(
+        name=name,
+        bops=conv_bops(out_ch, in_ch, k, b_a, b_w, out_hw=out_h * out_w),
+        wm_bits=weight_memory_bits(n_w, b_w),
+        flops=2.0 * k * k * in_ch * out_ch * out_h * out_w, n_params=n_w)
+
+
+@dataclass
+class ModelCost:
+    layers: List[LayerCost]
+
+    @property
+    def bops(self) -> float:
+        return sum(l.bops for l in self.layers)
+
+    @property
+    def wm_bits(self) -> int:
+        return sum(l.wm_bits for l in self.layers)
+
+    @property
+    def flops(self) -> float:
+        return sum(l.flops for l in self.layers)
+
+    @property
+    def n_params(self) -> int:
+        return sum(l.n_params for l in self.layers)
+
+    @property
+    def traffic_bytes(self) -> float:
+        return sum(l.traffic_bytes for l in self.layers)
+
+    def cost_vs(self, ref: "ModelCost") -> float:
+        return inference_cost(self.bops, self.wm_bits, ref.bops, ref.wm_bits)
+
+    def table(self) -> str:
+        rows = [f"{'layer':24s} {'params':>10s} {'BOPs':>14s} "
+                f"{'WM[bits]':>12s} {'FLOPs':>14s}"]
+        for l in self.layers:
+            rows.append(f"{l.name:24s} {l.n_params:>10d} {l.bops:>14.3e} "
+                        f"{l.wm_bits:>12d} {l.flops:>14.3e}")
+        rows.append(f"{'TOTAL':24s} {self.n_params:>10d} {self.bops:>14.3e} "
+                    f"{self.wm_bits:>12d} {self.flops:>14.3e}")
+        return "\n".join(rows)
+
+
+# ---------------------------------------------------------------------------
+# compiled-schedule costing (deploy.lower stage lists)
+# ---------------------------------------------------------------------------
+
+def _padded_width(geom) -> int:
+    """The input width a direct-conv row band carries: SAME-padded or not."""
+    from repro_torch.kernels.conv_threshold import same_pads
+
+    if geom.padding != "SAME":
+        return geom.in_w
+    (_, _), (pw_lo, pw_hi) = same_pads(geom.in_h, geom.in_w, geom.out_h,
+                                       geom.out_w, geom.stride, geom.kernel)
+    return geom.in_w + pw_lo + pw_hi
+
+
+def conv_input_band_bytes(geom, block_h: int) -> float:
+    """Input bytes one query streams through the fused direct-conv kernel
+    at a given output-row block: per-block bands of
+    ``(block_h - 1) * stride + kernel`` padded input rows, halo rows
+    counted once per block they belong to."""
+    from repro_torch.kernels.conv_threshold import band_rows
+
+    bh = max(1, min(int(block_h), geom.out_h))
+    n_blocks = -(-geom.out_h // bh)
+    return 4.0 * n_blocks * band_rows(bh, geom.stride, geom.kernel) \
+        * _padded_width(geom) * geom.in_ch
+
+
+def stage_traffic_bytes(stage) -> float:
+    """Memory-traffic model of one lowered deploy stage for one batch-1
+    query: input and output codes (int32), parameters (int8 weights, int32
+    thresholds, float32 head weights); an im2col conv stage also writes and
+    re-reads its patch matrix, a direct one streams row bands (tuned
+    ``block_h`` or ``plan_conv_blocks``' default) in place of its flat
+    input."""
+    io = 4.0 * (int(getattr(stage, "in_dim", 0))
+                + int(getattr(stage, "out_dim", 0)))
+    bank = getattr(stage, "stage", None)        # ThresholdDense, if fused
+    params = 0.0
+    if bank is not None:
+        params = (float(math.prod(bank.w_int.shape))
+                  + 4.0 * float(math.prod(bank.thresholds.shape)))
+    w = getattr(stage, "w", None)               # FloatHeadStage
+    if w is not None:
+        params = 4.0 * float(math.prod(w.shape))
+    geom = getattr(stage, "geom", None)
+    if geom is not None and getattr(stage, "lowering", "direct") == "im2col":
+        patch = (geom.out_h * geom.out_w
+                 * geom.kernel * geom.kernel * geom.in_ch)
+        io += 2.0 * 4.0 * patch                 # write + read the im2col mat
+    elif geom is not None:
+        bh = getattr(stage, "block_h", None)
+        if not bh:
+            from repro_torch.kernels.conv_threshold import plan_conv_blocks
+
+            bh = plan_conv_blocks(geom.out_h, geom.out_w, geom.out_ch)
+        io += conv_input_band_bytes(geom, bh) \
+            - 4.0 * int(getattr(stage, "in_dim", 0))
+    return io + params
+
+
+def stage_cost(stage) -> LayerCost:
+    """Eq. 1/2 cost of one lowered deploy stage, by duck type: conv stages
+    carry a ``geom``, matmul-like stages ``in_dim``/``out_dim``, pool and
+    flatten stages cost no BOPs; ``traffic_bytes`` is
+    ``stage_traffic_bytes``."""
+    name = getattr(stage, "name", type(stage).__name__)
+    b_a = int(getattr(stage, "in_bits", 8))
+    bank = getattr(stage, "stage", None)
+    b_w = int(getattr(bank, "weight_bits", 8))
+    geom = getattr(stage, "geom", None)
+    traffic = stage_traffic_bytes(stage)
+    if geom is not None:
+        c = conv_cost(name, geom.in_ch, geom.out_ch, geom.kernel,
+                      geom.out_h, geom.out_w, b_a, b_w, bias=False)
+        c.traffic_bytes = traffic
+        return c
+    w = getattr(stage, "w", None)
+    if bank is not None or w is not None:
+        c = dense_cost(name, int(stage.in_dim), int(stage.out_dim),
+                       b_a, b_w, bias=w is not None)
+        c.traffic_bytes = traffic
+        return c
+    return LayerCost(name=name, bops=0.0, wm_bits=0, flops=0.0, n_params=0,
+                     traffic_bytes=traffic)
+
+
+def schedule_cost(stages: Iterable) -> ModelCost:
+    """ModelCost of a compiled ``StageSchedule.stages`` list: the energy
+    proxy the scenario runtime attaches to a deployment."""
+    return ModelCost([stage_cost(s) for s in stages])
+
+
+# ---------------------------------------------------------------------------
+# megakernel residency accounting + residency-aware traffic model
+# ---------------------------------------------------------------------------
 
 #: Shared memory one thread block may use on sm_90 (227 KB = 232,448 B,
 #: the ``cudaFuncAttributeMaxDynamicSharedMemorySize`` ceiling; NVIDIA's

@@ -113,6 +113,7 @@ class CompiledTinyModel:
         self.device = resolve_device(device)
         self.schedule = schedule.to(self.device)
         self.graph = graph
+        self.tuned = None          # deploy.autotune.TunedConfig, if applied
         #: megakernel dispatch: None = auto (one launch whenever the planner
         #: admits a run), True = the same, stated as intent, False = every
         #: stage on its own kernel
@@ -161,6 +162,34 @@ class CompiledTinyModel:
                         s.stage.thresholds.t().contiguous()
                         for s in self.schedule.stages[plan.start:plan.stop])
         self._plan_cache: Dict[Tuple[int, int], Tuple[List[int], int]] = {}
+
+    @property
+    def default_micro_batch(self) -> int:
+        """The streaming micro-batch when a call names none: the tuned
+        config's, else ``DEFAULT_MICRO_BATCH``."""
+        return (self.tuned.micro_batch if self.tuned is not None
+                else DEFAULT_MICRO_BATCH)
+
+    def apply_tuned(self, cfg) -> "CompiledTinyModel":
+        """Adopt an autotuned config (``deploy.autotune.TunedConfig``): the
+        streaming default micro-batch, per-conv-stage ``block_h`` (K2's row
+        block), per-dense-stage ``block_m``/``block_n`` (K1's tile) and the
+        probed megakernel-or-staged dispatch. Codes do not change. Returns
+        self."""
+        for s in self.schedule.stages:
+            if isinstance(s, FusedConvThresholdStage):
+                bh = cfg.block_h.get(s.name)
+                if bh is not None:
+                    s.block_h = min(int(bh), s.geom.out_h)
+            elif isinstance(s, FusedThresholdStage):
+                mn = cfg.block_mn.get(s.name)
+                if mn is not None:
+                    s.block_m, s.block_n = int(mn[0]), int(mn[1])
+        if cfg.segment_mode in ("megakernel", "staged"):
+            self.megakernel = cfg.segment_mode == "megakernel"
+        self.tuned = cfg
+        self._rebuild()
+        return self
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -310,7 +339,7 @@ class CompiledTinyModel:
         bookkeeping restores batch order regardless).
         """
         micro_batch = (int(micro_batch) if micro_batch
-                       else DEFAULT_MICRO_BATCH)
+                       else self.default_micro_batch)
         x_int, n, n_micro = self._pad_micro(x_int, micro_batch)
         depths, sim_cycles = self.plan_streaming(n_micro,
                                                  micro_batch=micro_batch)
@@ -395,7 +424,7 @@ class CompiledTinyModel:
         Validation errors are ``ValueError``s; a failure inside execution
         comes out as ``serve.faults.WaveError``.
         """
-        mb = int(micro_batch) if micro_batch else DEFAULT_MICRO_BATCH
+        mb = int(micro_batch) if micro_batch else self.default_micro_batch
         xb = (x_int.cpu().numpy() if isinstance(x_int, torch.Tensor)
               else np.asarray(x_int))
         n = xb.shape[0]
@@ -493,8 +522,9 @@ class CompiledTinyModel:
         loop: the batch is cut into micro-batches, stacked into one wave
         and pushed through each segment program (``_segment_fn``).
         Bit-identical to ``offline`` and ``streaming_host``.
-        ``micro_batch=None`` uses ``DEFAULT_MICRO_BATCH``."""
-        mb = int(micro_batch) if micro_batch else DEFAULT_MICRO_BATCH
+        ``micro_batch=None`` uses the tuned micro-batch (``apply_tuned``),
+        else ``DEFAULT_MICRO_BATCH``."""
+        mb = int(micro_batch) if micro_batch else self.default_micro_batch
         x_int, n, n_micro = self._pad_micro(x_int, mb)
         depths, sim_cycles = self.plan_streaming(n_micro, micro_batch=mb)
         wave = x_int.reshape((n_micro, mb) + tuple(x_int.shape[1:]))
@@ -514,8 +544,8 @@ class CompiledTinyModel:
 
 def compile_graph(graph: Graph, in_scale: float = 1.0 / 127.0,
                   conv_lowering: Optional[str] = None,
-                  megakernel: Optional[bool] = None, tracer=None,
-                  device=None) -> CompiledTinyModel:
+                  megakernel: Optional[bool] = None, autotune: bool = False,
+                  tuned=None, tracer=None, device=None) -> CompiledTinyModel:
     """The one-call deployment entry point: QIR graph -> executor.
 
     ``device`` None means CUDA and raises when no card is present (there is
@@ -523,9 +553,24 @@ def compile_graph(graph: Graph, in_scale: float = 1.0 / 127.0,
     ``conv_lowering`` picks the conv stage algorithm ("direct" kernel by
     default, "im2col"); None defers to ``REPRO_CONV_LOWERING``.
     ``megakernel`` None (the default) lets the planner decide per segment,
-    True states the same intent, False runs every stage on its own kernel.
+    True states the same intent, False runs every stage on its own kernel;
+    an applied config's probed ``segment_mode`` overrides it.
+
+    ``tuned`` applies a prebuilt ``deploy.autotune.TunedConfig``;
+    ``autotune=True`` instead loads (or searches and caches) the config
+    for this (model, device) with ``deploy.autotune.autotune_model``,
+    following the ``REPRO_AUTOTUNE*`` variables.
     """
     schedule = lower_graph(graph, in_scale=in_scale,
                            conv_lowering=conv_lowering)
-    return CompiledTinyModel(schedule, graph=graph, device=device,
-                             megakernel=megakernel, tracer=tracer)
+    cm = CompiledTinyModel(schedule, graph=graph, device=device,
+                           megakernel=megakernel, tracer=tracer)
+    if tuned is not None:
+        cm.apply_tuned(tuned)
+    elif autotune:
+        from repro_torch.deploy.autotune import autotune_mode, autotune_model
+
+        mode = autotune_mode()
+        if mode != "off":
+            cm.apply_tuned(autotune_model(cm, mode=mode))
+    return cm

@@ -117,6 +117,8 @@ class FusedThresholdStage:
     in_bits: int = 8
     mm_float: bool = False   # see _float_mm_safe (parity only)
     affine: Optional[tuple] = None   # see _exact_affine (parity only)
+    block_m: Optional[int] = None    # tuned K1 tile rows (None = default)
+    block_n: Optional[int] = None    # tuned K1 tile columns (None = default)
 
     @property
     def out_scale(self) -> float:
@@ -133,7 +135,9 @@ class FusedThresholdStage:
         # int32, not int8: inter-stage codes are unsigned up to 255 with
         # 8-bit activations and would wrap under an int8 cast
         return ops.threshold_matmul(x_int.to(torch.int32).contiguous(),
-                                    self.stage.w_int, self.stage.thresholds)
+                                    self.stage.w_int, self.stage.thresholds,
+                                    block_m=self.block_m,
+                                    block_n=self.block_n)
 
 
 @dataclasses.dataclass
@@ -179,6 +183,7 @@ class FusedConvThresholdStage:
     mm_float: bool = False
     affine: Optional[tuple] = None
     lowering: str = "direct"         # "direct" | "im2col"
+    block_h: Optional[int] = None    # tuned K2 row block (None = planner)
 
     @property
     def out_scale(self) -> float:
@@ -232,7 +237,7 @@ class FusedConvThresholdStage:
             return ops.conv_threshold(
                 x, self.stage.w_int, self.stage.thresholds,
                 kernel=g.kernel, stride=g.stride, padding=g.padding,
-                out_h=g.out_h, out_w=g.out_w)
+                out_h=g.out_h, out_w=g.out_w, block_h=self.block_h)
         y = ops.threshold_matmul(
             self._cols2d(x_int).to(torch.int32).contiguous(),
             self.stage.w_int, self.stage.thresholds)

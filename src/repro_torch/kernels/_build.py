@@ -27,12 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 #: ctypes signature of each source's one C entry point: (symbol, argtypes);
-#: pointers and the stream are c_void_p, sizes c_int, the result is the
-#: launch's cudaError_t.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+#: pointers and the stream are c_void_p, sizes c_int, scales c_float, the
+#: result is the launch's cudaError_t.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
+    # x, w, thr, out, M, N, K, S, block_m, block_n, stream
     "threshold_matmul": ("threshold_matmul_launch",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                         [_P, _P, _P, _P] + [_I] * 6 + [_P]),
     "conv_threshold": ("conv_threshold_launch",
                        [_P, _P, _P, _P] + [_I] * 11 + [_P]),
     # x, out, host arrays of weight and bank pointers, dims, steps
@@ -41,6 +42,13 @@ ENTRY_POINTS = {
     # q, k, v, out, 11 sizes and flags, host array of 12 strides, stream
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P] + [_I] * 11 + [_P, _P]),
+    # acc, thr, out, M, C, S, stream
+    "multi_threshold": ("multi_threshold_launch",
+                        [_P, _P, _P, _I, _I, _I, _P]),
+    # x, w, scale, bias (or null), out, M, N, K, relu, requant,
+    # 1 / out_scale, stream
+    "qmatmul": ("qmatmul_launch",
+                [_P] * 5 + [_I] * 5 + [_F, _P]),
 }
 
 _LOCK = threading.Lock()

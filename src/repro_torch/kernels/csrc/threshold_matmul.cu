@@ -9,13 +9,19 @@
 // Bound on the H100: at the tiny models' shapes (K <= 490, N <= 256,
 // M = 1024 rows) every call moves a few MB at most and does well under a
 // GFLOP, so the card's bound is some microseconds and a launch costs more.
-// This is the simple, correct first version: a 64 x 64 output tile per
-// block of 256 threads, each thread 4 x 4 outputs; x and w tiles of depth
-// 32 staged in shared memory as int32; exact int32 multiply-accumulate on
-// the CUDA cores. Ragged M/N/K edges are masked in the kernel (out-of-range
-// loads read 0, out-of-range outputs are not written), so the host pads
-// nothing and needs no INT32_MAX channel padding. No wgmma, TMA or
+// This is the simple, correct first version: a BM x BN output tile per
+// block of BM * BN / 16 threads, each thread 4 x 4 outputs; x and w tiles
+// of depth 32 staged in shared memory as int32 (at most 33 KB at 128 x
+// 128); exact int32 multiply-accumulate on the CUDA cores. Ragged M/N/K
+// edges are masked in the kernel (out-of-range loads read 0, out-of-range
+// outputs are not written), so the host pads nothing and needs no
+// INT32_MAX channel padding. No wgmma, TMA or
 // cp.async yet: those are later work.
+//
+// The tile is a template parameter, instantiated for BM and BN in
+// {32, 64, 128} (kernels/ops.py's TMM_TILE_SIZES, which must match); the
+// launch picks one at run time. 64 x 64 is the default. Every tile
+// computes the same integers: only the grid and the block change.
 //
 // Why x is int32: the first layer's codes are signed (-127..127) and later
 // codes are unsigned up to 255 (8-bit activations), so neither s8 nor u8
@@ -33,14 +39,12 @@
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
 constexpr int BK = 32;
 constexpr int TM = 4;
 constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 
-__global__ void __launch_bounds__(THREADS)
+template <int BM, int BN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
 threshold_matmul_kernel(const int32_t* __restrict__ x,
                         const int8_t* __restrict__ w,
                         const int32_t* __restrict__ thr,
@@ -49,6 +53,7 @@ threshold_matmul_kernel(const int32_t* __restrict__ x,
   // xs is stored k-major so a thread's TM rows sit side by side
   __shared__ int32_t xs[BK][BM + 1];
   __shared__ int32_t ws[BK][BN];
+  constexpr int THREADS = (BM / TM) * (BN / TN);
 
   const int tid = threadIdx.x;
   const int tn = tid % (BN / TN);   // column group: outputs tn*TN .. +TN
@@ -114,17 +119,35 @@ threshold_matmul_kernel(const int32_t* __restrict__ x,
   }
 }
 
+template <int BM, int BN>
+int launch(const void* x, const void* w, const void* thr, void* out, int M,
+           int N, int K, int S, cudaStream_t stream) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  threshold_matmul_kernel<BM, BN>
+      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+          (const int32_t*)x, (const int8_t*)w, (const int32_t*)thr,
+          (int32_t*)out, M, N, K, S);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). x (M, K) int32, w (K, N) int8,
 // thr (N, S) int32, out (M, N) int32, all contiguous on the device; the
-// launch goes on `stream` and the function returns cudaGetLastError().
+// output tile is block_m x block_n, each in {32, 64, 128}. The launch goes
+// on `stream` and the function returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a tile that is not instantiated.
 extern "C" int threshold_matmul_launch(const void* x, const void* w,
                                        const void* thr, void* out, int M,
-                                       int N, int K, int S, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  threshold_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (const int8_t*)w, (const int32_t*)thr,
-      (int32_t*)out, M, N, K, S);
-  return (int)cudaGetLastError();
+                                       int N, int K, int S, int block_m,
+                                       int block_n, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define TILE(bm, bn)                                        \
+  if (block_m == bm && block_n == bn)                       \
+    return launch<bm, bn>(x, w, thr, out, M, N, K, S, st);
+  TILE(32, 32) TILE(32, 64) TILE(32, 128)
+  TILE(64, 32) TILE(64, 64) TILE(64, 128)
+  TILE(128, 32) TILE(128, 64) TILE(128, 128)
+#undef TILE
+  return (int)cudaErrorInvalidValue;
 }

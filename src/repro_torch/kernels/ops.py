@@ -1,7 +1,8 @@
 """Public wrappers around the port's CUDA kernels.
 
-``threshold_matmul``, ``conv_threshold``, ``mlp_megakernel`` and
-``flash_attention`` are the counterparts of the functions of the same names in ``repro.kernels.ops``.
+``threshold_matmul``, ``conv_threshold``, ``mlp_megakernel``,
+``flash_attention``, ``multi_threshold`` and ``qmatmul`` are the
+counterparts of the functions of the same names in ``repro.kernels.ops``.
 Each one checks its arguments, then:
 
   * for CUDA tensors launches its kernel (``csrc/*.cu``, built at first
@@ -17,8 +18,9 @@ kernels (``reset_launches`` before, read after).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.bops import (MEGAKERNEL_BLOCK_M, MEGAKERNEL_MAX_STAGES,
@@ -29,12 +31,22 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.conv_threshold import plan_conv_blocks
 
 __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
-           "flash_attention", "megakernel_smem_bytes", "plan_conv_blocks",
-           "launches", "reset_launches", "FLASH_HEAD_DIMS"]
+           "flash_attention", "multi_threshold", "qmatmul",
+           "megakernel_smem_bytes", "plan_conv_blocks", "launches",
+           "reset_launches", "FLASH_HEAD_DIMS", "TMM_TILE_SIZES",
+           "TMM_DEFAULT_TILE"]
 
 #: Kernel launches since the last ``reset_launches``, by kernel name.
 launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
-                            "mlp_megakernel": 0, "flash_attention": 0}
+                            "mlp_megakernel": 0, "flash_attention": 0,
+                            "multi_threshold": 0, "qmatmul": 0}
+
+#: ``threshold_matmul``'s output tiles: block_m and block_n each take one of
+#: these (the template instantiations of ``csrc/threshold_matmul.cu``).
+TMM_TILE_SIZES = (32, 64, 128)
+
+#: The tile ``threshold_matmul`` takes unless a tuned config says otherwise.
+TMM_DEFAULT_TILE: Tuple[int, int] = (64, 64)
 
 #: Head dims ``flash_attention``'s kernel is built for (16: the reduced
 #: configs; 80: h2o-danube; 128: llama3, internlm2, qwen1.5).
@@ -70,12 +82,22 @@ def _raise_on_error(kernel: str, err: int) -> None:
 
 
 def threshold_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
-                     thresholds: torch.Tensor) -> torch.Tensor:
+                     thresholds: torch.Tensor, *,
+                     block_m: Optional[int] = None,
+                     block_n: Optional[int] = None) -> torch.Tensor:
     """Fused integer dense stage (matmul + multi-threshold).
 
     x_int (M, K) int32 codes, w_int (K, N) int8, thresholds (N, S) int32;
-    returns (M, N) int32 codes in [0, S]. Ragged shapes need no padding."""
+    returns (M, N) int32 codes in [0, S]. Ragged shapes need no padding.
+    ``block_m`` x ``block_n`` is the kernel's output tile, each in
+    ``TMM_TILE_SIZES`` (None: ``TMM_DEFAULT_TILE``); every tile gives the
+    same codes."""
     kind = _device_kind(x_int)
+    bm = TMM_DEFAULT_TILE[0] if block_m is None else int(block_m)
+    bn = TMM_DEFAULT_TILE[1] if block_n is None else int(block_n)
+    if bm not in TMM_TILE_SIZES or bn not in TMM_TILE_SIZES:
+        raise ValueError(f"tile {bm} x {bn}: block_m and block_n must be in "
+                         f"{TMM_TILE_SIZES}")
     _check(x_int, "x_int", torch.int32, 2, x_int.device)
     _check(w_int, "w_int", torch.int8, 2, x_int.device)
     _check(thresholds, "thresholds", torch.int32, 2, x_int.device)
@@ -92,7 +114,7 @@ def threshold_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
         return out
     fn = _build.entry_point("threshold_matmul")
     err = fn(x_int.data_ptr(), w_int.data_ptr(), thresholds.data_ptr(),
-             out.data_ptr(), m, n, k, s,
+             out.data_ptr(), m, n, k, s, bm, bn,
              torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("threshold_matmul", err)
     launches["threshold_matmul"] += 1
@@ -101,20 +123,24 @@ def threshold_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
 
 def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
                    thresholds: torch.Tensor, *, kernel: int, stride: int,
-                   padding: str, out_h: int, out_w: int) -> torch.Tensor:
+                   padding: str, out_h: int, out_w: int,
+                   block_h: Optional[int] = None) -> torch.Tensor:
     """Fused direct-conv integer stage: NHWC codes -> threshold codes.
 
     x_int (N, H, W, C) int32, w2d (K*K*C, F) int8 in (kh, kw, c) order,
     thresholds (F, S) int32. Pads on the host (the SAME split,
     ``conv_threshold.pad_input``); one thread block covers one sample and
-    ``plan_conv_blocks`` output rows. Returns (N, out_h, out_w, F) int32
-    codes."""
+    ``block_h`` output rows (None: ``plan_conv_blocks``; capped at
+    ``out_h``); every row block gives the same codes. Returns
+    (N, out_h, out_w, F) int32 codes."""
     kind = _device_kind(x_int)
     _check(x_int, "x_int", torch.int32, 4, x_int.device)
     _check(w2d, "w2d", torch.int8, 2, x_int.device)
     _check(thresholds, "thresholds", torch.int32, 2, x_int.device)
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    if block_h is not None and int(block_h) < 1:
+        raise ValueError(f"block_h must be >= 1, got {block_h}")
     nb, _, _, c = x_int.shape
     f, s = thresholds.shape
     if w2d.shape != (kernel * kernel * c, f):
@@ -135,10 +161,12 @@ def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
                       device=x_int.device)
     if out.numel() == 0:
         return out
+    bh = (plan_conv_blocks(out_h, out_w, f) if block_h is None
+          else min(int(block_h), out_h))
     fn = _build.entry_point("conv_threshold")
     err = fn(x_pad.data_ptr(), w2d.data_ptr(), thresholds.data_ptr(),
              out.data_ptr(), nb, hp, wp, c, f, kernel, stride, out_h, out_w,
-             plan_conv_blocks(out_h, out_w, f), s,
+             bh, s,
              torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("conv_threshold", err)
     launches["conv_threshold"] += 1
@@ -265,4 +293,79 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error("flash_attention", err)
     launches["flash_attention"] += 1
+    return out
+
+
+def multi_threshold(acc: torch.Tensor, thresholds: torch.Tensor
+                    ) -> torch.Tensor:
+    """Standalone FINN multi-threshold activation.
+
+    acc (M, C) int32, thresholds (C, S) int32 (sorted or not: the count is
+    the same); returns (M, C) int32 counts #(acc >= T[c, s]) in [0, S].
+    Any bank depth, ragged M and C: the kernel pads nothing."""
+    kind = _device_kind(acc)
+    _check(acc, "acc", torch.int32, 2, acc.device)
+    _check(thresholds, "thresholds", torch.int32, 2, acc.device)
+    m, c = acc.shape
+    if thresholds.shape[0] != c:
+        raise ValueError(f"thresholds shape {tuple(thresholds.shape)} does "
+                         f"not match acc {tuple(acc.shape)}")
+    s = thresholds.shape[1]
+    if kind == "cpu":
+        return ref.multi_threshold_ref(acc, thresholds)
+    out = torch.empty((m, c), dtype=torch.int32, device=acc.device)
+    if out.numel() == 0:
+        return out
+    if (c + 31) // 32 > 65535:
+        raise ValueError(f"{c} channels: above the grid's 65535 x 32")
+    fn = _build.entry_point("multi_threshold")
+    err = fn(acc.data_ptr(), thresholds.data_ptr(), out.data_ptr(), m, c, s,
+             torch.cuda.current_stream(acc.device).cuda_stream)
+    _raise_on_error("multi_threshold", err)
+    launches["multi_threshold"] += 1
+    return out
+
+
+def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, *, relu: bool = False,
+            out_scale: Optional[float] = None) -> torch.Tensor:
+    """Fused int8 stage: int8 x int8 into int32, times the per-channel
+    ``scale``, plus ``bias``, optional ReLU, optional requant.
+
+    x_int (M, K) int8, w_int (K, N) int8, scale and bias (N,) float32.
+    Returns (M, N) float32, or int8 codes clip(round(y / out_scale)) when
+    ``out_scale`` is set (the multiply by its float32 reciprocal, as the
+    Pallas kernel does). Ragged M, N and K need no padding."""
+    kind = _device_kind(x_int)
+    _check(x_int, "x_int", torch.int8, 2, x_int.device)
+    _check(w_int, "w_int", torch.int8, 2, x_int.device)
+    _check(scale, "scale", torch.float32, 1, x_int.device)
+    m, k = x_int.shape
+    n = w_int.shape[1]
+    if w_int.shape[0] != k or scale.shape[0] != n:
+        raise ValueError(f"shapes x {tuple(x_int.shape)}, w "
+                         f"{tuple(w_int.shape)}, scale {tuple(scale.shape)} "
+                         f"do not chain")
+    if bias is not None:
+        _check(bias, "bias", torch.float32, 1, x_int.device)
+        if bias.shape[0] != n:
+            raise ValueError(f"bias shape {tuple(bias.shape)}, need ({n},)")
+    if out_scale is not None and not float(out_scale) > 0:
+        raise ValueError(f"out_scale must be > 0, got {out_scale}")
+    if kind == "cpu":
+        return ref.qmatmul_ref(x_int, w_int, scale, bias, relu=relu,
+                               out_scale=out_scale)
+    out = torch.empty((m, n), device=x_int.device,
+                      dtype=torch.float32 if out_scale is None
+                      else torch.int8)
+    if out.numel() == 0:
+        return out
+    inv = 0.0 if out_scale is None else float(np.float32(1.0 / out_scale))
+    fn = _build.entry_point("qmatmul")
+    err = fn(x_int.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(),
+             m, n, k, int(relu), int(out_scale is not None), inv,
+             torch.cuda.current_stream(x_int.device).cuda_stream)
+    _raise_on_error("qmatmul", err)
+    launches["qmatmul"] += 1
     return out

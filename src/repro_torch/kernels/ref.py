@@ -9,13 +9,16 @@ are no yardstick of speed. Nothing on the CUDA main path calls them.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from repro_torch.kernels.conv_threshold import conv_threshold_ref, int_matmul
 
 __all__ = ["multi_threshold_ref", "threshold_matmul_ref",
            "mlp_megakernel_ref", "conv_threshold_ref", "int_matmul",
-           "flash_attention_ref"]
+           "flash_attention_ref", "qmatmul_ref"]
 
 NEG_INF = -1e30
 
@@ -28,6 +31,34 @@ def multi_threshold_ref(acc: torch.Tensor, thresholds: torch.Tensor
     is the same). Output (..., C) int32 in [0, S]."""
     return torch.sum(acc.unsqueeze(-1) >= thresholds, dim=-1,
                      dtype=torch.int32)
+
+
+def qmatmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
+                scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                relu: bool = False,
+                out_scale: Optional[float] = None) -> torch.Tensor:
+    """Fused int8 stage: exact integer matmul, per-channel dequant, bias,
+    optional ReLU, optional requant to int8.
+
+    x_int (M, K) int8, w_int (K, N) int8, scale and bias (N,) float32.
+    The Pallas kernel's order and roundings (``repro.kernels.qmatmul``):
+    the int32 accumulator cast to float32, times ``scale``, plus ``bias``
+    (zeros when None), each op rounded on its own; the requant multiplies
+    by the float32 reciprocal of ``out_scale``, rounds half to even and
+    clips to [-128, 127]. Returns (M, N) float32, or int8 when
+    ``out_scale`` is set."""
+    y = int_matmul(x_int, w_int).to(torch.float32) * scale.reshape(1, -1)
+    y = y + (bias.reshape(1, -1) if bias is not None
+             else torch.zeros_like(scale).reshape(1, -1))
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    if out_scale is None:
+        return y
+    # the float32 reciprocal as a Python scalar: torch multiplies float32
+    # tensors by it in float32 (and, unlike a tensor, it needs no copy to
+    # the card, so the call can be captured in a CUDA graph)
+    inv = float(np.float32(1.0 / out_scale))
+    return torch.clamp(torch.round(y * inv), -128, 127).to(torch.int8)
 
 
 def threshold_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,

@@ -202,3 +202,76 @@ def test_flash_attention_kernel_equals_plain(cuda, case, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
     assert ops.launches["flash_attention"] == before + 2
+
+
+@pytest.mark.parametrize("m,c,steps", [(16, 8, 3), (128, 72, 255), (5, 3, 1),
+                                       (24, 8, 300), (8, 40, 511),
+                                       (1024, 72, 255), (97, 65, 65)])
+def test_multi_threshold_kernel_equals_plain(cuda, m, c, steps):
+    g = torch.Generator().manual_seed(m * 7 + c + steps)
+    acc = torch.randint(-5000, 5000, (m, c), generator=g, dtype=torch.int32)
+    thr = torch.sort(torch.randint(-4000, 4000, (c, steps), generator=g,
+                                   dtype=torch.int32), dim=1).values
+    want = ops.multi_threshold(acc, thr)                 # plain, on the CPU
+    before = ops.launches["multi_threshold"]
+    got = ops.multi_threshold(acc.to(cuda), thr.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launches["multi_threshold"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 16, 8), (100, 70, 50), (33, 200, 17),
+                                   (512, 512, 512), (1, 3, 5)])
+@pytest.mark.parametrize("relu,bias,out_scale", [(False, True, None),
+                                                 (True, True, None),
+                                                 (True, True, 0.125),
+                                                 (False, False, 0.03),
+                                                 (True, False, None)])
+def test_qmatmul_kernel_equals_plain(cuda, m, k, n, relu, bias, out_scale):
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s = torch.rand(n, generator=g) * 9e-3 + 1e-3
+    b = torch.randn(n, generator=g) if bias else None
+    kw = dict(relu=relu, out_scale=out_scale)
+    want = ops.qmatmul(x, w, s, b, **kw)                 # plain, on the CPU
+    before = ops.launches["qmatmul"]
+    got = ops.qmatmul(x.to(cuda), w.to(cuda), s.to(cuda),
+                      None if b is None else b.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["qmatmul"] == before + 1
+    assert got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m,k,n,s", [(37, 19, 70, 7), (1024, 490, 256, 7),
+                                     (130, 65, 129, 255)])
+def test_threshold_matmul_every_tile_equals_plain(cuda, m, k, n, s):
+    g = torch.Generator().manual_seed(m + k + n + s)
+    x = torch.randint(0, 256, (m, k), generator=g, dtype=torch.int32)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    acc = ref.int_matmul(x, w)
+    t = torch.sort(torch.randint(int(acc.min()), int(acc.max()) + 1, (n, s),
+                                 generator=g, dtype=torch.int32), dim=1).values
+    want = ref.threshold_matmul_ref(x, w, t)
+    x, w, t = x.to(cuda), w.to(cuda), t.to(cuda)
+    for bm in ops.TMM_TILE_SIZES:
+        for bn in ops.TMM_TILE_SIZES:
+            got = ops.threshold_matmul(x, w, t, block_m=bm, block_n=bn)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (bm, bn)
+
+
+@pytest.mark.parametrize("block_h", [1, 3, 8, 15])
+def test_conv_threshold_row_blocks_equal_plain(cuda, block_h):
+    g = torch.Generator().manual_seed(block_h)
+    x = torch.randint(0, 256, (3, 15, 17, 5), generator=g, dtype=torch.int32)
+    w2d = torch.randint(-127, 128, (45, 6), generator=g, dtype=torch.int8)
+    t = torch.sort(torch.randint(-40000, 40000, (6, 255), generator=g,
+                                 dtype=torch.int32), dim=1).values
+    kw = dict(kernel=3, stride=1, padding="SAME", out_h=15, out_w=17)
+    want = ops.conv_threshold(x, w2d, t, **kw)
+    got = ops.conv_threshold(x.to(cuda), w2d.to(cuda), t.to(cuda),
+                             block_h=block_h, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

@@ -135,7 +135,8 @@ def test_apply_kernel_on_cpu_equals_apply_fast_and_ref(name):
                                               err_msg=s.name)
             h = y
         assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
-                                 "mlp_megakernel": 0, "flash_attention": 0}
+                                 "mlp_megakernel": 0, "flash_attention": 0,
+                                 "multi_threshold": 0, "qmatmul": 0}
 
 
 @pytest.mark.parametrize("name", MODELS)

@@ -194,5 +194,10 @@ def test_cpu_path_does_not_count_launches():
                         [torch.zeros((1, 2), dtype=torch.int32)] * 2)
     q = torch.ones((1, 2, 3, 16))
     tops.flash_attention(q, q, q)
+    tops.multi_threshold(x, torch.zeros((3, 2), dtype=torch.int32))
+    tops.qmatmul(torch.ones((2, 3), dtype=torch.int8),
+                 torch.ones((3, 2), dtype=torch.int8), torch.ones(2),
+                 out_scale=0.5)
     assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
-                             "mlp_megakernel": 0, "flash_attention": 0}
+                             "mlp_megakernel": 0, "flash_attention": 0,
+                             "multi_threshold": 0, "qmatmul": 0}

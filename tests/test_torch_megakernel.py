@@ -16,7 +16,6 @@ exact. Interpret-mode shapes stay small.
 
 import os
 import re
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -193,14 +192,14 @@ def _plans(js, ts, **kw):
 
 def _full_width(name):
     """Full-width KWS / AD as ``chip_smoke.py`` builds them with
-    ``export_qmlp`` from numpy-seeded parameters, as both packages'
-    graphs (the QIR JSON is the same bytes)."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    ``export_qmlp`` from numpy-seeded parameters
+    (``repro_torch.bench.models``), as both packages' graphs (the QIR JSON
+    is the same bytes)."""
+    from repro_torch.bench import models
 
-    dims, bits = {"kws": ([490, 256, 256, 256, 12], 3),
-                  "ad": ([128, 72, 72, 8, 72, 72, 128], 8)}[name]
-    s = chip_smoke.mlp_graph(dims, bits, chip_smoke.SEED).to_json()
+    dims, bits = {"kws": (models.KWS_DIMS, models.KWS_BITS),
+                  "ad": (models.AD_DIMS, models.AD_BITS)}[name]
+    s = models.mlp_graph(dims, bits, 2022).to_json()
     return JGraph.from_json(s), TGraph.from_json(s)
 
 

@@ -13,7 +13,6 @@ the head, as ``tests/test_golden.py``).
 """
 
 import os
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,12 +38,11 @@ MODES = {"staged": False, "auto": None}
 def _load(name):
     """(reference graph, port graph, x, frozen last-stage output or None)."""
     if name.startswith("full-"):
-        sys.path.insert(0, ROOT)
-        import chip_smoke
+        from repro_torch.bench import models
 
-        dims, bits = {"full-kws": ([490, 256, 256, 256, 12], 3),
-                      "full-ad": ([128, 72, 72, 8, 72, 72, 128], 8)}[name]
-        s = chip_smoke.mlp_graph(dims, bits, chip_smoke.SEED).to_json()
+        dims, bits = {"full-kws": (models.KWS_DIMS, models.KWS_BITS),
+                      "full-ad": (models.AD_DIMS, models.AD_BITS)}[name]
+        s = models.mlp_graph(dims, bits, 2022).to_json()
         rng = np.random.default_rng(len(name))
         x = rng.integers(-127, 128, (7, dims[0])).astype(np.int32)
         return JGraph.from_json(s), TGraph.from_json(s), x, None
