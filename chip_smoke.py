@@ -49,9 +49,11 @@ which fails the run with a non-zero exit:
   8. attention — ``flash_attention`` (K6) against its plain version on
                seeded q/k/v (``FLASH_CASES``): GQA 32/8 and 4/2, head dims
                16/80/128, causal, not causal, window 32, a decode chunk
-               (q_offset > 0, Sq < Sk), ragged lengths and ``kv_len``, as
-               strided (B, S, H, D) views and contiguous; float32 within
-               1e-5, bf16 within 2e-2;
+               (q_offset > 0, Sq < Sk), ragged lengths and ``kv_len``, the
+               bf16 kernel's tile edges (Sq and Sk of 127, 129, 255,
+               windows across a 128-key tile), as strided (B, S, H, D)
+               views and contiguous; float32 (the CUDA-core kernel) within
+               1e-5, bf16 (the tensor-core kernel) within 2e-2;
   9. LM path — ``Model(get_config("llama3-8b"))`` at full width, bf16,
                seeded ``init`` on the card; counters set to 0, one
                ``prefill`` of 1 x 4096 seeded tokens (the chunked branch
@@ -72,26 +74,34 @@ which fails the run with a non-zero exit:
  10. K6 times — at the main path's shape on its layer-0 inputs: kernel,
                plain version and ``scaled_dot_product_attention`` (the
                library yardstick, never on the path), with the bound from
-               bytes and bf16 tensor-core operations;
+               bytes and bf16 tensor-core operations, beside the CUDA-core
+               kernel's 8.116400 ms; ``cuobjdump --dump-sass`` of the built
+               library counts its HGMMA (wgmma) instructions, and none
+               fails the run;
  11. K4, K5 — ``multi_threshold`` and ``qmatmul`` against their plain
                versions, bit for bit: the reference's test shapes
                (``tests/test_kernels.py``, the deep banks of
                ``tests/test_megakernel.py``), ragged shapes, both K5
                output dtypes, ReLU on and off, no bias, out_scale 0.03 /
-               0.07 / 0.3 (``MT_CASES``, ``QMM_CASES``);
+               0.07 / 0.3 (``MT_CASES``, ``QMM_CASES``); K4 also on
+               unsorted banks, ties, INT32_MIN/MAX, sorted and unsorted
+               channels in one call, S 63/64/65/256/1024/4096 and 30000;
  12. K1 tiles — ``threshold_matmul`` under every tile of
                ``TMM_TILE_SIZES`` against its plain version;
  13. kernel bench — ``repro_torch.bench.kernel_bench``: counters to 0, its
                checking pass (one K5 launch at 512^3, two K4 launches at
                AD's bank and a 511-step bank), counters read; then its
                times (kernel, plain version, library call: ``torch._int_mm``
-               and the epilogue ops, ``torch.searchsorted``), the conv
+               and the epilogue ops, ``torch.searchsorted``; K4's bound
+               counts a binary search's compares), the conv
                lowerings and megakernel-against-staged on full-width KWS
                and AD; ``chiprun_out/BENCH_torch_kernels.json``;
- 14. autotune — ``autotune_model`` on the four models with a temporary
-               cache: the config printed, the tuned ``offline`` codes equal
-               the untuned ones bit for bit, a second call loads the
-               config from the cache without probing;
+ 14. autotune — ``autotune_model`` on the four models, twice, each
+               search with its own temporary cache: both configs and every
+               pair decision's medians and spreads printed, and whether
+               the two searches agree; the tuned ``offline`` codes equal
+               the untuned ones bit for bit, a third call loads the config
+               from the cache without probing;
  15. scenarios — ``run_all_scenarios`` on the four tuned models
                (``compiled=cm``, ``model_cost=schedule_cost(...)``):
                p50/p90/p99, qps, roofline and measured energy per
@@ -807,7 +817,9 @@ def phase_full_width():
 # (B, H, Hkv, Sq, Sk, D, causal, window, q_offset, kv_len): GQA 32/8 and 4/2,
 # head dims 16 (reduced configs), 80 (h2o-danube) and 128 (llama3); causal,
 # not causal, window 32, a decode chunk (q_offset > 0, Sq < Sk), ragged
-# Sq/Sk, kv_len below Sk, and the main path's shape
+# Sq/Sk, kv_len below Sk, and the main path's shape; then the bf16
+# kernel's tile edges (128 query rows, 128 keys): Sq and Sk of 127, 129
+# and 255, and windows that cross a 128-key tile
 FLASH_CASES = [
     (1, 32, 8, 4096, 4096, 128, True, 0, 0, None),
     (2, 32, 8, 300, 300, 128, True, 0, 0, None),
@@ -818,6 +830,13 @@ FLASH_CASES = [
     (1, 32, 8, 1, 513, 128, True, 0, 512, None),
     (1, 32, 8, 70, 133, 80, False, 0, 0, 101),
     (2, 4, 2, 65, 200, 16, True, 32, 120, 150),
+    (1, 4, 2, 127, 127, 128, True, 0, 0, None),
+    (2, 4, 2, 129, 129, 80, True, 0, 0, None),
+    (1, 4, 2, 255, 255, 16, False, 0, 0, None),
+    (1, 8, 2, 127, 255, 128, True, 0, 128, None),
+    (1, 4, 2, 255, 129, 80, False, 0, 0, 127),
+    (1, 4, 2, 255, 255, 128, True, 100, 0, None),
+    (2, 4, 4, 129, 255, 128, False, 70, 100, 200),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -933,7 +952,7 @@ def _device_breakdown(fn):
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     for e in kern:
         name = e.name.lower()
-        fam = ("flash_attention" if "flash_attention_kernel" in name else
+        fam = ("flash_attention" if "flash_attention" in name else
                "matmul" if any(t in name for t in ("gemm", "nvjet", "xmma",
                                                    "cutlass", "sm90_"))
                else "other")
@@ -1057,6 +1076,47 @@ def phase_lm_prefill():
                "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
                "main_path_launches": launches}
     return launches, worst, case, details
+
+
+#: K6 per launch at the prefill shape before this kernel's redesign: the
+#: CUDA-core kernel on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md, §6)
+K6_CUDA_CORE_MS = 8.116400
+
+
+def sass_count(lib, opcode):
+    """Instructions of ``opcode`` in the SASS of a built library
+    (``cuobjdump --dump-sass`` beside nvcc)."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
+def phase_k6_times(case):
+    """K6 at the main path's shape on its layer-0 inputs: kernel, plain
+    version, SDPA and the bound, beside the CUDA-core kernel's time; and
+    the HGMMA (wgmma) instructions of the built library, which must not be
+    0: bf16 goes through the tensor cores. Returns (timing row,
+    details)."""
+    from repro_torch.kernels import _build
+
+    row = time_case(case, reps=5, inner=10)
+    (lib,) = _build.build_all(["flash_attention"])
+    hgmma = sass_count(lib, "HGMMA")
+    log(f"K6 sass: {hgmma} HGMMA instructions in {os.path.basename(lib)}")
+    check(hgmma > 0, "the flash_attention library holds no HGMMA: the bf16 "
+                     "kernel does not run on the tensor cores")
+    per = row["ms"]
+    log(f"K6 prefill shape ({case['shape']}): {per:.6f} ms per launch, "
+        f"{per / row['bound_ms']:.2f}x its bound {row['bound_ms']:.6f} ms, "
+        f"SDPA {row['library_ms']:.6f} ms ({per / row['library_ms']:.2f}x), "
+        f"the CUDA-core kernel {K6_CUDA_CORE_MS:.6f} ms "
+        f"({K6_CUDA_CORE_MS / per:.1f}x faster now)")
+    return row, {"hgmma": hgmma, "ms": per, "bound_ms": row["bound_ms"],
+                 "sdpa_ms": row["library_ms"],
+                 "cuda_core_ms": K6_CUDA_CORE_MS}
 
 
 def _decode_call(model, params, g):
@@ -1242,11 +1302,23 @@ QMM_CASES = ([(m, k, n, relu, True, None)
                 (1000, 490, 257, True, False, 0.01),
                 (513, 1031, 63, False, True, None),
                 (512, 512, 512, True, True, 0.125)])
-# K4 cases (M, C, S): tests/test_kernels.py's, tests/test_megakernel.py's
-# deep banks (256, 300, 511), ragged ones, AD's bank
-MT_CASES = [(16, 8, 3), (37, 20, 7), (64, 12, 15), (128, 72, 255), (5, 3, 1),
-            (16, 12, 256), (24, 8, 300), (8, 40, 511), (1, 1, 1),
-            (1000, 33, 64), (97, 65, 65), (1024, 72, 255), (300, 257, 129)]
+# K4 cases (M, C, S, bank kind of ``kernel_bench.mt_inputs``):
+# tests/test_kernels.py's, tests/test_megakernel.py's deep banks (256, 300,
+# 511), ragged ones, AD's bank; then unsorted banks, banks with ties,
+# INT32_MIN/MAX steps and accumulators, sorted and unsorted channels in one
+# call, S around the search's powers of two (63, 64, 65, 256, 1024) and
+# deep banks: S 4096 (fewer channels per block) and S 30000 (the chunked
+# linear count)
+MT_CASES = ([(m, c, s, "sorted") for m, c, s in [
+    (16, 8, 3), (37, 20, 7), (64, 12, 15), (128, 72, 255), (5, 3, 1),
+    (16, 12, 256), (24, 8, 300), (8, 40, 511), (1, 1, 1), (1000, 33, 64),
+    (97, 65, 65), (1024, 72, 255), (300, 257, 129), (200, 40, 63),
+    (129, 33, 1024), (130, 32, 4096), (40, 3, 30000)]]
+    + [(97, 65, 65, "unsorted"), (300, 40, 255, "unsorted"),
+       (129, 72, 64, "ties"), (64, 9, 256, "ties"),
+       (50, 33, 255, "extreme"), (7, 5, 4096, "extreme"),
+       (300, 72, 255, "mixed"), (64, 40, 1024, "mixed"),
+       (33, 20, 65, "mixed")])
 # K1 tile checks (M, K, N, S, lo, hi), each under every tile
 TILE_CASES = [(1, 1, 1, 1, -127, 128), (37, 19, 70, 7, -127, 128),
               (130, 65, 129, 255, 0, 256), (1024, 490, 256, 7, -127, 128),
@@ -1259,22 +1331,25 @@ def phase_k4_k5():
     per kernel."""
     import numpy as np
     import torch
+    from repro_torch.bench.kernel_bench import mt_inputs
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(SEED + 8)
     worst = {"multi_threshold": 0, "qmatmul": 0}
-    for m, c, steps in MT_CASES:
-        acc = torch.as_tensor(rng.integers(-5000, 5000, (m, c)),
-                              dtype=torch.int32).cuda()
-        thr = torch.as_tensor(np.sort(rng.integers(-4000, 4000, (c, steps)),
-                                      axis=1), dtype=torch.int32).cuda()
+    for m, c, steps, kind in MT_CASES:
+        a_np, t_np = mt_inputs(rng, m, c, steps, kind)
+        acc = torch.as_tensor(a_np).cuda()
+        thr = torch.as_tensor(t_np).cuda()
         got = ops.multi_threshold(acc, thr)
         want = ref.multi_threshold_ref(acc, thr)
-        err = int((got - want).abs().max())
+        err = int((got.long() - want.long()).abs().max())
         worst["multi_threshold"] = max(worst["multi_threshold"], err)
         check(err == 0 and torch.equal(got, want),
-              f"multi_threshold M={m} C={c} S={steps}: max err {err}")
-        log(f"kernel-check multi_threshold M={m} C={c} S={steps}: exact")
+              f"multi_threshold M={m} C={c} S={steps} {kind}: max err {err}")
+        bc = ops.multi_threshold_plan(c, steps)
+        log(f"kernel-check multi_threshold M={m} C={c} S={steps} {kind} "
+            f"({f'{bc} channels per block' if bc else 'linear count'}): "
+            f"exact")
     for m, k, n, relu, has_bias, out_scale in QMM_CASES:
         x = torch.as_tensor(rng.integers(-127, 128, (m, k)),
                             dtype=torch.int8).cuda()
@@ -1391,12 +1466,36 @@ def _headless(cm):
         device=cm.device, megakernel=cm.megakernel)
 
 
-def phase_autotune(models, cache):
+#: what a tuned config decides: two searches agree when these are equal
+TUNED_PICKS = ("micro_batch", "block_h", "block_mn", "segment_mode")
+
+
+def _pair_decisions(cfg):
+    """Each measured decision of a config: candidate -> (median ms, spread
+    ms) for the micro-batches, K1's tiles and the dispatch modes."""
+    out = {"micro_batch": {str(c["micro_batch"]): (c["probe_ms"],
+                                                   c.get("probe_spread_ms"))
+                           for c in cfg.candidates if "probe_ms" in c}}
+    if cfg.block_mn_probe:
+        out["block_mn"] = {k: (v, cfg.block_mn_probe.get("spread_ms",
+                                                         {}).get(k))
+                           for k, v in cfg.block_mn_probe["probe_ms"].items()}
+    if cfg.segment_mode_model.get("probe_ms"):
+        sp = cfg.segment_mode_model.get("spread_ms", {})
+        out["segment_mode"] = {k: (v, sp.get(k)) for k, v in
+                               cfg.segment_mode_model["probe_ms"].items()}
+    return out
+
+
+def phase_autotune(models, caches):
     """``autotune_model`` on the four models (full-width KWS and AD, the
-    IC/CNV goldens) with the cache in ``cache``: the config is printed;
-    the tuned ``offline`` equals the untuned one (codes bit for bit, logits
-    within 1e-5); a second call returns the same config from the cache
-    without probing. Returns {name: tuned compiled model}."""
+    IC/CNV goldens), searched twice, each search with its own cache of
+    ``caches``: both configs printed with every pair decision's medians
+    and spreads, and whether their picks agree (reported, not a failure:
+    PERF.md gives any disagreement); the tuned ``offline`` of the first
+    search equals the untuned one (codes bit for bit, logits within 1e-5);
+    a further call returns the first config from its cache without
+    probing. Returns ({name: tuned compiled model}, {name: agreement})."""
     import torch
     from repro_torch.deploy import compile_graph
     from repro_torch.deploy.autotune import autotune_model
@@ -1405,15 +1504,17 @@ def phase_autotune(models, cache):
         raise SmokeFailure("the second autotune call probed: the cache was "
                            "not read")
 
-    tuned = {}
+    tuned, agree = {}, {}
     for n, g, s, x in models:
         xc = torch.as_tensor(x).cuda()
         cm = compile_graph(g, in_scale=s, device="cuda",
                            conv_lowering="direct")
         y0, codes0 = cm.offline(xc), _headless(cm).offline(xc)
-        cfg = autotune_model(cm, batch=64, directory=cache, force=True)
-        again = autotune_model(cm, batch=64, directory=cache, force=False,
-                               probe=no_probe)
+        cfgs = [autotune_model(cm, batch=64, directory=c, force=True)
+                for c in caches]
+        cfg = cfgs[0]
+        again = autotune_model(cm, batch=64, directory=caches[0],
+                               force=False, probe=no_probe)
         check(again == cfg, f"{n}: the cached config differs from the "
                             f"searched one")
         cm.apply_tuned(cfg)
@@ -1424,17 +1525,27 @@ def phase_autotune(models, cache):
             torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
         else:
             check(torch.equal(y0, y1), f"{n}: tuned offline differs")
-        shown = {k: getattr(cfg, k) for k in (
-            "key", "platform", "micro_batch", "block_h", "block_mn",
-            "segment_mode", "probe_ms", "block_mn_probe", "fifo_depths",
-            "modeled_cycles", "modeled_traffic_bytes", "source")}
-        shown["segment_mode_probe_ms"] = cfg.segment_mode_model.get(
-            "probe_ms")
-        log(f"autotune {n}: {json.dumps(shown)}")
-        log(f"autotune {n}: the second call loaded the config from the "
-            f"cache; tuned offline codes equal untuned bit for bit")
+        picks = [{k: getattr(c, k) for k in TUNED_PICKS} for c in cfgs]
+        agree[n] = {"agree": picks[0] == picks[1], "picks": picks,
+                    "decisions": [_pair_decisions(c) for c in cfgs]}
+        for i, c in enumerate(cfgs):
+            shown = {k: getattr(c, k) for k in (
+                "key", "platform", "micro_batch", "block_h", "block_mn",
+                "segment_mode", "fifo_depths", "modeled_cycles",
+                "modeled_traffic_bytes", "source")}
+            log(f"autotune {n} search {i + 1}: {json.dumps(shown)}")
+            log(f"autotune {n} search {i + 1} decisions (median ms, spread "
+                f"ms): {json.dumps(agree[n]['decisions'][i])}")
+        differ = [k for k in TUNED_PICKS if picks[0][k] != picks[1][k]]
+        log(f"autotune {n}: the two searches "
+            + (f"agree on {', '.join(TUNED_PICKS)}" if not differ
+               else f"differ on {', '.join(differ)}"))
+        log(f"autotune {n}: a third call loaded the config from the cache; "
+            f"tuned offline codes equal untuned bit for bit")
         tuned[n] = cm
-    return tuned
+    log(f"autotune: the two searches agree on "
+        f"{sum(a['agree'] for a in agree.values())} of {len(agree)} models")
+    return tuned, agree
 
 
 def phase_scenarios(models, tuned, smi):
@@ -1572,7 +1683,8 @@ def main() -> int:
         wide, worst_wide = phase_full_width()
         worst_flash = phase_flash_synthetic()
         lm_launches, worst_lm, k6_case, lm = phase_lm_prefill()
-        k6_rows = [time_case(k6_case, reps=5, inner=10)]
+        k6_row, lm["k6"] = phase_k6_times(k6_case)
+        k6_rows = [k6_row]
         del k6_case
         lm["depth_cut_max_diff"] = phase_lm_depth_cut()
         lm["serving"] = phase_lm_serving()
@@ -1581,8 +1693,10 @@ def main() -> int:
         bench_launches, bench_rows, worst_bench, bench = phase_kernel_bench()
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         with tempfile.TemporaryDirectory(
-                prefix="autotune-", dir=os.path.join(ROOT, "build")) as cache:
-            tuned = phase_autotune(models, cache)
+                prefix="autotune-", dir=os.path.join(ROOT, "build")) as c1, \
+                tempfile.TemporaryDirectory(
+                    prefix="autotune-", dir=os.path.join(ROOT, "build")) as c2:
+            tuned, autotune_agree = phase_autotune(models, (c1, c2))
         scenarios = phase_scenarios(models, tuned, smi)
         lm["profile"] = phase_lm_profile()
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
@@ -1616,7 +1730,8 @@ def main() -> int:
                    "flash_attention": {"max_err_by_dtype": worst_flash,
                                        "main_path_shape": k6_rows},
                    "lm": lm, "kernel_bench": bench,
-                   "scenarios": scenarios, "kernels": line},
+                   "scenarios": scenarios,
+                   "autotune_agreement": autotune_agree, "kernels": line},
                   f, indent=1)
     log(json.dumps(line))
     log(smi)

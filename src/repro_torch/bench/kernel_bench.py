@@ -17,7 +17,9 @@ timed as device time (CUDA-graph replay, ``common.time_ms``):
     K5, with the traffic model of each;
   * **multi_threshold** (a row the reference has no means to fill): K4 at
     AD's bank (1024 rows x 72 channels, S 255) and on the deep-bank path
-    (S 511), beside its plain version and one ``torch.searchsorted``;
+    (S 511), beside its plain version and one ``torch.searchsorted``; its
+    bound counts ceil(log2(S + 1)) compares per element of a sorted bank
+    (``mt_compares``), the search K4 runs;
   * **conv lowerings**: K2 direct against im2col + K1 on one streamlined
     3x3 stage, with ``deploy.autotune.plan_block_h``'s table;
   * **megakernel against staged**: full-width KWS and AD
@@ -119,6 +121,51 @@ def qmatmul_cases(device, seed: int = SEED) -> List[Dict]:
     }]
 
 
+#: bank kinds the K4 checks cover (``mt_inputs``)
+MT_BANK_KINDS = ("sorted", "unsorted", "ties", "mixed", "extreme")
+
+
+def mt_inputs(rng: np.random.Generator, m: int, c: int, s: int,
+              kind: str = "sorted"):
+    """Seeded int32 accumulators (M, C) and a (C, S) bank of one kind, as
+    numpy arrays: ``sorted`` non-decreasing steps inside the accumulators'
+    range; ``unsorted`` the same draws in drawn order; ``ties`` few
+    distinct values, so steps repeat and accumulators land on them;
+    ``mixed`` every other channel unsorted; ``extreme`` sorted steps with
+    INT32_MIN and INT32_MAX among them and accumulators at both
+    extremes."""
+    lo, hi = (-20, 21) if kind == "ties" else (-5000, 5000)
+    acc = rng.integers(lo - 5, hi + 5, (m, c))
+    thr = rng.integers(lo, hi, (c, s))
+    if kind not in MT_BANK_KINDS:
+        raise ValueError(f"bank kind {kind!r}: expected one of "
+                         f"{MT_BANK_KINDS}")
+    if kind != "unsorted":
+        thr = np.sort(thr, axis=1)
+    if kind == "mixed":
+        thr[1::2] = rng.permutation(thr[1::2].T).T
+    if kind == "extreme":
+        k = min(3, s)
+        thr[:, :k] = np.iinfo(np.int32).min
+        thr[:, s - k:] = np.iinfo(np.int32).max
+        acc[0] = np.iinfo(np.int32).min
+        acc[-1] = np.iinfo(np.int32).max
+    return acc.astype(np.int32), thr.astype(np.int32)
+
+
+def mt_compares(m: int, thresholds: torch.Tensor) -> int:
+    """Compares K4 needs for ``m`` rows against this bank:
+    ceil(log2(S + 1)) per element of a non-decreasing channel (a binary
+    search), S per element of any other."""
+    s = thresholds.shape[1]
+    if s == 0:
+        return 0
+    rising = torch.all(thresholds[:, 1:] >= thresholds[:, :-1], dim=1)
+    n_sorted = int(rising.sum())
+    per = n_sorted * int(s).bit_length() + (thresholds.shape[0] - n_sorted) * s
+    return m * per
+
+
 def multi_threshold_cases(device, seed: int = SEED) -> List[Dict]:
     """K4 on seeded accumulators and sorted banks drawn from their range,
     so the counts spread over [0, S]."""
@@ -142,7 +189,8 @@ def multi_threshold_cases(device, seed: int = SEED) -> List[Dict]:
                 thr, acc_t, right=True),
             "library_is": "torch.searchsorted (sorted banks)",
             "library_transposed": True,
-            "bytes": 4 * (2 * m * c + c * steps), "ops": m * c * steps,
+            "bytes": 4 * (2 * m * c + c * steps),
+            "ops": mt_compares(m, thr),
         })
     return cases
 

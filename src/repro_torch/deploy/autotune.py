@@ -15,10 +15,18 @@ executor's constants with a search that prices first and measures second:
      a probe of each at the winning micro-batch decides; ties go to the
      model's pick.
 
-The search, the probe order, the cache and the config schema (v4) are the
-reference's, so under the same scripted probe both packages choose the
-same micro-batch and dispatch. What differs:
+The search, the cache and the config schema (v4) are the reference's,
+and so is the probe order under a scripted probe (``probe=``: one call per
+candidate), so under the same scripted probe both packages choose the same
+micro-batch and dispatch. What differs:
 
+  * **Measured decisions are interleaved.** Each measured choice (the
+    top micro-batches, K1's default against tuned tile, megakernel against
+    staged) gives every candidate one warm pass, then ``PAIR_ROUNDS``
+    rounds of one streaming pass per candidate in turn, and compares the
+    medians (``probe_interleaved``); each candidate's median and spread
+    go to the config's audit trail. Timing each candidate in a block of
+    its own let drift between the blocks decide.
   * **The block models.** The reference prices VMEM tiles on a TPU
     (``VMEM_BUDGET_BYTES``, ``DENSE_BLOCK_CANDIDATES``, ``TARGET_ROWS``, a
     tie-break toward the 128 x 128 MXU tile). K2 (``csrc/conv_threshold.cu``)
@@ -338,22 +346,52 @@ def default_sample(cm, batch: int) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.int32, device=cm.device)
 
 
-def probe_streaming(cm, x, micro_batch: int, iters: int = 3,
-                    runner: Optional[Callable] = None) -> float:
-    """Median seconds of one streaming pass at a micro-batch size, each
-    pass ending in a synchronise of the model's device. ``runner``
-    defaults to ``cm.streaming_compiled``."""
-    run = cm.streaming_compiled if runner is None else runner
-    run(x, micro_batch=micro_batch)
-    cm._sync()                     # build and warm
-    times = []
-    for _ in range(max(iters, 1)):
-        t0 = obs_timer.now()
-        run(x, micro_batch=micro_batch)
+#: Rounds of a measured pair decision: one streaming pass per candidate
+#: in each round, the candidates in turn.
+PAIR_ROUNDS = 7
+
+
+def probe_interleaved(cm, x, arms: Dict[str, tuple], tracer=None,
+                      key: str = "") -> Dict[str, Dict[str, float]]:
+    """Time competing candidates in turns, so that drift (clock ramp, a
+    first-touch allocation) falls on all of them alike.
+
+    ``arms`` maps a label to ``(micro_batch, setup)``; ``setup()`` (or
+    None) puts ``cm`` into that candidate's configuration before each of
+    its passes, outside the timed span. Each arm gets one warm pass, then
+    ``PAIR_ROUNDS`` rounds of one synchronised ``streaming_compiled`` pass
+    per arm (A, B, A, B, ...). Returns per label the median ms, the spread
+    (max - min) ms and every pass's ms; each timed pass is a ``probe``
+    span (cat ``autotune``) on ``tracer`` when it is enabled."""
+    tr = tracer if tracer is not None else NULL_TRACER
+
+    def one(label: str, rnd: int) -> float:
+        mb, setup = arms[label]
+        if setup is not None:
+            setup()
         cm._sync()
-        times.append(obs_timer.now() - t0)
-    times.sort()
-    return times[len(times) // 2]
+        t0 = obs_timer.now()
+        cm.streaming_compiled(x, micro_batch=mb)
+        cm._sync()
+        t1 = obs_timer.now()
+        if tr.enabled and rnd >= 0:
+            tr.add_span("probe", t0, t1, cat="autotune",
+                        args={"key": key, "arm": label, "micro_batch": mb,
+                              "round": rnd, "probe_ms": (t1 - t0) * 1e3})
+        return (t1 - t0) * 1e3
+
+    for label in arms:                     # build and warm each candidate
+        one(label, -1)
+    ms: Dict[str, List[float]] = {label: [] for label in arms}
+    for rnd in range(PAIR_ROUNDS):
+        for label in arms:
+            ms[label].append(one(label, rnd))
+    out = {}
+    for label, vals in ms.items():
+        srt = sorted(vals)
+        out[label] = {"median_ms": srt[len(srt) // 2],
+                      "spread_ms": srt[-1] - srt[0], "ms": vals}
+    return out
 
 
 def autotune_model(cm, batch: int = 64,
@@ -404,32 +442,37 @@ def autotune_model(cm, batch: int = 64,
     top = modeled[:max(1, topk)]
 
     # -- measured refinement on the top candidates -----------------------
+    # (measured: the candidates timed in turns, PAIR_ROUNDS rounds, the
+    # median of each; scripted: one call per candidate, in rank order)
     seed_stage_ms = None
     probe_ms: Dict[str, float] = {}
     x = default_sample(cm, batch) if sample is None else sample
     if probe is None:
-        # stage_latencies seeds the refinement: a cheap service-time
-        # estimate decides how many probe repetitions noise requires
+        # stage_latencies seeds the refinement: the per-stage service
+        # times it measured are kept in the config's audit trail
         seed_stage_ms = cm.stage_latencies(x[:min(batch, 8)])
-        service_ms = sum(s["ms"] for s in seed_stage_ms)
-        iters = 5 if service_ms < 5.0 else (3 if service_ms < 50.0 else 1)
-
-        def probe_fn(c, xx, mb):
-            return probe_streaming(c, xx, mb, iters=iters)
+        stats = probe_interleaved(
+            cm, x, {str(c["micro_batch"]): (c["micro_batch"], None)
+                    for c in top}, tracer=tr, key=key)
+        for cand in top:
+            st = stats[str(cand["micro_batch"])]
+            cand["probe_ms"] = probe_ms[str(cand["micro_batch"])] = \
+                st["median_ms"]
+            cand["probe_spread_ms"] = st["spread_ms"]
+            cand["probe_rounds"] = len(st["ms"])
     else:
-        probe_fn = probe
-    for cand in top:
-        mb = cand["micro_batch"]
-        t0 = obs_timer.now() if tr.enabled else 0.0
-        t = float(probe_fn(cm, x, mb))
-        probe_ms[str(mb)] = t * 1e3
-        cand["probe_ms"] = t * 1e3
-        if tr.enabled:
-            tr.add_span("probe", t0, obs_timer.now(), cat="autotune",
-                        args={"key": key, "micro_batch": mb,
-                              "n_micro": cand["n_micro"],
-                              "modeled_cycles": cand["modeled_cycles"],
-                              "probe_ms": t * 1e3})
+        for cand in top:
+            mb = cand["micro_batch"]
+            t0 = obs_timer.now() if tr.enabled else 0.0
+            t = float(probe(cm, x, mb))
+            probe_ms[str(mb)] = t * 1e3
+            cand["probe_ms"] = t * 1e3
+            if tr.enabled:
+                tr.add_span("probe", t0, obs_timer.now(), cat="autotune",
+                            args={"key": key, "micro_batch": mb,
+                                  "n_micro": cand["n_micro"],
+                                  "modeled_cycles": cand["modeled_cycles"],
+                                  "probe_ms": t * 1e3})
     winner = min(top, key=lambda d: (d.get("probe_ms", float("inf")),
                                      d["modeled_cycles"]))
     wave = int(winner["micro_batch"])
@@ -461,21 +504,38 @@ def autotune_model(cm, batch: int = 64,
     if block_mn:
         saved = {s.name: (s.block_m, s.block_n) for s in cm.schedule.stages
                  if isinstance(s, FusedThresholdStage)}
-        try:
-            t_default = float(probe_fn(cm, x, wave))
-            for s in cm.schedule.stages:
-                if isinstance(s, FusedThresholdStage) and s.name in block_mn:
-                    s.block_m, s.block_n = block_mn[s.name]
-            t_tuned = float(probe_fn(cm, x, wave))
-        finally:
+
+        def use_tiles(tuned: bool) -> None:
             for s in cm.schedule.stages:
                 if isinstance(s, FusedThresholdStage):
-                    s.block_m, s.block_n = saved[s.name]
+                    s.block_m, s.block_n = (
+                        block_mn[s.name] if tuned and s.name in block_mn
+                        else saved[s.name])
+
+        spread: Dict[str, float] = {}
+        try:
+            if probe is None:
+                stats = probe_interleaved(
+                    cm, x, {"default": (wave, lambda: use_tiles(False)),
+                            "tuned": (wave, lambda: use_tiles(True))},
+                    tracer=tr, key=key)
+                t_default = stats["default"]["median_ms"] / 1e3
+                t_tuned = stats["tuned"]["median_ms"] / 1e3
+                spread = {k: v["spread_ms"] for k, v in stats.items()}
+            else:
+                t_default = float(probe(cm, x, wave))
+                use_tiles(True)
+                t_tuned = float(probe(cm, x, wave))
+        finally:
+            use_tiles(False)
         pick = "tuned" if t_tuned <= t_default else "default"
         block_mn_probe = {"wave_rows": wave, "n_micro": -(-batch // wave),
                           "probe_ms": {"tuned": t_tuned * 1e3,
                                        "default": t_default * 1e3},
                           "pick": pick}
+        if spread:
+            block_mn_probe["spread_ms"] = spread
+            block_mn_probe["rounds"] = PAIR_ROUNDS
         if pick == "default":
             block_mn = {}
         if tr.enabled:
@@ -503,14 +563,33 @@ def autotune_model(cm, batch: int = 64,
             "bytes_saved": float(staged_b - mega_b),
         }
         model_pick = "megakernel" if mega_b <= staged_b else "staged"
-        prev_mode, prev_budget = cm.megakernel, cm.megakernel_budget_bytes
+        prev = cm.dispatch_state()
         try:
-            cm.set_megakernel(True, prev_budget)
-            t_mega = float(probe_fn(cm, x, wave))
-            cm.set_megakernel(False, prev_budget)
-            t_staged = float(probe_fn(cm, x, wave))
+            if probe is None:
+                # each mode planned once; the rounds switch between the
+                # two plans without re-planning
+                cm.set_megakernel(True, prev[1])
+                mega = cm.dispatch_state()
+                cm.set_megakernel(False, prev[1])
+                staged = cm.dispatch_state()
+                stats = probe_interleaved(
+                    cm, x, {"megakernel": (wave, lambda: cm.restore_dispatch(
+                                mega)),
+                            "staged": (wave, lambda: cm.restore_dispatch(
+                                staged))},
+                    tracer=tr, key=key)
+                t_mega = stats["megakernel"]["median_ms"] / 1e3
+                t_staged = stats["staged"]["median_ms"] / 1e3
+                segment_mode_model["spread_ms"] = {
+                    k: v["spread_ms"] for k, v in stats.items()}
+                segment_mode_model["rounds"] = PAIR_ROUNDS
+            else:
+                cm.set_megakernel(True, prev[1])
+                t_mega = float(probe(cm, x, wave))
+                cm.set_megakernel(False, prev[1])
+                t_staged = float(probe(cm, x, wave))
         finally:
-            cm.set_megakernel(prev_mode, prev_budget)
+            cm.restore_dispatch(prev)
         segment_mode_model["probe_ms"] = {"megakernel": t_mega * 1e3,
                                           "staged": t_staged * 1e3}
         if t_mega < t_staged:

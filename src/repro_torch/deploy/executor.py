@@ -141,6 +141,22 @@ class CompiledTinyModel:
         self._rebuild()
         return self
 
+    def dispatch_state(self) -> tuple:
+        """The planned dispatch: mode, budget, segments, megakernel plans,
+        their transposed banks and the FIFO plan cache. ``restore_dispatch``
+        takes it back, so a caller can switch between two planned modes
+        without planning again."""
+        return (self.megakernel, self.megakernel_budget_bytes,
+                self.segments, self._mega_plans, self._mega_by_start,
+                self._mega_banks, self._plan_cache)
+
+    def restore_dispatch(self, state: tuple) -> "CompiledTinyModel":
+        """Reinstate a ``dispatch_state``; returns self."""
+        (self.megakernel, self.megakernel_budget_bytes, self.segments,
+         self._mega_plans, self._mega_by_start, self._mega_banks,
+         self._plan_cache) = state
+        return self
+
     def _rebuild(self):
         """Group the schedule into segments and plan one megakernel run per
         segment; the offline path and the segment programs dispatch

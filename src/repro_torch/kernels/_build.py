@@ -42,9 +42,9 @@ ENTRY_POINTS = {
     # q, k, v, out, 11 sizes and flags, host array of 12 strides, stream
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P] + [_I] * 11 + [_P, _P]),
-    # acc, thr, out, M, C, S, stream
+    # acc, thr, out, M, C, S, channels per block (0: linear), stream
     "multi_threshold": ("multi_threshold_launch",
-                        [_P, _P, _P, _I, _I, _I, _P]),
+                        [_P, _P, _P] + [_I] * 4 + [_P]),
     # x, w, scale, bias (or null), out, M, N, K, relu, requant,
     # 1 / out_scale, stream
     "qmatmul": ("qmatmul_launch",

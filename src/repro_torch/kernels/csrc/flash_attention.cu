@@ -14,31 +14,56 @@
 // q, k, v and out read or written once. At the LM's prefill shape (32 query
 // heads, 8 KV heads, D = 128, S = 4096, causal) that is about 1.4e11
 // operations against 84 MB, so the tensor cores' bf16 rate bounds it
-// (~0.14 ms). This is the simple, correct first version and runs on the
-// CUDA cores in float32 (bf16 inputs are widened when they are staged), so
-// it is bound by the cores' FMA and shared-memory rates, far above that
-// bound: mma.sync or wgmma tiles with TMA loads are later work.
+// (0.139 ms).
 //
-// Design: one block of 256 threads per (64-row query tile, head, batch).
-// The query tile and one 64-key tile of K and V at a time sit in shared
-// memory as float32; Q and K are stored d-major, so each thread reads its 4
-// query rows and its 4 keys with one 16-byte load per d. Thread (r, c), r
-// = tid / 16, c = tid % 16, computes the scores of rows 4r..4r+3 against
-// keys 4c..4c+3; the 16 threads of a row group are one half-warp, so row
-// max and row sum are shuffles. P goes to shared memory (over the K tile,
-// which the scores no longer need) and the thread accumulates rows
-// 4r..4r+3 at the columns c, c + 16, ... of the output in registers.
-// Tiles that hold no live key are never loaded (the TPU kernel's pl.when
-// skip, as a loop range). Masked entries get the score -1e30 and p = 0,
-// and the output divides by max(l, 1e-30): for every row with a live key
-// this is the TPU kernel's arithmetic, and a row with no live key at all
-// gives 0 (the TPU kernel gives 0 only when none of the row's blocks is
-// live, and a block-size dependent mean otherwise). Ragged Sq and Sk are
-// masked in the kernel; tensors are addressed through their strides, so
-// the model's (B, S, H, D) layout is read without a copy.
+// bf16: one kernel on the tensor cores, after FlashAttention-3's design.
+// One block of three warpgroups per (128-row query tile, query head,
+// batch). Warpgroup 0 is the producer: after setmaxnreg gives its
+// registers to the consumers, one thread issues TMA loads, the Q tile once
+// and 128-key K and V tiles into a ring of 2 stages, each stage with full
+// barriers (K and V apart, so Q.K^T starts before V lands) and an empty
+// barrier that both consumers arrive on. Warpgroups 1 and 2 each own 64
+// query rows: S = Q.K^T by wgmma m64n128k16 (Q and K from shared memory,
+// K-major), the online softmax on the fp32 accumulator fragment (a row's
+// keys sit in one quad of lanes, so row max and sum are two shuffles;
+// exp2f with D^-1/2 log2(e) folded into one scale), then P rounded to bf16
+// in registers (the accumulator fragment of 16 keys is the A fragment of
+// one step) and O += P.V by wgmma m64n64k16 with V from shared memory as
+// an MN-major operand; P never goes through shared memory, O and the
+// statistics stay fp32. Tiles are 64-column boxes of 128 B rows with the
+// 128 B swizzle; a head dim below 64 or between 64 and 128 is padded in
+// shared memory by TMA's zero fill (zero columns leave Q.K^T as it is, and
+// the extra P.V columns are not stored). Tensor maps are built per call
+// from the strides, so the model's (B, S, H, D) views need no copy; TMA's
+// zero fill also covers ragged Sq and Sk. Tiles without a live key are
+// never loaded; masks apply only to tiles that cross an edge, and a row
+// without a live key gives 0. Heads that share a KV head have neighbouring
+// block indices (their K/V tiles come from L2), and causal query tiles are
+// issued longest first.
+//
+// float32: the first version, on the CUDA cores (a tensor-core route
+// cannot hold its 1e-5 contract: TF32 keeps 10 mantissa bits). One block
+// of 256 threads per (64-row query tile, head, batch) loops over 64-key
+// tiles with the online-softmax state in registers. The query tile and
+// one 64-key tile of K and V at a time sit in shared memory as float32; Q
+// and K are stored d-major, so each thread reads its 4 query rows and its
+// 4 keys with one 16-byte load per d. Thread (r, c), r = tid / 16, c =
+// tid % 16, computes the scores of rows 4r..4r+3 against keys 4c..4c+3;
+// the 16 threads of a row group are one half-warp, so row max and row sum
+// are shuffles. P goes to shared memory (over the K tile, which the scores
+// no longer need) and the thread accumulates rows 4r..4r+3 at the columns
+// c, c + 16, ... of the output in registers. Tiles that hold no live key
+// are never loaded (the TPU kernel's pl.when skip, as a loop range).
+// Masked entries get the score -1e30 and p = 0, and the output divides by
+// max(l, 1e-30): for every row with a live key this is the TPU kernel's
+// arithmetic, and a row with no live key at all gives 0 (the TPU kernel
+// gives 0 only when none of the row's blocks is live, and a block-size
+// dependent mean otherwise). Ragged Sq and Sk are masked in the kernel;
+// tensors are addressed through their strides.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -49,6 +74,8 @@ constexpr int BK = 64;                  // keys per tile
 constexpr int LD = BQ + 4;              // row stride of the d-major tiles
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
+// added to a CUresult of cuTensorMapEncodeTiled that the entry point returns
+constexpr int TENSOR_MAP_ERROR = 10000;
 
 static_assert(BQ == 64 && BK == 64 && THREADS == 256,
               "16 x 16 threads, each 4 rows x 4 keys, cover a 64 x 64 tile");
@@ -65,17 +92,10 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 template <int D>
@@ -241,14 +261,520 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 80: return launch<T, 80>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 16: return launch<float, 16>(p, B, stream);
+    case 80: return launch<float, 80>(p, B, stream);
+    case 128: return launch<float, 128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (wgmma, TMA, mbarriers, warp specialisation)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BQ = 128;              // query rows per block
+constexpr int TC_BK = 128;              // keys per tile
+constexpr int TC_THREADS = 384;         // producer warpgroup + 2 consumers
+constexpr int TC_BOX_COLS = 64;         // a TMA box: 64 bf16 = one 128 B row
+constexpr int TC_BOX_BYTES = 128 * TC_BOX_COLS * 2;   // 128 rows per box
+
+struct TcParams {
+  void* out;
+  int H, Hkv, Sq, kv_len, causal, window, q_offset, n_qtiles;
+  float scale_log2;                     // D^-1/2 * log2(e)
+  long long os[3];                      // out's (batch, head, position)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one 64-column x 128-row box of a 4-D (D, S, heads, batch) tensor map
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int col, int row,
+                                             int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128 B-swizzled tile (start address,
+// leading and stride byte offsets in 16 B units, layout type 1 = 128 B
+// swizzle); atoms of 8 rows x 128 B sit 1024 B apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
+                                               uint32_t lbo_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)(1024 >> 4) << 32)
+         | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (CUTLASS's warpgroup_fence_operand)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// S (64 x 128, fp32) += A (64 x 16, bf16, shared, K-major) .
+//                       B (16 x 128, bf16, shared, K-major: the K tile)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 64, fp32) += A (64 x 16, bf16, registers: P) .
+//                      B (16 x 64, bf16, shared, MN-major: the V tile)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^x, -inf -> 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared memory of one block: Q (NB boxes), then 2 stages of K and of V
+// (NB boxes each), then the barriers; 1024 B aligned for the swizzle.
+template <int DP>
+constexpr int tc_smem_bytes() {
+  return 1024 + 5 * (DP / TC_BOX_COLS) * TC_BOX_BYTES + 8 * 8;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const TcParams p) {
+  constexpr int DP = D <= TC_BOX_COLS ? TC_BOX_COLS : 2 * TC_BOX_COLS;
+  constexpr int NB = DP / TC_BOX_COLS;          // boxes per tile
+  constexpr int TILE = NB * TC_BOX_BYTES;       // bytes of one Q/K/V tile
+  static_assert(D <= DP && D % 8 == 0, "head dim fits the padded tile");
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sq = base;
+  uint8_t* sk = sq + TILE;                      // stage s at sk + s * TILE
+  uint8_t* sv = sk + 2 * TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + 2 * TILE);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;                  // [2]
+  uint64_t* v_full = bars + 3;                  // [2]
+  uint64_t* empty = bars + 5;                   // [2]
+
+  // heads that share a KV head are neighbours along x; causal query tiles
+  // go longest first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int qt = p.causal ? p.n_qtiles - 1 - (int)blockIdx.y
+                          : (int)blockIdx.y;
+  const int q0 = qt * TC_BQ;
+  const int hk = h / (p.H / p.Hkv);
+
+  // live key range of this query tile: [k_begin, k_end)
+  const int q_lo = q0 + p.q_offset;
+  const int q_hi = min(q0 + TC_BQ, p.Sq) - 1 + p.q_offset;
+  int k_end = p.kv_len;
+  if (p.causal) k_end = min(k_end, q_hi + 1);
+  const int k_begin = p.window > 0 ? max(0, q_lo - p.window + 1) : 0;
+  const int t_begin = k_begin / TC_BK;
+  const int t_end = k_end > 0 ? (k_end + TC_BK - 1) / TC_BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, 2);                  // one arrival per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load -------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, TILE);
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+        tma_load_box(sq + x * TC_BOX_BYTES, &tq, q_full, x * TC_BOX_COLS,
+                     q0, h, b);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int st = i & 1;
+        mbar_wait(empty + st, ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(k_full + st, TILE);
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          tma_load_box(sk + st * TILE + x * TC_BOX_BYTES, &tk, k_full + st,
+                       x * TC_BOX_COLS, t * TC_BK, hk, b);
+        mbar_expect_tx(v_full + st, TILE);
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          tma_load_box(sv + st * TILE + x * TC_BOX_BYTES, &tv, v_full + st,
+                       x * TC_BOX_COLS, t * TC_BK, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns query rows 64 cw .. 64 cw + 63 ---
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    // this thread's rows (r0, r0 + 8) and first column in each 8-column
+    // group of the accumulator fragments
+    const int r0 = 64 * cw + 16 * warp + (lane >> 2);
+    const int c2 = 2 * (lane & 3);
+
+    float o[NB][32];
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[x][i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    const uint32_t q_addr = smem_u32(sq) + cw * 64 * 128;
+    // S = Q K^T of the tile in stage st: DP / 16 steps of depth 16, four
+    // per 128 B-wide box (issued, not waited for)
+    float s[64];
+    auto issue_qk = [&](int st) {
+      const uint32_t k_addr = smem_u32(sk + st * TILE);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * TC_BOX_BYTES + (kk & 3) * 32;
+        wgmma_m64n128k16_ss(s, sw128_desc(q_addr + off, 16),
+                            sw128_desc(k_addr + off, 16), kk > 0);
+      }
+    };
+    mbar_wait(q_full, 0);
+    if (t_begin < t_end) {
+      mbar_wait(k_full, 0);
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk(0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+    }
+
+    // tile t: softmax of S(t) (ready), then O += P(t) V(t) issued together
+    // with S(t + 1) = Q K(t + 1)^T, so the tensor cores run the two back
+    // to back; both are waited for before stage t is released
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int st = i & 1;
+      const int par = (i >> 1) & 1;
+      const int k0 = t * TC_BK;
+      const uint32_t v_addr = smem_u32(sv + st * TILE);
+
+      // masks only on tiles that cross an edge of the live region
+      const bool full = k0 + TC_BK <= p.kv_len
+                        && (!p.causal || k0 + TC_BK - 1 <= q_lo)
+                        && (p.window <= 0
+                            || k0 > q0 + TC_BQ - 1 + p.q_offset - p.window);
+      // online softmax on the fragment: s[4j + 2hf + e] is row r0 + 8 hf,
+      // key k0 + 8j + c2 + e; a row's 128 keys live in one quad of lanes.
+      // m is kept in units of log2: p = 2^(s * scale_log2 - m), one FFMA
+      // and one ex2 per score
+      float corr[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int qpos = q0 + r0 + 8 * hf + p.q_offset;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = s[4 * j + 2 * hf + e];
+            if (!full) {
+              const int kpos = k0 + 8 * j + c2 + e;
+              const bool ok = kpos < p.kv_len
+                              && (!p.causal || kpos <= qpos)
+                              && (p.window <= 0 || kpos > qpos - p.window);
+              v = ok ? v : -INFINITY;
+              s[4 * j + 2 * hf + e] = v;
+            }
+            mx = fmaxf(mx, v);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hf], mx * p.scale_log2);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        corr[hf] = fast_exp2(m[hf] - m_use);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pv = fast_exp2(
+                fmaf(s[4 * j + 2 * hf + e], p.scale_log2, -m_use));
+            s[4 * j + 2 * hf + e] = pv;
+            sum += pv;
+          }
+        }
+        l[hf] = l[hf] * corr[hf] + sum;
+        m[hf] = m_new;
+      }
+
+      // P to bf16 in registers: the accumulator fragment of keys
+      // 16kk .. 16kk + 15 is the A fragment of step kk
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+#pragma unroll
+        for (int i2 = 0; i2 < 32; ++i2) o[x][i2] *= corr[(i2 >> 1) & 1];
+
+      // O += P V: 8 steps of 16 keys per 64-column box of V
+      mbar_wait(v_full + st, par);
+      fence_regs(s);
+#pragma unroll
+      for (int x = 0; x < NB; ++x) fence_regs(o[x]);
+      wgmma_fence();
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_m64n64k16_rs_tb(
+              o[x], pa[kk],
+              sw128_desc(v_addr + x * TC_BOX_BYTES + kk * 16 * 128,
+                         TC_BOX_BYTES));
+      wgmma_commit();
+      if (t + 1 < t_end) {
+        const int st1 = (i + 1) & 1;
+        mbar_wait(k_full + st1, ((i + 1) >> 1) & 1);
+        issue_qk(st1);
+        wgmma_commit();
+      }
+      wgmma_wait_all();
+      fence_regs(s);
+#pragma unroll
+      for (int x = 0; x < NB; ++x) fence_regs(o[x]);
+      if (tid == 0) mbar_arrive(empty + st);   // this stage is read
+    }
+
+    // normalise and store bf16 pairs through out's strides
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+      l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    }
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.os[0]
+                         + h * p.os[1];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r0 + 8 * hf;
+      if (row >= p.Sq) continue;
+      const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+      __nv_bfloat16* orow = out + row * p.os[2];
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = x * TC_BOX_COLS + 8 * j + c2;
+          if (col < D)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(o[x][4 * j + 2 * hf] * inv,
+                                      o[x][4 * j + 2 * hf + 1] * inv);
+        }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library
+// needs no -lcuda
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A (D, S, heads, batch) bf16 tensor map with 64 x 128 boxes and 128 B
+// swizzle; rows and columns beyond the tensor read as zeros. Strides are
+// in elements, (batch, head, position); a dimension of extent 1 gets the
+// stride a packed layout would give it, as TMA wants every stride a
+// multiple of 16 B.
+CUresult make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
+                  int batch, const long long* st) {
+  const cuuint64_t ext[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                             (cuuint64_t)heads, (cuuint64_t)batch};
+  long long s_pos = S > 1 ? st[2] : D;
+  long long s_head = heads > 1 ? st[1] : s_pos * S;
+  long long s_batch = batch > 1 ? st[0] : s_head * heads;
+  const cuuint64_t strides[3] = {(cuuint64_t)s_pos * 2,
+                                 (cuuint64_t)s_head * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {TC_BOX_COLS, 128, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptr), ext, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int Hkv, int Sq, int Sk, int kv_len, int causal,
+              int window, int q_offset, const long long* strides,
+              cudaStream_t stream) {
+  constexpr int DP = D <= TC_BOX_COLS ? TC_BOX_COLS : 2 * TC_BOX_COLS;
+  constexpr int bytes = tc_smem_bytes<DP>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_tc_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(&tq, q, D, Sq, H, B, strides);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, k, D, Sk, Hkv, B, strides + 3);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, v, D, Sk, Hkv, B, strides + 6);
+  if (r != CUDA_SUCCESS) return TENSOR_MAP_ERROR + (int)r;
+  TcParams p;
+  p.out = out;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.Sq = Sq;
+  p.kv_len = kv_len;
+  p.causal = causal;
+  p.window = window;
+  p.q_offset = q_offset;
+  p.n_qtiles = (Sq + TC_BQ - 1) / TC_BQ;
+  p.scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  for (int i = 0; i < 3; ++i) p.os[i] = strides[9 + i];
+  if (p.n_qtiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(H, p.n_qtiles, B);
+  flash_attention_tc_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
+      tq, tk, tv, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -256,9 +782,11 @@ cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t stream) {
 // q (B, H, Sq, D), k and v (B, Hkv, Sk, D), out (B, H, Sq, D), each
 // addressed through the element strides in ``strides``: 12 int64 values,
 // (batch, head, position) for q, k, v and out; the last dimension is
-// contiguous. ``bf16`` selects bfloat16 tensors, else float32. Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for a D other than 16, 80
-// and 128).
+// contiguous. ``bf16`` selects bfloat16 tensors (the tensor-core kernel:
+// bases and strides of q, k and v multiples of 16 bytes), else float32.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a D other
+// than 16, 80 and 128), or TENSOR_MAP_ERROR plus the CUresult when a
+// tensor map cannot be built.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int H,
                                       int Hkv, int Sq, int Sk, int D,
@@ -266,6 +794,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int q_offset, int bf16,
                                       const long long* strides,
                                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    switch (D) {
+      case 16: return launch_tc<16>(q, k, v, out, B, H, Hkv, Sq, Sk, kv_len,
+                                    causal, window, q_offset, strides, s);
+      case 80: return launch_tc<80>(q, k, v, out, B, H, Hkv, Sq, Sk, kv_len,
+                                    causal, window, q_offset, strides, s);
+      case 128: return launch_tc<128>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                      kv_len, causal, window, q_offset,
+                                      strides, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   Params p;
   p.q = q;
   p.k = k;
@@ -286,8 +827,5 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     p.vs[i] = strides[6 + i];
     p.os[i] = strides[9 + i];
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_d<__nv_bfloat16>(p, B, D, s)
-                               : launch_d<float>(p, B, D, s);
-  return (int)err;
+  return (int)launch_f32(p, B, D, s);
 }

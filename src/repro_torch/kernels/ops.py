@@ -34,7 +34,7 @@ __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
            "flash_attention", "multi_threshold", "qmatmul",
            "megakernel_smem_bytes", "plan_conv_blocks", "launches",
            "reset_launches", "FLASH_HEAD_DIMS", "TMM_TILE_SIZES",
-           "TMM_DEFAULT_TILE"]
+           "TMM_DEFAULT_TILE", "multi_threshold_plan"]
 
 #: Kernel launches since the last ``reset_launches``, by kernel name.
 launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
@@ -281,6 +281,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k, v need a contiguous last dimension")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} above the grid's 65535")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel reads q, k and v through TMA tensor maps:
+        # bases and the strides of every dimension of extent > 1 must be
+        # multiples of 16 bytes (8 elements)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(
+                    t.stride(i) % 8 for i in range(3) if t.shape[i] > 1):
+                raise ValueError(f"bf16 {name} (strides {t.stride()}) needs "
+                                 f"a 16-byte aligned base and strides")
     out = torch.empty_like(q)          # q's layout (contiguous if not dense)
     if out.numel() == 0:
         return out
@@ -296,13 +305,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+#: Shared memory ``multi_threshold``'s search kernel may take for banks:
+#: the 227 KB of a block less 1 KB for its static arrays.
+MT_BANK_SMEM_BYTES = 232_448 - 1024
+
+
+def multi_threshold_plan(c: int, s: int) -> int:
+    """Channels per block of ``multi_threshold``'s search kernel, which
+    stages whole banks step-major, ``s * (bc + 1)`` int32 words, and runs
+    one row per thread: 4 for banks below 1024 steps, 1 for deeper ones (a
+    block's staging grows with bc * s; the kernel is latency-bound, so
+    small blocks that spread over the SMs win), never more than the next
+    power of two at or above ``c``, halved until the banks fit
+    ``MT_BANK_SMEM_BYTES``. 0 when not even one channel's bank fits: the
+    chunked linear count."""
+    bc = 4 if int(s) < 1024 else 1
+    while bc > 1 and bc // 2 >= int(c):
+        bc //= 2
+    while bc >= 1 and int(s) * (bc + 1) * 4 > MT_BANK_SMEM_BYTES:
+        bc //= 2
+    return bc
+
+
 def multi_threshold(acc: torch.Tensor, thresholds: torch.Tensor
                     ) -> torch.Tensor:
     """Standalone FINN multi-threshold activation.
 
     acc (M, C) int32, thresholds (C, S) int32 (sorted or not: the count is
     the same); returns (M, C) int32 counts #(acc >= T[c, s]) in [0, S].
-    Any bank depth, ragged M and C: the kernel pads nothing."""
+    Any bank depth, ragged M and C: the kernel pads nothing. It searches
+    non-decreasing banks and counts the others step by step, channel by
+    channel; ``multi_threshold_plan`` picks its block."""
     kind = _device_kind(acc)
     _check(acc, "acc", torch.int32, 2, acc.device)
     _check(thresholds, "thresholds", torch.int32, 2, acc.device)
@@ -316,11 +349,13 @@ def multi_threshold(acc: torch.Tensor, thresholds: torch.Tensor
     out = torch.empty((m, c), dtype=torch.int32, device=acc.device)
     if out.numel() == 0:
         return out
-    if (c + 31) // 32 > 65535:
-        raise ValueError(f"{c} channels: above the grid's 65535 x 32")
+    bc = multi_threshold_plan(c, s)
+    if -(-c // (bc or 32)) > 65535:
+        raise ValueError(f"{c} channels: above the grid's 65535 x "
+                         f"{bc or 32}")
     fn = _build.entry_point("multi_threshold")
     err = fn(acc.data_ptr(), thresholds.data_ptr(), out.data_ptr(), m, c, s,
-             torch.cuda.current_stream(acc.device).cuda_stream)
+             bc, torch.cuda.current_stream(acc.device).cuda_stream)
     _raise_on_error("multi_threshold", err)
     launches["multi_threshold"] += 1
     return out

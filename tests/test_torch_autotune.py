@@ -266,3 +266,88 @@ def test_compile_graph_autotune_flag_and_env_knobs(tmp_path, monkeypatch):
     assert cm2.tuned == cm1.tuned
     cm3 = tcompile(graph, in_scale=IN_SCALE, device="cpu", tuned=cm1.tuned)
     assert cm3.tuned == cm1.tuned
+
+
+def _state(cm):
+    """What a probe pass runs: micro-batch aside, the dispatch mode and
+    the dense stages' K1 tiles."""
+    tiles = tuple((s.block_m, s.block_n) for s in cm.schedule.stages
+                  if isinstance(s, FusedThresholdStage))
+    return cm.megakernel, tiles
+
+
+@pytest.mark.parametrize("kind", ["mlp", "conv"])
+def test_measured_decisions_time_candidates_in_turns(kind, tmp_path,
+                                                     monkeypatch):
+    """Each measured decision warms every candidate once, then runs
+    PAIR_ROUNDS rounds of one pass per candidate in turn; every
+    candidate's median and spread reach the config."""
+    _, tm = _pair(kind)
+    calls = []
+    real = tm.streaming_compiled
+
+    def logged(x, micro_batch=None):
+        calls.append((int(micro_batch),) + _state(tm))
+        return real(x, micro_batch=micro_batch)
+
+    monkeypatch.setattr(tm, "streaming_compiled", logged)
+    cfg = tat.autotune_model(tm, batch=32, directory=str(tmp_path),
+                             force=True, topk=3)
+    rounds = tat.PAIR_ROUNDS
+    assert rounds >= 7
+    top = [c for c in cfg.candidates if "probe_ms" in c]
+    assert len(top) == 3
+    arms = [(c["micro_batch"],) + _state(tm) for c in top]
+    n = len(arms) * (rounds + 1)
+    assert calls[:n] == arms * (rounds + 1)      # warm, then in turns
+    for c in top:
+        assert c["probe_rounds"] == rounds and c["probe_spread_ms"] >= 0
+        assert cfg.probe_ms[str(c["micro_batch"])] == c["probe_ms"]
+    rest = calls[n:]
+    wave = cfg.micro_batch
+    if kind == "mlp":                     # both pair decisions ran
+        assert cfg.block_mn_probe and cfg.segment_mode_model
+    if cfg.block_mn_probe:
+        pair = rest[:2 * (rounds + 1)]
+        rest = rest[2 * (rounds + 1):]
+        assert all(c[0] == wave for c in pair)
+        assert pair[0::2] == [pair[0]] * (rounds + 1)    # default tiles
+        assert pair[1::2] == [pair[1]] * (rounds + 1)    # tuned tiles
+        assert set(cfg.block_mn_probe["spread_ms"]) == {"default", "tuned"}
+        assert cfg.block_mn_probe["rounds"] == rounds
+    if cfg.segment_mode_model:
+        assert [c[1] for c in rest] == [True, False] * (rounds + 1)
+        assert all(c[0] == wave for c in rest)
+        assert set(cfg.segment_mode_model["spread_ms"]) == {"megakernel",
+                                                            "staged"}
+        assert set(cfg.segment_mode_model["probe_ms"]) == {"megakernel",
+                                                           "staged"}
+    else:
+        assert rest == []
+    assert tm.megakernel is None          # probing restored the mode
+    assert _state(tm) == (None, tuple((s.block_m, s.block_n)
+                                      for s in _pair(kind)[1].schedule.stages
+                                      if isinstance(s, FusedThresholdStage)))
+
+
+@pytest.mark.parametrize("kind", ["mlp", "conv"])
+def test_scripted_probe_calls_once_per_candidate_in_reference_order(
+        kind, tmp_path):
+    """Under ``probe=`` both packages call it once per candidate, in the
+    same order, with the same micro-batch and dispatch mode."""
+    jm, tm = _pair(kind)
+    times = {mb: 0.010 + 0.0007 * abs(mb - 8) for mb in MBS}
+    logs = {"j": [], "t": []}
+
+    def logging(tag):
+        def probe(cm, x, micro_batch):
+            logs[tag].append((micro_batch, cm.megakernel))
+            return times[micro_batch]
+        return probe
+
+    jat.autotune_model(jm, batch=32, probe=logging("j"),
+                       directory=str(tmp_path / "j"), force=True)
+    tat.autotune_model(tm, batch=32, probe=logging("t"),
+                       directory=str(tmp_path / "t"), force=True)
+    assert logs["t"] == logs["j"]
+    assert len(logs["t"]) >= 3

@@ -172,13 +172,26 @@ FLASH_CASES = [
     (1, 32, 8, 70, 133, 80, False, 0, 0, 101),
 ]
 
+# the bf16 kernel's tile edges (128 query rows, 128 keys): Sq and Sk of
+# 127, 129 and 255, and windows that cross a 128-key tile
+FLASH_EDGE_CASES = [
+    (1, 4, 2, 127, 127, 128, True, 0, 0, None),
+    (2, 4, 2, 129, 129, 80, True, 0, 0, None),
+    (1, 4, 2, 255, 255, 16, False, 0, 0, None),
+    (1, 8, 2, 127, 255, 128, True, 0, 128, None),
+    (1, 4, 2, 255, 129, 80, False, 0, 0, 127),
+    (1, 4, 2, 255, 255, 128, True, 100, 0, None),
+    (2, 4, 4, 129, 255, 128, False, 70, 100, 200),
+]
+
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_EDGE_CASES)
 def test_flash_attention_kernel_equals_plain(cuda, case, dtype):
     """Within 1e-5 in float32 (sums in another order) and 2e-2 in bf16
-    (the output's rounding), as the reference's kernel tests hold it; also
-    on the model's (B, S, H, D) layout passed as strided views."""
+    (the tensor-core kernel rounds P and the output to bf16), as the
+    reference's kernel tests hold it; also on the model's (B, S, H, D)
+    layout passed as strided views."""
     b, h, hkv, sq, sk, d, causal, window, q_offset, kv_len = case
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(sq * 7 + sk + d)
@@ -212,6 +225,30 @@ def test_multi_threshold_kernel_equals_plain(cuda, m, c, steps):
     acc = torch.randint(-5000, 5000, (m, c), generator=g, dtype=torch.int32)
     thr = torch.sort(torch.randint(-4000, 4000, (c, steps), generator=g,
                                    dtype=torch.int32), dim=1).values
+    want = ops.multi_threshold(acc, thr)                 # plain, on the CPU
+    before = ops.launches["multi_threshold"]
+    got = ops.multi_threshold(acc.to(cuda), thr.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launches["multi_threshold"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m,c,steps,kind", [
+    (97, 65, 65, "unsorted"), (300, 40, 255, "unsorted"),
+    (129, 72, 64, "ties"), (64, 9, 256, "ties"),
+    (50, 33, 255, "extreme"), (7, 5, 4096, "extreme"),
+    (300, 72, 255, "mixed"), (64, 40, 1024, "mixed"), (33, 20, 65, "mixed"),
+    (200, 40, 63, "sorted"), (129, 33, 1024, "sorted"),
+    (130, 32, 4096, "sorted"), (40, 3, 30000, "sorted")])
+def test_multi_threshold_kernel_every_bank_kind_equals_plain(cuda, m, c,
+                                                             steps, kind):
+    """Sorted channels are searched, the others counted step by step, in
+    the same call where a bank mixes them; deep banks take fewer channels
+    per block (S 4096) or the chunked linear count (S 30000)."""
+    from repro_torch.bench.kernel_bench import mt_inputs
+
+    acc, thr = (torch.as_tensor(a) for a in mt_inputs(
+        np.random.default_rng(m + c + steps), m, c, steps, kind))
     want = ops.multi_threshold(acc, thr)                 # plain, on the CPU
     before = ops.launches["multi_threshold"]
     got = ops.multi_threshold(acc.to(cuda), thr.to(cuda))

@@ -177,6 +177,93 @@ def test_multi_threshold_counts_unsorted_banks_and_extremes():
         got.numpy(), np.asarray(jmt_ref(jnp.asarray(acc), jnp.asarray(thr))))
 
 
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "ties", "mixed",
+                                  "extreme"])
+@pytest.mark.parametrize("m,c,steps", [(9, 5, 7), (17, 33, 64), (6, 4, 300)])
+def test_multi_threshold_every_bank_kind_matches_pallas_interpret(kind, m, c,
+                                                                  steps):
+    """The bank kinds the card checks (``kernel_bench.mt_inputs``): the
+    plain version equals the TPU kernel's oracle, sorted or not, with ties
+    and INT32 extremes, and the TPU kernel in interpret mode everywhere
+    but where that kernel pads: its slab body (S >= 256) pads banks with
+    INT32_MAX steps, which an INT32_MAX accumulator reaches, so there it
+    counts the padding too."""
+    from repro_torch.bench.kernel_bench import mt_inputs
+
+    acc, thr = mt_inputs(np.random.default_rng(m * c + steps), m, c, steps,
+                         kind)
+    got = tops.multi_threshold(torch.as_tensor(acc), torch.as_tensor(thr))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jmt_ref(jnp.asarray(acc), jnp.asarray(thr))))
+    pallas = np.asarray(jops.multi_threshold(
+        jnp.asarray(acc), jnp.asarray(thr), block_m=8, interpret=True))
+    padded = (acc == np.iinfo(np.int32).max) & (steps >= 256)
+    np.testing.assert_array_equal(got.numpy()[~padded], pallas[~padded])
+    np.testing.assert_array_equal(pallas[padded],
+                                  -(-steps // 64) * 64)   # 64-step slabs
+
+
+def _lifted_count(bank: np.ndarray, a: int):
+    """K4's search on one non-decreasing bank, step for step as
+    ``csrc/multi_threshold.cu`` runs it: binary lifting over powers of two
+    from the highest one at or below S. Returns (count, compares)."""
+    s = len(bank)
+    top = 1 if s else 0
+    while top and 2 * top <= s:
+        top *= 2
+    cnt, compares, step = 0, 0, top
+    while step:
+        nxt = cnt + step
+        t = bank[min(nxt, s) - 1]
+        compares += 1
+        cnt = nxt if (nxt <= s and t <= a) else cnt
+        step //= 2
+    return cnt, compares
+
+
+@pytest.mark.parametrize("kind", ["sorted", "ties", "extreme"])
+@pytest.mark.parametrize("steps", [0, 1, 2, 63, 64, 65, 255, 256, 511])
+def test_multi_threshold_search_counts_like_the_linear_count(kind, steps):
+    """On non-decreasing banks the kernel's upper-bound search gives the
+    linear count, ties and extremes included, in ceil(log2(S + 1))
+    compares."""
+    from repro_torch.bench.kernel_bench import mt_inputs
+
+    acc, thr = mt_inputs(np.random.default_rng(steps + 3), 16, 3,
+                         max(steps, 1), kind)
+    thr = thr[:, :steps]
+    want = tops.multi_threshold(torch.as_tensor(acc),
+                                torch.as_tensor(np.ascontiguousarray(thr)))
+    for ch in range(thr.shape[0]):
+        for r in range(acc.shape[0]):
+            cnt, compares = _lifted_count(thr[ch], int(acc[r, ch]))
+            assert cnt == int(want[r, ch])
+            assert compares == steps.bit_length()
+
+
+@pytest.mark.parametrize("c,s", [(72, 255), (72, 511), (8, 3), (3, 1),
+                                 (1, 7), (2, 1023), (32, 4096), (40, 1023),
+                                 (3, 28928), (3, 30000), (100, 0)])
+def test_multi_threshold_plan_stages_whole_banks_or_counts_linearly(c, s):
+    """Channels per block: 4 below 1024 steps, 1 above, no wider than C
+    needs, banks within the shared memory the source reserves, 0 (the
+    chunked linear count) only when one channel's bank does not fit;
+    every choice is one the source instantiates."""
+    src = (_build.CSRC / "multi_threshold.cu").read_text()
+    smem = int(re.search(r"SMEM_MAX = (\d+);", src).group(1))
+    assert "SMEM_MAX - 1024" in src
+    assert tops.MT_BANK_SMEM_BYTES == smem - 1024
+    fits = lambda bc: s * (bc + 1) * 4 <= tops.MT_BANK_SMEM_BYTES  # noqa
+    bc = tops.multi_threshold_plan(c, s)
+    if bc == 0:
+        assert not fits(1)
+        return
+    assert fits(bc) and bc <= (4 if s < 1024 else 1)
+    assert bc == 1 or bc // 2 < c
+    assert bc == (4 if s < 1024 else 1) or bc >= c or not fits(2 * bc)
+    assert f"case {bc}: return (int)launch_search<{bc}>" in src
+
+
 def test_multi_threshold_wrapper_checks_its_arguments():
     acc = torch.zeros((4, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="does not match"):
@@ -248,10 +335,38 @@ def test_kernel_bench_checking_pass_on_the_cpu():
                                             "multi_threshold"]
     assert kb.check_cases(cases) == {"qmatmul": 0, "multi_threshold": 0}
     assert cases[0]["ops"] == 2 * 512 ** 3
-    assert cases[1]["ops"] == 1024 * 72 * 255
+    assert cases[1]["ops"] == 1024 * 72 * 8       # a search of 255 steps
     assert kb.bound_by("qmatmul", cases[0]["bytes"], cases[0]["ops"]) == \
         "bytes"
     assert kb.bound_by("multi_threshold", cases[1]["bytes"],
-                       cases[1]["ops"]) == "operations"
+                       cases[1]["ops"]) == "bytes"
     if not torch.cuda.is_available():
         assert kb.main([]) == 2
+
+
+def test_kernel_bench_k4_bound_counts_a_binary_search():
+    """K4's bound: ceil(log2(S + 1)) compares per element of a sorted
+    bank (the search K4 runs), S per element of any other; at the bench's
+    banks the bytes bound it (0.198 and 0.220 us at 3.35 TB/s)."""
+    import math
+
+    from repro_torch.bench import kernel_bench as kb
+
+    for c in kb.kernel_cases("cpu")[1:]:
+        m, ch = (int(v) for v in re.findall(r"[MC]=(\d+)", c["shape"]))
+        steps = int(re.search(r"S=(\d+)", c["shape"]).group(1))
+        assert c["ops"] == m * ch * math.ceil(math.log2(steps + 1))
+        assert kb.bound_by("multi_threshold", c["bytes"], c["ops"]) == \
+            "bytes"
+    ad, deep = kb.kernel_cases("cpu")[1:]
+    assert kb.bound_ms("multi_threshold", ad["bytes"], ad["ops"]) == \
+        pytest.approx(1.98e-4, rel=1e-2)
+    assert kb.bound_ms("multi_threshold", deep["bytes"], deep["ops"]) == \
+        pytest.approx(2.20e-4, rel=1e-2)
+    rng = np.random.default_rng(0)
+    _, unsorted = kb.mt_inputs(rng, 4, 6, 100, "unsorted")
+    _, mixed = kb.mt_inputs(rng, 4, 6, 100, "mixed")
+    assert kb.mt_compares(10, torch.as_tensor(unsorted)) == 10 * 6 * 100
+    assert kb.mt_compares(10, torch.as_tensor(mixed)) == \
+        10 * (3 * 7 + 3 * 100)
+    assert kb.mt_compares(10, torch.zeros((6, 0), dtype=torch.int32)) == 0
