@@ -10,11 +10,20 @@ which fails the run with a non-zero exit:
 
   1. build   — compile every kernel of the path from ``csrc/`` (one nvcc
                per source, in parallel), time printed;
-  2. kernels — each kernel against its plain PyTorch version on the card,
-               exact integer equality: K1/K2 at ragged shapes, S in
-               {1, 7, 255}, K = 5 / stride 2 / C = 1; K3 on chains of 1 to
-               5 stages, ragged M, widths up to 512, S in {1, 7, 255},
-               signed first-layer codes;
+  2. kernels — ``cuobjdump --dump-sass`` of the built K1 and K2
+               libraries must show IMMA (int8 ``mma.sync``); each kernel
+               against its plain PyTorch version on the card, exact
+               integer equality: K1/K2 at ragged shapes, S in {1, 7, 255},
+               K = 5 / stride 2 / C = 1; K1/K2 on every bank kind
+               (sorted, unsorted, ties, INT32_MIN/MAX steps, sorted and
+               unsorted channels in one bank), banks of 1000 steps
+               (searched) and 1024 and more (past shared memory: the
+               chunked linear count), and codes
+               of every mma flavour (s8, u8, binary, and wider than a
+               byte: the byte split), K1 also with k tiles of different
+               flavours in one block, under 3 tiles / row blocks each (``K1_BRANCH_CASES``, ``K2_BRANCH_CASES``); K3 on
+               chains of 1 to 5 stages, ragged M, widths up to 512, S in
+               {1, 7, 255}, signed first-layer codes;
   3. main path — ``compile_graph(device="cuda")`` of the full-width KWS
                MLP (490-256x3-12, 3-bit) and AD autoencoder
                (128-72-72-8-72-72-128, 8-bit), built with ``export_qmlp``
@@ -41,7 +50,11 @@ which fails the run with a non-zero exit:
                CUDA events, ``time_ms``), with the bound from bytes
                and int8 operations; K3 also beside the summed K1 times of
                the same stages; ``offline`` ms per 1024-row batch in both
-               modes;
+               modes; K1 under all 9 tiles on the full-width KWS and AD
+               stages; then K1 and K2 step by step on every main-path
+               stage (``phase_k12_split``): products by ``mma.sync`` or
+               by dp4a on the CUDA cores, banks searched or counted step
+               by step, each variant exact first;
   7. full width — the kernels at the paper's IC and CNV stage shapes on
                seeded codes, held against their plain versions and timed
                (``FULL_WIDTH_CONVS``, ``FULL_WIDTH_DENSE``, and K3 on CNV's
@@ -258,7 +271,7 @@ def tmm_case(model, stage, x, w, t):
             "run": lambda: ops.threshold_matmul(x, w, t),
             "plain": lambda: ref.threshold_matmul_ref(x, w, t),
             "library": _mm_library(x, w),
-            "bytes": nbytes, "ops": nops}
+            "inputs": (x, w, t), "bytes": nbytes, "ops": nops}
 
 
 def conv_case(model, stage, x, w, t, kw):
@@ -274,7 +287,8 @@ def conv_case(model, stage, x, w, t, kw):
             "run": lambda: ops.conv_threshold(x, w, t, **kw),
             "plain": lambda: _conv_plain(x, w, t, **kw),
             "library": _conv_library(x, w, **kw),
-            "bytes": nbytes, "ops": nops}
+            "inputs": (x, w, t), "geometry": kw, "bytes": nbytes,
+            "ops": nops}
 
 
 def chain_codes(x, weights, banks):
@@ -342,11 +356,57 @@ def _random_chain(g, m, dims, steps, lo, hi):
 # phases
 # ---------------------------------------------------------------------------
 
+# K1 checks beyond the models' own banks (M, K, N, S, bank kind, code
+# range), each under the 32 x 32, default and 128 x 128 tiles: every bank
+# kind of ``kernel_bench.bank_of_kind``, depths 1 to 1000 (searched: whole
+# banks are padded to 2^k - 1 steps, 1023 here), 1024 and 2000 (past the
+# default tile's shared memory: the chunked linear count), and every
+# mma flavour (s8, u8, binary, and codes wider than a byte: the byte split,
+# with K small enough that the sums fit int32)
+K1_BRANCH_CASES = [
+    (300, 200, 72, 255, "sorted", "s8"), (300, 200, 72, 255, "unsorted", "u8"),
+    (300, 200, 72, 255, "ties", "binary"), (300, 200, 72, 255, "mixed", "u8"),
+    (300, 200, 72, 255, "extreme", "s8"), (257, 130, 40, 7, "sorted", "wide"),
+    (257, 130, 40, 255, "mixed", "wide"), (129, 490, 70, 1000, "sorted", "u8"),
+    (129, 490, 70, 1024, "mixed", "u8"),
+    (129, 64, 33, 1, "unsorted", "s8"), (65, 33, 9, 2000, "mixed", "u8"),
+    (1024, 256, 40, 2000, "sorted", "s8")]
+# K2 checks (N, H, W, C, F, kernel, stride, padding, S, bank kind, code
+# range), each under the planned row block, 1 and 3 rows: C of 1, 3 and 5
+# (byte loads) and multiples of 4 (word loads; a padded pixel stride from
+# 32 channels), F past one 64-channel block, every bank kind, deep banks
+# (1000 searched; 1024 and 6000 counted in chunks), every mma flavour
+K2_BRANCH_CASES = [
+    (3, 12, 12, 3, 32, 3, 1, "VALID", 255, "sorted", "s8"),
+    (2, 16, 16, 3, 32, 1, 1, "SAME", 255, "unsorted", "s8"),
+    (2, 16, 16, 32, 4, 4, 1, "SAME", 255, "mixed", "u8"),
+    (2, 16, 16, 4, 32, 4, 1, "SAME", 255, "ties", "u8"),
+    (2, 16, 16, 32, 32, 4, 4, "SAME", 255, "extreme", "u8"),
+    (2, 10, 10, 8, 70, 3, 1, "VALID", 1, "sorted", "binary"),
+    (2, 7, 9, 64, 130, 3, 1, "SAME", 7, "unsorted", "binary"),
+    (2, 9, 9, 5, 6, 3, 2, "SAME", 7, "mixed", "wide"),
+    (2, 9, 9, 8, 6, 3, 1, "SAME", 255, "sorted", "wide"),
+    (2, 8, 8, 16, 24, 3, 1, "SAME", 1000, "sorted", "u8"),
+    (2, 8, 8, 16, 24, 3, 1, "SAME", 1024, "sorted", "u8"),
+    (1, 6, 7, 8, 33, 3, 1, "SAME", 6000, "mixed", "u8")]
+
+
+def _codes(rng, shape, codes):
+    """Seeded int32 codes of one of ``kernel_bench.CODE_RANGES``."""
+    from repro_torch.bench.kernel_bench import CODE_RANGES
+
+    lo, hi = CODE_RANGES[codes]
+    return rng.integers(lo, hi, shape).astype("int32")
+
+
 def phase_kernels_synthetic():
     """Each kernel against its plain version at ragged shapes and the bank
     depths the models use; returns the largest |kernel - plain| per kernel."""
+    import numpy as np
     import torch
+    from repro_torch.bench.kernel_bench import bank_of_kind
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.conv_threshold import direct_conv_acc, pad_input
 
     g = torch.Generator().manual_seed(SEED)
     worst = dict.fromkeys(REPLACES, 0)
@@ -392,6 +452,65 @@ def phase_kernels_synthetic():
         check(err == 0, f"conv_threshold K={kk} s={st} {pad} C={c}: err {err}")
         log(f"kernel-check conv_threshold N={nb} {h}x{wd}x{c} F={f} K={kk} "
             f"stride={st} {pad} S={s}: exact")
+    rng = np.random.default_rng(SEED + 10)
+    for m, k, n, s, kind, codes in K1_BRANCH_CASES:
+        x = _codes(rng, (m, k), codes)
+        w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+        t = bank_of_kind(rng, x.astype(np.int64) @ w, n, s, kind)
+        x, w, t = (torch.as_tensor(a).cuda() for a in (x, w, t))
+        want = ref.threshold_matmul_ref(x, w, t)
+        for bm, bn in ((32, 32), tuple(ops.TMM_DEFAULT_TILE), (128, 128)):
+            got = ops.threshold_matmul(x, w, t, block_m=bm, block_n=bn)
+            err = int((got - want).abs().max())
+            worst["threshold_matmul"] = max(worst["threshold_matmul"], err)
+            check(err == 0, f"threshold_matmul M={m} K={k} N={n} S={s} "
+                            f"{kind} bank, {codes} codes, tile {bm}x{bn}: "
+                            f"max err {err}")
+        plan = ops.threshold_matmul_plan(*ops.TMM_DEFAULT_TILE, s)
+        log(f"kernel-check threshold_matmul M={m} K={k} N={n} S={s} {kind} "
+            f"bank, {codes} codes ({'search' if plan['search'] else 'linear'}"
+            f" at the default tile): exact under 3 tiles")
+    # k tiles of one row block voting s8, u8, the byte split, then s8
+    x = np.concatenate([rng.integers(-128, 128, (40, 64)),
+                        rng.integers(0, 256, (40, 64)),
+                        rng.integers(-5000, 5001, (40, 64)),
+                        rng.integers(-128, 0, (40, 50))], axis=1)
+    w = rng.integers(-127, 128, (x.shape[1], 24)).astype(np.int8)
+    t = bank_of_kind(rng, x @ w, 24, 255, "sorted")
+    x, w, t = (torch.as_tensor(a).cuda() for a in (x.astype(np.int32), w, t))
+    err = int((ops.threshold_matmul(x, w, t)
+               - ref.threshold_matmul_ref(x, w, t)).abs().max())
+    check(err == 0, f"threshold_matmul with mixed k-tile flavours: err {err}")
+    log("kernel-check threshold_matmul k tiles s8 / u8 / split / s8: exact")
+    for nb, h, wd, c, f, kk, st, pad, s, kind, codes in K2_BRANCH_CASES:
+        x = torch.as_tensor(_codes(rng, (nb, h, wd, c), codes)).cuda()
+        w = torch.as_tensor(rng.integers(-127, 128, (kk * kk * c, f)).astype(
+            np.int8)).cuda()
+        oh = -(-h // st) if pad == "SAME" else (h - kk) // st + 1
+        ow = -(-wd // st) if pad == "SAME" else (wd - kk) // st + 1
+        kw = dict(kernel=kk, stride=st, padding=pad, out_h=oh, out_w=ow)
+        acc = direct_conv_acc(pad_input(x, **kw), w, kernel=kk, stride=st,
+                              out_h=oh, out_w=ow)
+        t = torch.as_tensor(bank_of_kind(rng, acc.cpu().numpy(), f, s,
+                                         kind)).cuda()
+        want = _conv_plain(x, w, t, **kw)
+        for bh in (None, 1, 3):
+            got = ops.conv_threshold(x, w, t, block_h=bh, **kw)
+            err = int((got - want).abs().max())
+            worst["conv_threshold"] = max(worst["conv_threshold"], err)
+            check(err == 0, f"conv_threshold N={nb} {h}x{wd}x{c} F={f} "
+                            f"K={kk} s={st} {pad} S={s} {kind} bank, {codes} "
+                            f"codes, block_h {bh}: err {err}")
+        xp = pad_input(x, **kw)
+        plan = ops.conv_threshold_plan(c, f, kk, st, xp.shape[2], oh, ow,
+                                       ops.conv_block_rows(oh, ow, c, kk), s,
+                                       samples=nb)
+        log(f"kernel-check conv_threshold N={nb} {h}x{wd}x{c} F={f} K={kk} "
+            f"stride={st} {pad} S={s} {kind} bank, {codes} codes "
+            f"({'search' if plan['search'] else 'linear'}, pixel stride "
+            f"{plan['pixel_stride']} B, k chunk {plan['k_chunk']}, "
+            f"{plan['samples_per_block']} samples a block): exact "
+            f"under 3 row blocks")
     for m, dims, steps, lo, hi in [
             (1, [1, 1], [1], -127, 128),
             (37, [19, 70, 9], [7, 255], -127, 128),
@@ -1401,6 +1520,117 @@ def phase_k1_tiles():
     return worst
 
 
+def phase_k1_tile_times(cases):
+    """K1 under every tile on the full-width KWS and AD stages' phase-3
+    inputs (1024 rows): device ms per tile, the grid's blocks, and the
+    tile ``deploy.autotune.plan_block_mn`` picks at 1024 rows. Returns
+    {stage: {"bm x bn": ms}}."""
+    from repro_torch.deploy.autotune import plan_block_mn
+    from repro_torch.kernels import ops
+
+    out = {}
+    for c in cases:
+        if c["kernel"] != "threshold_matmul" or c["model"] not in ("kws",
+                                                                   "ad"):
+            continue
+        x, w, t = c["inputs"]
+        times = {}
+        for bm in ops.TMM_TILE_SIZES:
+            for bn in ops.TMM_TILE_SIZES:
+                times[f"{bm}x{bn}"] = time_ms(
+                    lambda: ops.threshold_matmul(x, w, t, block_m=bm,
+                                                 block_n=bn))
+        plan = plan_block_mn(x.shape[1], w.shape[1], n_steps=t.shape[1],
+                             wave_rows=x.shape[0])
+        best = min(times, key=times.get)
+        key = f"{c['model']}/{c['stage']}"
+        out[key] = {"ms": times, "fastest": best,
+                    "model_pick": f"{plan['block_m']}x{plan['block_n']}",
+                    "default": "x".join(map(str, ops.TMM_DEFAULT_TILE))}
+        log(f"K1 tiles {key} {c['shape']}: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in times.items())
+            + f" ms; fastest {best}, model {out[key]['model_pick']}, "
+              f"default {out[key]['default']}")
+    return out
+
+
+#: K1's tile in the timing split: the one its dp4a variant is built for
+SPLIT_TILE = (32, 32)
+#: the split's variants: (label, dp4a on the CUDA cores, banks counted
+#: step by step)
+SPLIT_VARIANTS = (("mma_search", False, False), ("mma_linear", False, True),
+                  ("cores_search", True, False), ("cores_linear", True, True))
+
+
+def phase_k12_split(cases):
+    """K1 and K2 timed step by step on every main-path K1 / K2 stage, on
+    its phase-3 input: products on the int8 tensor cores (mma.sync) or on
+    the CUDA cores (dp4a), banks searched (whole in shared memory, sorted
+    ones by binary lifting) or counted step by step (streamed in chunks
+    of 64 steps). K1 runs at ``SPLIT_TILE``, K2 at its planned row block
+    on the input padded once (kernel time alone). Each variant is held
+    equal to the plain version first. Returns the rows and the sums per
+    model and kernel."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.conv_threshold import pad_input
+
+    rows, sums = [], {}
+    for c in cases:
+        if c["kernel"] not in ("threshold_matmul", "conv_threshold"):
+            continue
+        x, w, t = c["inputs"]
+        want = c["plain"]()
+        if c["kernel"] == "threshold_matmul":
+            def launch(cores, linear, x=x, w=w, t=t):
+                return ops._tmm_launch(x, w, t, *SPLIT_TILE, linear=linear,
+                                       cores=cores)
+        else:
+            kw = c["geometry"]
+            xp = pad_input(x, **kw)
+            bh = ops.conv_block_rows(kw["out_h"], kw["out_w"], x.shape[3],
+                                     kw["kernel"])
+
+            def launch(cores, linear, xp=xp, w=w, t=t, kw=kw, bh=bh):
+                return ops._conv_launch(
+                    xp, w, t, kernel=kw["kernel"], stride=kw["stride"],
+                    out_h=kw["out_h"], out_w=kw["out_w"], block_h=bh,
+                    linear=linear, cores=cores)
+        row = {k: c[k] for k in ("kernel", "model", "stage", "shape")}
+        for label, cores, linear in SPLIT_VARIANTS:
+            fn = (lambda cores=cores, linear=linear: launch(cores, linear))
+            check(torch.equal(fn(), want), f"{c['kernel']} {c['model']}/"
+                  f"{c['stage']} {label}: != plain")
+            row[label] = time_ms(fn)
+        rows.append(row)
+        key = f"{c['model']}/{c['kernel']}"
+        sums[key] = {k: sums.get(key, {}).get(k, 0.0) + row[k]
+                     for k, _, _ in SPLIT_VARIANTS}
+        log(f"split {c['kernel']} {c['model']}/{c['stage']} {c['shape']}: "
+            + ", ".join(f"{k} {row[k]:.6f}" for k, _, _ in SPLIT_VARIANTS)
+            + " ms (all exact)")
+    for key, v in sums.items():
+        log(f"split sum {key}: "
+            + ", ".join(f"{k} {x:.6f}" for k, x in v.items()) + " ms")
+    return {"rows": rows, "sums": sums}
+
+
+def phase_k12_sass():
+    """IMMA (int8 mma.sync) instructions in the SASS of the built K1 and
+    K2 libraries; none fails the run. Returns the counts."""
+    from repro_torch.kernels import _build
+
+    counts = {}
+    for name in ("threshold_matmul", "conv_threshold"):
+        (lib,) = _build.build_all([name])
+        counts[name] = sass_count(lib, "IMMA")
+        log(f"{name} sass: {counts[name]} IMMA instructions in "
+            f"{os.path.basename(lib)}")
+        check(counts[name] > 0, f"the {name} library holds no IMMA: its "
+                                f"products do not run on the tensor cores")
+    return counts
+
+
 def phase_kernel_bench():
     """The kernel bench (``repro_torch.bench.kernel_bench``) on the card:
     counters to 0, the bench's checking pass (one launch of each K4 and
@@ -1476,10 +1706,12 @@ def _pair_decisions(cfg):
     out = {"micro_batch": {str(c["micro_batch"]): (c["probe_ms"],
                                                    c.get("probe_spread_ms"))
                            for c in cfg.candidates if "probe_ms" in c}}
-    if cfg.block_mn_probe:
+    if cfg.block_mn_probe.get("probe_ms"):
         out["block_mn"] = {k: (v, cfg.block_mn_probe.get("spread_ms",
                                                          {}).get(k))
                            for k, v in cfg.block_mn_probe["probe_ms"].items()}
+    elif cfg.block_mn_probe:
+        out["block_mn"] = cfg.block_mn_probe.get("untimed")
     if cfg.segment_mode_model.get("probe_ms"):
         sp = cfg.segment_mode_model.get("spread_ms", {})
         out["segment_mode"] = {k: (v, sp.get(k)) for k, v in
@@ -1673,6 +1905,7 @@ def main() -> int:
         libs = _build.build_all()
         log(f"build: {len(libs)} kernels in {timer.now() - t0:.3f} s: "
             f"{[os.path.basename(str(p)) for p in libs]}")
+        imma = phase_k12_sass()
         worst_syn = phase_kernels_synthetic()
         models = load_models()
         results, launches, per_run = phase_main_path(models)
@@ -1680,6 +1913,8 @@ def main() -> int:
         phase_goldens()
         bitwise = phase_streaming(models, results)
         rows, e2e = phase_times(cases, results, models)
+        k1_tiles = phase_k1_tile_times(cases)
+        split = phase_k12_split(cases)
         wide, worst_wide = phase_full_width()
         worst_flash = phase_flash_synthetic()
         lm_launches, worst_lm, k6_case, lm = phase_lm_prefill()
@@ -1731,7 +1966,10 @@ def main() -> int:
                                        "main_path_shape": k6_rows},
                    "lm": lm, "kernel_bench": bench,
                    "scenarios": scenarios,
-                   "autotune_agreement": autotune_agree, "kernels": line},
+                   "autotune_agreement": autotune_agree,
+                   "k12": {"imma": imma, "k1_tiles": k1_tiles,
+                           "split": split},
+                   "kernels": line},
                   f, indent=1)
     log(json.dumps(line))
     log(smi)

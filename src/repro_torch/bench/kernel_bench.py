@@ -153,6 +153,39 @@ def mt_inputs(rng: np.random.Generator, m: int, c: int, s: int,
     return acc.astype(np.int32), thr.astype(np.int32)
 
 
+#: code ranges [lo, hi) the K1 / K2 checks draw from: the first layer's
+#: signed codes (the .s8.s8 products), 8-bit and binary inner codes
+#: (.u8.s8), and codes wider than a byte (the byte split)
+CODE_RANGES = {"s8": (-128, 128), "u8": (0, 256), "binary": (0, 2),
+               "wide": (-70000, 70001)}
+
+
+def bank_of_kind(rng: np.random.Generator, acc: np.ndarray, n: int, s: int,
+                 kind: str = "sorted") -> np.ndarray:
+    """An (n, s) int32 bank of one of ``MT_BANK_KINDS`` for the
+    accumulators ``acc`` (any shape): steps drawn from the accumulators'
+    own values, so counts spread over [0, s] and ties with steps occur;
+    ``unsorted`` in drawn order; ``ties`` from four of the values only;
+    ``mixed`` every other channel unsorted; ``extreme`` sorted with
+    INT32_MIN and INT32_MAX steps at both ends."""
+    if kind not in MT_BANK_KINDS:
+        raise ValueError(f"bank kind {kind!r}: expected one of "
+                         f"{MT_BANK_KINDS}")
+    vals = np.asarray(acc, dtype=np.int64).reshape(-1)
+    if kind == "ties":
+        vals = rng.choice(vals, 4)
+    thr = rng.choice(vals, (n, s))
+    if kind != "unsorted":
+        thr = np.sort(thr, axis=1)
+    if kind == "mixed":
+        thr[1::2] = rng.permutation(thr[1::2].T).T
+    if kind == "extreme":
+        k = min(3, s)
+        thr[:, :k] = np.iinfo(np.int32).min
+        thr[:, s - k:] = np.iinfo(np.int32).max
+    return thr.astype(np.int32)
+
+
 def mt_compares(m: int, thresholds: torch.Tensor) -> int:
     """Compares K4 needs for ``m`` rows against this bank:
     ceil(log2(S + 1)) per element of a non-decreasing channel (a binary
@@ -280,7 +313,8 @@ def conv_lowering_rows(device="cuda", samples: int = 64,
     t_i2c = time_ms(lambda: i2c.apply_kernel(x))
     traffic_d = stage_cost(direct).traffic_bytes
     traffic_i = stage_cost(i2c).traffic_bytes
-    plan = plan_block_h(geom, samples=samples)
+    plan = plan_block_h(geom, samples=samples,
+                        n_steps=int(td.thresholds.shape[1]))
     return [
         row("kernel/conv_threshold_direct", t_direct * 1e3,
             samples=samples, hbm_bytes_model=int(traffic_d)),

@@ -30,16 +30,20 @@ micro-batch and dispatch. What differs:
   * **The block models.** The reference prices VMEM tiles on a TPU
     (``VMEM_BUDGET_BYTES``, ``DENSE_BLOCK_CANDIDATES``, ``TARGET_ROWS``, a
     tie-break toward the 128 x 128 MXU tile). K2 (``csrc/conv_threshold.cu``)
-    runs one 256-thread block per (sample, row block), its threads striding
-    over the block's outputs, so ``plan_block_h`` counts the serial passes
-    of a thread slot: the strides a block needs, times the waves of blocks
-    the card's 132 SMs (8 resident blocks each) take for the wave; ties go
-    to fewer streamed input bytes. K1 (``csrc/threshold_matmul.cu``) is
-    built for the tiles of ``kernels.ops.TMM_TILE_SIZES``; ``plan_block_mn``
-    prices the bytes its grid re-streams (the reference's formula), checks
-    the tile's shared memory against the 227 KB a block may use, and
-    breaks ties toward the fewest masked outputs and then the default
-    64 x 64 tile.
+    runs one 8-warp block per (sample, row block, up to 64 channels; or
+    several samples of a small image), which stages its input band,
+    weights and banks in shared memory (``kernels.ops.conv_threshold_plan``)
+    and multiplies 128 or 256 output pixels a pass on the int8 tensor
+    cores; ``plan_block_h`` counts the serial passes of a block times the
+    waves of blocks the card's 132 SMs take for the wave, with blocks
+    resident per SM bounded by threads and shared memory; ties go to fewer
+    streamed input bytes. K1
+    (``csrc/threshold_matmul.cu``) is built for the tiles of
+    ``kernels.ops.TMM_TILE_SIZES``, 4 to 16 warps each; ``plan_block_mn``
+    prices the same two terms for a tile (waves of resident blocks, then
+    each warp's serial mma steps over K), then the bytes the grid
+    re-streams (the reference's formula), then the fewest masked
+    outputs, then the distance to ``TMM_DEFAULT_TILE``.
   * **The platform key.** The reference keys caches on
     ``jax.default_backend()`` ("cpu" on a CPU); the port on itself and its
     device (``torch-cuda-<device name>``, ``torch-cpu``), so the two
@@ -60,17 +64,20 @@ import hashlib
 import json
 import os
 import re
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.bops import MEGAKERNEL_SMEM_BYTES as SMEM_PER_BLOCK
 from repro_torch.core.bops import (conv_input_band_bytes,
                                    megakernel_traffic_bytes, schedule_cost,
                                    staged_traffic_bytes)
 from repro_torch.deploy.lower import (FusedConvThresholdStage,
                                       FusedThresholdStage, plan_megakernel)
-from repro_torch.kernels.ops import TMM_DEFAULT_TILE, TMM_TILE_SIZES
+from repro_torch.kernels.conv_threshold import same_pad_1d
+from repro_torch.kernels.ops import (STAGE_SMEM_BYTES, TMM_DEFAULT_TILE,
+                                    TMM_TILE_SIZES, conv_pass_pixels,
+                                    conv_threshold_plan,
+                                    threshold_matmul_plan)
 from repro_torch.obs import timer as obs_timer
 from repro_torch.obs.tracer import NULL_TRACER
 
@@ -83,14 +90,19 @@ MICRO_CANDIDATES = (1, 2, 4, 8, 16, 32, 64)
 #: The H100's streaming multiprocessors (NVIDIA H100 SXM data sheet).
 H100_SMS = 132
 
-#: Threads of one K2 block (``THREADS`` in ``csrc/conv_threshold.cu``).
+#: Threads and shared memory of one H100 SM (2048 threads, 228 KB), and
+#: the shared memory the runtime keeps for each resident block (1 KB).
+SM_THREADS = 2048
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_SMEM = 1024
+
+#: Threads of one K2 block (``NT`` in ``csrc/conv_threshold.cu``: 8 warps).
 K2_THREADS = 256
 
-#: K2 blocks resident on one SM: 2048 threads per SM over K2_THREADS.
-K2_BLOCKS_PER_SM = 2048 // K2_THREADS
 
-#: K1's shared-memory step along K (``BK`` in ``csrc/threshold_matmul.cu``).
-K1_BK = 32
+#: K1's k tile (``BK`` in ``csrc/threshold_matmul.cu``): 64 code bytes, two
+#: mma k-steps of 32.
+K1_BK = 64
 
 #: Spellings the tri-state accepts (the reference's); anything else raises.
 _MODE_SPELLINGS = {
@@ -230,31 +242,59 @@ def block_h_candidates(out_h: int) -> List[int]:
     return sorted(cands)
 
 
-def plan_block_h(geom, samples: int = 64) -> Dict[str, object]:
-    """K2's output-row block for one direct-conv stage on a wave of
-    ``samples`` samples.
+def blocks_per_sm(threads: int, smem_bytes: int) -> int:
+    """Blocks of ``threads`` threads and ``smem_bytes`` of dynamic shared
+    memory one SM holds at once (threads, shared memory with the
+    runtime's 1 KB per block, and the 32-block cap; registers are not
+    modelled)."""
+    return max(1, min(SM_THREADS // int(threads),
+                      SM_SMEM_BYTES // (int(smem_bytes)
+                                        + BLOCK_RESERVED_SMEM), 32))
 
-    A block of ``K2_THREADS`` threads covers one (sample, row block) and
-    its threads stride over the block's ``block_h * out_w * out_ch``
-    outputs: ``passes`` strides, the last one partly idle. The card holds
-    ``H100_SMS * K2_BLOCKS_PER_SM`` blocks at once, so the grid of
-    ``samples * ceil(out_h / block_h)`` blocks runs in ``waves``. The model
-    minimises ``waves * passes``, the serial passes of one thread slot:
-    small blocks idle threads, large ones leave SMs without blocks. Ties
-    go to fewer input bytes (``conv_input_band_bytes``: halo rows are read
-    once per block), then to the smaller block. Returns the choice and the
-    scored candidates."""
+
+def plan_block_h(geom, samples: int = 64,
+                 n_steps: int = 255) -> Dict[str, object]:
+    """K2's output-row block for one direct-conv stage on a wave of
+    ``samples`` samples with banks of ``n_steps`` steps.
+
+    A block of ``K2_THREADS`` threads covers one sample (or, for a whole
+    image of fewer than 128 pixels, ``samples_per_block``), ``block_h``
+    rows and up to 64 channels (``kernels.ops.conv_threshold_plan``, which
+    also gives its shared memory); it multiplies ``conv_pass_pixels``
+    output pixels per pass, so it runs ``passes`` passes, the last one
+    partly masked. The grid of ``ceil(samples / samples_per_block) *
+    ceil(out_h / block_h) * ceil(out_ch / block_n)`` blocks runs in
+    ``waves`` of ``H100_SMS *
+    blocks_per_sm`` resident blocks. The model minimises ``waves *
+    passes``, the serial passes of a block slot: small blocks mask
+    pixels, large ones leave SMs without blocks. Ties go to fewer input
+    bytes (``conv_input_band_bytes``: halo rows are read once per
+    block), then to the smaller block. Returns the choice and the scored
+    candidates."""
+    wp = geom.in_w
+    if geom.padding == "SAME":
+        wp += sum(same_pad_1d(geom.in_w, geom.out_w, geom.stride,
+                              geom.kernel))
     rows = []
-    resident = H100_SMS * K2_BLOCKS_PER_SM
     for bh in block_h_candidates(geom.out_h):
-        outputs = bh * geom.out_w * geom.out_ch
-        passes = -(-outputs // K2_THREADS)
-        blocks = max(int(samples), 1) * -(-geom.out_h // bh)
-        waves = -(-blocks // resident)
-        rows.append({"block_h": bh, "outputs": outputs, "passes": passes,
-                     "blocks": blocks, "waves": waves,
-                     "slot_passes": waves * passes,
-                     "thread_share": outputs / (passes * K2_THREADS),
+        plan = conv_threshold_plan(geom.in_ch, geom.out_ch, geom.kernel,
+                                   geom.stride, wp, geom.out_h, geom.out_w,
+                                   bh, n_steps, samples=samples)
+        g = plan["samples_per_block"]
+        pixels = g * plan["block_h"] * geom.out_w
+        pass_px = conv_pass_pixels(plan["block_n"])
+        passes = -(-pixels // pass_px)
+        blocks = (-(-max(int(samples), 1) // g)
+                  * -(-geom.out_h // plan["block_h"])
+                  * -(-geom.out_ch // plan["block_n"]))
+        resident = blocks_per_sm(K2_THREADS, plan["smem_bytes"])
+        waves = -(-blocks // (H100_SMS * resident))
+        rows.append({"block_h": bh, "samples_per_block": g,
+                     "pixels": pixels, "passes": passes,
+                     "smem_bytes": plan["smem_bytes"],
+                     "blocks_per_sm": resident, "blocks": blocks,
+                     "waves": waves, "slot_passes": waves * passes,
+                     "pixel_share": pixels / (passes * pass_px),
                      "input_bytes": conv_input_band_bytes(geom, bh)})
     best = min(rows, key=lambda r: (r["slot_passes"], r["input_bytes"],
                                     r["block_h"]))
@@ -268,10 +308,18 @@ def plan_block_h(geom, samples: int = 64) -> Dict[str, object]:
 # K1's tile: pure model
 # ---------------------------------------------------------------------------
 
-def k1_smem_bytes(block_m: int, block_n: int) -> int:
-    """Static shared memory of one K1 block: the k-major x tile (one
-    padding column) and the w tile, int32, ``K1_BK`` deep."""
-    return 4 * K1_BK * (block_m + 1) + 4 * K1_BK * block_n
+def k1_warps(block_m: int, block_n: int) -> Tuple[int, int]:
+    """K1's warp grid for a tile (``Cfg`` in ``csrc/threshold_matmul.cu``):
+    at least 2 x 2 warps, each 16 or 32 rows by 16 or 32 channels."""
+    return max(2, int(block_m) // 32), max(2, int(block_n) // 32)
+
+
+def k1_smem_bytes(block_m: int, block_n: int, n_steps: int = 255) -> int:
+    """Dynamic shared memory of one K1 block: the code and weight tiles
+    (``K1_BK`` bytes deep in 80-byte rows) and its channels' banks, whole
+    or in chunks (``kernels.ops.threshold_matmul_plan``)."""
+    return int(threshold_matmul_plan(block_m, block_n,
+                                     n_steps)["smem_bytes"])
 
 
 def plan_block_mn(in_dim: int, out_dim: int, n_steps: int = 255,
@@ -281,18 +329,23 @@ def plan_block_mn(in_dim: int, out_dim: int, n_steps: int = 255,
     """K1's ``(block_m, block_n)`` for one fused dense stage on a wave of
     ``wave_rows`` rows.
 
-    K1's grid re-streams tiles as the reference's does: each x row block
-    is read once per column block, each w column block and bank slice once
-    per row block:
+    A tile's grid of ``ceil(M/bm) * ceil(N/bn)`` blocks runs in ``waves``
+    of ``H100_SMS * blocks_per_sm`` resident blocks (threads from
+    ``k1_warps``, shared memory from ``k1_smem_bytes``); each warp then
+    issues ``warp_mma`` serial mma steps: ``ceil(K / K1_BK)`` k tiles of
+    two 32-deep steps over its (bm / warps_m / 16) x (bn / warps_n / 8)
+    fragment tiles. Small tiles fill the card and shorten each warp's
+    chain; the model minimises ``waves * warp_mma``. Ties go to the
+    bytes the grid re-streams, as the reference's formula counts them
+    (each x row block read once per column block, each w column block and
+    bank slice once per row block):
 
         ceil(N/bn) * M*K*4  +  ceil(M/bm) * K*N  +  ceil(M/bm) * N*S*4
 
-    A tile fits when its shared memory (``k1_smem_bytes``) is within the
-    227 KB of one block and it has at most 1024 threads (16 outputs each).
-    Among fitting tiles the fewest streamed bytes win, then the fewest
-    outputs the grid covers (masked edges), then the tile nearest the
-    default ``TMM_DEFAULT_TILE``. Returns the choice and the scored
-    candidates."""
+    then to the fewest outputs the grid covers (masked edges), then to the
+    tile nearest ``TMM_DEFAULT_TILE``. A tile fits when its shared memory
+    is within the 227 KB of a block (every tile does: deep banks are
+    streamed). Returns the choice and the scored candidates."""
     m_ref = max(int(wave_rows), 1)
     rows = []
     for bm in sorted({int(b) for b in candidates}):
@@ -302,22 +355,32 @@ def plan_block_mn(in_dim: int, out_dim: int, n_steps: int = 255,
             stream = (n_col * m_ref * in_dim * 4.0
                       + n_row * in_dim * out_dim * 1.0
                       + n_row * out_dim * n_steps * 4.0)
-            smem = k1_smem_bytes(bm, bn)
-            fits = smem <= SMEM_PER_BLOCK and bm * bn // 16 <= 1024
+            wm, wn = k1_warps(bm, bn)
+            threads = 32 * wm * wn
+            smem = k1_smem_bytes(bm, bn, n_steps)
+            resident = blocks_per_sm(threads, smem)
+            waves = -(-(n_row * n_col) // (H100_SMS * resident))
+            warp_mma = (-(-max(in_dim, 1) // K1_BK) * 2
+                        * max(bm // wm // 16, 1) * max(bn // wn // 8, 1))
+            fits = smem <= STAGE_SMEM_BYTES and threads <= 1024
             rows.append({"block_m": bm, "block_n": bn,
                          "stream_bytes": stream, "smem_bytes": smem,
+                         "threads": threads, "blocks_per_sm": resident,
+                         "waves": waves, "warp_mma": warp_mma,
+                         "slot_mma": waves * warp_mma,
                          "covered_outputs": n_row * bm * n_col * bn,
                          "fits_smem": fits})
     fitting = [r for r in rows if r["fits_smem"]]
     if not fitting:
         raise ValueError(f"no K1 tile of {candidates} fits a block")
     best = min(fitting, key=lambda r: (
-        r["stream_bytes"], r["covered_outputs"],
+        r["slot_mma"], r["stream_bytes"], r["covered_outputs"],
         abs(r["block_m"] - TMM_DEFAULT_TILE[0])
         + abs(r["block_n"] - TMM_DEFAULT_TILE[1])))
     return {"block_m": int(best["block_m"]),
             "block_n": int(best["block_n"]),
             "stream_bytes": float(best["stream_bytes"]),
+            "slot_mma": int(best["slot_mma"]),
             "candidates": rows}
 
 
@@ -488,7 +551,8 @@ def autotune_model(cm, batch: int = 64,
     block_mn_model: Dict[str, Dict] = {}
     for s in cm.schedule.stages:
         if isinstance(s, FusedConvThresholdStage) and s.lowering == "direct":
-            plan = plan_block_h(s.geom, samples=wave)
+            plan = plan_block_h(s.geom, samples=wave,
+                                n_steps=int(s.stage.thresholds.shape[1]))
             block_h[s.name] = plan["block_h"]
             block_h_model[s.name] = plan
         elif isinstance(s, FusedThresholdStage):
@@ -499,11 +563,21 @@ def autotune_model(cm, batch: int = 64,
             block_mn_model[s.name] = plan
 
     # -- K1 tiles: measured refinement at the winning wave ----------------
-    # (the model ranks, one probe pair decides, ties keep the model's pick)
+    # (the model ranks, one probe pair decides, ties keep the model's pick;
+    # measured probes time no pair when the model's tiles are the ones the
+    # stages run already: the two arms would be one configuration)
     block_mn_probe: Dict = {}
-    if block_mn:
-        saved = {s.name: (s.block_m, s.block_n) for s in cm.schedule.stages
-                 if isinstance(s, FusedThresholdStage)}
+    saved = {s.name: (s.block_m, s.block_n) for s in cm.schedule.stages
+             if isinstance(s, FusedThresholdStage)}
+    same = all(tuple(block_mn[n]) == (
+        TMM_DEFAULT_TILE[0] if saved[n][0] is None else saved[n][0],
+        TMM_DEFAULT_TILE[1] if saved[n][1] is None else saved[n][1])
+        for n in block_mn)
+    if block_mn and probe is None and same:
+        block_mn_probe = {"wave_rows": wave, "n_micro": -(-batch // wave),
+                          "pick": "tuned", "untimed": "model tiles are the "
+                          "stages' own"}
+    elif block_mn:
 
         def use_tiles(tuned: bool) -> None:
             for s in cm.schedule.stages:

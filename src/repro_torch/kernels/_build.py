@@ -5,7 +5,8 @@ into a shared library with a plain C interface, loaded with ``ctypes``
 (seconds per source; a build that includes PyTorch's headers takes
 minutes). Libraries go to ``build/kernels/`` at the repository root
 (listed in ``.gitignore``) under a name that carries the source's hash, so
-an edited source is rebuilt and an unchanged one is loaded as it is. Only
+an edited source (or header, ``csrc/*.cuh``) is rebuilt and an unchanged
+one is loaded as it is. Only
 the sources in this package are built. ``build_all`` starts one ``nvcc`` per source at once and waits for
 all of them.
 """
@@ -31,11 +32,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: result is the launch's cudaError_t.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
-    # x, w, thr, out, M, N, K, S, block_m, block_n, stream
+    # x, w, thr, out, M, N, K, S, block_m, block_n, flags, stream
     "threshold_matmul": ("threshold_matmul_launch",
-                         [_P, _P, _P, _P] + [_I] * 6 + [_P]),
+                         [_P, _P, _P, _P] + [_I] * 7 + [_P]),
+    # x, w, thr, out, N, HP, WP, C, F, K, stride, out_h, out_w, block_h, S,
+    # block_n, pixel stride, weight chunk, samples per block, flags, stream
     "conv_threshold": ("conv_threshold_launch",
-                       [_P, _P, _P, _P] + [_I] * 11 + [_P]),
+                       [_P, _P, _P, _P] + [_I] * 16 + [_P]),
     # x, out, host arrays of weight and bank pointers, dims, steps
     "mlp_megakernel": ("mlp_megakernel_launch",
                        [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
@@ -65,10 +68,14 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` goes: its name carries a
+    digest of the source, of every header in ``csrc/`` (any source may
+    include one) and of the flags, so an edit to any of them rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:

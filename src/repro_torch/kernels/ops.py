@@ -18,6 +18,7 @@ kernels (``reset_launches`` before, read after).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,7 +35,10 @@ __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
            "flash_attention", "multi_threshold", "qmatmul",
            "megakernel_smem_bytes", "plan_conv_blocks", "launches",
            "reset_launches", "FLASH_HEAD_DIMS", "TMM_TILE_SIZES",
-           "TMM_DEFAULT_TILE", "multi_threshold_plan"]
+           "TMM_DEFAULT_TILE", "multi_threshold_plan",
+           "threshold_matmul_plan", "conv_threshold_plan", "search_steps",
+           "conv_block_rows", "conv_block_pixels",
+           "STAGE_SMEM_BYTES", "BANK_CHUNK_STEPS"]
 
 #: Kernel launches since the last ``reset_launches``, by kernel name.
 launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
@@ -45,8 +49,11 @@ launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
 #: these (the template instantiations of ``csrc/threshold_matmul.cu``).
 TMM_TILE_SIZES = (32, 64, 128)
 
-#: The tile ``threshold_matmul`` takes unless a tuned config says otherwise.
-TMM_DEFAULT_TILE: Tuple[int, int] = (64, 64)
+#: The tile ``threshold_matmul`` takes unless a tuned config says otherwise:
+#: the smallest, whose grid fills the card's 132 SMs best at the main
+#: path's 1024-row stages (256 blocks for KWS, 96 for AD) and which timed
+#: fastest there (PERF.md).
+TMM_DEFAULT_TILE: Tuple[int, int] = (32, 32)
 
 #: Head dims ``flash_attention``'s kernel is built for (16: the reduced
 #: configs; 80: h2o-danube; 128: llama3, internlm2, qwen1.5).
@@ -81,17 +88,89 @@ def _raise_on_error(kernel: str, err: int) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
 
+#: Shared memory a K1 or K2 block may take for its tiles, input band,
+#: weights and banks: the 227 KB of a block less 1 KB for its static arrays
+#: (``SMEM_DYN`` in ``csrc/threshold_epilogue.cuh``).
+STAGE_SMEM_BYTES = 232_448 - 1024
+
+#: Bank steps K1 and K2 stream through shared memory at a time when a
+#: block's banks do not fit whole (``LINEAR_CHUNK``): then every bank is
+#: counted step by step.
+BANK_CHUNK_STEPS = 64
+
+#: Bytes of one row of K1's shared-memory code and weight tiles: 64 k
+#: bytes, padded to 80 so that the mma fragment loads avoid bank conflicts.
+TMM_TILE_ROW_BYTES = 80
+
+# launch flags of K1 and K2 (``FLAG_*`` in ``csrc/threshold_epilogue.cuh``)
+_FLAG_SEARCH = 1    # whole banks in shared memory, sorted ones searched
+_FLAG_CORES = 2     # dp4a products on the CUDA cores (timing variant)
+
+
+def search_steps(s: int) -> int:
+    """Steps of a whole bank of ``s`` steps in K1's and K2's shared memory:
+    padded with INT32_MAX to 2^(floor(log2 s) + 1) - 1, so that every probe
+    of their binary search is in range (``search_steps`` in
+    ``csrc/threshold_epilogue.cuh``)."""
+    s = int(s)
+    return 0 if s <= 0 else 2 ** s.bit_length() - 1
+
+
+@functools.lru_cache(maxsize=None)
+def threshold_matmul_plan(block_m: int, block_n: int, s: int
+                          ) -> Dict[str, object]:
+    """How a ``threshold_matmul`` block of ``block_m`` x ``block_n``
+    outputs holds a bank of ``s`` steps: ``search`` when the banks of its
+    ``block_n`` channels fit shared memory whole beside the code and
+    weight tiles and the accumulator tile (step-major, ``search_steps(s)
+    * block_n`` int32), so sorted banks are searched and unsorted ones
+    counted; otherwise they stream through it ``BANK_CHUNK_STEPS`` at a
+    time and every bank is counted. ``smem_bytes`` is the block's dynamic
+    shared memory either way. Cached (every launch asks for it): do not
+    change the dict it returns."""
+    bm, bn = int(block_m), int(block_n)
+    tiles = (bm + bn) * TMM_TILE_ROW_BYTES + bm * (bn + 1) * 4
+    whole = tiles + search_steps(s) * bn * 4
+    search = whole <= STAGE_SMEM_BYTES
+    return {"search": search,
+            "smem_bytes": whole if search
+            else tiles + BANK_CHUNK_STEPS * bn * 4}
+
+
+def _tmm_launch(x_int: torch.Tensor, w_int: torch.Tensor,
+                thresholds: torch.Tensor, block_m: int, block_n: int, *,
+                linear: bool = False, cores: bool = False) -> torch.Tensor:
+    """Launch K1 on checked, non-empty CUDA operands and return its
+    output. ``linear`` streams the banks and counts every step even when
+    they fit whole; ``cores`` multiplies on the CUDA cores (dp4a, the
+    32 x 32 tile only): the two variants time the kernel's steps apart
+    and give the same codes."""
+    m, k = x_int.shape
+    n, s = thresholds.shape
+    plan = threshold_matmul_plan(block_m, block_n, s)
+    flags = ((_FLAG_SEARCH if plan["search"] and not linear else 0)
+             | (_FLAG_CORES if cores else 0))
+    out = torch.empty((m, n), dtype=torch.int32, device=x_int.device)
+    fn = _build.entry_point("threshold_matmul")
+    err = fn(x_int.data_ptr(), w_int.data_ptr(), thresholds.data_ptr(),
+             out.data_ptr(), m, n, k, s, block_m, block_n, flags,
+             torch.cuda.current_stream(x_int.device).cuda_stream)
+    _raise_on_error("threshold_matmul", err)
+    return out
+
+
 def threshold_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                      thresholds: torch.Tensor, *,
                      block_m: Optional[int] = None,
                      block_n: Optional[int] = None) -> torch.Tensor:
     """Fused integer dense stage (matmul + multi-threshold).
 
-    x_int (M, K) int32 codes, w_int (K, N) int8, thresholds (N, S) int32;
-    returns (M, N) int32 codes in [0, S]. Ragged shapes need no padding.
-    ``block_m`` x ``block_n`` is the kernel's output tile, each in
-    ``TMM_TILE_SIZES`` (None: ``TMM_DEFAULT_TILE``); every tile gives the
-    same codes."""
+    x_int (M, K) int32 codes, w_int (K, N) int8, thresholds (N, S) int32
+    (sorted or not: the count is the same); returns (M, N) int32 codes in
+    [0, S]. Ragged shapes need no padding. ``block_m`` x ``block_n`` is
+    the kernel's output tile, each in ``TMM_TILE_SIZES`` (None:
+    ``TMM_DEFAULT_TILE``); every tile gives the same codes;
+    ``threshold_matmul_plan`` says how its banks are held."""
     kind = _device_kind(x_int)
     bm = TMM_DEFAULT_TILE[0] if block_m is None else int(block_m)
     bn = TMM_DEFAULT_TILE[1] if block_n is None else int(block_n)
@@ -109,15 +188,150 @@ def threshold_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                          f"{tuple(thresholds.shape)}")
     if kind == "cpu":
         return ref.threshold_matmul_ref(x_int, w_int, thresholds)
-    out = torch.empty((m, n), dtype=torch.int32, device=x_int.device)
     if m == 0 or n == 0:
-        return out
-    fn = _build.entry_point("threshold_matmul")
-    err = fn(x_int.data_ptr(), w_int.data_ptr(), thresholds.data_ptr(),
-             out.data_ptr(), m, n, k, s, bm, bn,
-             torch.cuda.current_stream(x_int.device).cuda_stream)
-    _raise_on_error("threshold_matmul", err)
+        return torch.empty((m, n), dtype=torch.int32, device=x_int.device)
+    if -(-n // bn) > 65535:
+        raise ValueError(f"{n} channels: above the grid's 65535 x {bn}")
+    out = _tmm_launch(x_int, w_int, thresholds, bm, bn)
     launches["threshold_matmul"] += 1
+    return out
+
+
+def _pixel_stride(c: int) -> int:
+    """Bytes between two pixels of K2's staged input band: C rounded up to
+    4 (the kernel zero-pads a pixel's channels to whole words of 4), and
+    from 32 channels padded on to 16 mod 32 bytes, so that the fragment
+    loads of 8 neighbouring pixels hit distinct banks."""
+    words = -(-int(c) // 4)
+    if words >= 8:
+        while words % 8 != 4:
+            words += 1
+    return 4 * words
+
+
+#: ``conv_threshold``'s channels per block (``block_n``): the least of these
+#: at or above F, 64 above 32 (the kernel's template instantiations).
+CONV_BLOCK_N = (8, 16, 32, 64)
+
+#: A ``conv_threshold`` block that covers whole images takes up to this
+#: many samples (``conv_threshold_plan``).
+CONV_MAX_SAMPLES = 8
+
+
+def conv_block_pixels(c: int, kernel: int) -> int:
+    """Output pixels a ``conv_threshold`` block aims at for ``c`` input
+    channels and a ``kernel`` x ``kernel`` conv: 8192 over its 32-deep k
+    steps, within [256, 1024]. A block stages its channels' whole banks,
+    its weights and its band once, so thin stages (a few k steps a pixel)
+    want many pixels a block and deep ones more blocks
+    (``bench/conv_block_sweep.py`` times the alternatives; PERF.md)."""
+    steps = -(-int(kernel) * int(kernel) * (-(-int(c) // 4) * 4) // 32)
+    return max(256, min(1024, 8192 // max(steps, 1)))
+
+
+def conv_block_rows(out_h: int, out_w: int, c: int, kernel: int) -> int:
+    """``conv_threshold``'s default output rows per block: about
+    ``conv_block_pixels(c, kernel)`` pixels, at least 1 row, at most
+    ``out_h``."""
+    return max(1, min(int(out_h),
+                      conv_block_pixels(c, kernel) // max(int(out_w), 1)))
+
+
+def conv_pass_pixels(block_n: int) -> int:
+    """Output pixels a ``conv_threshold`` block multiplies per pass
+    (``Cfg::PASS`` in ``csrc/conv_threshold.cu``): 32 per warp, its 8 warps
+    all along the pixels below 32 channels, 4 of them from 32."""
+    return 256 if int(block_n) < 32 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def conv_threshold_plan(c: int, f: int, kernel: int, stride: int, wp: int,
+                        out_h: int, out_w: int, block_h: int, s: int,
+                        samples: int = 1) -> Dict[str, object]:
+    """How a ``conv_threshold`` block is laid out for input channels ``c``,
+    output channels ``f``, a ``kernel`` x ``kernel`` conv at ``stride`` on
+    padded rows ``wp`` wide, an ``out_h`` x ``out_w`` output, ``block_h``
+    output rows per block, banks of ``s`` steps and a batch of
+    ``samples``. A block covers ``block_n`` channels (``CONV_BLOCK_N``)
+    and, when ``block_h`` covers the whole output of fewer pixels than
+    ``conv_block_pixels``, ``samples_per_block`` samples (as many as that
+    holds, at most ``CONV_MAX_SAMPLES``, fewer if they do not fit); it
+    stages, in ``STAGE_SMEM_BYTES``: its input band (``band_rows`` rows of
+    ``wp`` pixels, ``pixel_stride`` bytes each, per sample); its banks,
+    whole (``search``: ``search_steps(s)`` steps of at least 32 slots)
+    when they fit beside the band, one 32-deep weight chunk, a pass's
+    output rows, band offsets and accumulator tile and the table of k's
+    band offsets,
+    else ``BANK_CHUNK_STEPS`` at a time with every bank counted; and its
+    weights, ``k_chunk`` rows of the depth kernel*kernel*c (c padded to a
+    multiple of 4) at a time, all of them when they fit. ``block_h`` is
+    the one asked for unless the band does not fit; then samples per
+    block, then ``block_h``, are halved until it does (every row block
+    gives the same codes). Raises ValueError when one row's band does not
+    fit. Cached (every launch asks for it): do not change the dict it
+    returns."""
+    c, f, kernel, stride = int(c), int(f), int(kernel), int(stride)
+    block_n = next((b for b in CONV_BLOCK_N if b >= f), CONV_BLOCK_N[-1])
+    slots = max(block_n, 32)
+    pass_px = conv_pass_pixels(block_n)
+    ps = _pixel_stride(c)
+    k_full = -(-kernel * kernel * (-(-c // 4) * 4) // 32) * 32
+    bh = max(1, min(int(block_h), int(out_h)))
+    g = 1
+    target = conv_block_pixels(c, kernel)
+    if bh >= int(out_h) and 0 < int(out_h) * int(out_w) < target:
+        g = max(1, min(int(samples), CONV_MAX_SAMPLES,
+                       target // (int(out_h) * int(out_w))))
+    # a pass's output rows, band offsets and accumulator tile, and the
+    # table of k's band offsets (a word per 4 k)
+    tile = pass_px * 12 + pass_px * (block_n + 1) * 4 + k_full
+    while True:
+        band = -(-g * _ct.band_rows(bh, stride, kernel) * int(wp) * ps
+                 // 16) * 16
+        w_min = block_n * (32 // 4 + 4) * 4
+        search = (band + tile + search_steps(s) * slots * 4 + w_min
+                  <= STAGE_SMEM_BYTES)
+        bank = (search_steps(s) if search else BANK_CHUNK_STEPS) * slots * 4
+        words = (STAGE_SMEM_BYTES - band - tile - bank) // (4 * block_n) - 4
+        kc = min(k_full, 4 * words // 32 * 32)
+        # more samples per block only while the weights still fit whole
+        if kc >= 32 and (g == 1 or kc == k_full):
+            break
+        if g > 1:
+            g //= 2
+            continue
+        if bh == 1:
+            raise ValueError(f"conv_threshold: one output row's input band "
+                             f"({_ct.band_rows(1, stride, kernel)} x {wp} "
+                             f"pixels of {ps} bytes) does not fit "
+                             f"{STAGE_SMEM_BYTES} bytes of shared memory")
+        bh = max(1, bh // 2)
+    return {"block_h": bh, "block_n": block_n, "pixel_stride": ps,
+            "k_chunk": kc, "samples_per_block": g, "search": search,
+            "smem_bytes": band + tile + bank + block_n * (kc // 4 + 4) * 4}
+
+
+def _conv_launch(x_pad: torch.Tensor, w2d: torch.Tensor,
+                 thresholds: torch.Tensor, *, kernel: int, stride: int,
+                 out_h: int, out_w: int, block_h: int,
+                 linear: bool = False, cores: bool = False) -> torch.Tensor:
+    """Launch K2 on checked, padded, non-empty CUDA operands and return
+    its output; ``linear`` and ``cores`` as in ``_tmm_launch``."""
+    nb, hp, wp, c = x_pad.shape
+    f, s = thresholds.shape
+    plan = conv_threshold_plan(c, f, kernel, stride, wp, out_h, out_w,
+                               block_h, s, samples=nb)
+    flags = ((_FLAG_SEARCH if plan["search"] and not linear else 0)
+             | (_FLAG_CORES if cores else 0))
+    out = torch.empty((nb, out_h, out_w, f), dtype=torch.int32,
+                      device=x_pad.device)
+    fn = _build.entry_point("conv_threshold")
+    err = fn(x_pad.data_ptr(), w2d.data_ptr(), thresholds.data_ptr(),
+             out.data_ptr(), nb, hp, wp, c, f, kernel, stride, out_h, out_w,
+             plan["block_h"], s, plan["block_n"], plan["pixel_stride"],
+             plan["k_chunk"], plan["samples_per_block"], flags,
+             torch.cuda.current_stream(x_pad.device).cuda_stream)
+    _raise_on_error("conv_threshold", err)
     return out
 
 
@@ -128,11 +342,12 @@ def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
     """Fused direct-conv integer stage: NHWC codes -> threshold codes.
 
     x_int (N, H, W, C) int32, w2d (K*K*C, F) int8 in (kh, kw, c) order,
-    thresholds (F, S) int32. Pads on the host (the SAME split,
-    ``conv_threshold.pad_input``); one thread block covers one sample and
-    ``block_h`` output rows (None: ``plan_conv_blocks``; capped at
-    ``out_h``); every row block gives the same codes. Returns
-    (N, out_h, out_w, F) int32 codes."""
+    thresholds (F, S) int32 (sorted or not). Pads on the host (the SAME
+    split, ``conv_threshold.pad_input``); one thread block covers one
+    sample, ``block_h`` output rows (None: ``conv_block_rows``; capped at
+    ``out_h``) and up to 64 channels, laid out by ``conv_threshold_plan``;
+    every row block gives the same codes. Returns (N, out_h, out_w, F)
+    int32 codes."""
     kind = _device_kind(x_int)
     _check(x_int, "x_int", torch.int32, 4, x_int.device)
     _check(w2d, "w2d", torch.int8, 2, x_int.device)
@@ -157,18 +372,13 @@ def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
     if kind == "cpu":
         return ref.conv_threshold_ref(x_pad, w2d, thresholds, kernel=kernel,
                                       stride=stride, out_h=out_h, out_w=out_w)
-    out = torch.empty((nb, out_h, out_w, f), dtype=torch.int32,
-                      device=x_int.device)
-    if out.numel() == 0:
-        return out
-    bh = (plan_conv_blocks(out_h, out_w, f) if block_h is None
+    if nb * out_h * out_w * f == 0:
+        return torch.empty((nb, out_h, out_w, f), dtype=torch.int32,
+                           device=x_int.device)
+    bh = (conv_block_rows(out_h, out_w, c, kernel) if block_h is None
           else min(int(block_h), out_h))
-    fn = _build.entry_point("conv_threshold")
-    err = fn(x_pad.data_ptr(), w2d.data_ptr(), thresholds.data_ptr(),
-             out.data_ptr(), nb, hp, wp, c, f, kernel, stride, out_h, out_w,
-             bh, s,
-             torch.cuda.current_stream(x_int.device).cuda_stream)
-    _raise_on_error("conv_threshold", err)
+    out = _conv_launch(x_pad, w2d, thresholds, kernel=kernel, stride=stride,
+                       out_h=out_h, out_w=out_w, block_h=bh)
     launches["conv_threshold"] += 1
     return out
 

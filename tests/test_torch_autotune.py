@@ -208,30 +208,67 @@ def test_plan_block_h_prices_the_cuda_kernel():
 
     g = ConvGeom(kernel=3, stride=1, padding="SAME", in_h=32, in_w=32,
                  in_ch=16, out_h=32, out_w=32, out_ch=32)
-    assert [r["block_h"] for r in tat.plan_block_h(g)["candidates"]] == \
+    plan = tat.plan_block_h(g)
+    assert [r["block_h"] for r in plan["candidates"]] == \
         jat.block_h_candidates(32)
-    # few samples: the grid cannot fill the card, so one row per block
-    # (fewest passes per thread) wins
-    assert tat.plan_block_h(g, samples=2)["block_h"] == 1
-    # a wave of exactly one resident grid per row: every block size takes
-    # the same thread-slot passes, and the halo bytes break the tie upward
-    many = tat.plan_block_h(g, samples=tat.H100_SMS * tat.K2_BLOCKS_PER_SM)
-    assert many["block_h"] == 32
-    assert len({r["slot_passes"] for r in many["candidates"]}) == 1
-    for r in many["candidates"]:
-        assert r["passes"] == -(-r["outputs"] // tat.K2_THREADS)
+    for r in plan["candidates"]:
+        # the kernel's own layout: 8-warp blocks, 128 pixels a pass, shared
+        # memory from the host plan, residency from threads and shared
+        # memory, the same band bytes as the reference's model
+        kp = tops.conv_threshold_plan(16, 32, 3, 1, 34, 32, 32, r["block_h"],
+                                      255, samples=64)
+        assert r["smem_bytes"] == kp["smem_bytes"]
+        assert kp["samples_per_block"] == 1           # 32 x 32 outputs
+        assert r["pixels"] == kp["block_h"] * 32
+        assert r["passes"] == -(-r["pixels"] // tops.conv_pass_pixels(
+            kp["block_n"])) == -(-r["pixels"] // 128)
+        assert r["blocks_per_sm"] == tat.blocks_per_sm(tat.K2_THREADS,
+                                                       r["smem_bytes"])
+        assert r["blocks"] == 64 * -(-32 // kp["block_h"])
+        assert r["waves"] == -(-r["blocks"] // (tat.H100_SMS
+                                                * r["blocks_per_sm"]))
+        assert r["slot_passes"] == r["waves"] * r["passes"]
         assert r["input_bytes"] == tat.conv_input_band_bytes(g, r["block_h"])
+    assert plan["slot_passes"] == min(r["slot_passes"]
+                                      for r in plan["candidates"])
+    # few samples: every block fits in one wave, so the blocks of one full
+    # pass (4 rows x 32 pixels) tie with smaller ones on passes and win on
+    # input bytes (fewer halo rows)
+    assert tat.plan_block_h(g, samples=2)["block_h"] == 4
+    # many samples: several waves; taller blocks hold more shared memory
+    # (fewer resident) and more passes, so the pick stays small
+    many = tat.plan_block_h(g, samples=1024)
+    assert many["block_h"] == 4
+    assert max(r["waves"] for r in many["candidates"]) > 1
+    # a shallow bank leaves room: more blocks of one size are resident
+    rows1 = {r["block_h"]: r for r in tat.plan_block_h(
+        g, samples=1024, n_steps=1)["candidates"]}
+    rows255 = {r["block_h"]: r for r in many["candidates"]}
+    assert all(rows1[b]["blocks_per_sm"] >= rows255[b]["blocks_per_sm"]
+               for b in rows1)
 
 
 def test_plan_block_mn_picks_among_the_kernels_tiles():
     plan = tat.plan_block_mn(490, 256, n_steps=7, wave_rows=64)
-    assert (plan["block_m"], plan["block_n"]) == (64, 128)
+    assert (plan["block_m"], plan["block_n"]) == (32, 32)
     assert {(r["block_m"], r["block_n"]) for r in plan["candidates"]} == \
         {(a, b) for a in tops.TMM_TILE_SIZES for b in tops.TMM_TILE_SIZES}
     assert all(r["fits_smem"] and r["smem_bytes"] <= 232_448
                for r in plan["candidates"])
-    assert plan["stream_bytes"] == min(r["stream_bytes"]
-                                       for r in plan["candidates"])
+    assert plan["slot_mma"] == min(r["slot_mma"] for r in plan["candidates"])
+    for r in plan["candidates"]:
+        wm, wn = tat.k1_warps(r["block_m"], r["block_n"])
+        assert r["threads"] == 32 * wm * wn <= 512
+        assert r["smem_bytes"] == tops.threshold_matmul_plan(
+            r["block_m"], r["block_n"], 7)["smem_bytes"]
+        # 490 deep: 8 k tiles of two 32-deep steps over the warp's tiles
+        assert r["warp_mma"] == 8 * 2 * (r["block_m"] // wm // 16) * (
+            r["block_n"] // wn // 8)
+        assert r["slot_mma"] == r["waves"] * r["warp_mma"]
+    # a deep bank: whole banks only with 32 channels a block
+    deep = {(r["block_m"], r["block_n"]): r for r in tat.plan_block_mn(
+        72, 72, n_steps=1000, wave_rows=1024)["candidates"]}
+    assert deep[(32, 32)]["smem_bytes"] > deep[(32, 64)]["smem_bytes"]
     # one tile covers the whole stage: the fewest masked outputs win
     small = tat.plan_block_mn(16, 8, n_steps=3, wave_rows=4)
     assert (small["block_m"], small["block_n"]) == (32, 32)
@@ -291,6 +328,11 @@ def test_measured_decisions_time_candidates_in_turns(kind, tmp_path,
         return real(x, micro_batch=micro_batch)
 
     monkeypatch.setattr(tm, "streaming_compiled", logged)
+    # a model tile other than the stages' default, so that the K1 pair is
+    # timed (with the default tile there is nothing to time)
+    real_plan = tat.plan_block_mn
+    monkeypatch.setattr(tat, "plan_block_mn", lambda *a, **k: dict(
+        real_plan(*a, **k), block_m=64, block_n=64))
     cfg = tat.autotune_model(tm, batch=32, directory=str(tmp_path),
                              force=True, topk=3)
     rounds = tat.PAIR_ROUNDS
@@ -328,6 +370,34 @@ def test_measured_decisions_time_candidates_in_turns(kind, tmp_path,
     assert _state(tm) == (None, tuple((s.block_m, s.block_n)
                                       for s in _pair(kind)[1].schedule.stages
                                       if isinstance(s, FusedThresholdStage)))
+
+
+def test_measured_k1_pair_is_not_timed_for_the_stages_own_tiles(
+        tmp_path, monkeypatch):
+    """When the model's tiles are the ones the stages run already, the
+    measured K1 decision times nothing (the two arms would be one
+    configuration, and noise would pick between them) and keeps them."""
+    _, tm = _pair("mlp")
+    calls = []
+    real = tm.streaming_compiled
+
+    def logged(x, micro_batch=None):
+        calls.append((int(micro_batch),) + _state(tm))
+        return real(x, micro_batch=micro_batch)
+
+    monkeypatch.setattr(tm, "streaming_compiled", logged)
+    cfg = tat.autotune_model(tm, batch=32, directory=str(tmp_path),
+                             force=True, topk=3)
+    assert cfg.block_mn and all(tuple(v) == tops.TMM_DEFAULT_TILE
+                                for v in cfg.block_mn.values())
+    assert cfg.block_mn_probe["pick"] == "tuned"
+    assert "probe_ms" not in cfg.block_mn_probe
+    rounds = tat.PAIR_ROUNDS
+    n = 3 * (rounds + 1)                  # the micro-batch candidates
+    rest = calls[n:]
+    # only the megakernel-or-staged pair follows, if any
+    assert len(rest) in (0, 2 * (rounds + 1))
+    assert all(c[1] in (True, False) for c in rest)
 
 
 @pytest.mark.parametrize("kind", ["mlp", "conv"])

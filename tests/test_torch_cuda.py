@@ -70,6 +70,162 @@ def test_conv_threshold_kernel_equals_plain(cuda, k, stride, padding, c, w):
     assert torch.equal(got.cpu(), want)
 
 
+def _codes(rng, shape, codes):
+    from repro_torch.bench.kernel_bench import CODE_RANGES
+
+    lo, hi = CODE_RANGES[codes]
+    return rng.integers(lo, hi, shape).astype(np.int32)
+
+
+# (M, K, N, S, bank kind, code range): every bank kind of the K4 checks,
+# bank depths 1 to 1000 (searched: whole banks are padded to 2^k - 1
+# steps, 1023 here) and 1024 and 2000 (past K1's shared-memory budget at the
+# default
+# tile (the chunked linear count), and every mma flavour: s8, u8, binary
+# and codes wider than a byte (the byte split; K small enough that the
+# sums fit int32)
+TMM_BRANCH_CASES = [
+    (300, 200, 72, 255, "sorted", "s8"), (300, 200, 72, 255, "unsorted", "u8"),
+    (300, 200, 72, 255, "ties", "binary"), (300, 200, 72, 255, "mixed", "u8"),
+    (300, 200, 72, 255, "extreme", "s8"), (257, 130, 40, 7, "sorted", "wide"),
+    (257, 130, 40, 255, "mixed", "wide"), (129, 490, 70, 1000, "sorted", "u8"),
+    (129, 490, 70, 1024, "mixed", "u8"),
+    (129, 64, 33, 1, "unsorted", "s8"), (65, 33, 9, 2000, "mixed", "u8"),
+    (65, 33, 9, 2000, "sorted", "s8")]
+
+
+@pytest.mark.parametrize("m,k,n,s,kind,codes", TMM_BRANCH_CASES)
+def test_threshold_matmul_kernel_every_bank_and_code_range_equals_plain(
+        cuda, m, k, n, s, kind, codes):
+    from repro_torch.bench.kernel_bench import bank_of_kind
+
+    rng = np.random.default_rng(m * 7 + k + n + s)
+    x = _codes(rng, (m, k), codes)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    t = bank_of_kind(rng, x.astype(np.int64) @ w, n, s, kind)
+    x, w, t = (torch.from_numpy(a) for a in (x, w, t))
+    want = ops.threshold_matmul(x, w, t)                 # plain, on the CPU
+    for bm, bn in ((32, 32), tuple(ops.TMM_DEFAULT_TILE), (128, 128)):
+        got = ops.threshold_matmul(x.to(cuda), w.to(cuda), t.to(cuda),
+                                   block_m=bm, block_n=bn)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (bm, bn)
+
+
+def test_threshold_matmul_kernel_mixes_flavours_across_k_tiles(cuda):
+    """One row block whose 64-deep k tiles vote s8, u8 and the byte split
+    in turn, then s8 again."""
+    rng = np.random.default_rng(17)
+    x = np.concatenate([rng.integers(-128, 128, (40, 64)),
+                        rng.integers(0, 256, (40, 64)),
+                        rng.integers(-5000, 5001, (40, 64)),
+                        rng.integers(-128, 0, (40, 50))], axis=1)
+    x = x.astype(np.int32)
+    w = rng.integers(-127, 128, (x.shape[1], 24)).astype(np.int8)
+    t = np.sort(rng.integers(-400000, 400000, (24, 255)),
+                axis=1).astype(np.int32)
+    x, w, t = (torch.from_numpy(a) for a in (x, w, t))
+    want = ops.threshold_matmul(x, w, t)
+    got = ops.threshold_matmul(x.to(cuda), w.to(cuda), t.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+# (N, H, W, C, F, kernel, stride, padding, S, bank kind, code range): C
+# of 1 and 3 (byte loads) and multiples of 4 (word loads, padded pixel
+# stride from 32 channels), F past one 64-channel block, every bank kind,
+# deep banks (1000 searched, 1024 and 6000 past the budget: the linear
+# count), every mma
+# flavour
+CONV_BRANCH_CASES = [
+    (3, 12, 12, 3, 32, 3, 1, "VALID", 255, "sorted", "s8"),
+    (2, 16, 16, 3, 32, 1, 1, "SAME", 255, "unsorted", "s8"),
+    (2, 16, 16, 32, 4, 4, 1, "SAME", 255, "mixed", "u8"),
+    (2, 16, 16, 4, 32, 4, 1, "SAME", 255, "ties", "u8"),
+    (2, 16, 16, 32, 32, 4, 4, "SAME", 255, "extreme", "u8"),
+    (2, 10, 10, 8, 70, 3, 1, "VALID", 1, "sorted", "binary"),
+    (2, 7, 9, 64, 130, 3, 1, "SAME", 7, "unsorted", "binary"),
+    (2, 9, 9, 5, 6, 3, 2, "SAME", 7, "mixed", "wide"),
+    (2, 9, 9, 8, 6, 3, 1, "SAME", 255, "sorted", "wide"),
+    (2, 8, 8, 16, 24, 3, 1, "SAME", 1000, "sorted", "u8"),
+    (2, 8, 8, 16, 24, 3, 1, "SAME", 1024, "sorted", "u8"),
+    (1, 6, 7, 8, 33, 3, 1, "SAME", 6000, "mixed", "u8")]
+
+
+@pytest.mark.parametrize("nb,h,wd,c,f,k,stride,padding,s,kind,codes",
+                         CONV_BRANCH_CASES)
+def test_conv_threshold_kernel_every_bank_and_code_range_equals_plain(
+        cuda, nb, h, wd, c, f, k, stride, padding, s, kind, codes):
+    from repro_torch.bench.kernel_bench import bank_of_kind
+    from repro_torch.kernels.conv_threshold import direct_conv_acc, pad_input
+
+    rng = np.random.default_rng(h * 100 + c * 10 + f + s)
+    x = torch.from_numpy(_codes(rng, (nb, h, wd, c), codes))
+    w2d = torch.from_numpy(rng.integers(-127, 128, (k * k * c, f)).astype(
+        np.int8))
+    if padding == "SAME":
+        oh, ow = -(-h // stride), -(-wd // stride)
+    else:
+        oh, ow = (h - k) // stride + 1, (wd - k) // stride + 1
+    kw = dict(kernel=k, stride=stride, padding=padding, out_h=oh, out_w=ow)
+    acc = direct_conv_acc(pad_input(x, **kw), w2d, kernel=k, stride=stride,
+                          out_h=oh, out_w=ow)
+    t = torch.from_numpy(bank_of_kind(rng, acc.numpy(), f, s, kind))
+    want = ops.conv_threshold(x, w2d, t, **kw)          # plain, on the CPU
+    for bh in (None, 1, 3):
+        got = ops.conv_threshold(x.to(cuda), w2d.to(cuda), t.to(cuda),
+                                 block_h=bh, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), bh
+
+
+def test_threshold_kernel_variants_equal_plain(cuda):
+    """The timing variants (banks streamed and counted step by step; dp4a
+    on the CUDA cores) give the same codes as the kernels."""
+    from repro_torch.kernels.conv_threshold import pad_input
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 256, (130, 100)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(-127, 128, (100, 70)).astype(np.int8))
+    t = torch.from_numpy(np.sort(rng.integers(-2000000, 2000000, (70, 255)),
+                                 axis=1).astype(np.int32))
+    want = ops.threshold_matmul(x, w, t)
+    for linear, cores in ((True, False), (False, True), (True, True)):
+        got = ops._tmm_launch(x.to(cuda), w.to(cuda), t.to(cuda), 32, 32,
+                              linear=linear, cores=cores)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (linear, cores)
+    xc = torch.from_numpy(rng.integers(-127, 128, (2, 9, 9, 3)).astype(
+        np.int32))
+    w2d = torch.from_numpy(rng.integers(-127, 128, (27, 40)).astype(np.int8))
+    tc = torch.from_numpy(np.sort(rng.integers(-30000, 30000, (40, 255)),
+                                  axis=1).astype(np.int32))
+    kw = dict(kernel=3, stride=1, padding="SAME", out_h=9, out_w=9)
+    want = ops.conv_threshold(xc, w2d, tc, **kw)
+    xp = pad_input(xc, **kw).to(cuda)
+    for linear, cores in ((True, False), (False, True), (True, True)):
+        got = ops._conv_launch(xp, w2d.to(cuda), tc.to(cuda), kernel=3,
+                               stride=1, out_h=9, out_w=9, block_h=4,
+                               linear=linear, cores=cores)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (linear, cores)
+
+
+@pytest.mark.parametrize("name", ("threshold_matmul", "conv_threshold"))
+def test_threshold_kernels_run_on_the_int8_tensor_cores(cuda, name):
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    (lib,) = _build.build_all([name])
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    assert "IMMA" in sass
+
+
 @pytest.mark.parametrize("name", ("kws", "ad", "ic", "cnv"))
 @pytest.mark.parametrize("lowering", ("direct", "im2col"))
 def test_goldens_on_the_card(cuda, name, lowering):
