@@ -10,7 +10,7 @@ which fails the run with a non-zero exit:
 
   1. build   — compile every kernel of the path from ``csrc/`` (one nvcc
                per source, in parallel), time printed;
-  2. kernels — ``cuobjdump --dump-sass`` of the built K1 and K2
+  2. kernels — ``cuobjdump --dump-sass`` of the built K1, K2, K3 and K5
                libraries must show IMMA (int8 ``mma.sync``); each kernel
                against its plain PyTorch version on the card, exact
                integer equality: K1/K2 at ragged shapes, S in {1, 7, 255},
@@ -21,9 +21,16 @@ which fails the run with a non-zero exit:
                chunked linear count), and codes
                of every mma flavour (s8, u8, binary, and wider than a
                byte: the byte split), K1 also with k tiles of different
-               flavours in one block, under 3 tiles / row blocks each (``K1_BRANCH_CASES``, ``K2_BRANCH_CASES``); K3 on
-               chains of 1 to 5 stages, ragged M, widths up to 512, S in
-               {1, 7, 255}, signed first-layer codes;
+               flavours in one block, under 3 tiles / row blocks each
+               (``K1_BRANCH_CASES``, ``K2_BRANCH_CASES``); K3 on chains
+               of 1 to 5 stages, ragged M, widths up to 512, S in {1, 7,
+               255}, signed first-layer codes, and over
+               ``K3_BRANCH_CASES`` (M of 1, 2, 15, 16, 17, 64, 1000;
+               widths 1, 8, 10, 12, 500 in one chain; 8 stages; the
+               256-1536-1536-256 run, whose weights stream; S of 1, 7,
+               255, 256, 1000; sorted, unsorted, tied and mixed banks;
+               s8, u8, binary and wide codes) under its default plan and
+               pinned clusters and row tiles;
   3. main path — ``compile_graph(device="cuda")`` of the full-width KWS
                MLP (490-256x3-12, 3-bit) and AD autoencoder
                (128-72-72-8-72-72-128, 8-bit), built with ``export_qmlp``
@@ -49,7 +56,11 @@ which fails the run with a non-zero exit:
                library yardstick (device time: CUDA-graph replay timed with
                CUDA events, ``time_ms``), with the bound from bytes
                and int8 operations; K3 also beside the summed K1 times of
-               the same stages; ``offline`` ms per 1024-row batch in both
+               the same stages, at batch 1 beside 1024 rows with the
+               cluster size and row tile its plan took, and the card's
+               active clusters of each size
+               (``cudaOccupancyMaxActiveClusters``) beside the plan's
+               table; ``offline`` ms per 1024-row batch in both
                modes; K1 under all 9 tiles on the full-width KWS and AD
                stages; then K1 and K2 step by step on every main-path
                stage (``phase_k12_split``): products by ``mma.sync`` or
@@ -96,7 +107,10 @@ which fails the run with a non-zero exit:
                (``tests/test_kernels.py``, the deep banks of
                ``tests/test_megakernel.py``), ragged shapes, both K5
                output dtypes, ReLU on and off, no bias, out_scale 0.03 /
-               0.07 / 0.3 (``MT_CASES``, ``QMM_CASES``); K4 also on
+               0.07 / 0.3 (``MT_CASES``, ``QMM_CASES``: also M = 1 and
+               the tiny models' dense shapes as the QAT layers give them);
+               K5 at ``QMM_BIG`` = 4096^3, checked and timed beside its
+               bound and its share of the int8 peak; K4 also on
                unsorted banks, ties, INT32_MIN/MAX, sorted and unsorted
                channels in one call, S 63/64/65/256/1024/4096 and 30000;
  12. K1 tiles — ``threshold_matmul`` under every tile of
@@ -305,33 +319,82 @@ def chain_codes(x, weights, banks):
 def mega_case(model, stages, x, weights, banks):
     """A timing case for ``mlp_megakernel`` on one dense run: x (M, K_0)
     int32, per-stage int8 weights and (N, S) banks (the stages'
-    ``thresholds``), all on the card; the kernel and its plain version
-    take the banks step-major, as the executor passes them. Beside them:
-    the staged K1 launches of the same stages, and the fp32
-    ``torch.matmul`` chain of the accumulators alone (TF32 off)."""
+    ``thresholds``), all on the card; the kernel takes the weights packed
+    and the banks step-major, as the executor passes them (prepared once
+    here, outside the timed call), its plain version the same banks.
+    Beside them: the staged K1 launches of the same stages, the fp32
+    ``torch.matmul`` chain of the accumulators alone (TF32 off), and the
+    plan the wrapper takes (cluster size, row tile)."""
     import torch
     from repro_torch.kernels import ops, ref
 
     banks_sn = [b.t().contiguous() for b in banks]
+    packed = [ops.megakernel_pack_weights(w) for w in weights]
     hs = chain_codes(x, weights, banks)
     hf = [h.to(torch.float32) for h in hs]
     wf = [w.to(torch.float32) for w in weights]
     torch.backends.cuda.matmul.allow_tf32 = False
     m = x.shape[0]
     dims = [x.shape[1]] + [w.shape[1] for w in weights]
+    steps = [b.shape[1] for b in banks]
     nbytes = (x.numel() * 4 + m * dims[-1] * 4
               + sum(w.numel() for w in weights)
               + sum(b.numel() * 4 for b in banks))
     nops = 2 * m * sum(w.shape[0] * w.shape[1] for w in weights)
     return {"kernel": "mlp_megakernel", "model": model, "stage": stages,
             "shape": f"M={m} dims={'-'.join(map(str, dims))} "
-                     f"S={'/'.join(str(b.shape[1]) for b in banks)}",
-            "run": lambda: ops.mlp_megakernel(x, weights, banks_sn),
+                     f"S={'/'.join(map(str, steps))}",
+            "run": lambda: ops.mlp_megakernel(x, packed, banks_sn),
             "plain": lambda: ref.mlp_megakernel_ref(x, weights, banks_sn),
             "library": lambda: [torch.matmul(h, w) for h, w in zip(hf, wf)],
             "staged": lambda: [ops.threshold_matmul(h, w, b) for h, w, b
                                in zip(hs, weights, banks)],
-            "bytes": nbytes, "ops": nops}
+            "plan": ops.megakernel_plan(tuple(dims), tuple(steps), m),
+            "inputs": (x, weights, banks), "bytes": nbytes, "ops": nops}
+
+
+def phase_k3_occupancy():
+    """The clusters of 1-8 K3 CTAs the card runs at once
+    (``cudaOccupancyMaxActiveClusters`` at a CTA's full and smallest
+    shared memory), beside ``ops.MEGAKERNEL_ACTIVE_CLUSTERS``, the H100
+    table the plan prices waves with; a cluster size the card cannot run
+    fails the run. Returns the table."""
+    from repro_torch.kernels import ops
+
+    table = {}
+    for smem in (16_384, 232_448):
+        table[smem] = [ops.megakernel_active_clusters(c, smem)
+                       for c in range(1, ops.MEGAKERNEL_MAX_CLUSTER + 1)]
+        check(min(table[smem]) > 0, f"K3: a cluster size of {table[smem]}"
+                                    f" active clusters at {smem} B a CTA "
+                                    f"cannot be scheduled")
+        log(f"K3 active clusters of 1..{ops.MEGAKERNEL_MAX_CLUSTER} CTAs "
+            f"at {smem} B a CTA: {table[smem]} (the plan's table "
+            f"{list(ops.MEGAKERNEL_ACTIVE_CLUSTERS)})")
+    return table
+
+
+def mega_batch1_rows(rows_1024, cases):
+    """Each K3 case again on its first row alone (a SingleStream query's
+    shape), timed beside the 1024-row time; rows with no launches of the
+    counted run. Logs the plan each took."""
+    out = []
+    for row, c in zip(rows_1024, cases):
+        if c["kernel"] != "mlp_megakernel":
+            continue
+        x, weights, banks = c["inputs"]
+        one = mega_case(c["model"], c["stage"], x[:1].contiguous(), weights,
+                        banks)
+        r1 = time_case(one)
+        r1["launches"] = 0
+        out.append(r1)
+        p1, p = one["plan"], c["plan"]
+        log(f"K3 {c['model']}/{c['stage']}: M=1 {r1['ms']:.6f} ms "
+            f"({p1['cluster']} CTAs x {p1['block_m']} rows), M={x.shape[0]} "
+            f"{row['ms']:.6f} ms ({p['cluster']} CTAs x {p['block_m']} "
+            f"rows), staged K1 at M={x.shape[0]} "
+            f"{row.get('staged_k1_ms', float('nan')):.6f} ms")
+    return out
 
 
 def _random_chain(g, m, dims, steps, lo, hi):
@@ -389,6 +452,48 @@ K2_BRANCH_CASES = [
     (2, 8, 8, 16, 24, 3, 1, "SAME", 1000, "sorted", "u8"),
     (2, 8, 8, 16, 24, 3, 1, "SAME", 1024, "sorted", "u8"),
     (1, 6, 7, 8, 33, 3, 1, "SAME", 6000, "mixed", "u8")]
+
+
+# K3 checks (M, dims, steps, bank kind, code range), each under the
+# default plan and pinned clusters / row tiles that fit: M of 1, 2, 15, 16,
+# 17, 64 and 1000; widths of 1, 8, 10, 12 and 500 in one chain; an 8-stage
+# chain; slices that do not fit a CTA (the weights stream through shared
+# memory); S of 1, 7, 255, 256 and 1000; sorted, unsorted and tied banks;
+# input codes of every flavour (s8, u8, binary, and wider than a byte:
+# the byte split, with K_0 small enough that the sums fit int32)
+K3_BRANCH_CASES = (
+    [(m, [490, 256, 256, 256], [7, 7, 7], "sorted", "s8")
+     for m in (1, 2, 15, 16, 17, 64, 1000)]
+    + [(17, [33, 1, 8, 10, 12, 500, 3], [7, 1, 255, 7, 1, 7], "sorted",
+        "u8"),
+       (300, [40, 24, 16, 8, 9, 30, 20, 12, 10], [3] * 8, "ties", "u8"),
+       (64, [256, 1536, 1536, 256], [1, 1, 1], "sorted", "binary"),
+       (130, [64, 72, 40, 24, 16], [1, 7, 255, 256], "unsorted", "s8"),
+       (33, [72, 40, 24, 9], [1000, 255, 7], "mixed", "u8"),
+       (257, [130, 72, 8, 72], [255, 255, 1000], "sorted", "wide"),
+       (1000, [128, 72, 72, 8, 72, 72], [255] * 5, "unsorted", "s8"),
+       (1, [128, 72, 72, 8, 72, 72], [255] * 5, "ties", "binary")])
+
+
+def _chain_of_kind(rng, m, dims, steps, kind, codes):
+    """Seeded codes (M, dims[0]) of one of ``kernel_bench.CODE_RANGES`` on
+    the card, int8 weights, and per-stage step-major (S, N) banks of one of
+    ``kernel_bench.MT_BANK_KINDS`` drawn from each stage's accumulators."""
+    import numpy as np
+    import torch
+    from repro_torch.bench.kernel_bench import bank_of_kind
+
+    h = _codes(rng, (m, dims[0]), codes).astype(np.int64)
+    x = torch.as_tensor(h.astype(np.int32)).cuda()
+    ws, bs = [], []
+    for k, n, s in zip(dims[:-1], dims[1:], steps):
+        w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+        acc = h @ w.astype(np.int64)
+        t = bank_of_kind(rng, acc, n, s, kind)
+        h = (acc[:, :, None] >= t[None]).sum(-1)
+        ws.append(torch.as_tensor(w).cuda())
+        bs.append(torch.as_tensor(t.T.copy()).cuda())
+    return x, ws, bs
 
 
 def _codes(rng, shape, codes):
@@ -528,6 +633,30 @@ def phase_kernels_synthetic():
         check(err == 0, f"mlp_megakernel M={m} dims={dims}: max err {err}")
         log(f"kernel-check mlp_megakernel M={m} dims={dims} S={steps}: "
             f"exact (nonzero share {float((want > 0).float().mean()):.3f})")
+    for m, dims, steps, kind, codes in K3_BRANCH_CASES:
+        x, ws, bs = _chain_of_kind(rng, m, dims, steps, kind, codes)
+        want = ref.mlp_megakernel_ref(x, ws, bs)
+        packed = [ops.megakernel_pack_weights(w) for w in ws]
+        plans = []
+        for pin in ((None, None), (8, 8), (2, 16), (1, 64)):
+            plan = ops.megakernel_plan(tuple(dims), tuple(steps), m, *pin)
+            if not plan["fits"] or plan in plans:
+                continue
+            plans.append(plan)
+            got = ops.mlp_megakernel(x, packed, bs, cluster=plan["cluster"],
+                                     block_m=plan["block_m"])
+            err = int((got - want).abs().max())
+            worst["mlp_megakernel"] = max(worst["mlp_megakernel"], err)
+            check(err == 0, f"mlp_megakernel M={m} dims={dims} S={steps} "
+                            f"{kind} banks, {codes} codes, cluster "
+                            f"{plan['cluster']} x {plan['block_m']} rows: "
+                            f"max err {err}")
+        log(f"kernel-check mlp_megakernel M={m} dims={dims} S={steps} "
+            f"{kind} banks, {codes} codes: exact under "
+            + ", ".join(f"{p['cluster']} CTAs x {p['block_m']} rows "
+                        f"({'resident' if p['weights_resident'] else 'streamed'}"
+                        f" weights, {'resident' if p['banks_resident'] else 'global'}"
+                        f" banks)" for p in plans))
     return worst
 
 
@@ -814,6 +943,11 @@ def time_case(c, reps=7, inner=20):
     if "staged" in c:
         row["staged_k1_ms"] = time_ms(c["staged"], reps=reps, inner=inner)
         staged = f", staged K1 {row['staged_k1_ms']:.6f} ms"
+    if "plan" in c:
+        row["cluster"] = c["plan"]["cluster"]
+        row["block_m"] = c["plan"]["block_m"]
+        staged += (f", {row['cluster']} CTAs a cluster x {row['block_m']} "
+                   f"rows")
     log(f"time {row['kernel']} {row['model']}/{row['stage']} "
         f"{row['shape']}: kernel {row['ms']:.6f} ms, plain "
         f"{row['plain_ms']:.6f} ms, {c.get('library_is', 'library (partial)')} "
@@ -827,6 +961,7 @@ def phase_times(cases, results, models):
     from repro_torch.obs import timer
 
     rows = [time_case(c) for c in cases]
+    rows += mega_batch1_rows(rows, cases)
     e2e = {}
     for n, _, _, x in models:
         xc = torch.as_tensor(x).cuda()
@@ -926,6 +1061,7 @@ def phase_full_width():
             f"{c['stage']} {c['shape']}: exact")
         rows.append(time_case(c, reps=5, inner=5))
         torch.cuda.empty_cache()
+    rows += mega_batch1_rows(rows, cases)
     return rows, worst
 
 
@@ -1420,7 +1556,14 @@ QMM_CASES = ([(m, k, n, relu, True, None)
                 (65, 33, 129, False, True, 0.3),
                 (1000, 490, 257, True, False, 0.01),
                 (513, 1031, 63, False, True, None),
-                (512, 512, 512, True, True, 0.125)])
+                (512, 512, 512, True, True, 0.125)]
+             # M = 1, and the tiny models' dense shapes as K5 sees them from
+             # the QAT layers (KWS's first layer at batch 1 and 1024, AD's)
+             + [(1, 64, 40, True, True, 0.05), (1, 490, 256, True, True, None),
+                (1024, 490, 256, True, True, 0.05),
+                (1024, 128, 72, False, True, None)])
+#: K5's large shape: checked, then timed beside its bound and the int8 peak
+QMM_BIG = (4096, 4096, 4096)
 # K4 cases (M, C, S, bank kind of ``kernel_bench.mt_inputs``):
 # tests/test_kernels.py's, tests/test_megakernel.py's deep banks (256, 300,
 # 511), ragged ones, AD's bank; then unsorted banks, banks with ties,
@@ -1490,8 +1633,54 @@ def phase_k4_k5():
               f"qmatmul M={m} K={k} N={n} relu={relu} bias={has_bias} "
               f"out_scale={out_scale}: max err {err}")
         log(f"kernel-check qmatmul M={m} K={k} N={n} relu={relu} "
-            f"bias={has_bias} out_scale={out_scale} ({got.dtype}): exact")
-    return worst
+            f"bias={has_bias} out_scale={out_scale} ({got.dtype}): exact, "
+            f"tile {ops.qmatmul_plan(m, k, n)['block_m']} x "
+            f"{ops.qmatmul_plan(m, k, n)['block_n']}")
+    return worst, phase_k5_big(rng)
+
+
+def phase_k5_big(rng):
+    """K5 at ``QMM_BIG`` (ReLU, requant 0.125): held against its plain
+    version bit for bit, then timed beside its bound (operations at the
+    int8 tensor-core peak), its share of that peak, the plain version and
+    the unfused ``torch._int_mm`` chain. Returns the row."""
+    import torch
+    from repro_torch.bench.kernel_bench import _unfused
+    from repro_torch.kernels import ops, ref
+
+    m, k, n = QMM_BIG
+    x = torch.as_tensor(rng.integers(-127, 128, (m, k)),
+                        dtype=torch.int8).cuda()
+    w = torch.as_tensor(rng.integers(-127, 128, (k, n)),
+                        dtype=torch.int8).cuda()
+    sc = torch.as_tensor(rng.uniform(1e-3, 1e-2, n), dtype=torch.float32).cuda()
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32).cuda()
+    kw = dict(relu=True, out_scale=0.125)
+    got = ops.qmatmul(x, w, sc, b, **kw)
+    want = ref.qmatmul_ref(x, w, sc, b, **kw)
+    check(torch.equal(got, want), f"qmatmul {m}x{k}x{n}: kernel != plain")
+    del want
+    nbytes, nops = m * k + k * n + 8 * n + m * n, 2 * m * k * n
+    row = {"kernel": "qmatmul", "shape": f"M={m} K={k} N={n} relu "
+                                         f"out_scale=0.125",
+           "bytes": nbytes, "ops": nops,
+           "ms": time_ms(lambda: ops.qmatmul(x, w, sc, b, **kw), reps=5,
+                         inner=5),
+           "plain_ms": time_ms(lambda: ref.qmatmul_ref(x, w, sc, b, **kw),
+                               reps=3, inner=1),
+           "library_ms": time_ms(lambda: _unfused(x, w, sc, b, 0.125),
+                                 reps=5, inner=5),
+           "bound_ms": bound_ms(nbytes, nops, INT8_OPS_PER_S),
+           "bound_by": bound_by(nbytes, nops, INT8_OPS_PER_S)}
+    row["int8_peak_share"] = nops / (row["ms"] * 1e-3) / INT8_OPS_PER_S
+    log(f"kernel-check qmatmul M={m} K={k} N={n}: exact; time "
+        f"{row['ms']:.6f} ms (tile {ops.qmatmul_plan(m, k, n)['block_m']} x "
+        f"{ops.qmatmul_plan(m, k, n)['block_n']}), plain "
+        f"{row['plain_ms']:.6f} ms, torch._int_mm + epilogue ops "
+        f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}), {row['int8_peak_share']:.1%} of the int8 "
+        f"tensor-core peak")
+    return row
 
 
 def phase_k1_tiles():
@@ -1615,13 +1804,14 @@ def phase_k12_split(cases):
     return {"rows": rows, "sums": sums}
 
 
-def phase_k12_sass():
-    """IMMA (int8 mma.sync) instructions in the SASS of the built K1 and
-    K2 libraries; none fails the run. Returns the counts."""
+def phase_int8_sass():
+    """IMMA (int8 mma.sync) instructions in the SASS of the built K1, K2,
+    K3 and K5 libraries; none fails the run. Returns the counts."""
     from repro_torch.kernels import _build
 
     counts = {}
-    for name in ("threshold_matmul", "conv_threshold"):
+    for name in ("threshold_matmul", "conv_threshold", "mlp_megakernel",
+                 "qmatmul"):
         (lib,) = _build.build_all([name])
         counts[name] = sass_count(lib, "IMMA")
         log(f"{name} sass: {counts[name]} IMMA instructions in "
@@ -1905,7 +2095,7 @@ def main() -> int:
         libs = _build.build_all()
         log(f"build: {len(libs)} kernels in {timer.now() - t0:.3f} s: "
             f"{[os.path.basename(str(p)) for p in libs]}")
-        imma = phase_k12_sass()
+        imma = phase_int8_sass()
         worst_syn = phase_kernels_synthetic()
         models = load_models()
         results, launches, per_run = phase_main_path(models)
@@ -1913,6 +2103,7 @@ def main() -> int:
         phase_goldens()
         bitwise = phase_streaming(models, results)
         rows, e2e = phase_times(cases, results, models)
+        k3_active = phase_k3_occupancy()
         k1_tiles = phase_k1_tile_times(cases)
         split = phase_k12_split(cases)
         wide, worst_wide = phase_full_width()
@@ -1923,7 +2114,7 @@ def main() -> int:
         del k6_case
         lm["depth_cut_max_diff"] = phase_lm_depth_cut()
         lm["serving"] = phase_lm_serving()
-        worst_k45 = phase_k4_k5()
+        worst_k45, k5_big = phase_k4_k5()
         worst_tiles = phase_k1_tiles()
         bench_launches, bench_rows, worst_bench, bench = phase_kernel_bench()
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1969,6 +2160,7 @@ def main() -> int:
                    "autotune_agreement": autotune_agree,
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,
                            "split": split},
+                   "k5_big": k5_big, "k3_active_clusters": k3_active,
                    "kernels": line},
                   f, indent=1)
     log(json.dumps(line))

@@ -21,15 +21,18 @@ whole working set (weights + banks + tiles) fits one 2 MiB VMEM cap
 (``MEGAKERNEL_VMEM_BYTES``). On the H100 a thread block has at most
 227 KB of shared memory, less than the weights alone of the full-width KWS
 (256,512 B) or the weights and banks of AD (322,656 B). So the port's
-megakernel (``kernels/csrc/mlp_megakernel.cu``) keeps only the row tiles
-in shared memory and reads weights and banks through the L2 cache, which
-every block of the wave shares. The planner (``deploy.lower
-.plan_megakernel``) therefore admits a run on two budgets:
+megakernel (``kernels/csrc/mlp_megakernel.cu``) runs each row tile on a
+thread-block cluster of up to 8 CTAs, each holding its share of every
+stage's channels: its slices of the weights and banks and the row tile's
+codes, exchanged through distributed shared memory (``kernels.ops
+.megakernel_plan`` lays a CTA out). The planner (``deploy.lower
+.plan_megakernel``) admits a run on three budgets:
 
-  * ``tile_bytes`` at the port's row block fits ``MEGAKERNEL_SMEM_BYTES``;
+  * the per-CTA plan at the smallest row tile, ``MEGAKERNEL_BLOCK_M``
+    rows, on 8 CTAs, fits ``MEGAKERNEL_SMEM_BYTES``
+    (``megakernel_cta_plan``; slices that do not fit stream);
   * ``weight_bytes + bank_bytes`` fits ``MEGAKERNEL_L2_BYTES``;
-
-and on the kernel's limit of ``MEGAKERNEL_MAX_STAGES`` stages per launch.
+  * at most ``MEGAKERNEL_MAX_STAGES`` stages per launch.
 """
 
 from __future__ import annotations
@@ -229,7 +232,7 @@ def schedule_cost(stages: Iterable) -> ModelCost:
 
 #: Shared memory one thread block may use on sm_90 (227 KB = 232,448 B,
 #: the ``cudaFuncAttributeMaxDynamicSharedMemorySize`` ceiling; NVIDIA's
-#: Hopper tuning guide). Budget for the megakernel's row tiles.
+#: Hopper tuning guide). Budget for one megakernel CTA.
 MEGAKERNEL_SMEM_BYTES = 232_448
 
 #: The H100's L2 cache (50 MB; NVIDIA's H100 data sheet).
@@ -237,19 +240,16 @@ H100_L2_BYTES = 50 * 2 ** 20
 
 #: Budget for the weights and banks of one fused run: half of the L2, so
 #: that they stay cached while the wave's input and output codes stream
-#: through the other half. Every block reads the whole run, so a run that
+#: through the other half. Every cluster reads the whole run, so a run that
 #: fits is fetched from device memory about once per wave.
 MEGAKERNEL_L2_BYTES = H100_L2_BYTES // 2
 
-#: Rows per thread block of the megakernel (``BM`` in
-#: ``kernels/csrc/mlp_megakernel.cu``, which must match). Up to about a
-#: thousand rows a launch takes as long as one block's serial chain of k
-#: and bank steps, whatever its rows, so small blocks that spread the wave
-#: over more SMs finish sooner: a 1024-row wave gives 128 blocks for the
-#: card's 132 SMs. ``scripts/k3_row_block_sweep.py`` measured 8 rows of
-#: 128 threads against 4, 16 and 32 rows (PERF.md). At 8 rows the
-#: full-width KWS tiles are 40,256 B (at 32 rows 161,024 B; at 128 rows
-#: 644,096 B, more than any block can hold).
+#: The row tile admission prices: the smallest the megakernel takes
+#: (``kernels.ops.MEGAKERNEL_ROW_TILES``). The planner plans a segment
+#: without knowing its rows, so a run admitted at 8 rows on 8 CTAs fits at
+#: every M; the kernel takes larger tiles (16-64 rows) and smaller clusters
+#: only where they fit. At 8 rows on 8 CTAs the full-width KWS takes
+#: 69,568 B a CTA (``megakernel_cta_plan``), its code tiles 24,576 B.
 MEGAKERNEL_BLOCK_M = 8
 
 #: Longest stage run one megakernel launch takes (``MAX_STAGES`` in the
@@ -264,8 +264,9 @@ def megakernel_residency_bytes(stages, block_m: int = MEGAKERNEL_BLOCK_M
     every stage's int8 weight matrix and int32 threshold bank, plus the
     two revolving inter-stage FIFO tiles (int32, ``block_m`` rows by the
     widest intermediate dim) and the input/output row blocks — the
-    reference's accounting. The port's planner budgets ``tile_bytes``
-    against shared memory and ``weight_bytes + bank_bytes`` against L2."""
+    reference's accounting. The port's planner budgets the per-CTA plan
+    (``megakernel_cta_plan``) against shared memory and ``weight_bytes +
+    bank_bytes`` against L2."""
     stages = list(stages)
     weight = sum(int(math.prod(s.stage.w_int.shape)) for s in stages)
     bank = sum(4 * int(math.prod(s.stage.thresholds.shape)) for s in stages)
@@ -276,6 +277,21 @@ def megakernel_residency_bytes(stages, block_m: int = MEGAKERNEL_BLOCK_M
     return {"weight_bytes": int(weight), "bank_bytes": int(bank),
             "tile_bytes": int(tile),
             "total_bytes": int(weight + bank + tile)}
+
+
+def megakernel_cta_plan(stages) -> dict:
+    """The per-CTA plan admission prices for a FusedThresholdStage run:
+    ``kernels.ops.megakernel_plan`` of its widths and bank depths at no
+    row count (``MEGAKERNEL_BLOCK_M`` rows, 8 CTAs a cluster). ``fits``
+    says whether its shared memory (``smem_bytes``) is within
+    ``MEGAKERNEL_SMEM_BYTES``; ``weights_resident`` / ``banks_resident``
+    whether the slices stay in it or stream."""
+    from repro_torch.kernels.ops import megakernel_plan
+
+    stages = list(stages)
+    dims = (int(stages[0].in_dim),) + tuple(int(s.out_dim) for s in stages)
+    steps = tuple(int(s.stage.thresholds.shape[1]) for s in stages)
+    return megakernel_plan(dims, steps)
 
 
 def megakernel_traffic_bytes(stages, wave_rows: int) -> float:

@@ -148,12 +148,12 @@ class CompiledTinyModel:
         without planning again."""
         return (self.megakernel, self.megakernel_budget_bytes,
                 self.segments, self._mega_plans, self._mega_by_start,
-                self._mega_banks, self._plan_cache)
+                self._mega_args, self._plan_cache)
 
     def restore_dispatch(self, state: tuple) -> "CompiledTinyModel":
         """Reinstate a ``dispatch_state``; returns self."""
         (self.megakernel, self.megakernel_budget_bytes, self.segments,
-         self._mega_plans, self._mega_by_start, self._mega_banks,
+         self._mega_plans, self._mega_by_start, self._mega_args,
          self._plan_cache) = state
         return self
 
@@ -163,8 +163,10 @@ class CompiledTinyModel:
         through the plans."""
         self._mega_plans: Dict[int, MegakernelSegment] = {}
         self._mega_by_start: Dict[int, MegakernelSegment] = {}
-        #: each plan's banks transposed once to the kernel's (S, N) layout
-        self._mega_banks: Dict[int, Tuple[torch.Tensor, ...]] = {}
+        #: each plan's weights packed and banks transposed once to the
+        #: kernel's layouts (``ops.megakernel_pack_weights``, (S, N))
+        self._mega_args: Dict[int, Tuple[Tuple[torch.Tensor, ...],
+                                         Tuple[torch.Tensor, ...]]] = {}
         self.segments: List[Segment] = group_segments(self.schedule.stages)
         if self.megakernel is not False:
             for k, seg in enumerate(self.segments):
@@ -174,9 +176,12 @@ class CompiledTinyModel:
                 if plan is not None:
                     self._mega_plans[k] = plan
                     self._mega_by_start[plan.start] = plan
-                    self._mega_banks[plan.start] = tuple(
-                        s.stage.thresholds.t().contiguous()
-                        for s in self.schedule.stages[plan.start:plan.stop])
+                    run = self.schedule.stages[plan.start:plan.stop]
+                    self._mega_args[plan.start] = (
+                        tuple(ops.megakernel_pack_weights(s.stage.w_int)
+                              for s in run),
+                        tuple(s.stage.thresholds.t().contiguous()
+                              for s in run))
         self._plan_cache: Dict[Tuple[int, int], Tuple[List[int], int]] = {}
 
     @property
@@ -230,10 +235,9 @@ class CompiledTinyModel:
         """One planned stage run as a single ``mlp_megakernel`` launch (its
         plain version on the CPU): integer-exact against the stages one by
         one, since accumulation and threshold counting are order-free."""
-        stages = self.schedule.stages[plan.start:plan.stop]
-        return ops.mlp_megakernel(
-            h.to(torch.int32).contiguous(),
-            [s.stage.w_int for s in stages], self._mega_banks[plan.start])
+        weights, banks = self._mega_args[plan.start]
+        return ops.mlp_megakernel(h.to(torch.int32).contiguous(), weights,
+                                  banks)
 
     def _run_all(self, h):
         stages = self.schedule.stages

@@ -460,18 +460,21 @@ MEGAKERNEL_MIN_STAGES = 2
 class MegakernelSegment:
     """A planned megakernel covering stages ``[start, stop)`` — a run of
     consecutive ``FusedThresholdStage``s that the executor dispatches as
-    ONE ``mlp_megakernel`` launch. Carries the planner's byte accounting
-    (``core.bops.megakernel_residency_bytes``); ``tile_bytes`` was admitted
-    under ``core.bops.MEGAKERNEL_SMEM_BYTES``, weights and banks under
-    ``budget_bytes``."""
+    ONE ``mlp_megakernel`` launch. Carries the reference's byte accounting
+    (``core.bops.megakernel_residency_bytes``) and the per-CTA plan that was
+    admitted (``core.bops.megakernel_cta_plan``): ``cta_bytes`` under
+    ``core.bops.MEGAKERNEL_SMEM_BYTES`` on ``cluster`` CTAs at ``block_m``
+    rows, weights and banks under ``budget_bytes``."""
 
     start: int          # first fused stage index (inclusive)
     stop: int           # last fused stage index (exclusive)
-    block_m: int        # kernel row block the tile accounting assumed
-    weight_bytes: int   # int8 weight matrices, all stages (read via L2)
-    bank_bytes: int     # int32 threshold banks, all stages (read via L2)
+    block_m: int        # row tile admission priced
+    weight_bytes: int   # int8 weight matrices, all stages
+    bank_bytes: int     # int32 threshold banks, all stages
     tile_bytes: int     # in/out row blocks + two revolving FIFO tiles
     budget_bytes: int   # cap on weight_bytes + bank_bytes (L2)
+    cluster: int        # CTAs per cluster admission priced
+    cta_bytes: int      # shared memory of one CTA at that plan
 
     @property
     def n_stages(self) -> int:
@@ -490,9 +493,10 @@ def plan_megakernel(stages: Sequence[Stage], segment: Segment, *,
     Finds the longest run of consecutive ``FusedThresholdStage``s inside
     the segment (the earlier run wins a tie), as the reference does, and
     admits it when the kernel can take it: at most
-    ``MEGAKERNEL_MAX_STAGES`` stages, row tiles (at the kernel's row block)
-    that fit one block's shared memory (``MEGAKERNEL_SMEM_BYTES``), and
-    weights and banks that fit the L2 budget (``MEGAKERNEL_L2_BYTES``, or
+    ``MEGAKERNEL_MAX_STAGES`` stages, a per-CTA plan (8 rows on a cluster
+    of 8 CTAs, ``core.bops.megakernel_cta_plan``) that fits one CTA's
+    shared memory (``MEGAKERNEL_SMEM_BYTES``), and weights and banks that
+    fit the L2 budget (``MEGAKERNEL_L2_BYTES``, or
     ``budget_bytes`` when given: tests force the staged fallback with a
     tiny one). Returns ``None`` when no run is long enough or one of these
     fails — the executor then runs the stages one kernel each, which stays
@@ -517,18 +521,22 @@ def plan_megakernel(stages: Sequence[Stage], segment: Segment, *,
             i += 1
     if best is None or best[1] - best[0] < MEGAKERNEL_MIN_STAGES:
         return None
-    block_m = bops.MEGAKERNEL_BLOCK_M
-    res = bops.megakernel_residency_bytes(stages[best[0]:best[1]],
-                                          block_m=block_m)
-    if (best[1] - best[0] > bops.MEGAKERNEL_MAX_STAGES
-            or res["tile_bytes"] > bops.MEGAKERNEL_SMEM_BYTES
+    if best[1] - best[0] > bops.MEGAKERNEL_MAX_STAGES:
+        return None      # more than one launch takes: staged path
+    run = stages[best[0]:best[1]]
+    res = bops.megakernel_residency_bytes(run, block_m=bops.MEGAKERNEL_BLOCK_M)
+    cta = bops.megakernel_cta_plan(run)
+    if (not cta["fits"]
             or res["weight_bytes"] + res["bank_bytes"] > budget):
         return None      # the kernel cannot take it: staged path
-    return MegakernelSegment(start=best[0], stop=best[1], block_m=block_m,
+    return MegakernelSegment(start=best[0], stop=best[1],
+                             block_m=int(cta["block_m"]),
                              weight_bytes=res["weight_bytes"],
                              bank_bytes=res["bank_bytes"],
                              tile_bytes=res["tile_bytes"],
-                             budget_bytes=budget)
+                             budget_bytes=budget,
+                             cluster=int(cta["cluster"]),
+                             cta_bytes=int(cta["smem_bytes"]))
 
 
 # ---------------------------------------------------------------------------

@@ -39,9 +39,10 @@ ENTRY_POINTS = {
     # block_n, pixel stride, weight chunk, samples per block, flags, stream
     "conv_threshold": ("conv_threshold_launch",
                        [_P, _P, _P, _P] + [_I] * 16 + [_P]),
-    # x, out, host arrays of weight and bank pointers, dims, steps
+    # x, out, host arrays of weight and bank pointers, dims, steps,
+    # stages, M, cluster, row tile, residency flags, shared memory, stream
     "mlp_megakernel": ("mlp_megakernel_launch",
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+                       [_P] * 6 + [_I] * 6 + [_P]),
     # q, k, v, out, 11 sizes and flags, host array of 12 strides, stream
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P] + [_I] * 11 + [_P, _P]),
@@ -49,9 +50,9 @@ ENTRY_POINTS = {
     "multi_threshold": ("multi_threshold_launch",
                         [_P, _P, _P] + [_I] * 4 + [_P]),
     # x, w, scale, bias (or null), out, M, N, K, relu, requant,
-    # 1 / out_scale, stream
+    # 1 / out_scale, tile, stream
     "qmatmul": ("qmatmul_launch",
-                [_P] * 5 + [_I] * 5 + [_F, _P]),
+                [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
 }
 
 _LOCK = threading.Lock()

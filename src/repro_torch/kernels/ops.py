@@ -33,11 +33,14 @@ from repro_torch.kernels.conv_threshold import plan_conv_blocks
 
 __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
            "flash_attention", "multi_threshold", "qmatmul",
-           "megakernel_smem_bytes", "plan_conv_blocks", "launches",
+           "megakernel_plan", "megakernel_layout",
+           "megakernel_pack_weights", "megakernel_active_clusters",
+           "plan_conv_blocks",
+           "launches",
            "reset_launches", "FLASH_HEAD_DIMS", "TMM_TILE_SIZES",
            "TMM_DEFAULT_TILE", "multi_threshold_plan",
            "threshold_matmul_plan", "conv_threshold_plan", "search_steps",
-           "conv_block_rows", "conv_block_pixels",
+           "conv_block_rows", "conv_block_pixels", "qmatmul_plan",
            "STAGE_SMEM_BYTES", "BANK_CHUNK_STEPS"]
 
 #: Kernel launches since the last ``reset_launches``, by kernel name.
@@ -383,29 +386,260 @@ def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
     return out
 
 
-def megakernel_smem_bytes(dims: Sequence[int]) -> int:
-    """Shared memory of one ``mlp_megakernel`` block for the chain of
-    widths ``dims`` (K_0, N_0, ..., N_last): the input row tile and up to
-    two FIFO tiles of the widest intermediate width, int32, BM rows each.
-    Never more than the planner's ``tile_bytes``, which also counts an
-    output tile."""
-    n_stages = len(dims) - 1
-    inter = max(dims[1:-1], default=0)
-    return 4 * MEGAKERNEL_BLOCK_M * (dims[0] + min(n_stages - 1, 2) * inter)
+#: Threads of a ``mlp_megakernel`` CTA (``NT`` in
+#: ``csrc/mlp_megakernel.cu``): 8 warps, which split a stage's products.
+MEGAKERNEL_THREADS = 256
+
+#: Largest cluster ``mlp_megakernel`` launches (``MAX_CLUSTER``): the
+#: portable limit of 8 CTAs, so 8 x 227 KB of distributed shared memory.
+MEGAKERNEL_MAX_CLUSTER = 8
+
+#: Row tiles ``megakernel_plan`` picks from (``MAX_BLOCK_M`` is the
+#: largest); admission prices ``core.bops.MEGAKERNEL_BLOCK_M``, the smallest.
+MEGAKERNEL_ROW_TILES = (64, 32, 16, 8)
+
+#: k per chunk when a CTA's weight slices do not fit its shared memory and
+#: stream through it (``CHUNK_K``).
+MEGAKERNEL_CHUNK_K = 128
+
+# launch flags of K3 (``WEIGHTS_RESIDENT``, ``BANKS_RESIDENT`` in
+# ``csrc/mlp_megakernel.cu``)
+_MK_WEIGHTS_RESIDENT = 1
+_MK_BANKS_RESIDENT = 2
+
+#: Clusters of 1, 2, ..., 8 CTAs the H100 SXM runs at once:
+#: ``cudaOccupancyMaxActiveClusters`` for ``mlp_megakernel`` (one CTA an SM,
+#: which its registers allow; the same at every shared-memory size;
+#: ``chip_smoke.py`` prints the card's beside it). A cluster lives in one
+#: GPC, so large clusters leave SMs idle: 15 clusters of 8 use 120 of the
+#: 132.
+MEGAKERNEL_ACTIVE_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
 
 
-def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
-                   banks: Sequence[torch.Tensor]) -> torch.Tensor:
-    """A run of fused dense stages in one launch, inter-stage codes kept
-    in shared memory.
+def _round_up(v: int, m: int) -> int:
+    return -(-int(v) // m) * m
 
-    x_int (M, K_0) int32 codes; weights[d] (K_d, N_d) int8 with
-    K_{d+1} = N_d; banks[d] (S_d, N_d) int32, step-major — the transpose
-    of a stage's (N_d, S_d) ``thresholds``, so that the kernel reads one
-    step of all channels at once (the executor transposes once per plan).
-    Returns the last stage's (M, N_last) int32 codes. Ragged M needs no
-    padding."""
-    kind = _device_kind(x_int)
+
+def _code_stride(width: int) -> int:
+    """Words per row of K3's int32 code tiles (``code_stride``): at least
+    the width rounded up to 8, and 16 mod 32, so that an A fragment's int4
+    loads are free of bank conflicts."""
+    r8 = _round_up(width, 8)
+    return 16 if r8 <= 16 else 16 + _round_up(r8 - 16, 32)
+
+
+def _weight_stride(nc: int) -> int:
+    """Words per k-word row of a K3 CTA's staged weight slice of ``nc``
+    channels (``weight_stride``): 8 mod 32, so that a B fragment's loads
+    hit 32 distinct banks."""
+    return _round_up(nc, 32) + 8
+
+
+def _mk_tiles(n: int, cluster: int) -> int:
+    """n8 tiles of a stage of ``n`` channels that one CTA of a cluster of
+    ``cluster`` holds at most (CTA j: tiles [j T / C, (j + 1) T / C))."""
+    return -(-(-(-int(n) // 8)) // int(cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def megakernel_layout(dims: Tuple[int, ...], steps: Tuple[int, ...],
+                      cluster: int, block_m: int, flags: int
+                      ) -> Dict[str, int]:
+    """Shared memory of one ``mlp_megakernel`` CTA, in bytes by part, for
+    the chain of widths ``dims`` (K_0, N_0, ..., N_last) with banks of
+    ``steps``, a cluster of ``cluster`` CTAs, a row tile of ``block_m`` rows
+    and the residency ``flags`` (the arithmetic of ``layout`` in
+    ``csrc/mlp_megakernel.cu``; every part is rounded up to 16 bytes):
+
+      * ``codes``: the two int32 code tiles, ``block_m`` rows each, of the
+        widest input of the even and of the odd stages (row strides
+        ``_code_stride``);
+      * ``acc``: the int32 accumulator tile, ``block_m`` rows of the most
+        channels a CTA holds, rounded up to 32, plus 8;
+      * ``weights``: resident, every stage's slice of the packed weights
+        (``megakernel_pack_weights``), ``round_up(K, 32) / 4`` k words of
+        ``_weight_stride`` words each; else one chunk of
+        ``MEGAKERNEL_CHUNK_K / 4`` k words of the widest slice;
+      * ``banks``: resident, every stage's slice step-major,
+        ``search_steps(S)`` steps; else 0 (searched in global memory);
+      * ``flags``: a falls bit per channel slot and stage, and the input's
+        code-range vote.
+
+    ``smem_bytes`` is their sum."""
+    dims = tuple(int(d) for d in dims)
+    n_st = len(steps)
+    w0 = max(dims[d] for d in range(0, n_st, 2))
+    w1 = max((dims[d] for d in range(1, n_st, 2)), default=0)
+    nts = [_mk_tiles(n, cluster) for n in dims[1:]]
+    r4 = lambda words: _round_up(words, 4)                       # noqa: E731
+    codes = r4(block_m * _code_stride(w0)) + (
+        r4(block_m * _code_stride(w1)) if n_st > 1 else 0)
+    acc = r4(block_m * (_round_up(8 * max(nts), 32) + 8))
+    if flags & _MK_WEIGHTS_RESIDENT:
+        weights = sum(r4(_round_up(k, 32) // 4 * _weight_stride(8 * nt))
+                      for nt, k in zip(nts, dims[:-1]))
+    else:
+        weights = r4(MEGAKERNEL_CHUNK_K // 4 * _weight_stride(8 * max(nts)))
+    banks = (sum(r4(search_steps(s) * 8 * nt) for s, nt in zip(steps, nts))
+             if flags & _MK_BANKS_RESIDENT else 0)
+    flags_words = sum(r4(-(-8 * nt // 32)) for nt in nts) + r4(1)
+    parts = {"codes": 4 * codes, "acc": 4 * acc, "weights": 4 * weights,
+             "banks": 4 * banks, "flags": 4 * flags_words}
+    parts["smem_bytes"] = sum(parts.values())
+    return parts
+
+
+def _mk_fit(dims, steps, cluster, block_m):
+    """The first residency (weights and banks, weights, banks, neither)
+    whose layout fits one CTA, as (flags, layout), or None."""
+    for flags in (_MK_WEIGHTS_RESIDENT | _MK_BANKS_RESIDENT,
+                  _MK_WEIGHTS_RESIDENT, _MK_BANKS_RESIDENT, 0):
+        lay = megakernel_layout(dims, steps, cluster, block_m, flags)
+        if lay["smem_bytes"] <= MEGAKERNEL_SMEM_BYTES:
+            return flags, lay
+    return None
+
+
+def _mk_cost(dims, steps, m, cluster, block_m, flags, lay) -> float:
+    """A launch's modelled time in SM cycles: waves of clusters
+    (``MEGAKERNEL_ACTIVE_CLUSTERS`` at a time) times one CTA's chain — a
+    fixed start, the bytes it stages (the row tile's input, its weight
+    slices, its banks), and per stage a fixed cost, the longest warp's k
+    steps (each an A fragment per m16 tile and an mma per tile), a weight
+    chunk's two barriers when the weights stream, the epilogue's rounds (a
+    search of bit_length(S) probes per item, in shared memory or, for banks
+    that do not fit, in global memory; a store per peer) and the cluster
+    barrier. The constants are fitted to ``bench/megakernel_sweep.py``'s
+    512 timings (every cluster and row tile of KWS, AD and CNV's golden
+    and full-width FC at 1, 16, 1024 and 4096 rows on an H100 SXM at
+    700 W): its pick is within 3.2% of the fastest on all 16 there
+    (PERF.md §6 gives the sweep)."""
+    rows = min(int(block_m), int(m))
+    waves = -(-(-(-int(m) // int(block_m)))
+              // MEGAKERNEL_ACTIVE_CLUSTERS[int(cluster) - 1])
+    mt = -(-rows // 16)
+    staged = 4 * rows * dims[0] + lay["banks"] + sum(
+        _round_up(k, 32) * 8 * _mk_tiles(n, cluster)
+        for k, n in zip(dims[:-1], dims[1:]))
+    chain = 1220.0 + staged / 24.4
+    probe = 410.0 if flags & _MK_BANKS_RESIDENT else 1730.0
+    for k, n, s in zip(dims[:-1], dims[1:], steps):
+        nt = _mk_tiles(n, cluster)
+        n_ks = -(-int(k) // 32)
+        ng = -(-nt // 4)
+        ksl = max(1, min(n_ks, 8 // max(ng, 1)))
+        per_warp = -(-ng * ksl // 8) * -(-n_ks // ksl)
+        chain += 5640 + per_warp * (11.6 + 87 * mt * min(4, nt))
+        if not flags & _MK_WEIGHTS_RESIDENT:
+            chain += -(-_round_up(k, 32) // MEGAKERNEL_CHUNK_K) * 1810
+        items = rows * 2 * nt
+        chain += -(-items // MEGAKERNEL_THREADS) * (
+            probe * max(1, int(s).bit_length()) + 4.5 * cluster)
+        chain += 116 if cluster > 1 else 0
+    return waves * chain
+
+
+@functools.lru_cache(maxsize=None)
+def megakernel_plan(dims: Tuple[int, ...], steps: Tuple[int, ...],
+                    m: Optional[int] = None, cluster: Optional[int] = None,
+                    block_m: Optional[int] = None) -> Dict[str, object]:
+    """How ``mlp_megakernel`` runs the chain of widths ``dims`` with banks
+    of ``steps`` on ``m`` rows: the cluster size (CTAs, at most
+    ``MEGAKERNEL_MAX_CLUSTER``), the row tile (``MEGAKERNEL_ROW_TILES``),
+    whether the CTAs' weight and bank slices are resident in shared memory
+    or streamed, and the per-CTA layout (``megakernel_layout``), with
+    ``fits`` false when no choice fits 232,448 B.
+
+    ``m`` None prices admission (``deploy.lower.plan_megakernel`` plans a
+    segment without knowing its rows): the smallest row tile,
+    ``core.bops.MEGAKERNEL_BLOCK_M``, at the largest cluster, whose slices
+    are the smallest; a run admitted so fits at every M. Otherwise the row
+    tile and the cluster minimise ``_mk_cost``: waves of clusters on the
+    132 SMs times one CTA's chain; a batch-1 query runs one cluster of 8
+    CTAs, a 1024-row wave clusters of 2 or 3 CTAs that fill the card in
+    one wave.
+    ``cluster`` and ``block_m`` pin either choice (the sweep,
+    ``bench/megakernel_sweep.py``). Cached: do not change the dict it
+    returns."""
+    dims = tuple(int(d) for d in dims)
+    steps = tuple(int(s) for s in steps)
+    if m is None:
+        cands = [(MEGAKERNEL_MAX_CLUSTER, MEGAKERNEL_BLOCK_M)]
+    else:
+        tiles = [b for b in MEGAKERNEL_ROW_TILES
+                 if b == MEGAKERNEL_BLOCK_M or b < 2 * max(int(m), 1)]
+        cands = [(c, b) for c in range(MEGAKERNEL_MAX_CLUSTER, 0, -1)
+                 for b in tiles]
+    if cluster is not None:
+        cands = [(int(cluster), b) for b in
+                 ((MEGAKERNEL_BLOCK_M,) if m is None else tiles)]
+    if block_m is not None:
+        cands = [(c, int(block_m)) for c in
+                 sorted({c for c, _ in cands}, reverse=True)]
+    best = None
+    for c, b in cands:
+        fit = _mk_fit(dims, steps, c, b)
+        if fit is None:
+            continue
+        flags, lay = fit
+        cost = 0.0 if m is None else _mk_cost(dims, steps, m, c, b, flags,
+                                                lay)
+        if best is None or cost < best[0]:
+            best = (cost, c, b, flags, lay)
+    if best is None:
+        c = MEGAKERNEL_MAX_CLUSTER if cluster is None else int(cluster)
+        b = MEGAKERNEL_BLOCK_M if block_m is None else int(block_m)
+        lay = megakernel_layout(dims, steps, c, b, 0)
+        return {"fits": False, "cluster": c, "block_m": b, "flags": 0,
+                "weights_resident": False, "banks_resident": False,
+                "smem_bytes": lay["smem_bytes"], "layout": lay}
+    _, c, b, flags, lay = best
+    return {"fits": True, "cluster": c, "block_m": b, "flags": flags,
+            "weights_resident": bool(flags & _MK_WEIGHTS_RESIDENT),
+            "banks_resident": bool(flags & _MK_BANKS_RESIDENT),
+            "smem_bytes": lay["smem_bytes"], "layout": lay}
+
+
+def megakernel_pack_weights(w_int: torch.Tensor) -> torch.Tensor:
+    """A stage's (K, N) int8 weights as ``mlp_megakernel`` stages them:
+    (ceil(K / 4), N) int32 words, word (q, n) holding w[4q .. 4q + 3, n]
+    little-endian (zeros past K) — four k bytes of one channel, the B
+    operand's word of ``mma.sync``, so that the kernel's copies land them
+    in fragment order. The executor packs once per plan, as it transposes
+    the banks."""
+    k, n = w_int.shape
+    kq = -(-k // 4)
+    w = torch.zeros((4 * kq, n), dtype=torch.int8, device=w_int.device)
+    w[:k] = w_int
+    return w.reshape(kq, 4, n).permute(0, 2, 1).reshape(kq, 4 * n) \
+        .view(torch.int32)
+
+
+def _unpack_weights(wq: torch.Tensor, k: int) -> torch.Tensor:
+    """The (K, N) int8 weights of ``megakernel_pack_weights``' words."""
+    kq, n = wq.shape
+    return wq.contiguous().view(torch.int8).reshape(kq, n, 4) \
+        .permute(0, 2, 1).reshape(4 * kq, n)[:k].contiguous()
+
+
+def megakernel_active_clusters(cluster: int, smem_bytes: int) -> int:
+    """Clusters of ``cluster`` K3 CTAs of ``smem_bytes`` each that the
+    current card runs at once (``cudaOccupancyMaxActiveClusters``, through
+    ``mlp_megakernel_max_clusters`` of ``csrc/mlp_megakernel.cu``); needs
+    the card. ``MEGAKERNEL_ACTIVE_CLUSTERS`` holds the H100's."""
+    (lib,) = _build.build_all(["mlp_megakernel"])
+    fn = ctypes.CDLL(str(lib)).mlp_megakernel_max_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    active = ctypes.c_int(0)
+    _raise_on_error("mlp_megakernel_max_clusters",
+                    fn(int(cluster), int(smem_bytes), ctypes.byref(active)))
+    return active.value
+
+
+def _mk_chain(x_int, weights, banks):
+    """Checked (dims, steps) of a megakernel chain; each weights[d] is
+    (K, N) int8 or its (ceil(K / 4), N) int32 packing."""
     _check(x_int, "x_int", torch.int32, 2, x_int.device)
     if len(weights) != len(banks) or not weights:
         raise ValueError(f"{len(weights)} weight matrices for {len(banks)} "
@@ -415,35 +649,76 @@ def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
                          f"{MEGAKERNEL_MAX_STAGES}")
     dims, steps = [x_int.shape[1]], []
     for d, (w, b) in enumerate(zip(weights, banks)):
-        _check(w, f"weights[{d}]", torch.int8, 2, x_int.device)
+        packed = w.dtype == torch.int32
+        _check(w, f"weights[{d}]", torch.int32 if packed else torch.int8, 2,
+               x_int.device)
         _check(b, f"banks[{d}]", torch.int32, 2, x_int.device)
         s, n = b.shape
-        if w.shape != (dims[-1], n):
+        rows = -(-dims[-1] // 4) if packed else dims[-1]
+        if w.shape != (rows, n):
             raise ValueError(f"weights[{d}] shape {tuple(w.shape)} does not "
                              f"follow K={dims[-1]} and banks[{d}] "
-                             f"{tuple(b.shape)}")
+                             f"{tuple(b.shape)}"
+                             + (" (packed: ceil(K / 4) rows)" if packed
+                                else ""))
         dims.append(n)
         steps.append(s)
-    smem = megakernel_smem_bytes(dims)
-    if smem > MEGAKERNEL_SMEM_BYTES:
-        raise ValueError(f"chain {dims} needs {smem} B of shared memory per "
-                         f"block, above {MEGAKERNEL_SMEM_BYTES}")
-    if kind == "cpu":
-        return ref.mlp_megakernel_ref(x_int, weights, banks)
-    m = x_int.shape[0]
-    out = torch.empty((m, dims[-1]), dtype=torch.int32, device=x_int.device)
-    if m == 0 or dims[-1] == 0:
-        return out
+    return tuple(dims), tuple(steps)
+
+
+def _mk_args(x_int, out, weights, banks, plan, dims, steps):
+    """The C launcher's arguments (``csrc/mlp_megakernel.cu``) for one
+    launch of ``plan``; the host arrays are kept alive with them."""
     n_st = len(weights)
     w_ptrs = (ctypes.c_void_p * n_st)(*[w.data_ptr() for w in weights])
     t_ptrs = (ctypes.c_void_p * n_st)(*[b.data_ptr() for b in banks])
     c_dims = (ctypes.c_int * (n_st + 1))(*dims)
     c_steps = (ctypes.c_int * n_st)(*steps)
+    keep = (w_ptrs, t_ptrs, c_dims, c_steps)
+    return keep, (x_int.data_ptr(), out.data_ptr(), ctypes.addressof(w_ptrs),
+                  ctypes.addressof(t_ptrs), ctypes.addressof(c_dims),
+                  ctypes.addressof(c_steps), n_st, x_int.shape[0],
+                  plan["cluster"], plan["block_m"], plan["flags"],
+                  plan["smem_bytes"])
+
+
+def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
+                   banks: Sequence[torch.Tensor], *,
+                   cluster: Optional[int] = None,
+                   block_m: Optional[int] = None) -> torch.Tensor:
+    """A run of fused dense stages in one launch, on thread-block clusters,
+    inter-stage codes kept in distributed shared memory.
+
+    x_int (M, K_0) int32 codes; weights[d] (K_d, N_d) int8 with
+    K_{d+1} = N_d, or their ``megakernel_pack_weights`` words (int8 ones
+    are packed here, on every call); banks[d] (S_d, N_d) int32,
+    step-major — the transpose of a stage's (N_d, S_d) ``thresholds``
+    (the executor packs and transposes once per plan). Returns the last
+    stage's (M, N_last) int32 codes. Ragged M needs no padding. ``megakernel_plan`` picks the cluster size, the row
+    tile and the residency (``cluster`` / ``block_m`` pin them; every
+    choice gives the same codes); raises ValueError when no plan fits
+    one CTA's shared memory, as the planner refuses such a run."""
+    kind = _device_kind(x_int)
+    dims, steps = _mk_chain(x_int, weights, banks)
+    m = x_int.shape[0]
+    plan = megakernel_plan(dims, steps, max(m, 1), cluster, block_m)
+    if not plan["fits"]:
+        raise ValueError(f"chain {list(dims)} (S {list(steps)}) needs "
+                         f"{plan['smem_bytes']} B of shared memory per CTA "
+                         f"at its smallest plan, above "
+                         f"{MEGAKERNEL_SMEM_BYTES}")
+    if kind == "cpu":
+        return ref.mlp_megakernel_ref(
+            x_int, [_unpack_weights(w, k) if w.dtype == torch.int32 else w
+                    for w, k in zip(weights, dims)], banks)
+    out = torch.empty((m, dims[-1]), dtype=torch.int32, device=x_int.device)
+    if m == 0 or dims[-1] == 0:
+        return out
+    weights = [w if w.dtype == torch.int32 else megakernel_pack_weights(w)
+               for w in weights]
+    _keep, args = _mk_args(x_int, out, weights, banks, plan, dims, steps)
     fn = _build.entry_point("mlp_megakernel")
-    err = fn(x_int.data_ptr(), out.data_ptr(), ctypes.addressof(w_ptrs),
-             ctypes.addressof(t_ptrs), ctypes.addressof(c_dims),
-             ctypes.addressof(c_steps), n_st, m,
-             torch.cuda.current_stream(x_int.device).cuda_stream)
+    err = fn(*args, torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("mlp_megakernel", err)
     launches["mlp_megakernel"] += 1
     return out
@@ -571,6 +846,30 @@ def multi_threshold(acc: torch.Tensor, thresholds: torch.Tensor
     return out
 
 
+#: ``qmatmul``'s output tiles (``tile`` 0 and 1 of ``csrc/qmatmul.cu``):
+#: 32 x 64 with 4 warps, 128 x 128 with 8 warps.
+QMM_TILES = ((32, 64), (128, 128))
+
+#: SMs of the H100 SXM: the large tile is taken only where its grid alone
+#: fills them.
+QMM_SMS = 132
+
+
+def qmatmul_plan(m: int, k: int, n: int) -> Dict[str, object]:
+    """``qmatmul``'s launch for an (m, k) x (k, n) product: the 128 x 128
+    tile (8 warps of 64 x 32 mma tiles) when its grid has at least
+    ``QMM_SMS`` blocks, else the 32 x 64 tile (4 warps of 16 x 32), whose
+    grid at 512^3 is 128 blocks; ``cp_async`` when k is a multiple of 16,
+    so the x tiles go to shared memory by 16-byte asynchronous copies (the
+    kernel also needs x 16-byte aligned; otherwise byte loads)."""
+    m, k, n = int(m), int(k), int(n)
+    big = QMM_TILES[1]
+    tile = 1 if -(-m // big[0]) * -(-n // big[1]) >= QMM_SMS else 0
+    bm, bn = QMM_TILES[tile]
+    return {"tile": tile, "block_m": bm, "block_n": bn,
+            "blocks": -(-m // bm) * -(-n // bn), "cp_async": k % 16 == 0}
+
+
 def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
             bias: Optional[torch.Tensor] = None, *, relu: bool = False,
             out_scale: Optional[float] = None) -> torch.Tensor:
@@ -580,7 +879,8 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     x_int (M, K) int8, w_int (K, N) int8, scale and bias (N,) float32.
     Returns (M, N) float32, or int8 codes clip(round(y / out_scale)) when
     ``out_scale`` is set (the multiply by its float32 reciprocal, as the
-    Pallas kernel does). Ragged M, N and K need no padding."""
+    Pallas kernel does). Ragged M, N and K need no padding;
+    ``qmatmul_plan`` picks the kernel's tile."""
     kind = _device_kind(x_int)
     _check(x_int, "x_int", torch.int8, 2, x_int.device)
     _check(w_int, "w_int", torch.int8, 2, x_int.device)
@@ -605,12 +905,16 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
                       else torch.int8)
     if out.numel() == 0:
         return out
+    plan = qmatmul_plan(m, k, n)
+    if -(-n // plan["block_n"]) > 65535:
+        raise ValueError(f"{n} channels: above the grid's 65535 x "
+                         f"{plan['block_n']}")
     inv = 0.0 if out_scale is None else float(np.float32(1.0 / out_scale))
     fn = _build.entry_point("qmatmul")
     err = fn(x_int.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
              m, n, k, int(relu), int(out_scale is not None), inv,
-             torch.cuda.current_stream(x_int.device).cuda_stream)
+             plan["tile"], torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("qmatmul", err)
     launches["qmatmul"] += 1
     return out

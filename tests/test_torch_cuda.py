@@ -211,7 +211,8 @@ def test_threshold_kernel_variants_equal_plain(cuda):
         assert torch.equal(got.cpu(), want), (linear, cores)
 
 
-@pytest.mark.parametrize("name", ("threshold_matmul", "conv_threshold"))
+@pytest.mark.parametrize("name", ("threshold_matmul", "conv_threshold",
+                                  "mlp_megakernel", "qmatmul"))
 def test_threshold_kernels_run_on_the_int8_tensor_cores(cuda, name):
     import shutil
     import subprocess
@@ -282,6 +283,99 @@ def test_mlp_megakernel_equals_plain(cuda, m, dims, steps, lo, hi):
     torch.cuda.synchronize()
     assert ops.launches["mlp_megakernel"] == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _chain_of_kind(rng, m, dims, steps, kind, codes):
+    """numpy codes of one of ``kernel_bench.CODE_RANGES``, int8 weights and
+    step-major banks of one of ``MT_BANK_KINDS`` from each stage's own
+    accumulators, as torch tensors on the CPU."""
+    from repro_torch.bench.kernel_bench import bank_of_kind
+
+    h = _codes(rng, (m, dims[0]), codes).astype(np.int64)
+    x = torch.as_tensor(h.astype(np.int32))
+    weights, banks = [], []
+    for k, n, s in zip(dims[:-1], dims[1:], steps):
+        w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+        acc = h @ w.astype(np.int64)
+        t = bank_of_kind(rng, acc, n, s, kind)
+        h = (acc[:, :, None] >= t[None]).sum(-1)
+        weights.append(torch.as_tensor(w))
+        banks.append(torch.as_tensor(t.T.copy()))
+    return x, weights, banks
+
+
+# (M, dims, steps, bank kind, code range): the edge cases of
+# chip_smoke.py's K3_BRANCH_CASES — M of 1, 2, 15, 16, 17, 64; widths of
+# 1, 8, 10, 12 and 500; 8 stages; the run whose weights stream; S of 1, 7,
+# 255, 256 and 1000; unsorted and tied banks; every code range
+K3_EDGE_CASES = (
+    [(m, [490, 256, 256, 256], [7, 7, 7], "sorted", "s8")
+     for m in (1, 2, 15, 16, 17, 64)]
+    + [(17, [33, 1, 8, 10, 12, 500, 3], [7, 1, 255, 7, 1, 7], "sorted",
+        "u8"),
+       (300, [40, 24, 16, 8, 9, 30, 20, 12, 10], [3] * 8, "ties", "u8"),
+       (64, [256, 1536, 1536, 256], [1, 1, 1], "sorted", "binary"),
+       (130, [64, 72, 40, 24, 16], [1, 7, 255, 256], "unsorted", "s8"),
+       (33, [72, 40, 24, 9], [1000, 255, 7], "mixed", "u8"),
+       (257, [130, 72, 8, 72], [255, 255, 1000], "sorted", "wide")])
+
+
+#: each edge case under the default plan and the pinned clusters and row
+#: tiles whose plans fit (a host computation: the same on every machine)
+K3_EDGE_PLANS = [case + (pin,) for case in K3_EDGE_CASES
+                 for pin in ((None, None), (8, 8), (2, 16), (1, 64))
+                 if ops.megakernel_plan(tuple(case[1]), tuple(case[2]),
+                                        case[0], *pin)["fits"]]
+
+
+@pytest.mark.parametrize("m,dims,steps,kind,codes,pin", K3_EDGE_PLANS)
+def test_mlp_megakernel_edge_cases_equal_plain(cuda, m, dims, steps, kind,
+                                               codes, pin):
+    """K3 bit for bit against its plain version under the default plan and
+    pinned clusters and row tiles, with packed weights; one cluster launch
+    each."""
+    rng = np.random.default_rng(m + sum(dims) + sum(steps))
+    x, weights, banks = _chain_of_kind(rng, m, dims, steps, kind, codes)
+    want = ref.mlp_megakernel_ref(x, weights, banks)
+    packed = [ops.megakernel_pack_weights(w).to(cuda) for w in weights]
+    before = ops.launches["mlp_megakernel"]
+    got = ops.mlp_megakernel(x.to(cuda), packed, [b.to(cuda) for b in banks],
+                             cluster=pin[0], block_m=pin[1])
+    torch.cuda.synchronize()
+    assert ops.launches["mlp_megakernel"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_mlp_megakernel_clusters_can_all_be_scheduled(cuda):
+    """Every cluster size the plan may take is schedulable at a CTA's full
+    shared memory; on a 132-SM card the counts are the plan's table."""
+    got = [ops.megakernel_active_clusters(c, 232_448)
+           for c in range(1, ops.MEGAKERNEL_MAX_CLUSTER + 1)]
+    assert min(got) > 0
+    props = torch.cuda.get_device_properties(0)
+    if props.multi_processor_count == 132:
+        assert tuple(got) == ops.MEGAKERNEL_ACTIVE_CLUSTERS
+
+
+@pytest.mark.parametrize("m,k,n,relu,out_scale", [
+    (1, 64, 40, True, 0.05), (1, 490, 256, True, None),
+    (1024, 490, 256, True, 0.05), (1024, 128, 72, False, None),
+    (4096, 4096, 4096, True, 0.125)])
+def test_qmatmul_kernel_edge_shapes_equal_plain(cuda, m, k, n, relu,
+                                                out_scale):
+    """K5 at M = 1, the tiny models' dense shapes as the QAT layers give
+    them, and 4096^3 (the 128 x 128 tile), bit for bit."""
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    s = torch.rand(n, generator=g) * 9e-3 + 1e-3
+    b = torch.randn(n, generator=g)
+    kw = dict(relu=relu, out_scale=out_scale)
+    x, w, s, b = x.to(cuda), w.to(cuda), s.to(cuda), b.to(cuda)
+    got = ops.qmatmul(x, w, s, b, **kw)
+    want = ref.qmatmul_ref(x, w, s, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name", ("kws", "ad", "ic", "cnv"))

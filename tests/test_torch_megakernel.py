@@ -103,23 +103,166 @@ def test_mlp_megakernel_wrapper_checks_its_arguments():
         tops.mlp_megakernel(torch.zeros((2, 4), dtype=torch.int32),
                             [torch.zeros((4, 4), dtype=torch.int8)] * 9,
                             [torch.zeros((1, 4), dtype=torch.int32)] * 9)
-    # a chain whose row tiles do not fit one block's shared memory
+    # chains whose code tiles do not fit one CTA's shared memory at the
+    # smallest plan: a wide input, a wide intermediate width
     wide = tbops.MEGAKERNEL_SMEM_BYTES // (4 * tbops.MEGAKERNEL_BLOCK_M) + 1
     with pytest.raises(ValueError, match="shared memory"):
         tops.mlp_megakernel(torch.zeros((2, wide), dtype=torch.int32),
                             [torch.zeros((wide, 4), dtype=torch.int8)],
                             [torch.zeros((1, 4), dtype=torch.int32)])
+    with pytest.raises(ValueError, match="shared memory"):
+        tops.mlp_megakernel(torch.zeros((2, 8), dtype=torch.int32),
+                            [torch.zeros((8, wide), dtype=torch.int8),
+                             torch.zeros((wide, 8), dtype=torch.int8)],
+                            [torch.zeros((1, wide), dtype=torch.int32),
+                             torch.zeros((1, 8), dtype=torch.int32)])
 
 
 def test_kernel_constants_match_the_cuda_source():
+    """The constants the host plans with are the kernel's: threads, stage
+    and cluster limits, the largest row tile, the streamed chunk, the
+    residency flags and the shared memory of a CTA."""
     src = (_build.CSRC / "mlp_megakernel.cu").read_text()
-    bm = int(re.search(r"constexpr int BM = (\d+);", src).group(1))
-    max_st = int(re.search(r"constexpr int MAX_STAGES = (\d+);", src).group(1))
-    smem = int(re.search(r"constexpr int SMEM_MAX = (\d+);", src).group(1))
-    assert bm == tbops.MEGAKERNEL_BLOCK_M
-    assert max_st == tbops.MEGAKERNEL_MAX_STAGES
-    assert smem == tbops.MEGAKERNEL_SMEM_BYTES
+    hdr = (_build.CSRC / "threshold_epilogue.cuh").read_text()
+
+    def const(name, text=src):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)
+                   .group(1))
+
+    assert const("NT") == tops.MEGAKERNEL_THREADS
+    assert const("MAX_STAGES") == tbops.MEGAKERNEL_MAX_STAGES
+    assert const("MAX_CLUSTER") == tops.MEGAKERNEL_MAX_CLUSTER
+    assert const("MAX_BLOCK_M") == max(tops.MEGAKERNEL_ROW_TILES)
+    assert min(tops.MEGAKERNEL_ROW_TILES) == tbops.MEGAKERNEL_BLOCK_M
+    assert const("CHUNK_K") == tops.MEGAKERNEL_CHUNK_K
+    assert const("WEIGHTS_RESIDENT") == tops._MK_WEIGHTS_RESIDENT
+    assert const("BANKS_RESIDENT") == tops._MK_BANKS_RESIDENT
+    assert const("SMEM_MAX", hdr) == tbops.MEGAKERNEL_SMEM_BYTES
+    assert "cudaLaunchAttributeClusterDimension" in src
     assert "mlp_megakernel" in _build.ENTRY_POINTS
+    assert len(tops.MEGAKERNEL_ACTIVE_CLUSTERS) == tops.MEGAKERNEL_MAX_CLUSTER
+
+
+# ---------------------------------------------------------------------------
+# the host plan: cluster size, row tile, per-CTA layout
+# ---------------------------------------------------------------------------
+
+KWS = ((490, 256, 256, 256), (7, 7, 7))
+AD = ((128, 72, 72, 8, 72, 72), (255,) * 5)
+CNV_FC = ((256, 512, 512), (1, 1))
+CNV_FC_GOLDEN = ((32, 32, 32), (1, 1))
+WIDE_RUN = ((256, 1536, 1536, 256), (1, 1, 1))
+
+
+def test_layout_of_a_cta_adds_up_by_hand():
+    """Full-width KWS at the admission tile, 8 rows on 8 CTAs, all
+    resident: code tiles 8 x (496 + 272) words, accumulators 8 x 40,
+    weights 128 + 64 + 64 k words of 40 words, banks 3 x 7 x 32, a falls
+    word per stage and the vote, each part rounded to 4 words."""
+    lay = tops.megakernel_layout(*KWS, 8, 8, 3)
+    assert lay["codes"] == 4 * 8 * (496 + 272)
+    assert lay["acc"] == 4 * 8 * 40
+    assert lay["weights"] == 4 * (128 + 64 + 64) * 40
+    assert lay["banks"] == 4 * 3 * 7 * 32
+    assert lay["flags"] == 4 * (3 * 4 + 4)
+    assert lay["smem_bytes"] == 69_568 == sum(
+        v for k, v in lay.items() if k != "smem_bytes")
+
+
+@pytest.mark.parametrize("chain,m,want", [
+    (KWS, None, (8, 8, True, True)), (KWS, 1, (8, 8, True, True)),
+    (KWS, 1024, (2, 16, True, True)), (KWS, 4096, (1, 32, False, True)),
+    (AD, None, (8, 8, True, True)), (AD, 1, (5, 8, True, True)),
+    (AD, 1024, (3, 32, True, True)), (AD, 4096, (3, 64, True, True)),
+    (CNV_FC, 1, (8, 8, True, True)), (CNV_FC, 1024, (2, 16, False, True)),
+    (CNV_FC_GOLDEN, 1024, (2, 16, True, True)),
+    (WIDE_RUN, None, (8, 8, False, True)),
+    (WIDE_RUN, 1024, (2, 8, False, True))])
+def test_plan_picks_cluster_row_tile_and_residency(chain, m, want):
+    """The plan of the four models' runs and the planner tests' widest run
+    (the choices ``bench/megakernel_sweep.py`` measured fastest, or within
+    3.2% of it): a batch-1 query spreads over a large cluster; a 1024-row
+    wave takes clusters of 2 or 3, whose grid the card runs in one wave;
+    the widest run streams its weights; every plan fits one CTA."""
+    plan = tops.megakernel_plan(*chain, m)
+    assert plan["fits"]
+    got = (plan["cluster"], plan["block_m"], plan["weights_resident"],
+           plan["banks_resident"])
+    assert got == want
+    assert plan["smem_bytes"] == tops.megakernel_layout(
+        *chain, plan["cluster"], plan["block_m"], plan["flags"])["smem_bytes"]
+    assert plan["smem_bytes"] <= tbops.MEGAKERNEL_SMEM_BYTES
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+@pytest.mark.parametrize("n", [1, 8, 9, 12, 72, 250, 512])
+def test_cluster_split_covers_every_channel_once(cluster, n):
+    """CTA j of a cluster owns n8 tiles [j T / C, (j + 1) T / C): together
+    the CTAs cover every channel tile once, none holds more than the plan's
+    slot count."""
+    t = -(-n // 8)
+    owned = []
+    for j in range(cluster):
+        lo, hi = j * t // cluster, (j + 1) * t // cluster
+        assert hi - lo <= tops._mk_tiles(n, cluster)
+        owned += range(lo, hi)
+    assert owned == list(range(t))
+
+
+def test_plan_pins_and_refuses():
+    """Pinned choices come back as asked when they fit; a chain whose input
+    tile does not fit one CTA fits no plan."""
+    plan = tops.megakernel_plan(*KWS, 1024, 4, 32)
+    assert (plan["cluster"], plan["block_m"]) == (4, 32) and plan["fits"]
+    assert not tops.megakernel_plan((7300, 8, 8), (1, 1))["fits"]
+    assert not tops.megakernel_plan((8, 7300, 8), (1, 1), 1)["fits"]
+
+
+def test_weights_pack_into_words_of_four_k_bytes():
+    """Word (q, n) of the packing holds w[4q .. 4q + 3, n] little-endian,
+    zeros past K; the wrapper's plain version gives the same codes for the
+    packed and the int8 weights."""
+    rng = np.random.default_rng(11)
+    for k, n in ((1, 1), (5, 3), (490, 12), (8, 9)):
+        w = torch.as_tensor(rng.integers(-128, 128, (k, n)), dtype=torch.int8)
+        words = tops.megakernel_pack_weights(w)
+        assert words.dtype == torch.int32 and words.shape == (-(-k // 4), n)
+        b = words.numpy().view(np.uint8).reshape(-(-k // 4), n, 4)
+        full = np.zeros((4 * (-(-k // 4)), n), np.int8)
+        full[:k] = w.numpy()
+        np.testing.assert_array_equal(
+            b.transpose(0, 2, 1).reshape(-1, n).view(np.int8), full)
+    weights, banks = _chain(rng, 20, [16, 12], [7, 255])
+    x = torch.as_tensor(rng.integers(0, 8, (7, 20)), dtype=torch.int32)
+    tw = [torch.from_numpy(w) for w in weights]
+    tb = [torch.from_numpy(b.T.copy()) for b in banks]
+    want = tops.mlp_megakernel(x, tw, tb)
+    got = tops.mlp_megakernel(x, [tops.megakernel_pack_weights(w)
+                                  for w in tw], tb)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="packed"):
+        tops.mlp_megakernel(x, [torch.zeros((20, 16), dtype=torch.int32),
+                                tw[1]], tb)
+
+
+def test_mk_launch_arguments_carry_the_plan():
+    """The C launcher's arguments: the widths, steps and row count of the
+    chain and the plan's cluster, row tile, residency flags and shared
+    memory, which the launcher checks against its own layout."""
+    rng = np.random.default_rng(12)
+    weights, banks = _chain(rng, 33, [24, 8], [7, 255])
+    x = torch.as_tensor(rng.integers(0, 8, (5, 33)), dtype=torch.int32)
+    tw = [tops.megakernel_pack_weights(torch.from_numpy(w))
+          for w in weights]
+    tb = [torch.from_numpy(b.T.copy()) for b in banks]
+    dims, steps = tops._mk_chain(x, tw, tb)
+    assert (dims, steps) == ((33, 24, 8), (7, 255))
+    plan = tops.megakernel_plan(dims, steps, 5)
+    out = torch.empty((5, 8), dtype=torch.int32)
+    keep, args = tops._mk_args(x, out, tw, tb, plan, dims, steps)
+    assert args[6:] == (2, 5, plan["cluster"], plan["block_m"],
+                        plan["flags"], plan["smem_bytes"])
+    assert list(keep[2]) == [33, 24, 8] and list(keep[3]) == [7, 255]
 
 
 # ---------------------------------------------------------------------------
@@ -165,11 +308,21 @@ def test_byte_accounting_equals_reference(dims, block_m):
 
 
 def test_smem_of_the_kernel_never_exceeds_the_planned_tiles():
+    """The shared memory a launch asks for is its plan's, as laid out part
+    by part, and never above a CTA's 232,448 B — at every row count the
+    wrapper plans, on the main path's chains and the planner tests'."""
     for dims in ([490, 256, 256, 256], [128, 72, 72, 8, 72, 72],
-                 [256, 512, 512], [20, 16], [7, 9, 5, 11, 4]):
-        _, ts = _run_pair(dims)
-        assert tops.megakernel_smem_bytes(dims) <= \
-            tbops.megakernel_residency_bytes(ts)["tile_bytes"]
+                 [256, 512, 512], [20, 16], [7, 9, 5, 11, 4],
+                 [256, 1536, 1536, 256], [490, 256, 256, 256, 12]):
+        steps = tuple([255] * (len(dims) - 1))
+        for m in (None, 1, 2, 16, 17, 64, 1000, 1024, 4096):
+            plan = tops.megakernel_plan(tuple(dims), steps, m)
+            assert plan["fits"]
+            lay = tops.megakernel_layout(tuple(dims), steps,
+                                         plan["cluster"], plan["block_m"],
+                                         plan["flags"])
+            assert plan["smem_bytes"] == lay["smem_bytes"] <= \
+                tbops.MEGAKERNEL_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -302,3 +455,57 @@ def test_plan_rejects_a_run_longer_than_one_launch_takes():
         assert jlower.plan_megakernel(js, jlower.Segment(*seg)) is not None
         plan = tlower.plan_megakernel(ts, tlower.Segment(*seg))
         assert (plan is not None) == admitted
+
+
+def _runs(stages):
+    """Every maximal run of fused dense stages in a stage list."""
+    out, i = [], 0
+    while i < len(stages):
+        if isinstance(stages[i], tlower.FusedThresholdStage):
+            j = i
+            while j < len(stages) and isinstance(stages[j],
+                                                 tlower.FusedThresholdStage):
+                j += 1
+            out.append(stages[i:j])
+            i = j
+        else:
+            i += 1
+    return out
+
+
+@pytest.mark.parametrize("name", ["kws", "ad", "ic", "cnv", "full-kws",
+                                  "full-ad", "planner"])
+def test_admission_is_the_row_tile_budget_it_replaces(name):
+    """The per-CTA plan admits exactly the runs that the budget it replaces
+    admitted — the reference's tiles at 8 rows within one block's shared
+    memory, weights and banks within L2, at most 8 stages — on the six
+    model graphs and the planner tests' runs, the 2 MiB one included."""
+    if name == "planner":
+        runs = [_run_pair(d, steps=s)[1] for d, s in (
+            ([16, 32, 24, 8], 7), ([16, 32, 8], 7), ([8] * 9, 7),
+            ([8] * 10, 7), ([256, 1536, 1536, 256], 1), ([7300, 8, 8], 1),
+            ([490, 256, 256, 256, 12], 7))]
+    else:
+        jg, tg = _graphs(name)
+        scale = jg.meta.get("in_scale", 1.0 / 127.0)
+        runs = _runs(tlower.lower_graph(tg, in_scale=scale).stages)
+    assert runs or name == "ic"          # IC has no dense stage
+    for run in runs:
+        res = tbops.megakernel_residency_bytes(run, block_m=8)
+        before = (len(run) <= tbops.MEGAKERNEL_MAX_STAGES
+                  and res["tile_bytes"] <= tbops.MEGAKERNEL_SMEM_BYTES
+                  and res["weight_bytes"] + res["bank_bytes"]
+                  <= tbops.MEGAKERNEL_L2_BYTES)
+        cta = tbops.megakernel_cta_plan(run)
+        now = (len(run) <= tbops.MEGAKERNEL_MAX_STAGES and cta["fits"]
+               and res["weight_bytes"] + res["bank_bytes"]
+               <= tbops.MEGAKERNEL_L2_BYTES)
+        assert now == before, [s.out_dim for s in run]
+        if len(run) >= tlower.MEGAKERNEL_MIN_STAGES:
+            plan = tlower.plan_megakernel(run, tlower.Segment(0, len(run),
+                                                              True))
+            assert (plan is not None) == now
+            if plan is not None:
+                assert (plan.cluster, plan.block_m) == (8, 8)
+                assert plan.cta_bytes == cta["smem_bytes"]
+

@@ -308,6 +308,35 @@ def test_kernel_constants_match_the_cuda_sources():
         assert name in tops.launches
 
 
+@pytest.mark.parametrize("shape,want", [
+    ((1, 1, 1), (0, 32, 64, 1, False)),
+    ((512, 512, 512), (0, 32, 64, 128, True)),
+    ((4096, 4096, 4096), (1, 128, 128, 1024, True)),
+    ((1024, 490, 256), (0, 32, 64, 128, False)),
+    ((1408, 64, 1536), (1, 128, 128, 132, True)),
+    ((1280, 64, 1536), (0, 32, 64, 960, True))])
+def test_qmatmul_plan_fills_the_card(shape, want):
+    """K5's tile: 32 x 64 (4 warps) unless the 128 x 128 grid alone has the
+    card's 132 blocks; 512^3 gives 128 blocks, 4096^3 1024 large ones; x
+    goes through cp.async when K is a multiple of 16."""
+    plan = tops.qmatmul_plan(*shape)
+    assert (plan["tile"], plan["block_m"], plan["block_n"], plan["blocks"],
+            plan["cp_async"]) == want
+
+
+def test_qmatmul_tiles_match_the_cuda_source():
+    """The tiles the plan names are the ones the source builds, in order
+    of ``tile``, each with 4 or 8 warps of 16-row multiples."""
+    src = (_build.CSRC / "qmatmul.cu").read_text()
+    built = re.findall(r"return launch<(\d+), (\d+), (\d+), (\d+), (\d+)>",
+                       src)
+    assert [(int(a), int(b)) for a, b, *_ in built] == list(tops.QMM_TILES)
+    for bm, bn, bk, wm, wn in (tuple(map(int, t)) for t in built):
+        assert bm % (16 * wm) == 0 and bn % (8 * wn) == 0 and bk % 32 == 0
+        assert wm * wn in (4, 8)
+    assert "mma_tiles<MI, NI, true>" in src
+
+
 def test_conv_threshold_row_block_changes_no_code():
     rng = np.random.default_rng(8)
     x = torch.as_tensor(rng.integers(0, 16, (2, 9, 7, 3)), dtype=torch.int32)
