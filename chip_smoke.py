@@ -31,20 +31,27 @@ which fails the run with a non-zero exit:
                255, 256, 1000; sorted, unsorted, tied and mixed banks;
                s8, u8, binary and wide codes) under its default plan and
                pinned clusters and row tiles;
-  3. main path — ``compile_graph(device="cuda")`` of the full-width KWS
-               MLP (490-256x3-12, 3-bit) and AD autoencoder
-               (128-72-72-8-72-72-128, 8-bit), built with ``export_qmlp``
-               from numpy-seeded parameters, and of the IC and CNV golden
-               graphs, each in both dispatch modes (staged,
-               ``megakernel=False``; auto, the default); launch counters
-               set to 0, one ``offline`` call of each model in each mode on
-               a 1024-row batch, counters read (staged: K1 3 / 5 times for
-               KWS / AD; auto: K3 once for KWS, AD and CNV, K1 never for
-               KWS and AD); then ``predict``. Every fused stage's kernel,
-               and every planned K3 run, is then held against its plain
-               version on its real main-path input, and every model's
-               outputs against the port on the CPU (integers exact, logits
-               within 1e-5);
+  3. main path — ``compile_graph(device="cuda")`` of the four Table-1
+               models at the paper's full width, from numpy-seeded
+               parameters (``repro_torch.bench.models``): the KWS MLP
+               (490-256x3-12, 3-bit) and AD autoencoder
+               (128-72-72-8-72-72-128, 8-bit) by ``export_qmlp``, the IC
+               CNN (32x32x3, filters 32-4-32-32-4, 8-bit, scales
+               calibrated on seeded codes) and CNV-W1A1
+               (64-64-128-128-256-256, FC 512-512-10) by ``export_qcnn``,
+               each in both dispatch modes (staged, ``megakernel=False``;
+               auto, the default); launch counters set to 0, one
+               ``offline`` call of each model in each mode on a 1024-row
+               batch, counters read (``MAIN_PATH_LAUNCHES``: staged K1
+               3 / 5 / 0 / 2 and K2 0 / 0 / 5 / 6 for KWS / AD / IC / CNV;
+               auto K3 once for KWS, AD and CNV, K2 5 / 6 for IC / CNV);
+               then ``predict``. Every fused stage's kernel, and every
+               planned K3 run, is then held against its plain version on
+               its real main-path input (all 1024 rows), every stage's
+               codes must hold some nonzero code, and every model's
+               outputs equal the port on the CPU (integers exact, logits
+               within 1e-5; on ``CPU_CHECK_ROWS`` of the rows for IC and
+               CNV);
   4. goldens — the four golden graphs on the card under both conv
                lowerings equal their ``.golden.npz`` stage outputs;
   5. streaming — ``streaming_host``, ``streaming_compiled`` and a partly
@@ -67,9 +74,9 @@ which fails the run with a non-zero exit:
                by dp4a on the CUDA cores, banks searched or counted step
                by step, each variant exact first;
   7. full width — the kernels at the paper's IC and CNV stage shapes on
-               seeded codes, held against their plain versions and timed
-               (``FULL_WIDTH_CONVS``, ``FULL_WIDTH_DENSE``, and K3 on CNV's
-               256-512-512 FC chain);
+               seeded codes and banks drawn from the accumulators, held
+               against their plain versions and timed (``FULL_WIDTH_CONVS``,
+               ``FULL_WIDTH_DENSE``, and K3 on CNV's 256-512-512 FC chain);
   8. attention — ``flash_attention`` (K6) against its plain version on
                seeded q/k/v (``FLASH_CASES``): GQA 32/8 and 4/2, head dims
                16/80/128, causal, not causal, window 32, a decode chunk
@@ -123,12 +130,22 @@ which fails the run with a non-zero exit:
                counts a binary search's compares), the conv
                lowerings and megakernel-against-staged on full-width KWS
                and AD; ``chiprun_out/BENCH_torch_kernels.json``;
- 14. autotune — ``autotune_model`` on the four models, twice, each
-               search with its own temporary cache: both configs and every
-               pair decision's medians and spreads printed, and whether
-               the two searches agree; the tuned ``offline`` codes equal
-               the untuned ones bit for bit, a third call loads the config
-               from the cache without probing;
+ 14. autotune — ``autotune_model`` on the four full-width models,
+               twice in probe mode, each search with its own temporary
+               cache: both configs and every pair decision's medians and
+               spreads printed, and whether the two searches agree; the
+               tuned ``offline`` codes equal the untuned ones bit for bit,
+               a third call loads the config from the cache without
+               probing; then one model-mode search per model (the learned
+               cost model, ``REPRO_AUTOTUNE=model``'s path, its own cache)
+               that must make no probe and record ``source: "predicted"``,
+               its micro-batch and dispatch printed beside the probe
+               search's and its predicted wave ms beside the probed ms of
+               the same candidate, its tuned codes equal to the untuned
+               ones; last, five tuned KWS ``offline`` calls traced and
+               exported by ``obs.export_chrome`` to
+               ``chiprun_out/trace_kws_offline.json``, its byte count
+               printed;
  15. scenarios — ``run_all_scenarios`` on the four tuned models
                (``compiled=cm``, ``model_cost=schedule_cost(...)``):
                p50/p90/p99, qps, roofline and measured energy per
@@ -196,6 +213,19 @@ LM_KERNELS = ("flash_attention",)
 BENCH_KERNELS = ("multi_threshold", "qmatmul")
 #: the two dispatch modes of the main path: (label, ``megakernel=``)
 MODES = (("staged", False), ("auto", None))
+#: launches of one ``offline`` call of each model in each mode, in
+#: ``TINY_KERNELS`` order (K1, K2, K3): staged, K1 runs the dense stages
+#: (KWS 3, AD 5, CNV's two hidden FCs) and K2 the convs (IC 5, CNV 6);
+#: auto, one K3 launch takes each MLP run (KWS, AD, CNV's FCs)
+MAIN_PATH_LAUNCHES = {"kws/staged": (3, 0, 0), "ad/staged": (5, 0, 0),
+                      "ic/staged": (0, 5, 0), "cnv/staged": (2, 6, 0),
+                      "kws/auto": (0, 0, 1), "ad/auto": (0, 0, 1),
+                      "ic/auto": (0, 5, 0), "cnv/auto": (0, 6, 1)}
+#: rows of the 1024-row batch the CPU port computes to hold the card's
+#: outputs against: all for the MLPs; 256 for IC and CNV, whose convs cost
+#: the CPU's plain path billions of multiply-adds (the card's kernels are
+#: held against their plain versions on the card at all 1024 rows)
+CPU_CHECK_ROWS = {"ic": 256, "cnv": 256}
 
 
 class SmokeFailure(Exception):
@@ -216,19 +246,22 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 def load_models():
-    """(name, graph, in_scale, x) for the four models of the main path."""
+    """(name, graph, in_scale, x) for the four models of the main path, all
+    at the paper's full width from numpy-seeded parameters
+    (``repro_torch.bench.models``): KWS and AD by ``mlp_graph``, IC (its
+    scales calibrated on seeded codes) and CNV by ``ic_graph`` /
+    ``cnv_graph``; 1024 rows of seeded input codes in [-127, 127] each."""
     import numpy as np
     from repro_torch.bench.models import (AD_BITS, AD_DIMS, KWS_BITS,
-                                          KWS_DIMS, mlp_graph)
-    from repro_torch.core.qir import Graph
+                                          KWS_DIMS, cnv_graph, ic_graph,
+                                          mlp_graph)
 
     rng = np.random.default_rng(SEED)
     models = [("kws", mlp_graph(KWS_DIMS, KWS_BITS, SEED + 1, name="kws"),
                1.0 / 127.0, (BATCH, KWS_DIMS[0])),
               ("ad", mlp_graph(AD_DIMS, AD_BITS, SEED + 2, name="ad"),
                1.0 / 127.0, (BATCH, AD_DIMS[0]))]
-    for name in ("ic", "cnv"):
-        g = Graph.load(os.path.join(GOLDEN, f"{name}.qir.json"))
+    for name, g in (("ic", ic_graph(SEED + 3)), ("cnv", cnv_graph(SEED + 4))):
         shape = tuple(g.nodes[0].attrs["in_shape"])
         models.append((name, g, g.meta["in_scale"], (BATCH,) + shape))
     return [(n, g, s, rng.integers(-127, 128, shp).astype(np.int32))
@@ -699,20 +732,11 @@ def phase_main_path(models):
     log(f"main-path launches per offline call: {json.dumps(per_run)}")
     log(f"main-path launches (one offline call of each of the 4 models in "
         f"each of the 2 modes): {json.dumps(launches)}")
-    for n, want in (("kws", 3), ("ad", 5)):
-        got = per_run[f"{n}/staged"]["threshold_matmul"]
-        check(got == want, f"staged {n} offline launched threshold_matmul "
-                           f"{got} times, expected {want}")
-        got = per_run[f"{n}/auto"]["threshold_matmul"]
-        check(got == 0, f"auto {n} offline launched threshold_matmul "
-                        f"{got} times, expected 0")
-    for n in ("kws", "ad", "cnv"):
-        got = per_run[f"{n}/auto"]["mlp_megakernel"]
-        check(got == 1, f"auto {n} offline launched mlp_megakernel {got} "
-                        f"times, expected 1")
-    for n, _, _, _ in models:
-        check(per_run[f"{n}/staged"]["mlp_megakernel"] == 0,
-              f"staged {n} offline launched mlp_megakernel")
+    for run, want in MAIN_PATH_LAUNCHES.items():
+        for kname, k in zip(TINY_KERNELS, want):
+            got = per_run[run][kname]
+            check(got == k, f"{run} offline launched {kname} {got} times, "
+                            f"expected {k}")
     for name in TINY_KERNELS:
         check(launches[name] > 0, f"{name} was never launched on the main "
                                   f"path")
@@ -744,32 +768,37 @@ def phase_main_path_checks(models, results):
     for n, g, s, x in models:
         cm, logits, pred = results[(n, "staged")]
         auto, a_logits, a_pred = results[(n, "auto")]
+        rows = CPU_CHECK_ROWS.get(n, len(x))
         cpu = compile_graph(g, in_scale=s, device="cpu",
                             conv_lowering="direct")
-        want = cpu.stage_outputs(x)
+        want = cpu.stage_outputs(x[:rows])
         got = cm.stage_outputs(torch.as_tensor(x).cuda())
         for i, (a, b) in enumerate(zip(got, want)):
-            a = a.cpu()
+            a = a[:rows].cpu()
             if b.dtype.is_floating_point:
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
             else:
                 check(torch.equal(a, b), f"{n} stage {i}: CUDA != CPU")
         for mode, lg, pr in (("staged", logits, pred),
                              ("auto", a_logits, a_pred)):
-            torch.testing.assert_close(lg.cpu(), want[-1], rtol=1e-5,
+            torch.testing.assert_close(lg[:rows].cpu(), want[-1], rtol=1e-5,
                                        atol=1e-5)
-            check(torch.equal(pr.cpu(), torch.argmax(want[-1], dim=-1)),
+            check(torch.equal(pr[:rows].cpu(),
+                              torch.argmax(want[-1], dim=-1)),
                   f"{n}[{mode}]: predict on CUDA != argmax on CPU")
         codes = [o for o in want[:-1] if not o.dtype.is_floating_point]
-        nz = np.mean([float((c > 0).float().mean()) for c in codes])
-        log(f"main-path {n}: {len(got)} stages equal the CPU port "
-            f"(ints exact, logits within 1e-5 in both modes; mean nonzero "
-            f"code share {nz:.3f}); predict == CPU argmax")
+        nz = [float((c > 0).float().mean()) for c in codes]
+        check(min(nz) > 0, f"{n}: a stage's codes are all 0 ({nz})")
+        log(f"main-path {n}: {len(got)} stages equal the CPU port on "
+            f"{rows} of {len(x)} rows (ints exact, logits within 1e-5 in "
+            f"both modes; nonzero code share per stage "
+            f"{[round(v, 3) for v in nz]}); predict == CPU argmax")
         plans = _plans(auto)
         for p in plans:
             run = auto.schedule.stages[p.start:p.stop]
-            xi = (torch.as_tensor(x) if p.start == 0 else want[p.start - 1])
-            xi = xi.to(torch.int32).contiguous().cuda()
+            xi = (torch.as_tensor(x).cuda() if p.start == 0
+                  else got[p.start - 1])
+            xi = xi.to(torch.int32).contiguous()
             cases.append(mega_case(n, f"{run[0].name}..{run[-1].name}", xi,
                                    [st.stage.w_int for st in run],
                                    [st.stage.thresholds for st in run]))
@@ -777,9 +806,10 @@ def phase_main_path_checks(models, results):
             k_out, p_out = cases[-1]["run"](), cases[-1]["plain"]()
             err = int((k_out - p_out).abs().max())
             worst["mlp_megakernel"] = max(worst["mlp_megakernel"], err)
-            check(err == 0 and torch.equal(k_out.cpu(), want[p.stop - 1]),
-                  f"{n} {cases[-1]['stage']}: megakernel != plain / CPU "
-                  f"(max err {err})")
+            check(err == 0 and torch.equal(k_out, got[p.stop - 1])
+                  and torch.equal(k_out[:rows].cpu(), want[p.stop - 1]),
+                  f"{n} {cases[-1]['stage']}: megakernel != plain / staged "
+                  f"/ CPU (max err {err})")
             log(f"kernel-check mlp_megakernel {n}/{cases[-1]['stage']} "
                 f"{cases[-1]['shape']}: exact, equals the CPU stages")
         h = torch.as_tensor(x).cuda()
@@ -1016,9 +1046,10 @@ def _banks(acc, n_ch, s, g):
 
 def phase_full_width():
     """The kernels at the paper's full IC / CNV widths on a 1024-sample
-    batch of seeded codes (the port cannot export these models yet, so no
-    graph drives them): each held exactly against its plain version, then
-    timed. Returns (rows, worst |kernel - plain| per kernel)."""
+    batch of seeded codes and banks spread over the accumulators' range
+    (phase 3 drives the same shapes through the exported graphs): each
+    held exactly against its plain version, then timed. Returns (rows,
+    worst |kernel - plain| per kernel)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.conv_threshold import direct_conv_acc, pad_input
@@ -1910,14 +1941,22 @@ def _pair_decisions(cfg):
 
 
 def phase_autotune(models, caches):
-    """``autotune_model`` on the four models (full-width KWS and AD, the
-    IC/CNV goldens), searched twice, each search with its own cache of
-    ``caches``: both configs printed with every pair decision's medians
-    and spreads, and whether their picks agree (reported, not a failure:
-    PERF.md gives any disagreement); the tuned ``offline`` of the first
-    search equals the untuned one (codes bit for bit, logits within 1e-5);
-    a further call returns the first config from its cache without
-    probing. Returns ({name: tuned compiled model}, {name: agreement})."""
+    """``autotune_model`` on the four full-width models, searched twice in
+    probe mode, each search with its own cache of ``caches[:2]``: both
+    configs printed with every pair decision's medians and spreads, and
+    whether their picks agree (reported, not a failure: PERF.md gives any
+    disagreement); the tuned ``offline`` of the first search equals the
+    untuned one (codes bit for bit, logits within 1e-5); a further call
+    returns the first config from its cache without probing. Then one
+    model-mode search per model (the learned cost model, its own cache
+    ``caches[2]``) on a fresh compile, with a probe that fails the run if
+    called: its config must say ``source: "predicted"`` and hold no probe;
+    its micro-batch and dispatch are printed beside the first probe
+    search's, its predicted ms beside the probed ms of the candidates the
+    probe search timed, and the 64-row pool under each search's config
+    timed in turns; its tuned ``offline`` codes equal the untuned ones bit
+    for bit. Returns ({name: tuned compiled model}, {name: agreement and the
+    model-mode picks})."""
     import torch
     from repro_torch.deploy import compile_graph
     from repro_torch.deploy.autotune import autotune_model
@@ -1926,6 +1965,9 @@ def phase_autotune(models, caches):
         raise SmokeFailure("the second autotune call probed: the cache was "
                            "not read")
 
+    def model_probe(cm, x, micro_batch):
+        raise SmokeFailure("the model-mode search called a probe")
+
     tuned, agree = {}, {}
     for n, g, s, x in models:
         xc = torch.as_tensor(x).cuda()
@@ -1933,7 +1975,7 @@ def phase_autotune(models, caches):
                            conv_lowering="direct")
         y0, codes0 = cm.offline(xc), _headless(cm).offline(xc)
         cfgs = [autotune_model(cm, batch=64, directory=c, force=True)
-                for c in caches]
+                for c in caches[:2]]
         cfg = cfgs[0]
         again = autotune_model(cm, batch=64, directory=caches[0],
                                force=False, probe=no_probe)
@@ -1964,10 +2006,148 @@ def phase_autotune(models, caches):
                else f"differ on {', '.join(differ)}"))
         log(f"autotune {n}: a third call loaded the config from the cache; "
             f"tuned offline codes equal untuned bit for bit")
+        agree[n]["model"] = phase_autotune_model_mode(
+            n, g, s, xc, codes0, cfg, cm, caches[2], model_probe)
         tuned[n] = cm
     log(f"autotune: the two searches agree on "
-        f"{sum(a['agree'] for a in agree.values())} of {len(agree)} models")
+        f"{sum(a['agree'] for a in agree.values())} of {len(agree)} models; "
+        f"the model-mode search picks the first search's micro-batch on "
+        f"{sum(a['model']['same_micro_batch'] for a in agree.values())} and "
+        f"its dispatch on "
+        f"{sum(a['model']['same_dispatch'] for a in agree.values())} of "
+        f"{len(agree)}")
     return tuned, agree
+
+
+def _pool_in_turns(arms, x, rounds=7):
+    """Median and spread ms of one synchronised ``streaming_compiled`` pass
+    of ``x`` per arm ({label: (compiled model, micro-batch)}): one warm pass
+    each, then ``rounds`` rounds with the arms in turns."""
+    import torch
+    from repro_torch.obs import timer
+
+    def one(cm, mb):
+        torch.cuda.synchronize()
+        t0 = timer.now()
+        cm.streaming_compiled(x, micro_batch=mb)
+        torch.cuda.synchronize()
+        return (timer.now() - t0) * 1e3
+
+    for cm, mb in arms.values():
+        one(cm, mb)
+    ms = {label: [] for label in arms}
+    for _ in range(rounds):
+        for label, (cm, mb) in arms.items():
+            ms[label].append(one(cm, mb))
+    return {label: {"median_ms": statistics.median(v),
+                    "spread_ms": max(v) - min(v)} for label, v in ms.items()}
+
+
+def phase_autotune_model_mode(n, g, s, xc, codes0, probed, probed_cm, cache,
+                              probe):
+    """One ``REPRO_AUTOTUNE=model`` search (``mode="model"``) of a fresh
+    compile of ``g``: no probe (``probe`` fails the run if called), no
+    probe record, ``source: "predicted"``; the tuned codes equal
+    ``codes0``. Returns its picks and predictions beside the probe search
+    ``probed``, and the 64-row streaming pool of ``probed_cm`` (tuned by
+    ``probed``) and of the model-mode compile, timed in turns."""
+    import torch
+    from repro_torch.deploy import compile_graph
+    from repro_torch.deploy.autotune import autotune_model, default_sample
+
+    cm = compile_graph(g, in_scale=s, device="cuda", conv_lowering="direct")
+    cfg = autotune_model(cm, batch=64, directory=cache, force=True,
+                         mode="model", probe=probe)
+    check(cfg.source == "predicted" and cfg.probe_ms is None
+          and cfg.seed_stage_ms is None and not cfg.block_mn_probe
+          and "probe_ms" not in cfg.segment_mode_model
+          and all("probe_ms" not in c for c in cfg.candidates),
+          f"{n}: the model-mode config holds a probe: {cfg.to_dict()}")
+    cm.apply_tuned(cfg)
+    check(torch.equal(_headless(cm).offline(xc), codes0),
+          f"{n}: model-mode tuned offline codes differ from untuned")
+    pool = _pool_in_turns({"probed": (probed_cm, probed.micro_batch),
+                           "predicted": (cm, cfg.micro_batch)},
+                          default_sample(cm, 64))
+    pred = {c["micro_batch"]: c for c in cfg.candidates}
+    cand = pred[cfg.micro_batch]
+    # the candidates the probe search timed: predicted beside probed ms
+    # for the same pool (n_micro waves of the micro-batch)
+    pairs = {str(c["micro_batch"]): {
+        "predicted_wave_ms": pred[c["micro_batch"]]["predicted_wave_ms"],
+        "predicted_total_ms": pred[c["micro_batch"]]["predicted_total_ms"],
+        "probed_total_ms": c["probe_ms"]}
+        for c in probed.candidates if "probe_ms" in c}
+    out = {"micro_batch": cfg.micro_batch, "segment_mode": cfg.segment_mode,
+           "block_h": cfg.block_h, "block_mn": cfg.block_mn,
+           "predicted_wave_ms": cand["predicted_wave_ms"],
+           "predicted_total_ms": cand["predicted_total_ms"],
+           "n_micro": cand["n_micro"], "probed_candidates": pairs,
+           "dispatch_predicted_ms": cfg.segment_mode_model.get(
+               "predicted_ms"),
+           "dispatch_probed_ms": probed.segment_mode_model.get("probe_ms"),
+           "same_micro_batch": cfg.micro_batch == probed.micro_batch,
+           "same_dispatch": cfg.segment_mode == probed.segment_mode,
+           "pool_ms": {k: (v["median_ms"], v["spread_ms"])
+                       for k, v in pool.items()}}
+    shown = ", ".join(
+        f"mb {mb}: predicted {v['predicted_total_ms']:.6f} "
+        f"({v['predicted_wave_ms']:.6f} a wave), probed "
+        f"{v['probed_total_ms']:.6f}" for mb, v in pairs.items())
+    log(f"autotune {n} model mode: micro-batch {cfg.micro_batch} (probe "
+        f"search {probed.micro_batch}), dispatch {cfg.segment_mode} (probe "
+        f"search {probed.segment_mode}); no probe, source {cfg.source}; "
+        f"its pick predicted {cand['predicted_wave_ms']:.6f} ms a wave, "
+        f"{cand['predicted_total_ms']:.6f} ms for the {cand['n_micro']}-"
+        f"wave pool; the probe search's candidates, ms per pool: {shown}; "
+        f"dispatch predicted at micro-batch {cfg.micro_batch} "
+        f"{json.dumps(out['dispatch_predicted_ms'])}, probed at "
+        f"{probed.micro_batch} {json.dumps(out['dispatch_probed_ms'])}; "
+        f"the 64-row pool under each search's config, timed in turns "
+        f"(median, spread ms): probed config {out['pool_ms']['probed']}, "
+        f"predicted config {out['pool_ms']['predicted']}; tuned codes "
+        f"equal untuned bit for bit")
+    return out
+
+
+def phase_trace_export(tuned, x, smi, calls=5):
+    """Trace ``calls`` tuned KWS ``offline`` calls, each a synchronised
+    span carrying the kernel launches it made and its logits' sum (a 0-d
+    tensor on the card), and export them with ``obs.export_chrome`` to
+    ``chiprun_out/trace_kws_offline.json``. Returns (path, bytes)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Tracer, export_chrome
+
+    cm, xc = tuned["kws"], torch.as_tensor(x).cuda()
+    tracer = Tracer()
+    for i in range(calls):
+        before = dict(ops.launches)
+        with tracer.span("offline", cat="executor", tid=0, call=i,
+                         rows=xc.shape[0], micro_batch=cm.default_micro_batch,
+                         segment_mode=cm.tuned.segment_mode) as sp:
+            y = cm.offline(xc)
+            torch.cuda.synchronize()
+            sp.set(logit_sum=y.sum(), **{
+                k: ops.launches[k] - before[k] for k in before
+                if ops.launches[k] != before[k]})
+        tracer.counter("launches", sum(ops.launches[k] - before[k]
+                                       for k in before), tid=1)
+    path = export_chrome(
+        tracer, os.path.join(ROOT, "chiprun_out", "trace_kws_offline.json"),
+        process_names={0: "chip_smoke"},
+        thread_names={(0, 0): "kws offline", (0, 1): "launches"},
+        meta={"card": smi, "model": "kws", "source": cm.tuned.source})
+    size = os.path.getsize(path)
+    doc = json.load(open(path))
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    check(len(spans) == calls and all(
+        isinstance(e["args"]["logit_sum"], float) for e in spans),
+        f"the exported trace holds {len(spans)} offline spans")
+    log(f"trace: {calls} tuned KWS offline calls exported by export_chrome "
+        f"to {os.path.relpath(path, ROOT)}, {size} bytes, "
+        f"{len(doc['traceEvents'])} events")
+    return os.path.relpath(path, ROOT), size
 
 
 def phase_scenarios(models, tuned, smi):
@@ -2121,8 +2301,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory(
                 prefix="autotune-", dir=os.path.join(ROOT, "build")) as c1, \
                 tempfile.TemporaryDirectory(
-                    prefix="autotune-", dir=os.path.join(ROOT, "build")) as c2:
-            tuned, autotune_agree = phase_autotune(models, (c1, c2))
+                    prefix="autotune-", dir=os.path.join(ROOT, "build")) as c2, \
+                tempfile.TemporaryDirectory(
+                    prefix="autotune-", dir=os.path.join(ROOT, "build")) as c3:
+            tuned, autotune_agree = phase_autotune(models, (c1, c2, c3))
+        trace = phase_trace_export(tuned, models[0][3], smi)
         scenarios = phase_scenarios(models, tuned, smi)
         lm["profile"] = phase_lm_profile()
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
@@ -2158,6 +2341,7 @@ def main() -> int:
                    "lm": lm, "kernel_bench": bench,
                    "scenarios": scenarios,
                    "autotune_agreement": autotune_agree,
+                   "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,
                            "split": split},
                    "k5_big": k5_big, "k3_active_clusters": k3_active,

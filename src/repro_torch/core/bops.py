@@ -2,7 +2,7 @@
 traffic, and the megakernel residency accounting.
 
 The port of ``repro.core.bops`` (all but ``lm_model_flops``, which the
-LM roofline of ROADMAP item 9 brings). Eq. 1 / Eq. 2 of the paper:
+LM roofline, ``launch/roofline.py``, brings). Eq. 1 / Eq. 2 of the paper:
 
   BOPs ~= m*n*k^2 * (b_a*b_w + b_a + b_w + log2(n*k^2))          (Eq. 1)
   C     = 0.5 * (BOPs/BOPs_ref + WM/WM_ref)                      (Eq. 2)

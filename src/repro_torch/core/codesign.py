@@ -2,8 +2,8 @@
 per inference on one card.
 
 The port of the deploy part of ``repro.core.codesign`` (``deploy_report``);
-``train_tiny`` and ``bitwidth_descent`` come with the QAT slice (ROADMAP
-queue 1 item 8). The reference prices a TPU v5e; the port prices the card
+``train_tiny`` and ``bitwidth_descent`` come with the QAT slice
+(``core/qlayers.py`` and the training half of ``core/codesign.py``). The reference prices a TPU v5e; the port prices the card
 it runs on, one NVIDIA H100 80GB HBM3 at its 700.00 W power limit (NVIDIA's
 H100 SXM data sheet, dense rates without sparsity). The scenario runtime
 (``deploy.scenarios``) multiplies measured latencies by ``CHIP_WATTS``;

@@ -4,8 +4,8 @@ The port of ``repro.core.qir``: the same dataclasses and the same JSON
 (initializers as base64 npy), so the port reads and writes the very
 ``*.qir.json`` files the JAX package does, byte for byte. ``Graph.run`` is
 the unfused per-node reference interpreter on torch tensors;
-``export_qmlp`` builds the QIR graph of a quantized MLP from numpy
-parameter dicts.
+``export_qmlp`` and ``export_qcnn`` build the QIR graph of a quantized MLP
+and of the IC / CNV conv models from numpy parameter dicts, on the host.
 
 Quant node semantics (attrs select the flavor):
   * default             — dynamic min-max IntQuantizer (the QAT fake-quant)
@@ -201,6 +201,18 @@ def max_pool_nhwc(x: torch.Tensor, window: int, stride: int,
     return y
 
 
+def conv2d_nhwc(a: torch.Tensor, w: torch.Tensor, stride: int,
+                padding: str) -> torch.Tensor:
+    """``lax.conv_general_dilated`` with NHWC input, HWIO weights and NHWC
+    output: SAME pads as XLA does (``same_pad_1d``), VALID not at all."""
+    if padding == "SAME":
+        h, wd = a.shape[1], a.shape[2]
+        a = pad_nhwc(a, same_pad_1d(h, -(-h // stride), stride, w.shape[0]),
+                     same_pad_1d(wd, -(-wd // stride), stride, w.shape[1]))
+    return F.conv2d(a.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                    stride=stride).permute(0, 2, 3, 1)
+
+
 def _promote(a: torch.Tensor, b: torch.Tensor):
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt), b.to(dt)
@@ -217,14 +229,9 @@ def eval_node(node: Node, x: List[torch.Tensor]) -> torch.Tensor:
         if len(x) > 2:
             y = y + x[2]
     elif node.op == "Conv2D":
-        stride = int(node.attrs.get("stride", 1))
         a, w = _promote(x[0], x[1])
-        if node.attrs.get("padding", "SAME") == "SAME":
-            h, wd = a.shape[1], a.shape[2]
-            a = pad_nhwc(a, same_pad_1d(h, -(-h // stride), stride, w.shape[0]),
-                         same_pad_1d(wd, -(-wd // stride), stride, w.shape[1]))
-        y = F.conv2d(a.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                     stride=stride).permute(0, 2, 3, 1)
+        y = conv2d_nhwc(a, w, int(node.attrs.get("stride", 1)),
+                        node.attrs.get("padding", "SAME"))
         if len(x) > 2:
             y = y + x[2]
     elif node.op == "MaxPool":
@@ -353,4 +360,173 @@ def export_qmlp(layer_defs, params_list, head_params, meta=None,
     g.initializers["w_head"] = np.asarray(head_params["w"])
     g.initializers["b_head"] = np.asarray(head_params["b"])
     g.nodes.append(Node("Dense", "head", [prev, "w_head", "b_head"], ["logits"]))
+    return g
+
+
+def _conv_out_hw(h: int, w: int, k: int, stride: int, padding: str):
+    if padding == "SAME":
+        return -(-h // stride), -(-w // stride)
+    return (h - k) // stride + 1, (w - k) // stride + 1
+
+
+def export_qcnn(model, params, in_scale: float = 1.0 / 128.0, meta=None,
+                calibrate=None) -> Graph:
+    """Export a Table-1 conv model (``models.tiny.ICModel`` or
+    ``CNVModel``) to QIR, from numpy parameter dicts (``init_numpy``, or
+    the reference's ``init`` converted to numpy). The JSON is identical to
+    the reference exporter's on the same parameters.
+
+    Every conv layer becomes ``Conv2D -> [Relu] -> Quant``, plus
+    ``MaxPool``/``Flatten`` where the architecture has them. Weights are
+    stored fake-quantized with po2 per-channel scales (``attrs["w_scale"]``)
+    and biases snapped to the accumulator grid, so with a po2 ``in_scale``
+    every float of ``Graph.run`` is an exact multiple of a po2 step; the
+    binary CNV is exported in FINN's unipolar form (``[x >= 0]`` codes,
+    downstream weights folded as ``w' = 2w, b' = b - sum(w)``, its
+    ``meta["in_scale"]`` 1.0).
+
+    ``calibrate`` (IC only) is a batch of integer input codes: each layer's
+    scale then covers its measured post-ReLU maximum instead of the
+    worst-case reach, which leaves most codes at 0. The calibration runs on
+    the host in float32; it is exact while every accumulator stays under
+    2^24 steps of its po2 grid, which holds at the paper's widths
+    (``tests/test_torch_qcnn.py`` checks the bound on its data).
+    """
+    if getattr(model, "weight_bits", 8) == 1 and hasattr(model, "channels"):
+        return _export_cnv(model, params, meta)
+    if hasattr(model, "conv_layers"):
+        return _export_ic(model, params, in_scale, meta, calibrate)
+    raise TypeError(f"no QIR conv exporter for {type(model).__name__}")
+
+
+def _export_ic(model, params, in_scale: float, meta, calibrate=None) -> Graph:
+    from repro_torch.core.quantizers import IntQuantizer, quantize_po2
+    from repro_torch.core.streamline import choose_act_scale
+
+    g = Graph(inputs=["x"], outputs=["logits"],
+              meta=dict(meta or {}, model=type(model).__name__,
+                        in_scale=in_scale))
+    convs = model.conv_layers()
+    h, w, cin = model.in_hw, model.in_hw, model.in_ch
+    scale, in_qmax = in_scale, 127          # signed 8-bit input codes
+    hcal = (None if calibrate is None
+            else torch.as_tensor(np.asarray(calibrate), dtype=torch.float32)
+            * in_scale)
+    prev = "x"
+    for i, (ld, p) in enumerate(zip(convs, params["convs"])):
+        wk = np.asarray(p["w"], np.float32)             # (k, k, cin, f)
+        wq = IntQuantizer(bits=ld.weight_bits, signed=True, narrow=True,
+                          axis=0, po2=True)
+        w_int, s_w = wq.quantize_int(torch.tensor(wk.reshape(-1, ld.out_ch)))
+        s_w = s_w.numpy().astype(np.float32).reshape(-1)   # (f,) po2
+        w_hat = (w_int.numpy().astype(np.float32) * s_w).reshape(wk.shape)
+        grid = s_w * scale                              # accumulator step
+        b_q = np.asarray(np.round(np.asarray(p["b"]) / grid) * grid,
+                         np.float32)
+        oh, ow = _conv_out_hw(h, w, ld.kernel, ld.stride, ld.padding)
+        g.initializers[f"cw{i}"] = w_hat
+        g.initializers[f"cb{i}"] = b_q
+        g.initializers[f"cws{i}"] = s_w
+        g.nodes.append(Node(
+            "Conv2D", f"conv{i}", [prev, f"cw{i}", f"cb{i}"], [f"c{i}_conv"],
+            attrs={"kernel": ld.kernel, "stride": ld.stride,
+                   "padding": ld.padding, "weight_bits": ld.weight_bits,
+                   "w_scale": f"cws{i}",
+                   "in_shape": [h, w, cin], "out_shape": [oh, ow, ld.out_ch]}))
+        g.nodes.append(Node("Relu", f"relu{i}", [f"c{i}_conv"], [f"c{i}_relu"]))
+        qmax_out = 2 ** ld.act_bits - 1
+        if hcal is not None:
+            # float32 as the reference's conv; on a card cuDNN would
+            # round to TF32, hence full_fp32
+            with full_fp32():
+                y = conv2d_nhwc(hcal, torch.as_tensor(w_hat).to(hcal.device),
+                                ld.stride, ld.padding)
+            r = torch.clamp(y + torch.as_tensor(b_q).to(y.device), min=0)
+            s_out = float(quantize_po2(
+                torch.clamp(torch.amax(r), min=1e-8) / qmax_out))
+            hcal = torch.clamp(torch.floor(r / s_out + 0.5), 0,
+                               qmax_out) * s_out
+        else:
+            s_out = choose_act_scale(
+                w_hat.reshape(-1, ld.out_ch), b_q,
+                in_scale=scale, act_bits=ld.act_bits, in_qmax=in_qmax)
+        g.nodes.append(Node(
+            "Quant", f"quant{i}", [f"c{i}_relu"], [f"c{i}_q"],
+            attrs={"scale": s_out},
+            quant=QuantSpec(bits=ld.act_bits, signed=False)))
+        prev = f"c{i}_q"
+        scale, in_qmax = s_out, 2 ** ld.act_bits - 1
+        h, w, cin = oh, ow, ld.out_ch
+    g.nodes.append(Node("Flatten", "flatten", [prev], ["flat"],
+                        attrs={"in_shape": [h, w, cin]}))
+    wq_head = IntQuantizer(bits=model.weight_bits, axis=0)
+    g.initializers["w_head"] = wq_head(torch.tensor(np.asarray(
+        params["head"]["w"], np.float32))).numpy()
+    g.initializers["b_head"] = np.asarray(params["head"]["b"], np.float32)
+    g.nodes.append(Node("Dense", "head", ["flat", "w_head", "b_head"],
+                        ["logits"]))
+    return g
+
+
+def _export_cnv(model, params, meta) -> Graph:
+    g = Graph(inputs=["x"], outputs=["logits"],
+              meta=dict(meta or {}, model=type(model).__name__,
+                        in_scale=1.0))
+    convs = model.conv_layers()
+    h, w, cin = model.in_hw, model.in_hw, model.in_ch
+    prev = "x"
+    for i, (ld, p) in enumerate(zip(convs, params["convs"])):
+        sgn = np.where(np.asarray(p["w"]) >= 0, 1.0, -1.0).astype(np.float32)
+        if i == 0:
+            wk, b_q = sgn, None       # signed input codes: plain +-1 taps
+        else:
+            wk = 2.0 * sgn            # unipolar folding: x = 2q - 1
+            b_q = -np.sum(sgn, axis=(0, 1, 2)).astype(np.float32)
+        oh, ow = _conv_out_hw(h, w, ld.kernel, ld.stride, ld.padding)
+        g.initializers[f"cw{i}"] = wk
+        g.initializers[f"cws{i}"] = np.ones((ld.out_ch,), np.float32)
+        ins = [prev, f"cw{i}"]
+        if b_q is not None:
+            g.initializers[f"cb{i}"] = b_q
+            ins.append(f"cb{i}")
+        g.nodes.append(Node(
+            "Conv2D", f"conv{i}", ins, [f"c{i}_conv"],
+            attrs={"kernel": ld.kernel, "stride": ld.stride,
+                   "padding": ld.padding, "weight_bits": 1,
+                   "w_scale": f"cws{i}",
+                   "in_shape": [h, w, cin], "out_shape": [oh, ow, ld.out_ch]}))
+        g.nodes.append(Node("Quant", f"sign{i}", [f"c{i}_conv"], [f"c{i}_q"],
+                            attrs={"bipolar": True},
+                            quant=QuantSpec(bits=1, signed=False)))
+        prev = f"c{i}_q"
+        h, w, cin = oh, ow, ld.out_ch
+        if i in model.pool_after:
+            g.nodes.append(Node(
+                "MaxPool", f"pool{i}", [prev], [f"p{i}"],
+                attrs={"window": 2, "stride": 2, "padding": "VALID",
+                       "in_shape": [h, w, cin],
+                       "out_shape": [h // 2, w // 2, cin]}))
+            prev = f"p{i}"
+            h, w = h // 2, w // 2
+    g.nodes.append(Node("Flatten", "flatten", [prev], ["flat"],
+                        attrs={"in_shape": [h, w, cin]}))
+    prev = "flat"
+    dims = [h * w * cin, *model.fc, model.n_classes]
+    for j, p in enumerate(params["fcs"]):
+        sgn = np.where(np.asarray(p["w"]) >= 0, 1.0, -1.0).astype(np.float32)
+        g.initializers[f"fw{j}"] = 2.0 * sgn
+        g.initializers[f"fb{j}"] = -np.sum(sgn, axis=0).astype(np.float32)
+        last = j == len(params["fcs"]) - 1
+        out = "logits" if last else f"f{j}_fc"
+        attrs = {"weight_bits": 1}
+        if not last:
+            g.initializers[f"fws{j}"] = np.ones((dims[j + 1],), np.float32)
+            attrs["w_scale"] = f"fws{j}"
+        g.nodes.append(Node("Dense", f"fc{j}", [prev, f"fw{j}", f"fb{j}"],
+                            [out], attrs=attrs))
+        if not last:
+            g.nodes.append(Node("Quant", f"fsign{j}", [out], [f"f{j}_q"],
+                                attrs={"bipolar": True},
+                                quant=QuantSpec(bits=1, signed=False)))
+            prev = f"f{j}_q"
     return g

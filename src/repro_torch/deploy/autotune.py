@@ -1,7 +1,7 @@
 """FIFO-model-driven autotuner for the streaming deployment path, on torch.
 
-The port of ``repro.deploy.autotune`` in its probe mode. It replaces the
-executor's constants with a search that prices first and measures second:
+The port of ``repro.deploy.autotune``. It replaces the executor's
+constants with a search that prices first and measures second:
 
   1. **Micro-batch** — every candidate is priced by the paper's FIFO pass
      (``CompiledTinyModel.plan_streaming``); the top few get measured
@@ -14,6 +14,15 @@ executor's constants with a search that prices first and measures second:
      a megakernel run, the residency traffic model ranks the two modes and
      a probe of each at the winning micro-batch decides; ties go to the
      model's pick.
+
+Two search modes share the model half, as in the reference: **probe**
+(the default; the measured refinements above) and **model**
+(``REPRO_AUTOTUNE=model``): probe-free, the learned wave-cost predictor
+(``repro_torch.costmodel``; its shipped artifact is fitted to a synthetic
+bootstrap fleet, not to the card's times) prices every micro-batch
+candidate and both dispatch modes from ``wave_features``, K2's row blocks
+and K1's tiles stay pure models, no clock is read and no model runs, and
+the config records ``source: "predicted"``.
 
 The search, the cache and the config schema (v4) are the reference's,
 and so is the probe order under a scripted probe (``probe=``: one call per
@@ -48,13 +57,17 @@ micro-batch and dispatch. What differs:
     ``jax.default_backend()`` ("cpu" on a CPU); the port on itself and its
     device (``torch-cuda-<device name>``, ``torch-cpu``), so the two
     packages never read each other's cached configs.
-  * **Model mode** (``REPRO_AUTOTUNE=model``, the learned cost model) and
-    ``slo_micro_batch`` (the serving stack's operating point) raise
-    ``NotImplementedError``: they come with ROADMAP queue 1 items 7 and 6.
+  * **Model mode's features** read the port's planners (Hopper budgets),
+    so on schedules the two planners plan differently its predictions, and
+    then its picks, may differ from the reference's
+    (``repro_torch.costmodel.features``).
+  * ``slo_micro_batch`` (the serving stack's operating point) raises
+    ``NotImplementedError`` until ``repro_torch.serve.slo`` is ported.
 
 Knobs, as in the reference: ``REPRO_AUTOTUNE=off|probe|model`` (unknown
 spellings raise), ``REPRO_AUTOTUNE_CACHE=dir`` (default
-``.repro_autotune``), ``REPRO_AUTOTUNE_FORCE=1`` (ignore the cache).
+``.repro_autotune``), ``REPRO_AUTOTUNE_FORCE=1`` (ignore the cache),
+``REPRO_COSTMODEL_ARTIFACT`` (the predictor artifact of model mode).
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ import torch
 from repro_torch.core.bops import (conv_input_band_bytes,
                                    megakernel_traffic_bytes, schedule_cost,
                                    staged_traffic_bytes)
+from repro_torch.costmodel.features import wave_features
 from repro_torch.deploy.lower import (FusedConvThresholdStage,
                                       FusedThresholdStage, plan_megakernel)
 from repro_torch.kernels.conv_threshold import same_pad_1d
@@ -157,7 +171,7 @@ class TunedConfig:
     block_mn_probe: Dict = dataclasses.field(default_factory=dict)
     seed_stage_ms: Optional[List[Dict]] = None   # stage_latencies seed
     probe_ms: Optional[Dict[str, float]] = None  # micro_batch -> median ms
-    source: str = "probed"            # "probed" ("predicted": item 7)
+    source: str = "probed"            # "probed" | "predicted" provenance
     version: int = CONFIG_VERSION
 
     def to_dict(self) -> Dict:
@@ -389,8 +403,8 @@ def slo_micro_batch(cm, p99_budget_ms: float, **kwargs):
     with the serving stack's service model, which the port does not have
     yet."""
     raise NotImplementedError(
-        "slo_micro_batch needs the serving stack's ServiceModel "
-        "(repro_torch.serve.slo), ROADMAP queue 1 item 6")
+        "slo_micro_batch needs the serving stack's ServiceModel, which "
+        "waits for repro_torch.serve.slo")
 
 
 # ---------------------------------------------------------------------------
@@ -457,6 +471,44 @@ def probe_interleaved(cm, x, arms: Dict[str, tuple], tracer=None,
     return out
 
 
+def _probe_dispatch(cm, x, wave: int, probe: Optional[Callable], tr,
+                    key: str, audit: Dict) -> Tuple[float, float]:
+    """Seconds of a ``wave``-row streaming pass in megakernel and in staged
+    dispatch: interleaved measured rounds, or one scripted ``probe`` call
+    each. Writes the probes (and the rounds' spreads) into ``audit``;
+    leaves ``cm``'s dispatch as it found it."""
+    prev = cm.dispatch_state()
+    try:
+        if probe is None:
+            # each mode planned once; the rounds switch between the
+            # two plans without re-planning
+            cm.set_megakernel(True, prev[1])
+            mega = cm.dispatch_state()
+            cm.set_megakernel(False, prev[1])
+            staged = cm.dispatch_state()
+            stats = probe_interleaved(
+                cm, x, {"megakernel": (wave, lambda: cm.restore_dispatch(
+                            mega)),
+                        "staged": (wave, lambda: cm.restore_dispatch(
+                            staged))},
+                tracer=tr, key=key)
+            t_mega = stats["megakernel"]["median_ms"] / 1e3
+            t_staged = stats["staged"]["median_ms"] / 1e3
+            audit["spread_ms"] = {k: v["spread_ms"]
+                                  for k, v in stats.items()}
+            audit["rounds"] = PAIR_ROUNDS
+        else:
+            cm.set_megakernel(True, prev[1])
+            t_mega = float(probe(cm, x, wave))
+            cm.set_megakernel(False, prev[1])
+            t_staged = float(probe(cm, x, wave))
+    finally:
+        cm.restore_dispatch(prev)
+    audit["probe_ms"] = {"megakernel": t_mega * 1e3,
+                         "staged": t_staged * 1e3}
+    return t_mega, t_staged
+
+
 def autotune_model(cm, batch: int = 64,
                    candidates: Sequence[int] = MICRO_CANDIDATES,
                    topk: int = 3,
@@ -465,7 +517,8 @@ def autotune_model(cm, batch: int = 64,
                    directory: Optional[str] = None,
                    force: Optional[bool] = None,
                    tracer=None,
-                   mode: Optional[str] = None) -> TunedConfig:
+                   mode: Optional[str] = None,
+                   predictor=None) -> TunedConfig:
     """Search (or load from the cache) the TunedConfig of one compiled
     model.
 
@@ -473,20 +526,22 @@ def autotune_model(cm, batch: int = 64,
     probes; with a scripted probe the whole search is deterministic (the
     model half always is). ``batch`` is the Offline pool the FIFO model
     prices. ``mode`` None follows ``REPRO_AUTOTUNE`` ("off" read as
-    "probe": a direct call wants a search); "model" raises until the
-    learned cost model is ported. Each measured probe is a ``probe`` span
-    (cat ``autotune``) on the tracer (``tracer=``, else the model's)."""
+    "probe": a direct call wants a search); "model" searches probe-free
+    with ``predictor`` (default: the shipped artifact,
+    ``repro_torch.costmodel.load_default``) and never calls ``probe``.
+    Each measured probe is a ``probe`` span (cat ``autotune``) on the
+    tracer (``tracer=``, else the model's)."""
     tr = tracer if tracer is not None else getattr(cm, "tracer", NULL_TRACER)
     if mode is None:
         mode = autotune_mode()
         if mode == "off":
             mode = "probe"
-    if mode == "model":
-        raise NotImplementedError(
-            "autotune mode 'model' needs the learned cost model "
-            "(repro_torch.costmodel), ROADMAP queue 1 item 7")
-    if mode != "probe":
+    if mode not in ("probe", "model"):
         raise ValueError(f"autotune mode {mode!r}: expected probe|model")
+    if mode == "model" and predictor is None:
+        from repro_torch.costmodel.model import load_default
+
+        predictor = load_default()
     key = schedule_key(cm)
     if not (autotune_force() if force is None else force):
         cached = load_config(key, directory)
@@ -504,13 +559,24 @@ def autotune_model(cm, batch: int = 64,
     modeled.sort(key=lambda d: (d["modeled_cycles"], d["micro_batch"]))
     top = modeled[:max(1, topk)]
 
-    # -- measured refinement on the top candidates -----------------------
-    # (measured: the candidates timed in turns, PAIR_ROUNDS rounds, the
-    # median of each; scripted: one call per candidate, in rank order)
     seed_stage_ms = None
     probe_ms: Dict[str, float] = {}
-    x = default_sample(cm, batch) if sample is None else sample
-    if probe is None:
+    x = None if mode == "model" else (
+        default_sample(cm, batch) if sample is None else sample)
+    if mode == "model":
+        # -- probe-free: the predictor prices every candidate -------------
+        # (the pool drains in n_micro waves of the predicted wave time)
+        for cand in modeled:
+            wave_ms = float(predictor.predict_ms(
+                wave_features(cm, cand["micro_batch"])))
+            cand["predicted_wave_ms"] = wave_ms
+            cand["predicted_total_ms"] = wave_ms * cand["n_micro"]
+        top = [min(modeled, key=lambda d: (d["predicted_total_ms"],
+                                           d["micro_batch"]))]
+    elif probe is None:
+        # -- measured refinement on the top candidates -------------------
+        # (the candidates timed in turns, PAIR_ROUNDS rounds, the median
+        # of each; a scripted probe: one call per candidate, rank order)
         # stage_latencies seeds the refinement: the per-stage service
         # times it measured are kept in the config's audit trail
         seed_stage_ms = cm.stage_latencies(x[:min(batch, 8)])
@@ -573,11 +639,11 @@ def autotune_model(cm, batch: int = 64,
         TMM_DEFAULT_TILE[0] if saved[n][0] is None else saved[n][0],
         TMM_DEFAULT_TILE[1] if saved[n][1] is None else saved[n][1])
         for n in block_mn)
-    if block_mn and probe is None and same:
+    if mode == "probe" and block_mn and probe is None and same:
         block_mn_probe = {"wave_rows": wave, "n_micro": -(-batch // wave),
                           "pick": "tuned", "untimed": "model tiles are the "
                           "stages' own"}
-    elif block_mn:
+    elif mode == "probe" and block_mn:
 
         def use_tiles(tuned: bool) -> None:
             for s in cm.schedule.stages:
@@ -637,35 +703,17 @@ def autotune_model(cm, batch: int = 64,
             "bytes_saved": float(staged_b - mega_b),
         }
         model_pick = "megakernel" if mega_b <= staged_b else "staged"
-        prev = cm.dispatch_state()
-        try:
-            if probe is None:
-                # each mode planned once; the rounds switch between the
-                # two plans without re-planning
-                cm.set_megakernel(True, prev[1])
-                mega = cm.dispatch_state()
-                cm.set_megakernel(False, prev[1])
-                staged = cm.dispatch_state()
-                stats = probe_interleaved(
-                    cm, x, {"megakernel": (wave, lambda: cm.restore_dispatch(
-                                mega)),
-                            "staged": (wave, lambda: cm.restore_dispatch(
-                                staged))},
-                    tracer=tr, key=key)
-                t_mega = stats["megakernel"]["median_ms"] / 1e3
-                t_staged = stats["staged"]["median_ms"] / 1e3
-                segment_mode_model["spread_ms"] = {
-                    k: v["spread_ms"] for k, v in stats.items()}
-                segment_mode_model["rounds"] = PAIR_ROUNDS
-            else:
-                cm.set_megakernel(True, prev[1])
-                t_mega = float(probe(cm, x, wave))
-                cm.set_megakernel(False, prev[1])
-                t_staged = float(probe(cm, x, wave))
-        finally:
-            cm.restore_dispatch(prev)
-        segment_mode_model["probe_ms"] = {"megakernel": t_mega * 1e3,
-                                          "staged": t_staged * 1e3}
+        if mode == "model":
+            p_mega = float(predictor.predict_ms(
+                wave_features(cm, wave, "megakernel")))
+            p_staged = float(predictor.predict_ms(
+                wave_features(cm, wave, "staged")))
+            segment_mode_model["predicted_ms"] = {"megakernel": p_mega,
+                                                  "staged": p_staged}
+            t_mega, t_staged = p_mega, p_staged
+        else:
+            t_mega, t_staged = _probe_dispatch(
+                cm, x, wave, probe, tr, key, segment_mode_model)
         if t_mega < t_staged:
             segment_mode = "megakernel"
         elif t_mega == t_staged:
@@ -705,7 +753,7 @@ def autotune_model(cm, batch: int = 64,
         block_mn_probe=block_mn_probe,
         seed_stage_ms=seed_stage_ms,
         probe_ms=probe_ms or None,
-        source="probed",
+        source="predicted" if mode == "model" else "probed",
     )
     save_config(cfg, directory)
     return cfg

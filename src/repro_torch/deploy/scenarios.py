@@ -20,8 +20,9 @@ on the JAX array, the port synchronises the CUDA device the output lies on
 report carries the roofline energy proxy of ``core.codesign.deploy_report``
 (the card's constants) beside a measured proxy, the card's power limit
 times the median latency. ``server_streaming`` (MLPerf Server over the
-dynamic-batching router) needs the serving stack, ROADMAP queue 1 item 6:
-it raises ``NotImplementedError`` and ``run_all_scenarios`` leaves it out.
+dynamic-batching router) needs the serving stack's router, which waits for
+``repro_torch.serve.router``: it raises ``NotImplementedError`` and
+``run_all_scenarios`` leaves it out.
 """
 
 from __future__ import annotations
@@ -270,8 +271,8 @@ def server_streaming(compiled, make_query, **kwargs) -> ScenarioReport:
     """MLPerf Server over the dynamic-batching serve router. The port has
     no router yet."""
     raise NotImplementedError(
-        "server_streaming needs the serving stack (repro_torch.serve.Router)"
-        ", ROADMAP queue 1 item 6")
+        "server_streaming needs the serving stack's router, which waits "
+        "for repro_torch.serve.router")
 
 
 def run_all_scenarios(infer: Callable, make_query: Callable[[int], np.ndarray],
@@ -282,7 +283,7 @@ def run_all_scenarios(infer: Callable, make_query: Callable[[int], np.ndarray],
     """The MLPerf-Tiny sweep for one deployed model: SingleStream,
     MultiStream, Offline and Server, and StreamingOffline when
     ``compiled`` has ``streaming_compiled``. ServerStreaming waits for the
-    serving stack (ROADMAP queue 1 item 6)."""
+    serving stack (``repro_torch.serve.router``)."""
     reports = [
         single_stream(infer, make_query, n_queries=n_queries,
                       model_cost=model_cost, bits=bits, compiled=compiled,

@@ -277,13 +277,17 @@ def test_plan_block_mn_picks_among_the_kernels_tiles():
 
 
 def test_model_mode_and_slo_wait_for_their_items(monkeypatch, tmp_path):
+    """Model mode has its cost model now (``repro_torch.costmodel``):
+    explicit or through ``REPRO_AUTOTUNE=model`` it searches without a
+    probe; ``slo_micro_batch`` still waits for the serving stack's
+    ``repro_torch.serve.slo``."""
     _, tm = _pair("mlp")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tat.autotune_model(tm, mode="model", directory=str(tmp_path))
+    cfg = tat.autotune_model(tm, mode="model", directory=str(tmp_path),
+                             force=True)
+    assert cfg.source == "predicted" and cfg.probe_ms is None
     monkeypatch.setenv("REPRO_AUTOTUNE", "model")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tat.autotune_model(tm, directory=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    assert tat.autotune_model(tm, directory=str(tmp_path)) == cfg
+    with pytest.raises(NotImplementedError, match="repro_torch.serve.slo"):
         tat.slo_micro_batch(tm, 5.0)
 
 

@@ -224,7 +224,7 @@ def test_run_all_scenarios_on_a_compiled_golden(clock):
 
 
 def test_server_streaming_waits_for_the_serving_stack():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="repro_torch.serve.router"):
         tsc.server_streaming(None, _mk)
 
 
