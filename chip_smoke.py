@@ -152,12 +152,38 @@ which fails the run with a non-zero exit:
                scenario beside the card's name and power limit, which must
                equal ``core.codesign.CHIP_WATTS``; streamed codes equal
                ``offline``; a batch-1 query's device time (CUDA-graph
-               replay) beside the SingleStream p50, and its launches.
+               replay) beside the SingleStream p50, and its launches;
+               ServerStreaming (the Server load through the router) last;
+ 16. serving — the serving stack (``repro_torch.serve``) on the four tuned
+               models: ``slo_micro_batch`` and ``serve_bench.bench_model``
+               at load fractions 0.7 and 1.1 (SLO micro-batch, p99 budget,
+               saturation measured through the router, p50/p90/p99,
+               achieved qps, shed rate, occupancy); per model, for its
+               logits and for its codes (the headless schedule),
+               ``server_streaming`` under ``SyncEngine`` with 512 Poisson
+               queries at half the saturation, and the same trace through
+               a ``Router`` over a two-replica ``ReplicaPool`` on the one
+               card (two CUDA streams, one executor) under
+               ``AsyncEngine``; counters set to 0 before each run and read
+               after: K1/K2/K3 launches equal the waves served times one
+               counted ``submit_wave``'s launches (plus the scenario's own
+               ``offline`` check); every wave's rows and every result
+               equal ``offline`` (codes bit for bit, logits within 1e-5)
+               beside ``server_streaming``'s ``bit_exact_vs_offline``; the
+               highest in-flight count, and "gpu" stamped on every wave
+               span; KWS compiled staged serves the sync trace (K1, 3
+               launches a wave); ``TinyModelServer`` serves the four
+               tenants under ``AsyncEngine`` (64 requests each, every
+               result equal to ``offline``); KWS's codes on a two-replica
+               pool under ``faulty_pool`` (a ``replica_crash`` on replica
+               0, a ``corrupt_output`` on replica 1): no admitted request
+               lost, no corrupt row served, the fault counts the plan's.
 
-Phase 9's profile runs last of all. The last lines are the kernels JSON
+Phase 16 runs after phase 15; phase 9's profile runs last of all. The last lines are the kernels JSON
 line, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``. Per-shape details go to
-``chiprun_out/chip_smoke_details.json``. Each kernel's ``launches`` comes
+``chiprun_out/chip_smoke_details.json`` (the serving readings under
+``"serving"``). Each kernel's ``launches`` comes
 from its own main path's counted run: phase 3 for K1-K3, phase 9's
 prefill for K6, phase 13's checking pass for K4 and K5.
 """
@@ -2181,7 +2207,8 @@ def phase_scenarios(models, tuned, smi):
             compiled=cm)
         names = [r.scenario for r in reports]
         check(names == ["SingleStream", "MultiStream", "Offline", "Server",
-                        "StreamingOffline"], f"{n}: scenarios {names}")
+                        "StreamingOffline", "ServerStreaming"],
+              f"{n}: scenarios {names}")
         rows = []
         for r in reports:
             check(all(np.isfinite([r.p50_ms, r.p90_ms, r.p99_ms,
@@ -2218,6 +2245,480 @@ def phase_scenarios(models, tuned, smi):
             f"{json.dumps(per_query)}")
         out[n] = {"reports": rows, "single_stream_device_ms": dev_ms,
                   "single_stream_launches": per_query}
+    return out
+
+
+#: the serving phase: the operating-point curve's load fractions
+#: (``serve_bench``'s ``REPRO_FAST`` ones) and queries (eight waves of 64,
+#: so the saturation probe fills its waves), the queries of the Server
+#: runs on the router (at half the measured saturation), of each tenant
+#: of the shim and of the fault run
+SERVE_FRACTIONS = (0.7, 1.1)
+SERVE_CURVE_QUERIES = 512
+SERVE_QUERIES = 512
+SERVE_LOAD = 0.5
+SHIM_REQUESTS = 64
+FAULT_QUERIES = 256
+
+
+class _WaveRecorder:
+    """A compiled model seen through its wave API, keeping every wave it
+    served (input rows, output, mask) so each one can be held against
+    ``offline`` afterwards; ``offline``, ``device`` and the micro-batch
+    pass through."""
+
+    def __init__(self, cm):
+        self.cm = cm
+        self.device = cm.device
+        self.waves = []
+        self.submit_ms = []          # host time of each submit_wave call
+
+    @property
+    def default_micro_batch(self):
+        return self.cm.default_micro_batch
+
+    def submit_wave(self, x, valid=None, micro_batch=None):
+        import numpy as np
+        from repro_torch.obs import timer
+
+        t0 = timer.now()
+        y, mask = self.cm.submit_wave(x, valid=valid, micro_batch=micro_batch)
+        self.submit_ms.append((timer.now() - t0) * 1e3)
+        self.waves.append((np.asarray(x).copy(), y, mask))
+        return y, mask
+
+    def offline(self, x):
+        return self.cm.offline(x)
+
+
+class _GcTimer:
+    """Host time the Python garbage collector takes while installed
+    (``gc.callbacks``): collections, total and longest ms."""
+
+    def __enter__(self):
+        import gc
+
+        self.n, self.total_ms, self.max_ms, self._t0 = 0, 0.0, 0.0, None
+        gc.callbacks.append(self)
+        return self
+
+    def __call__(self, phase, info):
+        from repro_torch.obs import timer
+
+        if phase == "start":
+            self._t0 = timer.now()
+        elif self._t0 is not None:
+            ms = (timer.now() - self._t0) * 1e3
+            self.n, self.total_ms = self.n + 1, self.total_ms + ms
+            self.max_ms = max(self.max_ms, ms)
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self)
+
+    def row(self):
+        return {"collections": self.n, "total_ms": self.total_ms,
+                "max_ms": self.max_ms}
+
+
+def _reset_launches():
+    """Synchronise, then set every launch counter to 0."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+
+
+def _launches_now():
+    """The K1/K2/K3 launch counts since the last reset, after a
+    synchronise."""
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    return tuple(ops.launches[k] for k in TINY_KERNELS)
+
+
+def _counted(fn):
+    """The K1/K2/K3 launches of one call of ``fn``."""
+    _reset_launches()
+    fn()
+    return _launches_now()
+
+
+def _times(per, n):
+    return tuple(a * n for a in per)
+
+
+def _add(*ts):
+    return tuple(sum(v) for v in zip(*ts))
+
+
+def _hold(model, x, y, label):
+    """``y`` against ``model.offline(x)``: integer codes bit for bit,
+    logits within rtol = atol = 1e-5 (the repo's rule for the float head,
+    ``tests/test_golden.py``). Returns the worst |difference| (0 for
+    codes)."""
+    import numpy as np
+    import torch
+
+    want = model.offline(x)
+    got = torch.as_tensor(np.asarray(y) if not isinstance(y, torch.Tensor)
+                          else y).to(want.device)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{label}: served {tuple(got.shape)} {got.dtype}, offline "
+          f"{tuple(want.shape)} {want.dtype}")
+    if want.dtype.is_floating_point:
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+              f"{label}: logits differ from offline by up to {err} (max "
+              f"|offline| {float(want.abs().max())})")
+        return err
+    check(torch.equal(got, want), f"{label}: served codes differ from "
+                                  f"offline")
+    return 0.0
+
+
+def _hold_waves(rec, label, results=None):
+    """Every wave a ``_WaveRecorder`` served, held against ``offline``.
+    Each wave's valid rows against ``offline`` of the same padded wave
+    (the same row count, so the float head's cuBLAS call has the wave's
+    shape): codes bit for bit, logits within 1e-5. Then all the waves'
+    rows against one ``offline`` call on all their inputs: codes bit for
+    bit; for logits the worst difference is measured, not held (the
+    float head's reduction depends on the row count on the card, ROADMAP
+    queue 3). ``results`` (the router's per-request rows, in dispatch
+    order) must equal the waves' rows bit for bit. Returns a summary."""
+    import numpy as np
+    import torch
+
+    cm = rec.cm
+    same_shape, bitwise = 0.0, True
+    for x, y, mask in rec.waves:
+        n = x.shape[0]
+        check(mask[:n].all() and not mask[n:].any(),
+              f"{label}: a wave's mask {mask.tolist()}")
+        pad = np.zeros((y.shape[0],) + x.shape[1:], x.dtype)
+        pad[:n] = x
+        want = cm.offline(pad)
+        same = bool(torch.equal(y, want))
+        bitwise = bitwise and same
+        if want.dtype.is_floating_point:
+            err = float((y - want).abs().max())
+            check(torch.allclose(y, want, rtol=1e-5, atol=1e-5),
+                  f"{label}: a wave's logits differ from offline of the "
+                  f"same wave by up to {err}")
+            same_shape = max(same_shape, err)
+        else:
+            check(same, f"{label}: a wave's codes differ from offline")
+    xs = np.concatenate([x for x, _, _ in rec.waves])
+    ys = torch.cat([y[:x.shape[0]] for x, y, _ in rec.waves])
+    want = cm.offline(xs)
+    if want.dtype.is_floating_point:
+        cross = float((ys - want).abs().max())
+    else:
+        check(torch.equal(ys, want), f"{label}: served codes differ from "
+                                     f"offline of all rows")
+        cross = 0.0
+    if results is not None:
+        check(np.array_equal(np.stack(results), ys.cpu().numpy()),
+              f"{label}: the router's results differ from its waves' rows")
+    return {"waves": len(rec.waves), "same_shape_bitwise": bitwise,
+            "worst_same_shape": same_shape, "worst_cross_shape": cross,
+            "max_abs": float(want.abs().max()) if want.numel() else 0.0}
+
+
+def _held_words(*held):
+    """One log phrase for ``_hold_waves`` summaries."""
+    hs = [h for h in held if h is not None]
+    if all(h["same_shape_bitwise"] and h["worst_cross_shape"] == 0
+           for h in hs):
+        return "every served row equals offline bit for bit"
+    return (f"every wave's logits equal offline of the same wave within "
+            f"1e-5 (bit for bit: "
+            f"{[h['same_shape_bitwise'] for h in hs]}, worst "
+            f"{max(h['worst_same_shape'] for h in hs):.3g}); against "
+            f"offline of all served rows at once the worst difference is "
+            f"{max(h['worst_cross_shape'] for h in hs):.6g} of max "
+            f"|logit| {max(h['max_abs'] for h in hs):.6g}")
+
+
+def _wave_stream_ms(cm, x, mb, reps=20):
+    """Median ms between CUDA events around one ``submit_wave`` of ``x``
+    on the current stream: the wave's span on the card, its host-to-card
+    copy included (a wave copies host data, so it cannot be captured in
+    a CUDA graph)."""
+    import torch
+
+    ms = []
+    for _ in range(reps + 2):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        cm.submit_wave(x, micro_batch=mb)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return statistics.median(ms[2:])
+
+
+def phase_serving(models, tuned, smi):
+    """The serving stack on the four tuned full-width models.
+
+    Operating point: ``slo_micro_batch`` and ``serve_bench.bench_model``
+    (load fractions ``SERVE_FRACTIONS``): the SLO micro-batch, the p99
+    budget, the saturation measured through the router, and per load
+    point p50/p90/p99, achieved qps, shed rate and occupancy. Then, per
+    model and for both its logits (``cm``) and its codes (``_headless``):
+    ``server_streaming`` under ``SyncEngine`` with ``SERVE_QUERIES``
+    Poisson queries at ``SERVE_LOAD`` of the saturation, and the same
+    trace through a ``Router`` over a two-replica ``ReplicaPool`` on the
+    one card (two streams sharing the executor) under ``AsyncEngine``;
+    counters set to 0 before each run and read after: K1/K2/K3 launches
+    must equal the waves served times one counted ``submit_wave``'s
+    launches (plus the scenario's own ``offline`` check); every wave's
+    rows and every request's result are held against ``offline`` (codes
+    bit for bit, logits within 1e-5), beside ``server_streaming``'s own
+    ``bit_exact_vs_offline``; the async run's highest in-flight count and
+    dispatch spans' platform ("gpu") are read from its trace. KWS
+    compiled staged (``megakernel=False``) runs the same sync trace, so
+    K1 (3 launches a wave) serves too. The ``TinyModelServer`` shim
+    serves all four tenants under ``AsyncEngine``, ``SHIM_REQUESTS`` each,
+    every result equal to ``offline``. Last, KWS's codes on a two-replica
+    pool under ``faulty_pool`` (one ``replica_crash`` on replica 0, one
+    ``corrupt_output`` on replica 1): no admitted request lost, no
+    corrupt row served, the fault counts those of the plan. Returns the
+    readings."""
+    import numpy as np
+    import torch
+    from repro_torch.bench.serve_bench import bench_model
+    from repro_torch.deploy import compile_graph
+    from repro_torch.deploy.autotune import slo_micro_batch
+    from repro_torch.deploy.scenarios import server_streaming
+    from repro_torch.obs import Tracer, timer
+    from repro_torch.serve import (AsyncEngine, FaultPlan, FaultSpec,
+                                   ReplicaPool, Router, RouterConfig,
+                                   SyncEngine, faulty_pool, poisson_trace)
+    from repro_torch.serving.engine import TinyModelServer
+
+    dev = torch.device("cuda")
+    out = {"card": smi, "models": {}}
+    for n, g, s, x in models:
+        cm = tuned[n]
+        mk = (lambda xx: lambda i: xx[i % len(xx)])(x)
+        res = bench_model(n, cm, mk, n_queries=SERVE_CURVE_QUERIES,
+                          fractions=SERVE_FRACTIONS)
+        slo = slo_micro_batch(cm, res["p99_budget_ms"])
+        mb, sat = res["micro_batch"], res["measured_saturation_qps"]
+        for c in res["curve"]:
+            log(f"serving {n} curve ({smi}): load {c['load_fraction']}, "
+                f"offered {c['offered_qps']:.1f} qps, achieved "
+                f"{c['achieved_qps']:.1f} qps, p50 {c['p50_ms']:.6f} ms, "
+                f"p90 {c['p90_ms']:.6f} ms, p99 {c['p99_ms']:.6f} ms, shed "
+                f"{c['shed_rate']:.4f}, occupancy "
+                f"{c['wave_occupancy']:.4f}, met SLO {c['met_slo']}, "
+                f"bit_exact_vs_offline {c['bit_exact_vs_offline']}")
+        log(f"serving {n} operating point ({smi}): SLO micro-batch "
+            f"{slo['micro_batch']} (slo_micro_batch at the "
+            f"{res['p99_budget_ms']:.3f} ms budget; tuned "
+            f"{cm.default_micro_batch}), bench wave {mb} at a quarter of "
+            f"the budget, wave service {res['wave_service_ms']:.6f} ms, "
+            f"measured saturation {sat:.1f} qps, operating point "
+            + (f"{res['operating_point']['achieved_qps']:.1f} qps at load "
+               f"{res['operating_point']['load_fraction']}"
+               if res["operating_point"] else "none inside the SLO"))
+        qps = SERVE_LOAD * sat
+        trace = poisson_trace(qps=qps, n=SERVE_QUERIES, seed=SEED)
+        runs = {}
+        for label, model in (("logits", cm), ("codes", _headless(cm))):
+            per_wave = _counted(lambda: model.submit_wave(x[:1],
+                                                          micro_batch=mb))
+            per_off = _counted(lambda: model.offline(x[:SERVE_QUERIES]))
+            # sync: the MLPerf Server scenario over the router
+            rec = _WaveRecorder(model)
+            sync_trace = Tracer()
+            _reset_launches()
+            with _GcTimer() as gc_sync:
+                rep = server_streaming(rec, mk, qps=qps,
+                                       n_queries=SERVE_QUERIES, seed=SEED,
+                                       micro_batch=mb, engine=SyncEngine(),
+                                       warmup=1, tracer=sync_trace)
+            got = _launches_now()
+            held = _hold_waves(rec, f"{n} {label} sync waves")
+            want = _add(_times(per_wave, held["waves"]), per_off)
+            check(got == want, f"{n} {label} sync: launches {got}, "
+                               f"expected {want} ({held['waves']} waves)")
+            sync = {"report": rep.row(), "launches": got,
+                    "per_wave": per_wave, "held": held,
+                    "submit_ms_max": max(rec.submit_ms), "gc": gc_sync.row(),
+                    "wave_service_p50_ms": statistics.median(
+                        e.dur for e in sync_trace.spans("wave")) * 1e3,
+                    "bit_exact_vs_offline":
+                        rep.extras.get("bit_exact_vs_offline")}
+            # async: two replicas, two streams, one executor
+            rec = _WaveRecorder(model)
+            tracer = Tracer()
+            pool = ReplicaPool(factory=lambda: rec, devices=[dev, dev])
+            check(pool.replicas[0].stream is not None
+                  and pool.replicas[0].stream != pool.replicas[1].stream,
+                  f"{n}: the two replicas share a stream")
+            router = Router({n: pool}, RouterConfig(micro_batch=mb),
+                            tracer=tracer, engine=AsyncEngine())
+            pool.warm(x[:1], micro_batch=mb)     # each stream's first wave
+            rec.waves.clear()
+            rec.submit_ms.clear()
+            _reset_launches()
+            t0 = timer.now()
+            with _GcTimer() as gc_async:
+                reqs = router.run_trace(n, trace, mk)
+            got = _launches_now()
+            wall = timer.now() - t0
+            served = [r for r in reqs if not r.shed]
+            check(len(served) == SERVE_QUERIES,
+                  f"{n} {label} async: {len(served)} of {SERVE_QUERIES} "
+                  f"served")
+            held_a = _hold_waves(rec, f"{n} {label} async waves",
+                                 results=[r.result for r in reqs])
+            waves = held_a["waves"]
+            check(got == _times(per_wave, waves),
+                  f"{n} {label} async: launches {got}, expected "
+                  f"{_times(per_wave, waves)} ({waves} waves)")
+            snap = router.stats()[n]["metrics"]
+            peak = max(e.value for e in tracer.counters("inflight"))
+            platforms = {e.args["platform"] for e in tracer.spans("wave")}
+            check(platforms == {"gpu"}, f"{n}: wave spans stamped "
+                                        f"{platforms}")
+            lats = np.asarray([r.latency_s for r in served]) * 1e3
+            asyn = {"row": snap.row(), "waves": waves, "launches": got,
+                    "per_wave": per_wave, "max_inflight": peak,
+                    "p50_ms": float(np.percentile(lats, 50)),
+                    "p90_ms": float(np.percentile(lats, 90)),
+                    "p99_ms": float(np.percentile(lats, 99)),
+                    "qps": len(served) / max(wall, 1e-9), "held": held_a,
+                    "submit_ms_median": statistics.median(rec.submit_ms),
+                    "submit_ms_max": max(rec.submit_ms),
+                    "gc": gc_async.row(),
+                    "dispatched": [r.n_dispatched for r in pool.replicas]}
+            runs[label] = {"sync": sync, "async": asyn}
+            log(f"serving {n} {label} ({smi}): {SERVE_QUERIES} Poisson "
+                f"queries at {qps:.1f} qps, wave {mb}; sync "
+                f"(server_streaming): p50 {rep.p50_ms:.6f} ms, p90 "
+                f"{rep.p90_ms:.6f} ms, p99 {rep.p99_ms:.6f} ms, "
+                f"{rep.throughput_qps:.1f} qps, {held['waves']} waves, "
+                f"occupancy {rep.extras['wave_occupancy']:.4f}, wave "
+                f"service p50 {sync['wave_service_p50_ms']:.6f} ms; "
+                f"async x2 streams: p50 {asyn['p50_ms']:.6f} ms, p90 "
+                f"{asyn['p90_ms']:.6f} ms, p99 {asyn['p99_ms']:.6f} ms, "
+                f"{asyn['qps']:.1f} qps, {waves} waves "
+                f"({asyn['dispatched']} per replica), occupancy "
+                f"{snap.mean_occupancy:.4f}, wave service p50 "
+                f"{snap.wave_service_p50_ms:.6f} ms, highest in flight "
+                f"{peak:.0f}, submit_wave host ms median "
+                f"{asyn['submit_ms_median']:.6f} max "
+                f"{asyn['submit_ms_max']:.6f} (sync max "
+                f"{sync['submit_ms_max']:.6f}), gc "
+                f"{json.dumps(gc_async.row())} (sync "
+                f"{json.dumps(gc_sync.row())}); K1/K2/K3 launches a wave "
+                f"{per_wave}, sync "
+                f"{sync['launches']}, async {got}; " + _held_words(
+                    held, held_a)
+                + f"; server_streaming bit_exact_vs_offline "
+                f"{sync['bit_exact_vs_offline']}")
+        wave_ms = _wave_stream_ms(cm, x[:mb], mb)
+        log(f"serving {n} ({smi}): one {mb}-row submit_wave spans "
+            f"{wave_ms:.6f} ms on the card (CUDA events, copy included)")
+        out["models"][n] = {
+            "slo_micro_batch": slo["micro_batch"],
+            "slo_candidates": slo["candidates"],
+            "bench": {k: res[k] for k in (
+                "micro_batch", "p99_budget_ms", "max_wait_ms",
+                "measured_saturation_qps", "wave_service_ms", "curve",
+                "operating_point")},
+            "offered_qps": qps, "runs": runs, "wave_stream_ms": wave_ms}
+
+    # KWS staged: K1 on the serve path
+    n, g, s, x = models[0]
+    staged = _headless(compile_graph(g, in_scale=s, device="cuda",
+                                     megakernel=False))
+    mb = out["models"][n]["bench"]["micro_batch"]
+    qps = out["models"][n]["offered_qps"]
+    per_wave = _counted(lambda: staged.submit_wave(x[:1], micro_batch=mb))
+    per_off = _counted(lambda: staged.offline(x[:SERVE_QUERIES]))
+    check(per_wave == (3, 0, 0), f"staged KWS launches {per_wave} a wave")
+    rec = _WaveRecorder(staged)
+    _reset_launches()
+    rep = server_streaming(rec, lambda i: x[i % len(x)], qps=qps,
+                           n_queries=SERVE_QUERIES, seed=SEED,
+                           micro_batch=mb, engine=SyncEngine(), warmup=1)
+    got = _launches_now()
+    waves = _hold_waves(rec, "kws staged sync waves")["waves"]
+    check(got == _add(_times(per_wave, waves), per_off),
+          f"kws staged: launches {got} for {waves} waves")
+    out["kws_staged"] = {"report": rep.row(), "waves": waves,
+                         "launches": got, "per_wave": per_wave}
+    log(f"serving kws staged ({smi}): p50 {rep.p50_ms:.6f} ms, p99 "
+        f"{rep.p99_ms:.6f} ms, {rep.throughput_qps:.1f} qps, {waves} waves, "
+        f"K1 {got[0]} launches ({per_wave[0]} a wave), codes equal offline "
+        f"bit for bit")
+
+    # the shim: four tenants, one router lane each
+    recs = {m: _WaveRecorder(tuned[m]) for m, *_ in models}
+    server = TinyModelServer(recs, engine=AsyncEngine())
+    for m, _, _, xx in models:
+        server.router.lanes[m].pool.warm(xx[:1])
+        recs[m].waves.clear()
+    reqs = {m: [server.submit(m, xx[i]) for i in range(SHIM_REQUESTS)]
+            for m, _, _, xx in models}
+    steps = server.run_until_drained()
+    held = {}
+    for m, *_ in models:
+        check(all(r.result is not None for r in reqs[m]),
+              f"shim: {m} has unserved requests")
+        held[m] = _hold_waves(recs[m], f"shim {m}",
+                              results=[r.result for r in reqs[m]])
+    shim = {k: v for k, v in server.stats().items()}
+    out["shim"] = {"steps": steps, "stats": shim, "held": held}
+    log(f"serving shim ({smi}): TinyModelServer, {len(models)} tenants "
+        f"x {SHIM_REQUESTS} requests under AsyncEngine in {steps} steps; "
+        + "; ".join(f"{m}: {_held_words(h)}"
+                    for m, h in held.items())
+        + f"; {json.dumps(shim)}")
+
+    # faults: a crash and a corrupt wave on a two-replica pool
+    n, g, s, x = models[0]
+    head = _headless(tuned[n])
+    mb = out["models"][n]["bench"]["micro_batch"]
+    plan = FaultPlan([FaultSpec("replica_crash", replica=0, wave=1,
+                                duration_s=0.0),
+                      FaultSpec("corrupt_output", replica=1, wave=1)])
+    pool = ReplicaPool(factory=lambda: head, devices=[dev, dev])
+    pool.warm(x[:1], micro_batch=mb)
+    pool = faulty_pool(pool, plan)
+    router = Router({n: pool}, RouterConfig(micro_batch=mb,
+                                            retry_backoff_ms=0.5,
+                                            max_retries=2),
+                    engine=AsyncEngine())
+    reqs = router.run_trace(n, poisson_trace(
+        qps=out["models"][n]["offered_qps"], n=FAULT_QUERIES, seed=SEED + 1),
+        lambda i: x[i % len(x)])
+    snap = router.stats()[n]["metrics"]
+    lost = [r.uid for r in reqs if r.shed or r.result is None]
+    check(not lost, f"faults: admitted requests lost or shed: {lost[:8]}")
+    _hold(head, np.stack([r.x for r in reqs]),
+          np.stack([r.result for r in reqs]), "faults: served rows")
+    injected = [r.model.n_injected for r in pool.replicas]
+    check(injected == [1, 1] and snap.fault_counts == {
+        "submit_error": 1, "integrity": 1},
+        f"faults: injected {injected}, counted {snap.fault_counts}")
+    out["faults"] = {"row": snap.row(), "injected": injected,
+                     "health": [r.health for r in pool.replicas]}
+    log(f"serving faults ({smi}): kws codes, 2 replicas, one replica_crash "
+        f"(replica 0) and one corrupt_output (replica 1) in "
+        f"{FAULT_QUERIES} queries: none lost, no corrupt row served, every "
+        f"row equals offline bit for bit; fault counts "
+        f"{json.dumps(snap.fault_counts)}, p99 {snap.p99_ms:.6f} ms")
     return out
 
 
@@ -2307,6 +2808,7 @@ def main() -> int:
             tuned, autotune_agree = phase_autotune(models, (c1, c2, c3))
         trace = phase_trace_export(tuned, models[0][3], smi)
         scenarios = phase_scenarios(models, tuned, smi)
+        serving = phase_serving(models, tuned, smi)
         lm["profile"] = phase_lm_profile()
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
@@ -2339,7 +2841,7 @@ def main() -> int:
                    "flash_attention": {"max_err_by_dtype": worst_flash,
                                        "main_path_shape": k6_rows},
                    "lm": lm, "kernel_bench": bench,
-                   "scenarios": scenarios,
+                   "scenarios": scenarios, "serving": serving,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,

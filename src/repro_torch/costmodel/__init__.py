@@ -7,8 +7,8 @@ trails (``dataset``), and a small seedable pure-numpy predictor with
 save/load artifacts (``model``; the shipped artifact is the reference's,
 fitted to a synthetic bootstrap fleet, not to a chip's times). Its
 consumer here is ``REPRO_AUTOTUNE=model`` (probe-free autotuning,
-``deploy.autotune``); the serving stack's admission pricing reads it too
-once ``repro_torch.serve.slo`` is ported.
+``deploy.autotune``) and the serving stack's cold-start admission
+pricing (``repro_torch.serve.slo.PredictedServiceModel``).
 """
 
 from repro_torch.costmodel.features import (

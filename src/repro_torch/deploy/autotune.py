@@ -61,8 +61,9 @@ micro-batch and dispatch. What differs:
     so on schedules the two planners plan differently its predictions, and
     then its picks, may differ from the reference's
     (``repro_torch.costmodel.features``).
-  * ``slo_micro_batch`` (the serving stack's operating point) raises
-    ``NotImplementedError`` until ``repro_torch.serve.slo`` is ported.
+  * ``slo_micro_batch`` (the serving stack's operating point) prices
+    waves with ``repro_torch.serve.slo.ServiceModel``, calibrated by the
+    port's ``stage_latencies``.
 
 Knobs, as in the reference: ``REPRO_AUTOTUNE=off|probe|model`` (unknown
 spellings raise), ``REPRO_AUTOTUNE_CACHE=dir`` (default
@@ -398,13 +399,29 @@ def plan_block_mn(in_dim: int, out_dim: int, n_steps: int = 255,
             "candidates": rows}
 
 
-def slo_micro_batch(cm, p99_budget_ms: float, **kwargs):
-    """The serving router's latency-budgeted micro-batch. It prices waves
-    with the serving stack's service model, which the port does not have
-    yet."""
-    raise NotImplementedError(
-        "slo_micro_batch needs the serving stack's ServiceModel, which "
-        "waits for repro_torch.serve.slo")
+def slo_micro_batch(cm, p99_budget_ms: float,
+                    stage_ms: Optional[List[Dict]] = None,
+                    probe_batch: int = 8,
+                    candidates: Sequence[int] = MICRO_CANDIDATES
+                    ) -> Dict[str, object]:
+    """Largest micro-batch whose modeled wave fill+drain fits the budget.
+
+    The throughput objective (``autotune_model``) picks the micro-batch
+    that drains an Offline pool fastest; a latency-budgeted server wants
+    the *largest wave that still finishes inside the p99 budget* — bigger
+    waves amortize dispatch overhead, but a full wave's service time lower-
+    bounds every member's latency. The service model is the serve stack's
+    (``repro_torch.serve.slo.ServiceModel``): FIFO-model cycles calibrated
+    to seconds by a ``stage_latencies`` probe at ``probe_batch``.
+    """
+    from repro_torch.serve.slo import ServiceModel, slo_operating_point
+
+    service = ServiceModel.from_compiled(cm, stage_ms=stage_ms,
+                                         probe_batch=probe_batch)
+    point = slo_operating_point(service, p99_budget_ms,
+                                candidates=candidates)
+    point["calibration"] = dict(service.calibration)
+    return point
 
 
 # ---------------------------------------------------------------------------

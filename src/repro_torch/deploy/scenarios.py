@@ -14,15 +14,18 @@ models):
   * StreamingOffline — the Offline pool through ``streaming_compiled`` at
     the executor's (tuned) micro-batch.
 
+  * ServerStreaming — Poisson arrivals through the dynamic-batching
+    router (``repro_torch.serve``): padded micro-batch waves through
+    ``submit_wave``, SLO shedding, every served result checked against
+    ``offline``.
+
 A query's time ends when its output is ready: where the reference blocks
 on the JAX array, the port synchronises the CUDA device the output lies on
-(``_ready``); CPU tensors and numpy arrays are ready when returned. Each
-report carries the roofline energy proxy of ``core.codesign.deploy_report``
-(the card's constants) beside a measured proxy, the card's power limit
-times the median latency. ``server_streaming`` (MLPerf Server over the
-dynamic-batching router) needs the serving stack's router, which waits for
-``repro_torch.serve.router``: it raises ``NotImplementedError`` and
-``run_all_scenarios`` leaves it out.
+(``_ready``); CPU tensors and numpy arrays are ready when returned. The
+router waits for each wave through its CUDA event. Each report carries the
+roofline energy proxy of ``core.codesign.deploy_report`` (the card's
+constants) beside a measured proxy, the card's power limit times the
+median latency.
 """
 
 from __future__ import annotations
@@ -78,6 +81,13 @@ def _ready(y):
     if isinstance(t, torch.Tensor) and t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
     return y
+
+
+def _host(y) -> np.ndarray:
+    """An output on the host as numpy (one copy for a tensor)."""
+    if isinstance(y, torch.Tensor):
+        return y.detach().cpu().numpy()
+    return np.asarray(y)
 
 
 def _percentiles(lat_s: List[float]) -> Dict[str, float]:
@@ -267,12 +277,101 @@ def server_poisson(infer: Callable, make_query: Callable[[int], np.ndarray],
                    offered_qps=qps)
 
 
-def server_streaming(compiled, make_query, **kwargs) -> ScenarioReport:
-    """MLPerf Server over the dynamic-batching serve router. The port has
-    no router yet."""
-    raise NotImplementedError(
-        "server_streaming needs the serving stack's router, which waits "
-        "for repro_torch.serve.router")
+def server_streaming(compiled, make_query: Callable[[int], np.ndarray],
+                     qps: float = 200.0, n_queries: int = 128, seed: int = 0,
+                     max_wait_ms: float = 2.0,
+                     p99_budget_ms: Optional[float] = None,
+                     micro_batch: Optional[int] = None,
+                     service_model=None, warmup: int = 1,
+                     model_cost=None, bits: int = 8,
+                     tracer=None, engine=None) -> ScenarioReport:
+    """MLPerf Server mode over the dynamic-batching serve router.
+
+    Where ``server_poisson`` serves each arrival alone (batch 1, one
+    worker), this scenario drives the ``repro_torch.serve`` router: Poisson
+    arrivals are coalesced into padded micro-batch waves (the autotuned
+    wave size by default, ``max_wait_ms`` deadline) and dispatched through
+    the executor's segment programs — the streaming pipeline fed by
+    request traffic rather than a pre-batched pool. With a
+    ``p99_budget_ms`` the SLO controller sheds load it estimates would
+    blow the budget; shed requests count into ``shed_rate`` but not into
+    the latency percentiles (MLPerf Server accounting: an over-SLO result
+    is invalid either way, an explicit shed is at least cheap).
+
+    On the card the warm-up also runs one wave on the router's replica
+    stream (``ReplicaPool.warm``): a fresh stream's first wave pays the
+    caching allocator's and cuBLAS's one-time setup.
+
+    When the executor exposes ``offline``, every served result is checked
+    bit-exact against it (``extras["bit_exact_vs_offline"]``) — padded
+    partial waves included, which is the wave-padding contract under real
+    traffic. Float outputs are held within 1e-6, the reference's
+    tolerance; on the card the float head's logits may depend on the
+    wave's row count (cuBLAS picks its reduction by shape), so a caller
+    that needs the integer codes compares them on its own.
+    """
+    from repro_torch.serve import Router, RouterConfig, poisson_trace
+
+    class _Clock:
+        """Adapter reading through the injectable obs timer
+        (``repro_torch.obs.timer``) so the deterministic-clock tests
+        control the router too."""
+
+        def now(self) -> float:
+            return obs_timer.now()
+
+        def sleep(self, seconds: float) -> None:
+            if seconds > 0:
+                obs_timer.sleep(seconds)
+
+    queries = [np.asarray(make_query(i)) for i in range(n_queries)]
+    submit = getattr(compiled, "submit_wave", None)
+    for w in range(max(warmup, 0)):
+        if submit is None:
+            break
+        y, _ = submit(queries[w % n_queries][None],
+                      micro_batch=micro_batch)
+        _ready(y)                              # build and warm the wave
+    cfg = RouterConfig(max_wait_ms=max_wait_ms, micro_batch=micro_batch,
+                       p99_budget_ms=p99_budget_ms)
+    router = Router({"m": compiled}, cfg, clock=_Clock(),
+                    service_models=(None if service_model is None
+                                    else {"m": service_model}),
+                    tracer=tracer, engine=engine)
+    pool = router.lanes["m"].pool
+    if submit is not None and warmup > 0 \
+            and any(r.stream is not None for r in pool.replicas):
+        # a replica's CUDA stream pays one-time costs on its first wave
+        pool.warm(queries[0][None], micro_batch=micro_batch)
+    trace = poisson_trace(qps=qps, n=n_queries, seed=seed)
+    reqs = router.run_trace("m", trace, lambda i: queries[i])
+    served = [r for r in reqs if not r.shed]
+    shed = len(reqs) - len(served)
+    lats = [r.latency_s for r in served] or [0.0]
+    span = (max(r.done_t for r in served) - min(r.arrival_t for r in served)
+            if served else 1e-9)
+    snap = router.stats()["m"]["metrics"]
+    exact = None
+    if served and hasattr(compiled, "offline"):
+        xb = np.stack([r.x for r in served])
+        y_ref = _host(compiled.offline(xb))
+        got = np.stack([np.asarray(r.result) for r in served])
+        exact = bool(np.array_equal(got, y_ref)) if np.issubdtype(
+            y_ref.dtype, np.integer) else bool(
+            np.allclose(got, y_ref, rtol=1e-6, atol=1e-6))
+    extras = dict(offered_qps=qps, served=len(served), shed=shed,
+                  shed_rate=shed / max(len(reqs), 1),
+                  micro_batch=router.lanes["m"].micro_batch,
+                  wave_occupancy=snap.mean_occupancy,
+                  n_waves=snap.n_waves)
+    if p99_budget_ms is not None:
+        extras["p99_budget_ms"] = p99_budget_ms
+        extras["met_slo"] = bool(served) and bool(np.percentile(
+            np.asarray(lats) * 1e3, 99) <= p99_budget_ms)
+    if exact is not None:
+        extras["bit_exact_vs_offline"] = exact
+    return _finish("ServerStreaming", lats, len(served), span,
+                   model_cost, bits, **extras)
 
 
 def run_all_scenarios(infer: Callable, make_query: Callable[[int], np.ndarray],
@@ -281,9 +380,9 @@ def run_all_scenarios(infer: Callable, make_query: Callable[[int], np.ndarray],
                       model_cost=None, bits: int = 8, compiled=None,
                       tracer=None) -> List[ScenarioReport]:
     """The MLPerf-Tiny sweep for one deployed model: SingleStream,
-    MultiStream, Offline and Server, and StreamingOffline when
-    ``compiled`` has ``streaming_compiled``. ServerStreaming waits for the
-    serving stack (``repro_torch.serve.router``)."""
+    MultiStream, Offline and Server; StreamingOffline when ``compiled``
+    has ``streaming_compiled``, and ServerStreaming (the Server load
+    through the dynamic-batching router) when it has ``submit_wave``."""
     reports = [
         single_stream(infer, make_query, n_queries=n_queries,
                       model_cost=model_cost, bits=bits, compiled=compiled,
@@ -301,5 +400,9 @@ def run_all_scenarios(infer: Callable, make_query: Callable[[int], np.ndarray],
     if compiled is not None and hasattr(compiled, "streaming_compiled"):
         reports.append(streaming_pipeline(
             compiled, make_query, n_samples=offline_samples,
+            model_cost=model_cost, bits=bits, tracer=tracer))
+    if compiled is not None and hasattr(compiled, "submit_wave"):
+        reports.append(server_streaming(
+            compiled, make_query, qps=server_qps, n_queries=n_queries,
             model_cost=model_cost, bits=bits, tracer=tracer))
     return reports

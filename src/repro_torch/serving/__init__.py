@@ -1,2 +1,3 @@
 """repro_torch.serving — the continuous-batching LM engine
-(``engine.ServeEngine``)."""
+(``engine.ServeEngine``) and the multi-tenant tiny-model server
+(``engine.TinyModelServer``, a shim over ``repro_torch.serve.Router``)."""

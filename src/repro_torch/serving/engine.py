@@ -11,14 +11,18 @@ reference's semantics:
     vector; finished sequences free their slot at once.
 
 The engine runs on the card unless it is given ``device="cpu"``; asking for
-the card without one raises. ``TinyModelServer`` comes with the serving
-stack's slice.
+the card without one raises.
+
+``TinyModelServer`` serves the Table-1 tiny models concurrently: the port
+of the reference's compatibility shim over the dynamic-batching router
+(``repro_torch.serve``), one router lane per tenant, every batch a
+``submit_wave`` wave.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -170,3 +174,145 @@ class ServeEngine:
             "mean_latency_s": float(np.mean(lats)),
             "throughput_tok_s": toks / max(span, 1e-9),
         }
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant tiny-model serving (repro_torch.deploy integration)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TinyRequest:
+    """One inference request against a named tiny model."""
+
+    uid: int
+    model: str
+    x: np.ndarray                        # (features...,) single sample
+    submit_t: float = 0.0
+    done_t: float = 0.0
+    result: Optional[np.ndarray] = None
+
+
+class _OfflineWaveAdapter:
+    """Wave API for legacy tenants that only expose ``offline(batch)``.
+
+    The router dispatches through ``submit_wave``; a tenant without one
+    gets this adapter: no padding, the wave is just the batch (copied to
+    the model's ``device``, the CPU when it names none), every row valid.
+    """
+
+    def __init__(self, model: Any):
+        self.model = model
+        self.default_micro_batch = 1
+
+    def submit_wave(self, x, valid=None, micro_batch=None):
+        y = self.model.offline(torch.as_tensor(
+            np.asarray(x), device=getattr(self.model, "device", None)))
+        n = np.asarray(x).shape[0]
+        mask = np.ones(n, bool) if valid is None else np.asarray(valid, bool)
+        return y, mask
+
+
+class TinyModelServer:
+    """All Table-1 tiny models served concurrently from one shared queue.
+
+    A *compatibility shim* over the dynamic-batching router: the legacy
+    API (``submit``/``step``/``run_until_drained``/``stats``), with every
+    batch dispatched through the executor's segment waves
+    (``CompiledTinyModel.submit_wave``) and one router lane per tenant so
+    a burst on one model cannot starve the others. Tenants without a wave
+    API still work through ``_OfflineWaveAdapter``. New code should use
+    ``repro_torch.serve.Router`` directly (SLO admission, deadline
+    batching, replica placement, sliding-window metrics live there).
+    """
+
+    def __init__(self, models: Dict[str, Any], max_batch: int = 32,
+                 engine: Any = None):
+        from repro_torch.serve import Router, RouterConfig
+
+        self.models = dict(models)
+        self.max_batch = max_batch
+        self.queue: List[TinyRequest] = []
+        self.finished: List[TinyRequest] = []
+        self._uid = 0
+        # explicitly-stepped router: waves of up to max_batch per tenant,
+        # dispatched only from step() (legacy drain semantics, no deadline).
+        # ``engine`` passes through to the router (e.g.
+        # ``repro_torch.serve.AsyncEngine()`` to overlap tenants' waves
+        # across a replica pool); step() reaps before reading results, so the
+        # legacy submit/step/stats contract holds under either engine.
+        self.router = Router(
+            {name: (m if hasattr(m, "submit_wave")
+                    else _OfflineWaveAdapter(m))
+             for name, m in self.models.items()},
+            RouterConfig(micro_batch=max_batch, auto_dispatch=False,
+                         max_wait_ms=0.0),
+            engine=engine)
+        self._routed: Dict[int, Any] = {}   # TinyRequest.uid -> ServeRequest
+
+    def submit(self, model: str, x: np.ndarray) -> TinyRequest:
+        if model not in self.models:
+            raise KeyError(f"unknown tiny model {model!r}; "
+                           f"tenants: {sorted(self.models)}")
+        req = TinyRequest(uid=self._uid, model=model, x=np.asarray(x),
+                          submit_t=obs_timer.now())
+        self._uid += 1
+        self.queue.append(req)
+        self._routed[req.uid] = self.router.submit(model, req.x,
+                                                   arrival_t=req.submit_t)
+        return req
+
+    def step(self) -> int:
+        """Run one wave per tenant; returns #requests served."""
+        served = 0
+        for name in self.models:
+            served += self.router.dispatch_one(name, max_n=self.max_batch)
+        # settle async in-flight waves before reading results back (a
+        # no-op under the default blocking engine)
+        self.router.reap(block=True)
+        if served:
+            still: List[TinyRequest] = []
+            for req in self.queue:
+                routed = self._routed[req.uid]
+                if routed.result is not None:
+                    req.result = np.asarray(routed.result)
+                    req.done_t = routed.done_t
+                    self.finished.append(req)
+                    del self._routed[req.uid]
+                else:
+                    still.append(req)
+            self.queue = still
+        return served
+
+    def run_until_drained(self, max_steps: int = 10_000) -> int:
+        steps = 0
+        while self.queue and steps < max_steps:
+            self.step()
+            steps += 1
+        return steps
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-tenant and aggregate latency/throughput (legacy shape, plus
+        the router's wave occupancy per tenant)."""
+        if not self.finished:
+            return {}
+        out: Dict[str, Dict[str, float]] = {}
+        span = (max(r.done_t for r in self.finished)
+                - min(r.submit_t for r in self.finished))
+        router_stats = self.router.stats()
+        for name in self.models:
+            lats = [r.done_t - r.submit_t for r in self.finished
+                    if r.model == name]
+            if not lats:
+                continue
+            out[name] = {
+                "n": len(lats),
+                "p50_ms": float(np.percentile(lats, 50) * 1e3),
+                "p99_ms": float(np.percentile(lats, 99) * 1e3),
+                "wave_occupancy":
+                    router_stats[name]["metrics"].mean_occupancy,
+            }
+        out["_aggregate"] = {
+            "n": len(self.finished),
+            "throughput_qps": len(self.finished) / max(span, 1e-9),
+        }
+        return out

@@ -277,18 +277,28 @@ def test_plan_block_mn_picks_among_the_kernels_tiles():
 
 
 def test_model_mode_and_slo_wait_for_their_items(monkeypatch, tmp_path):
-    """Model mode has its cost model now (``repro_torch.costmodel``):
-    explicit or through ``REPRO_AUTOTUNE=model`` it searches without a
-    probe; ``slo_micro_batch`` still waits for the serving stack's
-    ``repro_torch.serve.slo``."""
-    _, tm = _pair("mlp")
+    """Both items have landed. Model mode has its cost model
+    (``repro_torch.costmodel``): explicit or through
+    ``REPRO_AUTOTUNE=model`` it searches without a probe.
+    ``slo_micro_batch`` has the serving stack's ``ServiceModel``
+    (``repro_torch.serve.slo``): on the same schedule and stage times it
+    picks the reference's wave, with the same candidate table and
+    calibration."""
+    jm, tm = _pair("mlp")
     cfg = tat.autotune_model(tm, mode="model", directory=str(tmp_path),
                              force=True)
     assert cfg.source == "predicted" and cfg.probe_ms is None
     monkeypatch.setenv("REPRO_AUTOTUNE", "model")
     assert tat.autotune_model(tm, directory=str(tmp_path)) == cfg
-    with pytest.raises(NotImplementedError, match="repro_torch.serve.slo"):
-        tat.slo_micro_batch(tm, 5.0)
+    stage_ms = [{"stage": s.name, "kind": type(s).__name__,
+                 "ms": 0.004 * (i + 1)}
+                for i, s in enumerate(tm.schedule.stages)]
+    for budget in (0.005, 0.02, 0.05, 5.0):
+        got = tat.slo_micro_batch(tm, budget, stage_ms=stage_ms)
+        assert got == jat.slo_micro_batch(jm, budget, stage_ms=stage_ms)
+        assert got["calibration"]["probe_batch"] == 8
+    assert [c["micro_batch"] for c in got["candidates"]] == \
+        list(tat.MICRO_CANDIDATES)
 
 
 def test_compile_graph_autotune_flag_and_env_knobs(tmp_path, monkeypatch):

@@ -562,3 +562,119 @@ def test_conv_threshold_row_blocks_equal_plain(cuda, block_h):
                              block_h=block_h, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the serving stack on the card: events, streams, stream ordering
+# ---------------------------------------------------------------------------
+
+def _golden_on(name, device, megakernel=None):
+    """The golden graph compiled on ``device``, its headless twin (the
+    same schedule without the float head: integer codes out) and its
+    input rows."""
+    import dataclasses
+
+    from repro_torch.core.qir import Graph
+    from repro_torch.deploy import CompiledTinyModel, compile_graph
+
+    graph = Graph.load(os.path.join(GOLDEN_DIR, f"{name}.qir.json"))
+    x = np.load(os.path.join(GOLDEN_DIR, f"{name}.golden.npz"))["x"]
+    cm = compile_graph(graph, in_scale=graph.meta["in_scale"], device=device,
+                       megakernel=megakernel)
+    head = CompiledTinyModel(
+        dataclasses.replace(cm.schedule, stages=cm.schedule.stages[:-1]),
+        device=cm.device, megakernel=cm.megakernel)
+    return cm, head, x
+
+
+def test_wave_handle_waits_on_its_cuda_event(cuda):
+    from repro_torch.serve import Replica
+
+    cm, head, x = _golden_on("kws", cuda)
+    rep = Replica(index=0, model=head, device=cuda)
+    assert rep.stream is not None and rep.stream != torch.cuda.current_stream()
+    h = rep.submit(x[:3], micro_batch=4)
+    assert isinstance(h._event, torch.cuda.Event)
+    assert h.ready() in (True, False)          # a query, never a block
+    y, mask = h.wait()
+    assert h.ready() and h._event.query()
+    assert mask.tolist() == [True, True, True, False]
+    assert torch.equal(y[:3].cpu(), head.offline(x[:3]).cpu())
+
+
+def test_two_replica_streams_on_one_card_equal_offline(cuda):
+    """Two logical replicas sharing one executor on one card (two streams)
+    under the async engine: every served row equals ``offline`` (codes bit
+    for bit, logits within 1e-5), and both streams took waves."""
+    from repro_torch.serve import (AsyncEngine, ManualClock, ReplicaPool,
+                                   Router, RouterConfig)
+
+    for model, exact in ((0, True), (1, False)):
+        cm, head, x = _golden_on("ad", cuda)
+        served = (head, cm)[model]
+        pool = ReplicaPool(factory=lambda: served, devices=[cuda, cuda])
+        assert pool.replicas[0].stream != pool.replicas[1].stream
+        router = Router({"m": pool}, RouterConfig(micro_batch=2,
+                                                  max_wait_ms=1.0),
+                        clock=ManualClock(), engine=AsyncEngine())
+        rows = np.concatenate([x] * 4)
+        reqs = [router.submit("m", r) for r in rows]
+        router.drain()
+        want = served.offline(rows).cpu().numpy()
+        got = np.stack([r.result for r in reqs])
+        if exact:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert all(r.n_dispatched > 0 for r in pool.replicas)
+
+
+def test_replica_stream_waits_for_weights_packed_after_apply_tuned(cuda):
+    """``apply_tuned`` re-packs K3's weights on the current stream; a wave
+    submitted at once on a replica stream, while that work still queues
+    behind a long kernel, must see the packed weights."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.deploy.autotune import autotune_model
+    from repro_torch.serve import Replica
+
+    cm, head, x = _golden_on("kws", cuda)
+    want = head.offline(x).cpu()
+    with tempfile.TemporaryDirectory() as d:
+        cfg = autotune_model(head, mode="model", directory=d, force=True)
+    cfg = dataclasses.replace(cfg, segment_mode="megakernel")
+    rep = Replica(index=0, model=head, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)           # ~0.1 s on the current stream
+    head.apply_tuned(cfg)                    # packing queues behind it
+    assert head._mega_plans
+    before = ops.launches["mlp_megakernel"]
+    y, _ = rep.submit(x, micro_batch=x.shape[0]).wait()
+    assert ops.launches["mlp_megakernel"] == before + 1
+    assert torch.equal(y.cpu(), want)
+
+
+def test_faulty_model_corrupts_a_cuda_wave_on_the_card(cuda):
+    """A ``corrupt_output`` fault on a wave on the card is written on the
+    device, caught by the integrity guard and retried; served rows equal
+    ``offline``. A slowdown waits for the wave before stretching it."""
+    from repro_torch.serve import (FaultPlan, FaultSpec, FaultyModel,
+                                   ManualClock, ReplicaPool, Router,
+                                   RouterConfig, SyncEngine, faulty_pool)
+
+    cm, head, x = _golden_on("kws", cuda)
+    clock = ManualClock()
+    plan = FaultPlan([FaultSpec("corrupt_output", replica=0, wave=1),
+                      FaultSpec("replica_slowdown", replica=0, wave=2,
+                                factor=3.0)])
+    pool = faulty_pool(ReplicaPool(head), plan, clock=clock)
+    assert isinstance(pool.replicas[0].model, FaultyModel)
+    router = Router({"kws": pool}, RouterConfig(micro_batch=2,
+                                                max_wait_ms=1.0),
+                    clock=clock, engine=SyncEngine())
+    reqs = [router.submit("kws", x[i], arrival_t=0.0) for i in range(2)]
+    router.drain()
+    np.testing.assert_array_equal(np.stack([r.result for r in reqs]),
+                                  head.offline(x[:2]).cpu().numpy())
+    assert router.stats()["kws"]["metrics"].fault_counts == {"integrity": 1}

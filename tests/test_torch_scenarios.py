@@ -196,8 +196,8 @@ def test_stage_breakdown_and_roofline_energy_against_each_side(clock):
 def test_run_all_scenarios_on_a_compiled_golden(clock):
     """The sweep on a real compiled model on the CPU (its stage probes and
     streaming path run; the fake clock makes the numbers exact): the
-    reference's scenarios minus ServerStreaming, which waits for the
-    serving stack."""
+    reference's scenarios, ServerStreaming (through the port's router)
+    last, its served results equal to ``offline``."""
     with open(os.path.join(GOLDEN_DIR, "kws.qir.json")) as f:
         tg = TGraph.from_json(f.read())
     cm = tcompile(tg, device="cpu")
@@ -215,17 +215,80 @@ def test_run_all_scenarios_on_a_compiled_golden(clock):
                                  compiled=cm)
     assert [r.scenario for r in reps] == ["SingleStream", "MultiStream",
                                           "Offline", "Server",
-                                          "StreamingOffline"]
+                                          "StreamingOffline",
+                                          "ServerStreaming"]
+    assert reps[-1].extras["bit_exact_vs_offline"] is True
+    assert reps[-1].extras["served"] == 8
     assert reps[0].p90_ms == pytest.approx(1.0)
     assert reps[0].stage_ms and len(reps[0].stage_ms) == len(
         cm.schedule.stages)
-    assert reps[-1].extras["micro_batch"] == cm.default_micro_batch
+    assert reps[-2].extras["micro_batch"] == cm.default_micro_batch
     assert all(r.energy_proxy_uJ is not None for r in reps)
 
 
-def test_server_streaming_waits_for_the_serving_stack():
-    with pytest.raises(NotImplementedError, match="repro_torch.serve.router"):
-        tsc.server_streaming(None, _mk)
+class _WaveFake:
+    """A ``submit_wave`` executor advancing the fake clock by a scripted
+    service time per wave, with an ``offline`` the check reads."""
+
+    default_micro_batch = 2
+
+    def __init__(self, clock, service_s):
+        self.clock, self.service_s, self.waves = clock, service_s, []
+
+    def submit_wave(self, x, valid=None, micro_batch=None):
+        mb = int(micro_batch or self.default_micro_batch)
+        x = np.asarray(x)
+        n = x.shape[0]
+        self.waves.append(n)
+        self.clock.advance(self.service_s)
+        mask = np.concatenate([np.ones(n, bool), np.zeros(mb - n, bool)])
+        y = np.zeros((mb, 2), np.float32)
+        y[:n] = x.reshape(n, -1)[:, :2] * 0.5
+        return y, mask
+
+    def offline(self, x):
+        return np.asarray(x).reshape(len(x), -1)[:, :2] * 0.5
+
+
+def _mk_varied(i):
+    return np.arange(4, dtype=np.int32) + i
+
+
+def test_server_streaming_waits_for_the_serving_stack(clock):
+    """``server_streaming`` drives the port's router now: under one fake
+    timer the reference and the port give the same report, field for
+    field — batching waits, percentiles, throughput, waves, occupancy,
+    the offline check — with and without an SLO budget (energy fields
+    checked against each side's own constants)."""
+    from repro.serve import ServiceModel as JService
+    from repro_torch.serve import ServiceModel as TService
+
+    for kw in (dict(qps=250.0, n_queries=9, seed=4, max_wait_ms=6.0,
+                    micro_batch=2, warmup=1),
+               dict(qps=500.0, n_queries=40, seed=0, max_wait_ms=2.0,
+                    micro_batch=2, warmup=0, p99_budget_ms=120.0),
+               dict(qps=90.0, n_queries=17, seed=2, max_wait_ms=3.0,
+                    warmup=2)):
+        reps, waves = [], []
+        for mod, service in ((jsc, JService), (tsc, TService)):
+            clock.t = 0.0
+            fake = _WaveFake(clock, 0.050 if "p99_budget_ms" in kw
+                             else 0.0)
+            svc = (service(works=[("s", 0)], sec_per_cycle=0.050 / 9)
+                   if "p99_budget_ms" in kw else None)
+            reps.append(mod.server_streaming(fake, _mk_varied,
+                                             service_model=svc, **kw))
+            waves.append(fake.waves)
+        j, t = reps
+        assert waves[1] == waves[0]
+        assert t.scenario == j.scenario == "ServerStreaming"
+        assert (t.n_queries, t.p50_ms, t.p90_ms, t.p99_ms,
+                t.throughput_qps) == (j.n_queries, j.p50_ms, j.p90_ms,
+                                      j.p99_ms, j.throughput_qps)
+        assert t.extras == j.extras
+        assert t.extras["bit_exact_vs_offline"] is True
+        if "p99_budget_ms" in kw:
+            assert 0 < t.extras["shed"] < kw["n_queries"]
 
 
 def test_ready_passes_cpu_and_numpy_outputs_through():
