@@ -45,7 +45,12 @@ which fails the run with a non-zero exit:
                batch, counters read (``MAIN_PATH_LAUNCHES``: staged K1
                3 / 5 / 0 / 2 and K2 0 / 0 / 5 / 6 for KWS / AD / IC / CNV;
                auto K3 once for KWS, AD and CNV, K2 5 / 6 for IC / CNV);
-               then ``predict``. Every fused stage's kernel, and every
+               then ``predict``. Every schedule ends in a float head
+               (``float_head``, one launch an ``offline``: a repair, its
+               per-output sum in one fixed order, so a row's logits do
+               not depend on the batch); its kernel is held within 1e-5
+               of its plain version and equal to both modes' logits.
+               Every fused stage's kernel, and every
                planned K3 run, is then held against its plain version on
                its real main-path input (all 1024 rows), every stage's
                codes must hold some nonzero code, and every model's
@@ -177,15 +182,36 @@ which fails the run with a non-zero exit:
                result equal to ``offline``); KWS's codes on a two-replica
                pool under ``faulty_pool`` (a ``replica_crash`` on replica
                0, a ``corrupt_output`` on replica 1): no admitted request
-               lost, no corrupt row served, the fault counts the plan's.
+               lost, no corrupt row served, the fault counts the plan's;
+               ``server_streaming``'s ``bit_exact_vs_offline`` (the
+               reference's 1e-6 against ``offline`` of all served rows)
+               must read true on all four models, logits and codes;
+ 17. QAT     — quantization-aware training on the card (``phase_qat``):
+               ``ste_round`` / ``ste_clip`` / ``ste_sign`` forward and
+               backward equal the CPU bit for bit; the quickstart
+               (``repro_torch.examples.quickstart``) trains its 4-bit MLP,
+               streamlines it and runs the stages on K1, whose codes equal
+               the plain version's; Table 1's trainings at full width
+               (``bench.table1_models``: KWS 490-256x3-12 3-bit 150 steps,
+               AD 128-72-72-8-72-72-128 8-bit 120 steps): step ms (host
+               clock, synchronised), first and last loss, QAT accuracy /
+               AUC; each exported with frozen scales and deployed in both
+               modes with launches counted (auto K3 1, staged K1 3 / 5,
+               the float head 1), the deployed accuracy / AUC, every
+               stage's codes equal the streamlined float reference
+               (``float_ref_dense`` at the frozen scales), the codes
+               ``Graph.run`` gives (float weights) counted beside, and the
+               share of nonzero codes per stage beside the seeded
+               models'.
 
-Phase 16 runs after phase 15; phase 9's profile runs last of all. The last lines are the kernels JSON
+Phase 16 runs after phase 15, phase 17 after it; phase 9's profile runs
+last of all. The last lines are the kernels JSON
 line, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
 ``"serving"``). Each kernel's ``launches`` comes
-from its own main path's counted run: phase 3 for K1-K3, phase 9's
-prefill for K6, phase 13's checking pass for K4 and K5.
+from its own main path's counted run: phase 3 for K1-K3 and the float
+head, phase 9's prefill for K6, phase 13's checking pass for K4 and K5.
 """
 
 from __future__ import annotations
@@ -207,6 +233,7 @@ INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 INT32_OPS_PER_S = 64 * 132 * 1.98e9  # H100 SXM CUDA-core int32 rate
                                      # (64 lanes/SM, 132 SMs, 1.98 GHz)
+FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 LM_CONFIG = "llama3-8b"
 LM_SEQ = 4096                    # prefill length: "auto" takes K6 above 2048
 REPLACES = {
@@ -222,6 +249,9 @@ REPLACES = {
                         "src/repro/kernels/multi_threshold.py:81"),
     "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
                 "src/repro/kernels/qmatmul.py:60"),
+    # a repair, not a TPU kernel: the reference's float head expression
+    "float_head": ("src/repro_torch/kernels/csrc/float_head.cu",
+                   "src/repro/deploy/lower.py:441"),
 }
 #: the peak each kernel's operations are bounded by: integer MACs on the
 #: int8 tensor-core rate, attention on the bf16 rate, K4's compares on the
@@ -231,10 +261,13 @@ PEAK_OPS_PER_S = {"threshold_matmul": INT8_OPS_PER_S,
                   "mlp_megakernel": INT8_OPS_PER_S,
                   "flash_attention": BF16_OPS_PER_S,
                   "multi_threshold": INT32_OPS_PER_S,
-                  "qmatmul": INT8_OPS_PER_S}
+                  "qmatmul": INT8_OPS_PER_S,
+                  "float_head": FP32_OPS_PER_S}
 #: the kernels of the integer path (phase 3), of the LM path (phase 9) and
 #: of the kernel bench (phase 13)
 TINY_KERNELS = ("threshold_matmul", "conv_threshold", "mlp_megakernel")
+#: the float head every Table-1 schedule ends in: one launch an offline call
+HEAD_KERNEL = "float_head"
 LM_KERNELS = ("flash_attention",)
 BENCH_KERNELS = ("multi_threshold", "qmatmul")
 #: the two dispatch modes of the main path: (label, ``megakernel=``)
@@ -345,6 +378,24 @@ def tmm_case(model, stage, x, w, t):
             "plain": lambda: ref.threshold_matmul_ref(x, w, t),
             "library": _mm_library(x, w),
             "inputs": (x, w, t), "bytes": nbytes, "ops": nops}
+
+
+def head_case(model, stage, x, w, b, in_scale):
+    """A timing case for ``float_head`` on the head's main-path codes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    m, k = x.shape
+    n = w.shape[1]
+    xf = x.to(torch.float32)
+    return {"kernel": "float_head", "model": model, "stage": stage,
+            "shape": f"M={m} K={k} N={n}",
+            "run": lambda: ops.float_head(x, w, in_scale, b),
+            "plain": lambda: ref.float_head_ref(x, w, in_scale, b),
+            "library": lambda: torch.addmm(b, xf, w, alpha=in_scale),
+            "library_is": "library (torch.addmm on float codes)",
+            "inputs": (x, w, b), "bytes": (m * k + k * n + n + m * n) * 4,
+            "ops": 2 * m * k * n}
 
 
 def conv_case(model, stage, x, w, t, kw):
@@ -763,11 +814,18 @@ def phase_main_path(models):
             got = per_run[run][kname]
             check(got == k, f"{run} offline launched {kname} {got} times, "
                             f"expected {k}")
-    for name in TINY_KERNELS:
+    for run, counts in per_run.items():
+        check(counts[HEAD_KERNEL] == 1, f"{run} offline launched "
+                                        f"{HEAD_KERNEL} {counts[HEAD_KERNEL]}"
+                                        f" times, expected 1")
+    for name in TINY_KERNELS + (HEAD_KERNEL,):
         check(launches[name] > 0, f"{name} was never launched on the main "
                                   f"path")
     for name in LM_KERNELS:
         check(launches[name] == 0, f"{name} launched on the integer path")
+    log("main-path schedules end in: " + ", ".join(
+        f"{n}/{mode} {type(cm.schedule.stages[-1]).__name__}"
+        for (n, mode), cm in compiled.items()))
     return results, launches, per_run
 
 
@@ -782,15 +840,16 @@ def _plans(cm):
 def phase_main_path_checks(models, results):
     """Both modes' outputs on the card equal the port on the CPU; every
     fused stage's kernel and every planned K3 run equals its plain version
-    on its main-path input. Returns (per-stage timing cases, each with the
-    number of its launches in the counted run, and the worst
-    |kernel - plain| per kernel)."""
+    on its main-path input, the float head within 1e-5 and equal to both
+    modes' logits. Returns (per-stage timing cases, each with the number
+    of its launches in the counted run; the worst |kernel - plain| per
+    kernel; each model's share of nonzero codes per stage)."""
     import numpy as np
     import torch
-    from repro_torch.deploy import (FusedConvThresholdStage,
+    from repro_torch.deploy import (FloatHeadStage, FusedConvThresholdStage,
                                     FusedThresholdStage, compile_graph)
 
-    cases, worst = [], dict.fromkeys(REPLACES, 0)
+    cases, worst, nonzero = [], dict.fromkeys(REPLACES, 0), {}
     for n, g, s, x in models:
         cm, logits, pred = results[(n, "staged")]
         auto, a_logits, a_pred = results[(n, "auto")]
@@ -815,6 +874,7 @@ def phase_main_path_checks(models, results):
         codes = [o for o in want[:-1] if not o.dtype.is_floating_point]
         nz = [float((c > 0).float().mean()) for c in codes]
         check(min(nz) > 0, f"{n}: a stage's codes are all 0 ({nz})")
+        nonzero[n] = [round(v, 4) for v in nz]
         log(f"main-path {n}: {len(got)} stages equal the CPU port on "
             f"{rows} of {len(x)} rows (ints exact, logits within 1e-5 in "
             f"both modes; nonzero code share per stage "
@@ -838,6 +898,23 @@ def phase_main_path_checks(models, results):
                   f"/ CPU (max err {err})")
             log(f"kernel-check mlp_megakernel {n}/{cases[-1]['stage']} "
                 f"{cases[-1]['shape']}: exact, equals the CPU stages")
+        head = cm.schedule.stages[-1]
+        if isinstance(head, FloatHeadStage):
+            xi = got[-2].to(torch.int32).contiguous()
+            cases.append(head_case(n, head.name, xi, head.w, head.b,
+                                   head.in_scale))
+            cases[-1]["launches"] = 2          # once in each mode
+            k_out, p_out = cases[-1]["run"](), cases[-1]["plain"]()
+            err = float((k_out - p_out).abs().max())
+            worst[HEAD_KERNEL] = max(worst[HEAD_KERNEL], err)
+            torch.testing.assert_close(k_out, p_out, rtol=1e-5, atol=1e-5)
+            check(torch.equal(k_out, got[-1]) and torch.equal(k_out, logits)
+                  and torch.equal(k_out, a_logits),
+                  f"{n} head: the kernel's logits differ from the staged / "
+                  f"auto offline logits")
+            log(f"kernel-check float_head {n}/{head.name} "
+                f"{cases[-1]['shape']}: within 1e-5 of plain (max err "
+                f"{err:.3g}), equal to both modes' offline logits")
         h = torch.as_tensor(x).cuda()
         for i, (st, out) in enumerate(zip(cm.schedule.stages, got)):
             if isinstance(st, FusedThresholdStage):
@@ -868,7 +945,7 @@ def phase_main_path_checks(models, results):
             log(f"kernel-check {cases[-1]['kernel']} {n}/{st.name} "
                 f"{cases[-1]['shape']}: exact")
             h = out
-    return cases, worst
+    return cases, worst, nonzero
 
 
 def _mm_library(x, w):
@@ -1081,7 +1158,7 @@ def phase_full_width():
     from repro_torch.kernels.conv_threshold import direct_conv_acc, pad_input
 
     g = torch.Generator().manual_seed(SEED + 3)
-    cases, worst = [], dict.fromkeys(REPLACES, 0)
+    cases, worst, nonzero = [], dict.fromkeys(REPLACES, 0), {}
     for model, stage, h, wd, c, f, k, st, pad, s in FULL_WIDTH_CONVS:
         first = stage == "conv0"
         lo, hi = ((-127, 128) if model == "ic" else (0, 256)) if first \
@@ -2383,14 +2460,14 @@ def _hold(model, x, y, label):
 
 def _hold_waves(rec, label, results=None):
     """Every wave a ``_WaveRecorder`` served, held against ``offline``.
-    Each wave's valid rows against ``offline`` of the same padded wave
-    (the same row count, so the float head's cuBLAS call has the wave's
-    shape): codes bit for bit, logits within 1e-5. Then all the waves'
-    rows against one ``offline`` call on all their inputs: codes bit for
-    bit; for logits the worst difference is measured, not held (the
-    float head's reduction depends on the row count on the card, ROADMAP
-    queue 3). ``results`` (the router's per-request rows, in dispatch
-    order) must equal the waves' rows bit for bit. Returns a summary."""
+    Each wave's valid rows against ``offline`` of the same padded wave:
+    codes bit for bit, logits within 1e-5. Then all the waves' rows
+    against one ``offline`` call on all their inputs: codes bit for bit;
+    for logits the worst difference is measured (the float head's kernel
+    sums in a fixed order, so it is 0; ``phase_serving`` holds
+    ``server_streaming``'s own ``bit_exact_vs_offline``). ``results`` (the
+    router's per-request rows, in dispatch order) must equal the waves'
+    rows bit for bit. Returns a summary."""
     import numpy as np
     import torch
 
@@ -2550,6 +2627,10 @@ def phase_serving(models, tuned, smi):
             want = _add(_times(per_wave, held["waves"]), per_off)
             check(got == want, f"{n} {label} sync: launches {got}, "
                                f"expected {want} ({held['waves']} waves)")
+            check(rep.extras.get("bit_exact_vs_offline") is True,
+                  f"{n} {label} sync: server_streaming's "
+                  f"bit_exact_vs_offline is "
+                  f"{rep.extras.get('bit_exact_vs_offline')}")
             sync = {"report": rep.row(), "launches": got,
                     "per_wave": per_wave, "held": held,
                     "submit_ms_max": max(rec.submit_ms), "gc": gc_sync.row(),
@@ -2722,10 +2803,168 @@ def phase_serving(models, tuned, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: quantization-aware training on the card
+# ---------------------------------------------------------------------------
+
+def _ste_cases():
+    """Seeded inputs for the straight-through functions: uniform values,
+    exact halves (round half to even) and the clip / sign edges."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.rand(4096, generator=g) * 8 - 4
+    edges = torch.tensor([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, -1.0, 1.0, 0.0,
+                          -0.0, 2.0, -2.0])
+    return torch.cat([x, edges]), torch.randn(4096 + 12, generator=g)
+
+
+def phase_qat(smi, seeded_nonzero):
+    """Quantization-aware training on the card, then what it trained on
+    the kernels. (1) ``ste_round`` / ``ste_clip`` / ``ste_sign`` forward
+    and backward on the card equal the CPU bit for bit. (2) The quickstart
+    trains its 4-bit MLP, streamlines it and runs the stages through
+    ``threshold_matmul`` (K1): every stage's codes equal the plain
+    version's. (3) Table 1's trainings at full width (KWS 490-256x3-12,
+    3-bit, 150 steps; AD 128-72-72-8-72-72-128, 8-bit, 120 steps): each
+    step's host ms (synchronised), first and last loss, the QAT
+    accuracy / AUC; then each trained model exported with frozen scales
+    and compiled in both modes, counters set to 0 around one ``offline``
+    of the evaluation batch (auto: K3 once; staged: K1 3 / 5; the float
+    head once), the deployed accuracy / AUC; the deployed codes of every
+    stage (the last one by the mode's own dispatch: K3 or K1) equal the
+    streamlined float reference (``float_ref_dense`` chained at the frozen
+    scales, the MLP exports' oracle of ``tests/test_golden.py``) bit for
+    bit, in both modes, and the codes ``Graph.run`` gives with the frozen
+    scales (its Dense nodes keep the float weights) are counted beside;
+    the share of nonzero codes per stage beside the seeded models'
+    (``seeded_nonzero``, phase 3). Returns the readings."""
+    import numpy as np
+    import torch
+    from repro_torch.bench import table1_models as t1
+    from repro_torch.core import quantizers as q
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+
+    out = {"card": smi}
+    # (1) the STE functions' forward and backward, card against CPU
+    x, g = _ste_cases()
+    for name, fn in (("ste_round", q.ste_round),
+                     ("ste_clip", lambda v: q.ste_clip(v, -1.0, 2.0)),
+                     ("ste_sign", q.ste_sign)):
+        res = []
+        for dev in ("cpu", "cuda"):
+            xd = x.detach().clone().to(dev).requires_grad_(True)
+            y = fn(xd)
+            y.backward(g.to(dev))
+            res.append((y.detach().cpu(), xd.grad.cpu()))
+        check(torch.equal(res[0][0], res[1][0])
+              and torch.equal(res[0][1], res[1][1]),
+              f"{name}: forward or gradient on the card differs from the "
+              f"CPU")
+    log(f"qat ste ({smi}): ste_round, ste_clip, ste_sign forward and "
+        f"backward on the card equal the CPU bit for bit on "
+        f"{x.numel()} seeded values")
+
+    # (2) the quickstart: train, streamline, K1
+    ops.reset_launches()
+    t0 = _now()
+    qs = quickstart.run("cuda", verbose=False)
+    torch.cuda.synchronize()
+    qs_s = _now() - t0
+    for i, (a, b) in enumerate(zip(qs["codes"], qs["plain_codes"])):
+        check(torch.equal(a, b), f"quickstart stage {i}: K1 codes differ "
+                                 f"from the plain version")
+    check(ops.launches["threshold_matmul"] == len(qs["stages"]),
+          f"quickstart launched K1 {ops.launches['threshold_matmul']} "
+          f"times for {len(qs['stages'])} stages")
+    out["quickstart"] = {"loss_first": qs["losses"][0],
+                         "loss_last": qs["losses"][-1],
+                         "acc_float": qs["acc_float"],
+                         "acc_kernel": qs["acc_kernel"], "seconds": qs_s}
+    log(f"qat quickstart ({smi}): loss {qs['losses'][0]:.6f} -> "
+        f"{qs['losses'][-1]:.6f}, float QAT accuracy {qs['acc_float']:.4f},"
+        f" integer accuracy on K1 {qs['acc_kernel']:.4f} "
+        f"({len(qs['stages'])} stages, K1 codes equal the plain version), "
+        f"{qs_s:.3f} s")
+
+    # (3) Table 1's two trainings at full width, then their deployment
+    want = {"kws": {"auto": (0, 0, 1), "staged": (3, 0, 0)},
+            "ad": {"auto": (0, 0, 1), "staged": (5, 0, 0)}}
+    for name, train in (("kws", t1.train_kws), ("ad", t1.train_ad)):
+        t0 = _now()
+        r = train(device="cuda")
+        train_s = _now() - t0
+        dep = t1.deploy(r, name, "cuda")
+        xe, ye = r["eval"]
+        x_int = t1.quantize_input(xe, dep["in_scale"])
+        oracle = t1.float_ref_codes(dep["graph"], x_int, dep["in_scale"])
+        graph = t1.graph_codes(dep["graph"], x_int, dep["in_scale"],
+                               device="cuda")
+        row = {"steps": len(r["losses"]),
+               "step_ms_median": statistics.median(r["step_ms"]),
+               "steps_per_s": 1e3 / statistics.median(r["step_ms"]),
+               "train_s": train_s, "loss_first": r["losses"][0],
+               "loss_last": r["losses"][-1], "qat_quality": r["quality"],
+               "in_scale": dep["in_scale"], "modes": {}}
+        for mode, (cm, quality) in dep["modes"].items():
+            xc = torch.as_tensor(x_int).cuda()
+            _reset_launches()
+            y = cm.offline(xc)
+            got = _launches_now()
+            heads = ops.launches[HEAD_KERNEL]
+            check(got == want[name][mode] and heads == 1,
+                  f"qat {name}[{mode}]: launches {got} and {heads} heads, "
+                  f"expected {want[name][mode]} and 1")
+            codes = [o.cpu().numpy() for o in cm.stage_outputs(xc)[:-1]]
+            codes[-1] = _headless(cm).offline(xc).cpu().numpy()  # K3 / K1
+            check(len(codes) == len(oracle) == len(graph),
+                  f"qat {name}: {len(codes)} stages, {len(oracle)} oracle "
+                  f"stages, {len(graph)} Quant nodes")
+            for i, (c, fc) in enumerate(zip(codes, oracle)):
+                check(np.array_equal(c, fc), f"qat {name}[{mode}] stage {i}: "
+                      f"deployed codes differ from the streamlined float "
+                      f"reference in {int((c != fc).sum())} of {c.size}")
+            off_graph = [int((c != gc).sum()) for c, gc in zip(codes, graph)]
+            check(y.shape == (len(ye), xe.shape[1] if name == "ad" else 12)
+                  and bool(torch.isfinite(y).all()),
+                  f"qat {name}[{mode}]: logits {tuple(y.shape)}, finite "
+                  f"{bool(torch.isfinite(y).all())}")
+            nz = [float((c > 0).mean()) for c in codes]
+            row["modes"][mode] = {"quality": quality, "launches": got,
+                                  "nonzero_share": nz,
+                                  "codes_off_graph_run": off_graph}
+        out[name] = row
+        log(f"qat {name} ({smi}): {row['steps']} steps, step "
+            f"{row['step_ms_median']:.6f} ms median ({row['steps_per_s']:.1f}"
+            f" steps/s, host clock, synchronised), {train_s:.3f} s in all; "
+            f"loss {row['loss_first']:.6f} -> {row['loss_last']:.6f}; QAT "
+            f"{'accuracy' if name == 'kws' else 'AUC'} "
+            f"{row['qat_quality']:.4f}, deployed (input scale "
+            f"{dep['in_scale']}) auto {row['modes']['auto']['quality']:.4f} "
+            f"(K1/K2/K3 {row['modes']['auto']['launches']}), staged "
+            f"{row['modes']['staged']['quality']:.4f} (K1/K2/K3 "
+            f"{row['modes']['staged']['launches']}); every stage's codes "
+            f"equal the streamlined float reference (float_ref_dense at the "
+            f"frozen scales) in both modes; codes that differ from "
+            f"Graph.run (float weights) per stage {off_graph} of "
+            f"{[c.size for c in codes]}; nonzero code share per stage "
+            f"{[round(v, 4) for v in nz]}, seeded model's "
+            f"{seeded_nonzero.get(name)}")
+    return out
+
+
+def _now():
+    from repro_torch.obs import timer
+
+    return timer.now()
+
+
 def kernels_line(rows, launches, worst):
     """One entry per kernel. ``launches`` is the counted main-path run of
     the kernel's path: one offline call of each of the four models in each
-    of the two modes (K1-K3), one full-width llama3-8b prefill (K6); the
+    of the two modes (K1-K3, the float head), one full-width llama3-8b
+    prefill (K6); the
     times and the bound are summed over the same launches (each main-path
     case weighted by its launches in that run, which must add up to the
     count); ``max_abs_err`` is the kernel's own worst |kernel - plain|
@@ -2780,7 +3019,7 @@ def main() -> int:
         worst_syn = phase_kernels_synthetic()
         models = load_models()
         results, launches, per_run = phase_main_path(models)
-        cases, worst_main = phase_main_path_checks(models, results)
+        cases, worst_main, nonzero = phase_main_path_checks(models, results)
         phase_goldens()
         bitwise = phase_streaming(models, results)
         rows, e2e = phase_times(cases, results, models)
@@ -2809,6 +3048,7 @@ def main() -> int:
         trace = phase_trace_export(tuned, models[0][3], smi)
         scenarios = phase_scenarios(models, tuned, smi)
         serving = phase_serving(models, tuned, smi)
+        qat = phase_qat(smi, nonzero)
         lm["profile"] = phase_lm_profile()
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
@@ -2819,10 +3059,11 @@ def main() -> int:
                  for k in TINY_KERNELS}
         worst["threshold_matmul"] = max(worst["threshold_matmul"],
                                         worst_tiles)
+        worst[HEAD_KERNEL] = worst_main[HEAD_KERNEL]
         worst["flash_attention"] = max(worst_lm, *worst_flash.values())
         for k in BENCH_KERNELS:
             worst[k] = max(worst_k45[k], worst_bench[k])
-        launches = {**{k: launches[k] for k in TINY_KERNELS},
+        launches = {**{k: launches[k] for k in TINY_KERNELS + (HEAD_KERNEL,)},
                     **{k: lm_launches[k] for k in LM_KERNELS},
                     **{k: bench_launches[k] for k in BENCH_KERNELS}}
         line = kernels_line(rows + k6_rows + bench_rows, launches, worst)
@@ -2841,7 +3082,7 @@ def main() -> int:
                    "flash_attention": {"max_err_by_dtype": worst_flash,
                                        "main_path_shape": k6_rows},
                    "lm": lm, "kernel_bench": bench,
-                   "scenarios": scenarios, "serving": serving,
+                   "scenarios": scenarios, "serving": serving, "qat": qat,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,

@@ -11,13 +11,17 @@ integer thresholds per output channel: q = sum_i [acc >= T[c, i]].
 Banks and scales are built in float32 with the reference's operation
 order, so they equal the reference's bit for bit; the float -> int32 cast
 of a bank saturates as JAX's does (``_saturating_int32``).
+``streamline_mlp`` turns a trained QAT stack into a ``StreamlinedMLP``
+(integer threshold stages and a float head); ``constant_fold`` folds
+Quant nodes of initializers in a QIR graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantizers import IntQuantizer, quantize_po2
@@ -242,3 +246,78 @@ def float_ref_dense(params, x, *, weight_bits, act_bits, s_out, bn_eps=1e-3):
     w_hat = w_int.to(torch.float32) * s_w
     y = torch.relu(x @ w_hat + b_folded)
     return quant_act_ref(y, s_out, 2 ** act_bits - 1)
+
+
+@dataclasses.dataclass
+class StreamlinedMLP:
+    """A fully streamlined MLP: integer in, integer threshold stages, one
+    final float affine head (logits need no quantizing: paper §3.1.1
+    drops the softmax, since the argmax of the logits suffices)."""
+
+    in_scale: float
+    stages: List[ThresholdDense]
+    head_w: torch.Tensor
+    head_b: torch.Tensor
+
+    def __call__(self, x_int: torch.Tensor) -> torch.Tensor:
+        h = x_int
+        for st in self.stages:
+            h = apply_threshold_dense(st, h)
+        # the int accumulation, one float rescale at the very end
+        last_scale = self.stages[-1].out_scale if self.stages else \
+            self.in_scale
+        return h.to(torch.float32) @ self.head_w * last_scale + self.head_b
+
+    def predict(self, x_int: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(self(x_int), dim=-1)
+
+    def to(self, device) -> "StreamlinedMLP":
+        return dataclasses.replace(
+            self, stages=[st.to(device) for st in self.stages],
+            head_w=self.head_w.to(device), head_b=self.head_b.to(device))
+
+
+def _host_params(p) -> dict:
+    """A parameter dict (numpy, torch or a ``core.qlayers`` layer's
+    ``to_numpy()``) as float32 tensors on the host."""
+    return {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v))).to(torch.float32)
+            for k, v in p.items()}
+
+
+def streamline_mlp(layer_defs: Sequence, params_list: Sequence,
+                   in_scale: float, head_params,
+                   bn_eps: float = 1e-3) -> StreamlinedMLP:
+    """Streamline a stack of quantized dense(+BN)+ReLU stages and a linear
+    head; ``layer_defs`` give ``weight_bits`` / ``act_bits`` (the QAT
+    layers themselves, or ``qir.LayerBits``). Built on the host; move the
+    result with ``.to(device)``."""
+    stages = []
+    scale = in_scale
+    for ld, p in zip(layer_defs, params_list):
+        st = streamline_dense(_host_params(p), weight_bits=ld.weight_bits,
+                              act_bits=ld.act_bits, in_scale=scale,
+                              bn_eps=bn_eps)
+        stages.append(st)
+        scale = st.out_scale
+    head = _host_params(head_params)
+    return StreamlinedMLP(in_scale=in_scale, stages=stages,
+                          head_w=head["w"], head_b=head["b"])
+
+
+def constant_fold(graph):
+    """QIR constant folding (paper §3.5 step 1): precompute Quant nodes
+    whose inputs are all initializers. Operates on ``core.qir.Graph``."""
+    changed = True
+    while changed:
+        changed = False
+        for node in list(graph.nodes):
+            if node.op in ("Quant",) and all(i in graph.initializers
+                                             for i in node.inputs):
+                x = graph.initializers[node.inputs[0]]
+                q = IntQuantizer(bits=node.attrs.get("bits", 8))
+                graph.initializers[node.outputs[0]] = q(
+                    torch.as_tensor(np.asarray(x))).numpy()
+                graph.nodes.remove(node)
+                changed = True
+    return graph

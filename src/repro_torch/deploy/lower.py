@@ -312,7 +312,9 @@ class FlattenStage:
 @dataclasses.dataclass
 class FloatHeadStage:
     """Final affine head: logits = x_int * in_scale @ w + b (float out), in
-    full float32 on every device (``full_fp32``)."""
+    full float32 (``ops.float_head``: on the card a kernel whose sum over
+    the codes runs in one fixed order, so a row's logits do not depend on
+    the batch's row count; on the CPU its plain version)."""
 
     name: str
     w: torch.Tensor
@@ -327,8 +329,8 @@ class FloatHeadStage:
         return self.in_dim * self.out_dim
 
     def apply_ref(self, x_int):
-        with full_fp32():
-            return x_int.to(torch.float32) @ self.w * self.in_scale + self.b
+        return ops.float_head(x_int.to(torch.int32).contiguous(), self.w,
+                              self.in_scale, self.b)
 
 
 @dataclasses.dataclass
@@ -796,8 +798,8 @@ def lower_graph(graph: Graph, in_scale: float = 1.0 / 127.0,
             if params is not None:
                 stages.append(FloatHeadStage(
                     name=node.name,
-                    w=_t(params["w"]),
-                    b=_t(params["b"]),
+                    w=_t(params["w"]).contiguous(),
+                    b=_t(params["b"]).contiguous(),
                     in_dim=int(params["w"].shape[0]),
                     out_dim=int(params["w"].shape[1]),
                     in_scale=scale, in_bits=in_bits))

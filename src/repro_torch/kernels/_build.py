@@ -53,6 +53,8 @@ ENTRY_POINTS = {
     # 1 / out_scale, tile, stream
     "qmatmul": ("qmatmul_launch",
                 [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+    # x, w, b, out, M, N, K, in_scale, stream
+    "float_head": ("float_head_launch", [_P] * 4 + [_I] * 3 + [_F, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -2,7 +2,9 @@
 
 ``threshold_matmul``, ``conv_threshold``, ``mlp_megakernel``,
 ``flash_attention``, ``multi_threshold`` and ``qmatmul`` are the
-counterparts of the functions of the same names in ``repro.kernels.ops``.
+counterparts of the functions of the same names in ``repro.kernels.ops``;
+``float_head`` runs the deployed models' float head with a reduction
+order that does not depend on the row count.
 Each one checks its arguments, then:
 
   * for CUDA tensors launches its kernel (``csrc/*.cu``, built at first
@@ -32,7 +34,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.conv_threshold import plan_conv_blocks
 
 __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
-           "flash_attention", "multi_threshold", "qmatmul",
+           "flash_attention", "multi_threshold", "qmatmul", "float_head",
            "megakernel_plan", "megakernel_layout",
            "megakernel_pack_weights", "megakernel_active_clusters",
            "plan_conv_blocks",
@@ -46,7 +48,8 @@ __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
 #: Kernel launches since the last ``reset_launches``, by kernel name.
 launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
                             "mlp_megakernel": 0, "flash_attention": 0,
-                            "multi_threshold": 0, "qmatmul": 0}
+                            "multi_threshold": 0, "qmatmul": 0,
+                            "float_head": 0}
 
 #: ``threshold_matmul``'s output tiles: block_m and block_n each take one of
 #: these (the template instantiations of ``csrc/threshold_matmul.cu``).
@@ -917,4 +920,39 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
              plan["tile"], torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("qmatmul", err)
     launches["qmatmul"] += 1
+    return out
+
+
+def float_head(x_int: torch.Tensor, w: torch.Tensor, in_scale: float,
+               b: torch.Tensor) -> torch.Tensor:
+    """The deployed float head: (x_int as float32 @ w) * in_scale + b.
+
+    x_int (M, K) int32 codes, w (K, N) float32, b (N,) float32; returns
+    (M, N) float32. The kernel sums each output's K products in order
+    k = 0 .. K-1, so a row's logits do not depend on how many rows come
+    with it (cuBLAS picks its reduction by shape); then the rescale and
+    the bias, each rounded on its own."""
+    kind = _device_kind(x_int)
+    _check(x_int, "x_int", torch.int32, 2, x_int.device)
+    _check(w, "w", torch.float32, 2, x_int.device)
+    _check(b, "b", torch.float32, 1, x_int.device)
+    m, k = x_int.shape
+    n = w.shape[1]
+    if w.shape[0] != k or b.shape[0] != n:
+        raise ValueError(f"shapes x {tuple(x_int.shape)}, w "
+                         f"{tuple(w.shape)}, b {tuple(b.shape)} do not "
+                         f"chain")
+    if kind == "cpu":
+        return ref.float_head_ref(x_int, w, in_scale, b)
+    out = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
+    if out.numel() == 0:
+        return out
+    if -(-m // 8) > 65535:
+        raise ValueError(f"{m} rows: above the grid's 65535 x 8")
+    fn = _build.entry_point("float_head")
+    err = fn(x_int.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+             m, n, k, float(np.float32(in_scale)),
+             torch.cuda.current_stream(x_int.device).cuda_stream)
+    _raise_on_error("float_head", err)
+    launches["float_head"] += 1
     return out

@@ -18,7 +18,7 @@ from repro_torch.kernels.conv_threshold import conv_threshold_ref, int_matmul
 
 __all__ = ["multi_threshold_ref", "threshold_matmul_ref",
            "mlp_megakernel_ref", "conv_threshold_ref", "int_matmul",
-           "flash_attention_ref", "qmatmul_ref"]
+           "flash_attention_ref", "qmatmul_ref", "float_head_ref"]
 
 NEG_INF = -1e30
 
@@ -59,6 +59,15 @@ def qmatmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
     # the card, so the call can be captured in a CUDA graph)
     inv = float(np.float32(1.0 / out_scale))
     return torch.clamp(torch.round(y * inv), -128, 127).to(torch.int8)
+
+
+def float_head_ref(x_int: torch.Tensor, w: torch.Tensor, in_scale: float,
+                   b: torch.Tensor) -> torch.Tensor:
+    """The deployed float head, the reference's expression
+    (``FloatHeadStage.apply_ref``): x_int as float32 @ w, times
+    ``in_scale``, plus ``b``. Its matrix product's reduction order is the
+    library's, which may depend on the row count."""
+    return x_int.to(torch.float32) @ w * in_scale + b
 
 
 def threshold_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,

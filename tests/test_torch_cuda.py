@@ -678,3 +678,123 @@ def test_faulty_model_corrupts_a_cuda_wave_on_the_card(cuda):
     np.testing.assert_array_equal(np.stack([r.result for r in reqs]),
                                   head.offline(x[:2]).cpu().numpy())
     assert router.stats()["kws"]["metrics"].fault_counts == {"integrity": 1}
+
+
+def _head_inputs(m, k, n, seed):
+    """Codes of an 8-bit stage (0..255) and Glorot-scale head weights, as
+    the deployed heads get them."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 256, (m, k), generator=g, dtype=torch.int32)
+    w = torch.randn((k, n), generator=g) * (2.0 / (k + n)) ** 0.5
+    b = torch.randn((n,), generator=g) * 0.1
+    return x, w, b
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 72, 128), (1024, 256, 12),
+                                   (1024, 512, 10), (37, 5, 3)])
+def test_float_head_rows_do_not_depend_on_the_row_count(cuda, m, k, n):
+    """The float head's logits of any 64-row slice equal the same rows of
+    the whole call bit for bit (cuBLAS's reduction depends on the shape;
+    the kernel sums each output in one fixed order)."""
+    x, w, b = (t.to(cuda) for t in _head_inputs(m, k, n, m + k + n))
+    before = ops.launches["float_head"]
+    whole = ops.float_head(x, w, 2.0 ** -5, b)
+    for lo in range(0, m, 64):
+        part = ops.float_head(x[lo:lo + 64].contiguous(), w, 2.0 ** -5, b)
+        assert torch.equal(part, whole[lo:lo + 64])
+    assert ops.launches["float_head"] == before + 1 + -(-m // 64)
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 72, 128), (1024, 256, 12),
+                                   (64, 512, 10), (1, 256, 10)])
+def test_float_head_kernel_equals_plain(cuda, m, k, n):
+    x, w, b = (t.to(cuda) for t in _head_inputs(m, k, n, 7 * m + n))
+    got = ops.float_head(x, w, 2.0 ** -7, b)
+    want = ref.float_head_ref(x, w, 2.0 ** -7, b)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _kws_train(model, dev, steps):
+    """``train_tiny`` of ``model`` (a small KWS MLP, eval-mode BN as the
+    benchmarks train it) on ``dev`` from seed-1 parameters and five seeded
+    batches; returns (parameters, losses)."""
+    from repro_torch.core.codesign import train_tiny
+
+    r = np.random.default_rng(0)
+    xs = [torch.tensor(r.standard_normal((32, model.in_dim)).astype(
+        np.float32)) for _ in range(5)]
+    ys = [torch.tensor(r.integers(0, model.n_classes, 32)) for _ in range(5)]
+
+    def loss(net, batch):
+        x, y = batch
+        logits = model.apply(net, x, train=False)
+        return torch.mean(torch.logsumexp(logits, -1)
+                          - logits.gather(1, y[:, None])[:, 0])
+
+    net = model.init(torch.Generator().manual_seed(1)).to(dev)
+    _, losses = train_tiny(loss, net, lambda t: (xs[t].to(dev),
+                                                 ys[t].to(dev)),
+                           steps=steps, lr=3e-3)
+    return {k: v.detach().cpu() for k, v in net.state_dict().items()}, \
+        losses
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """One ``train_tiny`` step of a small KWS MLP with 3-bit weights on
+    the card and on the CPU from the same parameters and batch: the
+    parameters within 1e-5, and the losses of five steps within 1e-3
+    relative. Its activations stay in float32: with 3-bit activations the
+    pre-activations sit on a lattice where many cancel to within float
+    rounding of 0, so the ReLU masks that the straight-through gradient
+    passes depend on the summation order
+    (``test_torch_qat.py::test_low_bit_activation_gradients_hang_on_float_rounding``);
+    that case is held by
+    ``test_quantized_activation_forward_on_the_card_equals_the_cpu``."""
+    from repro_torch.models.tiny import KWSMLP
+
+    model = KWSMLP(in_dim=40, width=24, n_classes=5, act_bits=32)
+    p_cpu, _ = _kws_train(model, "cpu", 1)
+    p_gpu, _ = _kws_train(model, cuda, 1)
+    for k, v in p_cpu.items():
+        torch.testing.assert_close(p_gpu[k], v, rtol=1e-5, atol=1e-5)
+    _, l_cpu = _kws_train(model, "cpu", 5)
+    _, l_gpu = _kws_train(model, cuda, 5)
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-3)
+
+
+def test_quantized_activation_forward_on_the_card_equals_the_cpu(cuda):
+    """The 3-bit KWS MLP's QAT forward on the card against the CPU, layer
+    by layer from the same input: every activation code equals the CPU's
+    but where the CPU's value sits on a rounding tie (y / s within 1e-4 of
+    a half step); there the two differ by one step at most. With 3-bit activations the pre-activations are sums of a few
+    lattice values, so exact ties are common and their rounding follows
+    the summation order. The head on the same codes: within 1e-5."""
+    from repro_torch.models.tiny import KWSMLP
+
+    model = KWSMLP(in_dim=40, width=24, n_classes=5)
+    r = np.random.default_rng(0)
+    h = torch.tensor(r.standard_normal((64, 40)).astype(np.float32))
+    nets = {dev: model.init(torch.Generator().manual_seed(1)).to(dev)
+            for dev in ("cpu", "cuda")}
+    with torch.no_grad():
+        for i in range(3):
+            pre, codes = {}, {}
+            for dev, net in nets.items():
+                layer = net.hidden[i]
+                k, b = layer.fold()
+                y = torch.relu(h.to(dev) @ layer.wq(k) + b)
+                s = layer.aq.scale(y)
+                pre[dev], codes[dev] = (y / s).cpu(), torch.round(y / s).cpu()
+                out = layer(h.to(dev), train=False).cpu()
+                torch.testing.assert_close(out, codes[dev] * s.cpu(),
+                                           rtol=0, atol=0)
+            off = codes["cuda"] != codes["cpu"]
+            frac = pre["cpu"] - torch.floor(pre["cpu"])
+            tie = (frac - 0.5).abs() < 1e-4
+            assert bool((off <= tie).all()), f"layer {i}: off-tie codes"
+            assert float((codes["cuda"] - codes["cpu"]).abs().max()) <= 1
+            h = nets["cpu"].hidden[i](h, train=False)
+        logits = {dev: net.head(h.to(dev), train=False).cpu()
+                  for dev, net in nets.items()}
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-5,
+                               atol=1e-5)

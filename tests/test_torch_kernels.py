@@ -200,7 +200,8 @@ def test_cpu_path_does_not_count_launches():
                  out_scale=0.5)
     assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
                              "mlp_megakernel": 0, "flash_attention": 0,
-                             "multi_threshold": 0, "qmatmul": 0}
+                             "multi_threshold": 0, "qmatmul": 0,
+                             "float_head": 0}
 
 
 @pytest.mark.parametrize("n,h,w,c,f,k,stride,padding,s", [

@@ -291,6 +291,27 @@ def test_server_streaming_waits_for_the_serving_stack(clock):
             assert 0 < t.extras["shed"] < kw["n_queries"]
 
 
+def test_server_streaming_keeps_ad_logits_bit_exact_vs_offline(clock):
+    """The float head's sum does not depend on the row count: the
+    full-width AD autoencoder (logits up to 1e4) served through the router
+    in 8-row waves gives the logits of one ``offline`` call on all the
+    served rows, so ``bit_exact_vs_offline`` (the reference's 1e-6) holds.
+    On the card the head is ``ops.float_head``, whose per-output reduction
+    order is fixed (``tests/test_torch_cuda.py``); here its plain
+    version."""
+    from repro_torch.bench.models import AD_BITS, AD_DIMS, mlp_graph
+
+    cm = tcompile(mlp_graph(AD_DIMS, AD_BITS, 2024), in_scale=1.0 / 127.0,
+                  device="cpu")
+    rng = np.random.default_rng(0)
+    xs = rng.integers(-127, 128, (64, AD_DIMS[0])).astype(np.int32)
+    rep = tsc.server_streaming(cm, lambda i: xs[i], qps=500.0, n_queries=64,
+                               seed=3, micro_batch=8, warmup=0)
+    assert rep.extras["served"] == 64 and rep.extras["n_waves"] >= 8
+    assert rep.extras["bit_exact_vs_offline"] is True
+    assert float(cm.offline(xs).abs().max()) > 100.0
+
+
 def test_ready_passes_cpu_and_numpy_outputs_through():
     y = torch.ones(3)
     assert tsc._ready(y) is y
