@@ -203,9 +203,29 @@ which fails the run with a non-zero exit:
                ``Graph.run`` gives (float weights) counted beside, and the
                share of nonzero codes per stage beside the seeded
                models'.
+ 18. paper benches — the paper's remaining tables and the port's benches
+               (``phase_paper_benches``): Table 2 (``bench.table2_fifo``,
+               the FIFO pass); Table 3 (``bench.table3_fusion``: aten graph
+               ops on the input's path must shrink when BN and ReLU merge,
+               the caching allocator's peak, device time); K1 on the
+               im2col lowering of full-width IC and CNV
+               (``phase_im2col_k1``: counters set to 0 around one
+               ``offline`` of Table 6's 48-row pool, one K1 launch a conv
+               stage, each held against ``ref.threshold_matmul_ref`` bit for
+               bit on its patch matrix and timed beside K2's launches of the
+               direct lowering); Table 6 (``bench.table6_scenarios``) at
+               its full query counts on the four full-width models,
+               counters set to 0 before it and read after (K1, K2, K3 and
+               the float head each launched), with its asserted equalities:
+               direct == im2col, offline == host == compiled, and
+               ServerStreaming ``bit_exact_vs_offline``; the obs bench at
+               ``REPRO_FAST`` counts with its NullTracer bar (1.02)
+               asserted; the megakernel residency check; the
+               ``BENCH_torch_*.json`` artifacts and the trace under
+               ``chiprun_out/``; its wall time printed.
 
-Phase 16 runs after phase 15, phase 17 after it; phase 9's profile runs
-last of all. The last lines are the kernels JSON
+Phase 16 runs after phase 15, phase 17 after it, phase 18 after that;
+phase 9's profile runs last of all. The last lines are the kernels JSON
 line, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
@@ -2954,6 +2974,181 @@ def phase_qat(smi, seeded_nonzero):
     return out
 
 
+#: rows of Table 6's Offline pool of a conv model (the bench's full count):
+#: the batch K1's im2col launches are held and timed at
+TABLE6_CONV_ROWS = 48
+
+
+class _Recorder:
+    """Wraps one ``kernels.ops`` wrapper while active: every call's
+    arguments are kept (the call still goes through the counted
+    wrapper)."""
+
+    def __init__(self, name):
+        from repro_torch.kernels import ops
+
+        self.ops, self.name, self.calls = ops, name, []
+        self.real = getattr(ops, name)
+
+    def __enter__(self):
+        def record(*a, **k):
+            self.calls.append((a, k))
+            return self.real(*a, **k)
+        setattr(self.ops, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.real)
+        return False
+
+
+def phase_im2col_k1(entries, smi):
+    """K1 on the im2col lowering of full-width IC and CNV: counters set to 0
+    around one ``offline`` of Table 6's Offline pool (48 rows) under
+    ``conv_lowering="im2col"``; K1 launches one a conv stage (and CNV's
+    hidden FCs run on K3 in auto dispatch); each K1 launch, on the patch
+    matrix it was given, equals ``ref.threshold_matmul_ref`` bit for bit
+    and is timed (CUDA-graph replay) beside K2's launches of the direct
+    lowering on the same pool; the two lowerings' outputs are equal.
+    Returns per model the launches and the summed device ms."""
+    import numpy as np
+    import torch
+    from repro_torch.deploy import compile_graph
+    from repro_torch.kernels import ops, ref
+
+    out = {}
+    for name in ("IC-hls4ml", "IC-FINN-CNV"):
+        cm, mk, _ = entries[name]
+        x = torch.as_tensor(np.stack([mk(i) for i in range(TABLE6_CONV_ROWS)]),
+                            device=cm.device)
+        i2c = compile_graph(cm.graph, in_scale=cm.graph.meta["in_scale"],
+                            device=cm.device, conv_lowering="im2col")
+        n_conv = cm.schedule.n_fused_conv
+        with _Recorder("threshold_matmul") as k1:
+            _reset_launches()
+            y_i2c = i2c.offline(x)
+            got = _launches_now()
+        with _Recorder("conv_threshold") as k2:
+            _reset_launches()
+            y_dir = cm.offline(x)
+            got_dir = _launches_now()
+        check(torch.equal(y_i2c, y_dir),
+              f"{name}: im2col and direct lowerings differ")
+        check(got[0] == len(k1.calls) >= n_conv and got[1] == 0
+              and got_dir[1] == len(k2.calls) == n_conv,
+              f"{name}: im2col launches {got} ({len(k1.calls)} recorded) "
+              f"and direct {got_dir} for {n_conv} conv stages")
+        conv_calls = k1.calls[:n_conv]     # the conv stages come first
+        k1_ms, k2_ms, shapes = 0.0, 0.0, []
+        for a, kw in k1.calls:
+            xk, w, t = a
+            y_k, y_p = ops.threshold_matmul(xk, w, t, **kw), \
+                ref.threshold_matmul_ref(xk, w, t)
+            check(torch.equal(y_k, y_p),
+                  f"{name}: K1 on the im2col patches (M={xk.shape[0]} "
+                  f"K={xk.shape[1]} N={w.shape[1]}) differs from its plain "
+                  f"version by {int((y_k - y_p).abs().max())}")
+        for a, kw in conv_calls:
+            xk, w, t = a
+            k1_ms += time_ms(lambda: ops.threshold_matmul(xk, w, t, **kw))
+            shapes.append(f"M={xk.shape[0]} K={xk.shape[1]} "
+                          f"N={w.shape[1]} S={t.shape[1]}")
+        for a, kw in k2.calls:
+            k2_ms += time_ms(lambda: ops.conv_threshold(*a, **kw))
+        out[name] = {"k1_launches": got[0], "k3_launches": got[2],
+                     "k1_conv_launches": len(conv_calls),
+                     "k1_conv_ms": k1_ms, "k2_launches": got_dir[1],
+                     "k2_ms": k2_ms, "k1_shapes": shapes}
+        log(f"paper benches {name} im2col ({smi}): K1 {got[0]} launches "
+            f"({len(conv_calls)} on conv patch matrices, each equal to its "
+            f"plain version bit for bit; {shapes}), K3 {got[2]}; K1's conv "
+            f"launches {k1_ms:.6f} ms against K2's {got_dir[1]} direct "
+            f"launches {k2_ms:.6f} ms on {TABLE6_CONV_ROWS} rows (device "
+            f"time); im2col output equals direct")
+    return out
+
+
+def phase_paper_benches(smi):
+    """The paper's remaining tables and the port's benches on the card
+    (phase 18): Table 2 (the FIFO pass, host only); Table 3 (the fusion
+    ladder: aten graph ops on the input's path, the caching allocator's
+    peak, device time); K1 on the im2col lowering of IC and CNV
+    (``phase_im2col_k1``); Table 6 at its full query counts on the four
+    full-width models, counters set to 0 before it and read after (K1, K2,
+    K3 and the float head each launched), every equality it asserts (direct
+    == im2col, offline == host == compiled, ServerStreaming bit-exact);
+    the obs bench (the NullTracer bar, 1.02) at ``REPRO_FAST`` counts; the
+    megakernel residency check. The cost-model bench is not run here: its
+    LOMO and agreement bars fail on the card (``PERF.md`` §6). The
+    artifacts go to ``chiprun_out/`` (``BENCH_torch_scenarios.json``,
+    ``BENCH_torch_obs.json``, ``TRACE_torch_serve.json``). Returns the
+    readings."""
+    from repro_torch.bench import (check_megakernel_residency, obs_bench,
+                                   table2_fifo, table3_fusion,
+                                   table6_scenarios)
+    from repro_torch.bench.common import emit_json
+    from repro_torch.kernels import ops
+
+    t_start = _now()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    saved = os.environ.get("REPRO_BENCH_DIR")
+    os.environ["REPRO_BENCH_DIR"] = out_dir
+    res = {"card": smi}
+    try:
+        with tempfile.TemporaryDirectory(
+                prefix="autotune-", dir=os.path.join(ROOT, "build")) as tune:
+            rows2 = table2_fifo.run()
+            res["table2"] = [r["derived"] for r in rows2]
+            rows3 = table3_fusion.run()
+            res["table3"] = {r["name"]: dict(r["derived"],
+                                             us_per_call=r["us_per_call"])
+                             for r in rows3}
+            d3 = [r["derived"] for r in rows3]
+            check(d3[2]["graph_ops"] < d3[0]["graph_ops"]
+                  and d3[3]["buffer_elems"] < d3[0]["buffer_elems"]
+                  and all(d["temp_bytes"] is not None for d in d3),
+                  f"table3: the ladder does not shrink: {d3}")
+
+            entries = table6_scenarios.build_entries()
+            res["im2col_k1"] = phase_im2col_k1(entries, smi)
+            _reset_launches()
+            t0 = _now()
+            rows6, doc6 = table6_scenarios.run_entries(entries, fast=False,
+                                                       tune_dir=tune)
+            launches = dict(ops.launches)
+            res["table6_s"] = _now() - t0
+            check(all(launches[k] > 0 for k in TINY_KERNELS + (HEAD_KERNEL,)),
+                  f"table6 launched {launches}")
+            res["table6_launches"] = {k: launches[k] for k in
+                                      TINY_KERNELS + (HEAD_KERNEL,)}
+            emit_json("BENCH_torch_scenarios.json", doc6, out_dir)
+            res["table6"] = doc6
+            log(f"paper benches table6 ({smi}): {res['table6_s']:.3f} s, "
+                f"launches {json.dumps(res['table6_launches'])}; direct == "
+                f"im2col on IC and CNV, offline == host == compiled and "
+                f"ServerStreaming bit-exact on all four models")
+
+            rows_o, doc_o = obs_bench.run_entries(
+                obs_bench.build_entries(fast=True), fast=True)
+            emit_json("BENCH_torch_obs.json", doc_o, out_dir)
+            res["obs"] = doc_o
+            rc = check_megakernel_residency.main([])
+            check(rc == 0, "megakernel residency check failed")
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_BENCH_DIR", None)
+        else:
+            os.environ["REPRO_BENCH_DIR"] = saved
+    res["seconds"] = _now() - t_start
+    ov = next(iter(doc_o["null_overhead"].values()))
+    log(f"paper benches ({smi}): {res['seconds']:.3f} s in all; NullTracer "
+        f"ratio {ov['overhead_ratio']:.6f} (bar {ov['budget_ratio']}), "
+        f"wall ratio {ov['wall_ratio']:.4f}, {ov['n_guarded_sites']} guarded "
+        f"sites a call; residency check clean")
+    return res
+
+
 def _now():
     from repro_torch.obs import timer
 
@@ -3049,6 +3244,7 @@ def main() -> int:
         scenarios = phase_scenarios(models, tuned, smi)
         serving = phase_serving(models, tuned, smi)
         qat = phase_qat(smi, nonzero)
+        papers = phase_paper_benches(smi)
         lm["profile"] = phase_lm_profile()
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
@@ -3083,6 +3279,7 @@ def main() -> int:
                                        "main_path_shape": k6_rows},
                    "lm": lm, "kernel_bench": bench,
                    "scenarios": scenarios, "serving": serving, "qat": qat,
+                   "paper_benches": papers,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,

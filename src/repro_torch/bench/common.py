@@ -1,6 +1,6 @@
 """Shared benchmark helpers of the port: uniform rows (name, us_per_call,
-derived), banners, machine-readable artifacts (``BENCH_*.json``), and the
-device timer.
+derived), banners, machine-readable artifacts (``BENCH_*.json``), the
+benches' asserted checks (``require``) and the device timer.
 
 ``row``, ``banner``, ``print_rows`` and ``emit_json`` are copies of
 ``benchmarks/common.py``'s, with the provenance of the port (torch and its
@@ -35,6 +35,13 @@ def print_rows(rows: List[Dict[str, Any]]):
 
 def banner(title: str):
     print(f"\n=== {title} " + "=" * max(0, 70 - len(title)), flush=True)
+
+
+def require(cond, msg: str) -> None:
+    """A bench's asserted bar or equality: raises ``AssertionError`` with
+    ``msg`` when ``cond`` is false, also under ``python -O``."""
+    if not cond:
+        raise AssertionError(msg)
 
 
 def bench_dir() -> str:

@@ -37,9 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.bench.common import banner, emit_json, print_rows, row
-from repro_torch.bench.models import (AD_BITS, AD_DIMS, KWS_BITS, KWS_DIMS,
-                                      cnv_graph, ic_graph, mlp_graph)
-from repro_torch.deploy import compile_graph
+from repro_torch.bench.table6_scenarios import build_entries
 from repro_torch.deploy.autotune import autotune_model
 from repro_torch.deploy.scenarios import server_streaming
 from repro_torch.serve import (
@@ -422,27 +420,11 @@ def bench_cold_start(service_s: float, predicted_s: float, mb: int,
     return out
 
 
-def _build_entries(rng, device="cuda"):
-    """The four Table-1 models at the paper's full width on ``device``
-    (``bench.models``, numpy-seeded), each with a query maker drawing
-    seeded input codes in [-127, 127]."""
-    entries = {}
-    for name, dims, bits, seed in (("KWS-FINN", KWS_DIMS, KWS_BITS, 1),
-                                   ("AD-hls4ml", AD_DIMS, AD_BITS, 2)):
-        cm = compile_graph(mlp_graph(dims, bits, seed, name=name),
-                           in_scale=1.0 / 127.0, device=device)
-        mk = (lambda d: lambda i: rng.integers(
-            -127, 128, (d,)).astype(np.int32))(dims[0])
-        entries[name] = (cm, mk)
-    for name, graph in (("IC-hls4ml", ic_graph(3)),
-                        ("IC-FINN-CNV", cnv_graph(4))):
-        cm = compile_graph(graph, in_scale=graph.meta["in_scale"],
-                           device=device)
-        shape = tuple(graph.nodes[0].attrs["in_shape"])
-        mk = (lambda shp: lambda i: rng.integers(
-            -127, 128, shp).astype(np.int32))(shape)
-        entries[name] = (cm, mk)
-    return entries
+def _build_entries():
+    """The four Table-1 models at the paper's full width on the card, each
+    with its query maker (``table6_scenarios.build_entries``)."""
+    return {name: (cm, mk)
+            for name, (cm, mk, _) in build_entries().items()}
 
 
 def _scaling_rows(name: str, sc) -> list:
@@ -471,7 +453,7 @@ def run_scaling_only():
     real wave service time, and run the discrete-event sweep from that
     anchor — skipping the full load-curve bench."""
     banner("Serving: replica scaling (simulated pool, measured service)")
-    entries = _build_entries(np.random.default_rng(0))
+    entries = _build_entries()
     rows = []
     doc = {"fast": FAST, "models": {}}
     for name, (cm, mk) in entries.items():
@@ -489,7 +471,7 @@ def run_scaling_only():
 def run():
     banner("Serving: throughput-at-SLO over the dynamic-batching router")
     n_queries = 48 if FAST else 128
-    entries = _build_entries(np.random.default_rng(0))
+    entries = _build_entries()
 
     rows = []
     doc = {"models": {}, "scaling": {}, "fast": FAST,

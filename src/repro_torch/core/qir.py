@@ -204,13 +204,25 @@ def max_pool_nhwc(x: torch.Tensor, window: int, stride: int,
 def conv2d_nhwc(a: torch.Tensor, w: torch.Tensor, stride: int,
                 padding: str) -> torch.Tensor:
     """``lax.conv_general_dilated`` with NHWC input, HWIO weights and NHWC
-    output: SAME pads as XLA does (``same_pad_1d``), VALID not at all."""
+    output: SAME pads as XLA does (``same_pad_1d``), VALID not at all.
+
+    cuDNN is off for the call: on the card it may take an inexact algorithm
+    for a float32 convolution even with TF32 off (on the full-width CNV its
+    conv1 came out up to 3.4e-5 off the integer sums, and signs at the
+    thresholds flipped); PyTorch's own convolution sums the products in
+    float32, exact while the sums stay below 2^24, as on the CPU."""
     if padding == "SAME":
         h, wd = a.shape[1], a.shape[2]
         a = pad_nhwc(a, same_pad_1d(h, -(-h // stride), stride, w.shape[0]),
                      same_pad_1d(wd, -(-wd // stride), stride, w.shape[1]))
-    return F.conv2d(a.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                    stride=stride).permute(0, 2, 3, 1)
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        y = F.conv2d(a.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                     stride=stride)
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    return y.permute(0, 2, 3, 1)
 
 
 def _promote(a: torch.Tensor, b: torch.Tensor):

@@ -35,7 +35,10 @@ micro-batch and dispatch. What differs:
     rounds of one streaming pass per candidate in turn, and compares the
     medians (``probe_interleaved``); each candidate's median and spread
     go to the config's audit trail. Timing each candidate in a block of
-    its own let drift between the blocks decide.
+    its own let drift between the blocks decide. The reference's
+    ``probe_streaming`` (one warm call, the median of ``iters`` passes)
+    stays for the benches, and times each pass as the interleaved rounds
+    do (``_timed_pass``).
   * **The block models.** The reference prices VMEM tiles on a TPU
     (``VMEM_BUDGET_BYTES``, ``DENSE_BLOCK_CANDIDATES``, ``TARGET_ROWS``, a
     tie-break toward the 128 x 128 MXU tile). K2 (``csrc/conv_threshold.cu``)
@@ -440,6 +443,37 @@ def default_sample(cm, batch: int) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.int32, device=cm.device)
 
 
+def _timed_pass(cm, run: Callable, x, micro_batch: int
+                ) -> Tuple[float, float]:
+    """One synchronised streaming pass: the device is drained, the clock
+    read, ``run(x, micro_batch=...)`` called, the device drained again and
+    the clock read. Returns the two stamps. ``probe_streaming`` and
+    ``probe_interleaved`` both time through it, so the bench's probe and
+    the tuner's time the same work."""
+    cm._sync()
+    t0 = obs_timer.now()
+    run(x, micro_batch=micro_batch)
+    cm._sync()
+    return t0, obs_timer.now()
+
+
+def probe_streaming(cm, x, micro_batch: int, iters: int = 3,
+                    runner: Optional[Callable] = None) -> float:
+    """Median seconds of one streaming executor pass at a micro-batch size
+    (the reference's contract): one warm call, then ``iters`` timed
+    passes (``_timed_pass``). ``runner`` defaults to
+    ``cm.streaming_compiled``; pass ``cm.streaming_host`` to time the host
+    queue loop."""
+    run = cm.streaming_compiled if runner is None else runner
+    run(x, micro_batch=micro_batch)          # build and warm
+    times = []
+    for _ in range(max(iters, 1)):
+        t0, t1 = _timed_pass(cm, run, x, micro_batch)
+        times.append(t1 - t0)
+    times.sort()
+    return times[len(times) // 2]
+
+
 #: Rounds of a measured pair decision: one streaming pass per candidate
 #: in each round, the candidates in turn.
 PAIR_ROUNDS = 7
@@ -463,11 +497,7 @@ def probe_interleaved(cm, x, arms: Dict[str, tuple], tracer=None,
         mb, setup = arms[label]
         if setup is not None:
             setup()
-        cm._sync()
-        t0 = obs_timer.now()
-        cm.streaming_compiled(x, micro_batch=mb)
-        cm._sync()
-        t1 = obs_timer.now()
+        t0, t1 = _timed_pass(cm, cm.streaming_compiled, x, mb)
         if tr.enabled and rnd >= 0:
             tr.add_span("probe", t0, t1, cat="autotune",
                         args={"key": key, "arm": label, "micro_batch": mb,

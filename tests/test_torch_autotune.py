@@ -435,3 +435,89 @@ def test_scripted_probe_calls_once_per_candidate_in_reference_order(
                        directory=str(tmp_path / "t"), force=True)
     assert logs["t"] == logs["j"]
     assert len(logs["t"]) >= 3
+
+
+class _StampClock:
+    """A fake timer that returns scripted stamps in turn."""
+
+    def __init__(self, stamps):
+        self.stamps = list(stamps)
+
+    def now(self) -> float:
+        return self.stamps.pop(0)
+
+    def sleep(self, seconds: float) -> None:
+        pass
+
+
+class _CountingModel:
+    """A stand-in executor whose streaming entry points count their calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _sync(self):
+        pass
+
+    def _run(self, label):
+        def run(x, micro_batch=None):
+            self.calls.append((label, micro_batch))
+            return np.zeros(1, np.int32), None
+        return run
+
+    @property
+    def streaming_compiled(self):
+        return self._run("compiled")
+
+    @property
+    def streaming_host(self):
+        return self._run("host")
+
+
+@pytest.mark.parametrize("runner", [None, "host"])
+@pytest.mark.parametrize("iters", [1, 4, 5])
+def test_probe_streaming_keeps_the_reference_contract(runner, iters):
+    """One warm call, then ``iters`` timed passes of two clock readings
+    each, and the median in seconds: both packages call the runner
+    ``1 + iters`` times with the same micro-batch and return the same
+    median under the same fake timer."""
+    from repro.obs import timer as jtimer
+    from repro_torch.obs import timer as ttimer
+
+    durations = [0.003, 0.001, 0.002, 0.005, 0.004][:iters]
+    stamps = []
+    for i, d in enumerate(durations):
+        stamps += [10.0 + i, 10.0 + i + d]
+    got = {}
+    for tag, pkg, timer in (("j", jat, jtimer), ("t", tat, ttimer)):
+        cm = _CountingModel()
+        run = None if runner is None else cm.streaming_host
+        with timer.fake(_StampClock(stamps)) as clock:
+            got[tag] = pkg.probe_streaming(cm, np.zeros((4, 3)), 4,
+                                           iters=iters, runner=run)
+            assert clock.stamps == []
+        label = "compiled" if runner is None else "host"
+        assert cm.calls == [(label, 4)] * (1 + iters)
+    assert got["t"] == got["j"]
+    assert got["t"] == pytest.approx(sorted(durations)[len(durations) // 2])
+
+
+def test_probe_streaming_and_probe_interleaved_share_the_timed_pass(
+        monkeypatch):
+    """Both probes time through ``_timed_pass``: a synchronise, a clock
+    reading, the pass, a synchronise and a clock reading."""
+    _, tm = _pair("mlp")
+    passes = []
+    real = tat._timed_pass
+
+    def logged(cm, run, x, micro_batch):
+        passes.append(micro_batch)
+        return real(cm, run, x, micro_batch)
+
+    monkeypatch.setattr(tat, "_timed_pass", logged)
+    x = tat.default_sample(tm, 8)
+    assert tat.probe_streaming(tm, x, 4, iters=3) > 0
+    assert passes == [4] * 3
+    stats = tat.probe_interleaved(tm, x, {"a": (2, None), "b": (8, None)})
+    assert passes[3:] == [2, 8] * (tat.PAIR_ROUNDS + 1)
+    assert set(stats) == {"a", "b"}

@@ -798,3 +798,20 @@ def test_quantized_activation_forward_on_the_card_equals_the_cpu(cuda):
                   for dev, net in nets.items()}
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-5,
                                atol=1e-5)
+
+
+def test_graph_run_of_the_full_width_cnv_equals_the_cpu(cuda):
+    """``Graph.run`` (the unfused reference of Table 6) on the card gives the
+    CPU's outputs on the full-width CNV: its binary convs sum integers, and
+    cuDNN's float32 algorithms put them up to 3.4e-5 off, flipping signs
+    at the thresholds (argmax parity with the compiled model fell to 1 in
+    8); ``conv2d_nhwc`` runs with cuDNN off."""
+    from repro_torch.bench.models import cnv_graph
+
+    g = cnv_graph(4)
+    x = np.random.default_rng(5).integers(-127, 128, (8, 32, 32, 3))
+    feeds = {g.inputs[0]: (x * g.meta["in_scale"]).astype(np.float32)}
+    got, want = g.run(feeds, device=cuda), g.run(feeds, device="cpu")
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert torch.backends.cudnn.enabled

@@ -1,7 +1,10 @@
 """Rules the port keeps: it imports neither JAX nor the JAX package, its
-clock reads go through ``repro_torch.obs.timer``, and it builds no kernel
-and imports no ``triton`` when a module is imported."""
+clock reads go through ``repro_torch.obs.timer``, it builds no kernel and
+imports no ``triton`` when a module is imported, and its serving and
+deploy runtime holds no bare ``assert`` (the rule of
+``scripts/check_no_bare_assert.py``)."""
 
+import ast
 import os
 import re
 import subprocess
@@ -103,3 +106,47 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+#: Packages whose checks must raise typed exceptions: ``python -O`` strips
+#: ``assert`` statements, and the router's and executor's checks guard
+#: inputs and results.
+NO_ASSERT_DIRS = ("serve", "deploy")
+
+
+def bare_asserts(source: str, filename: str = "<source>") -> list:
+    """Line numbers of the ``assert`` statements in ``source`` (from its
+    syntax tree: the word in a string, a comment or ``self.assertEqual``
+    is not one)."""
+    tree = ast.parse(source, filename=filename)
+    return sorted(n.lineno for n in ast.walk(tree)
+                  if isinstance(n, ast.Assert))
+
+
+@pytest.mark.parametrize("source, lines", [
+    ("assert x\n", [1]),
+    ("def f(x):\n    if x:\n        assert x > 0, 'msg'\n", [3]),
+    ("class C:\n    def m(self):\n        assert (1,\n                2)\n",
+     [3]),
+    ("# assert x\ns = 'assert x'\nd = \"\"\"\nassert y\n\"\"\"\n", []),
+    ("self.assertEqual(a, b)\nassert_that(x)\nraise AssertionError()\n",
+     []),
+])
+def test_bare_assert_rule_reads_statements_only(source, lines):
+    assert bare_asserts(source) == lines
+
+
+def test_no_bare_assert_in_serve_and_deploy():
+    hits = []
+    for sub in NO_ASSERT_DIRS:
+        for dirpath, _, files in os.walk(os.path.join(PKG, sub)):
+            for fname in sorted(files):
+                if not fname.endswith(".py"):
+                    continue
+                path = os.path.join(dirpath, fname)
+                with open(path, encoding="utf-8") as f:
+                    src = f.read()
+                hits += [(os.path.relpath(path, ROOT), line)
+                         for line in bare_asserts(src, path)]
+    assert not hits, ("bare assert statements vanish under python -O; "
+                      f"raise a typed exception: {hits}")

@@ -146,3 +146,32 @@ def test_graph_run_without_device_needs_cuda(monkeypatch):
     g = tqir.Graph.from_json(_text("kws"))
     with pytest.raises(RuntimeError, match="CUDA"):
         g.run({"x": np.zeros((1, 490), np.float32)})
+
+
+def test_conv2d_nhwc_runs_without_cudnn_and_restores_the_flag(monkeypatch):
+    """The interpreter's convolution runs with cuDNN off (on the card cuDNN
+    may take an inexact float32 algorithm; ``tests/test_torch_cuda.py``
+    holds the full-width CNV against the CPU there) and leaves the flag as
+    it found it, also when the convolution raises."""
+    seen = []
+    real = tqir.F.conv2d
+
+    def spy(*a, **k):
+        seen.append(torch.backends.cudnn.enabled)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tqir.F, "conv2d", spy)
+    a = torch.arange(2 * 5 * 5 * 3, dtype=torch.float32).reshape(2, 5, 5, 3)
+    w = torch.ones((3, 3, 3, 4))
+    before = torch.backends.cudnn.enabled
+    y = tqir.conv2d_nhwc(a, w, 1, "SAME")
+    assert seen == [False] and torch.backends.cudnn.enabled == before
+    assert y.shape == (2, 5, 5, 4)
+
+    def boom(*a, **k):
+        raise RuntimeError("conv failed")
+
+    monkeypatch.setattr(tqir.F, "conv2d", boom)
+    with pytest.raises(RuntimeError):
+        tqir.conv2d_nhwc(a, w, 2, "VALID")
+    assert torch.backends.cudnn.enabled == before
