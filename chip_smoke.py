@@ -224,19 +224,52 @@ which fails the run with a non-zero exit:
                ``BENCH_torch_*.json`` artifacts and the trace under
                ``chiprun_out/``; its wall time printed.
 
-Phase 16 runs after phase 15, phase 17 after it, phase 18 after that;
-phase 9's profile runs last of all. The last lines are the kernels JSON
-line, the card's name and power limit (``nvidia-smi``), and
-``{"ok": true, "device": {...}}``. Per-shape details go to
+ 19. LM training — the LM's training path (``phase_lm_train``): K6's
+               backward kernel (``flash_attention_bwd``) against its plain
+               version (``ref.flash_attention_bwd_ref``) over
+               ``FLASH_BWD_CASES`` in bf16 and float32 (ragged lengths,
+               GQA groups 1/2/4, windows, query offsets, rows with no live
+               key, kv_len 0, head dims 16/80/128; dQ, dK, dV within
+               ``FLASH_BWD_TOL`` of the largest |gradient|: bf16 2e-2,
+               float32 1e-5), the forward's lse against the plain lse, a
+               second call equal bit for bit; then (a) full-width
+               internlm2-1.8b (24 layers, bf16, remat "full", S 4096) for
+               ``TRAIN_STEPS`` steps of 4 sequences in 2 microbatches
+               through ``DataPipeline`` and ``make_train_step``, counters
+               set to 0 before and read after: exactly 2 x 24 K6 forward
+               and 24 backward launches a microbatch and no other kernel;
+               the first microbatch's backward launches of layers 23 and
+               0 held against the plain version on their inputs; a finite
+               loss whose mean over the last 4 steps is below the first;
+               step ms, tokens/s, 6NT / step / 989e12 and peak memory; K6's
+               backward timed beside its plain version, SDPA's backward
+               and its bound; (b) the same width cut to 2 layers under
+               ``torch.use_deterministic_algorithms(True)``:
+               ``run_training`` with a crash at step 3 and a resume ends
+               with a checkpoint equal bit for bit to an uninterrupted
+               run's (checkpoints under ``build/``, removed after; bytes,
+               save and restore seconds printed); (c) ``weight_bits=8`` at
+               2 layers, two steps with finite losses; (d)
+               ``repro_torch.launch.train.main`` with ``--reduced`` on the
+               card. (b) runs in a child process whose environment sets
+               ``CUBLAS_WORKSPACE_CONFIG`` before its CUDA starts: set in
+               this process it would slow every later cuBLAS call.
+
+Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
+phase 19 after it; phase 9's profile runs last of all. The last lines are
+the kernels JSON line, the card's name and power limit (``nvidia-smi``),
+and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
-``"serving"``). Each kernel's ``launches`` comes
-from its own main path's counted run: phase 3 for K1-K3 and the float
-head, phase 9's prefill for K6, phase 13's checking pass for K4 and K5.
+``"serving"``, training under ``"lm"`` / ``"train"``). Each kernel's
+``launches`` comes from its own main path's counted run: phase 3 for
+K1-K3 and the float head, phase 9's prefill for K6, phase 19's full-width
+training for K6's backward, phase 13's checking pass for K4 and K5.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -265,6 +298,11 @@ REPLACES = {
                        "src/repro/kernels/megakernel.py:81"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:96"),
+    # K6's backward: the reference differentiates its jnp flash twin
+    # (src/repro/models/attention.py:165); no TPU kernel of its own
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:96"),
     "multi_threshold": ("src/repro_torch/kernels/csrc/multi_threshold.cu",
                         "src/repro/kernels/multi_threshold.py:81"),
     "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu",
@@ -280,6 +318,7 @@ PEAK_OPS_PER_S = {"threshold_matmul": INT8_OPS_PER_S,
                   "conv_threshold": INT8_OPS_PER_S,
                   "mlp_megakernel": INT8_OPS_PER_S,
                   "flash_attention": BF16_OPS_PER_S,
+                  "flash_attention_bwd": BF16_OPS_PER_S,
                   "multi_threshold": INT32_OPS_PER_S,
                   "qmatmul": INT8_OPS_PER_S,
                   "float_head": FP32_OPS_PER_S}
@@ -289,6 +328,8 @@ TINY_KERNELS = ("threshold_matmul", "conv_threshold", "mlp_megakernel")
 #: the float head every Table-1 schedule ends in: one launch an offline call
 HEAD_KERNEL = "float_head"
 LM_KERNELS = ("flash_attention",)
+#: the kernel only the LM's training path launches (phase 19)
+TRAIN_KERNELS = ("flash_attention_bwd",)
 BENCH_KERNELS = ("multi_threshold", "qmatmul")
 #: the two dispatch modes of the main path: (label, ``megakernel=``)
 MODES = (("staged", False), ("auto", None))
@@ -1417,7 +1458,8 @@ def phase_lm_prefill():
     model = Model(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     t0 = timer.now()
-    params = model.init(g, device="cuda")
+    with torch.inference_mode():
+        params = model.init(g, device="cuda")
     torch.cuda.synchronize()
     init_s = timer.now() - t0
     n_params = sum(t.numel() for t in _leaves(params))
@@ -1449,7 +1491,7 @@ def phase_lm_prefill():
     check(launches["flash_attention"] == cfg.n_layers,
           f"prefill launched flash_attention {launches['flash_attention']} "
           f"times, expected {cfg.n_layers}")
-    for name in TINY_KERNELS:
+    for name in TINY_KERNELS + TRAIN_KERNELS:
         check(launches[name] == 0, f"prefill launched {name}")
     check(logits.shape == (1, LM_SEQ, cfg.vocab)
           and logits.dtype == torch.float32, f"logits {logits.dtype} "
@@ -1551,7 +1593,8 @@ def phase_lm_profile():
 
     model = Model(get_config(LM_CONFIG))
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    params = model.init(g, device="cuda")
+    with torch.inference_mode():
+        params = model.init(g, device="cuda")
     batch = {"tokens": torch.randint(0, model.cfg.vocab, (1, LM_SEQ),
                                      generator=g, device="cuda")}
     decode = _decode_call(model, params, g)
@@ -1588,13 +1631,14 @@ def phase_lm_depth_cut():
     from repro_torch.core.qir import full_fp32
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
-    from repro_torch.models.transformer import map_tree
+    from repro_torch.core.pytree import tree_map
 
     cfg = dataclasses.replace(get_config(LM_CONFIG), n_layers=2,
                               attn_impl="chunked", dtype="float32")
     model = Model(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    params = model.init(g, device="cuda")
+    with torch.inference_mode():
+        params = model.init(g, device="cuda")
     tokens = torch.randint(0, cfg.vocab, (1, 512), generator=g,
                            device="cuda")
     with full_fp32():
@@ -1604,7 +1648,7 @@ def phase_lm_depth_cut():
         n_k6 = ops.launches["flash_attention"] - before
     check(n_k6 == cfg.n_layers, f"depth-cut prefill launched K6 {n_k6} "
                                 f"times, expected {cfg.n_layers}")
-    cpu_params = map_tree(lambda t: t.cpu(), params)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
     del params
     want = model.prefill(cpu_params, {"tokens": tokens.cpu()})
     err = float((got.cpu() - want).abs().max())
@@ -1656,7 +1700,8 @@ def phase_lm_serving():
     cfg = dataclasses.replace(get_config(LM_CONFIG), dtype="float32")
     model = Model(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    params = model.init(g, device="cuda")
+    with torch.inference_mode():
+        params = model.init(g, device="cuda")
     rng = np.random.default_rng(SEED + 7)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in rng.integers(8, 33, 8)]
@@ -3149,6 +3194,507 @@ def phase_paper_benches(smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LM training (K6's backward kernel)
+# ---------------------------------------------------------------------------
+
+TRAIN_CONFIG = "internlm2-1.8b"
+TRAIN_SEQ = 4096                 # the reference's train_4k length: K6 path
+TRAIN_BATCH = 4                  # sequences a step ...
+TRAIN_MICROBATCHES = 2           # ... in 2 microbatches of 2
+TRAIN_STEPS = 8
+TRAIN_CUT_LAYERS = 2             # depth of the resume and QAT runs
+TRAIN_CUT_STEPS = 5
+TRAIN_CRASH_AT = 3
+#: K6's backward against its plain version: max |kernel - plain| over the
+#: largest |plain gradient| of each of dQ, dK, dV (bf16 in the manner of
+#: the forward's 2e-2; float32 computes in float32 on both sides)
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: (B, H, Hkv, Sq, Sk, D, causal, window, q_offset, kv_len): ragged
+#: lengths, GQA groups of 1, 2 and 4, windows, query offsets (a decode
+#: chunk, and -3: rows with no live key), kv_len down to 0, each head dim
+FLASH_BWD_CASES = [
+    (2, 8, 8, 130, 130, 16, True, 0, 0, None),
+    (1, 8, 4, 257, 257, 80, True, 32, 0, None),
+    (2, 8, 2, 17, 95, 128, True, 0, 78, None),
+    (1, 4, 2, 129, 255, 128, False, 70, 100, 200),
+    (1, 4, 1, 100, 100, 80, False, 0, 0, None),
+    (1, 4, 2, 255, 255, 16, True, 0, 0, None),
+    (1, 2, 2, 5, 5, 16, True, 0, -3, None),
+    (1, 4, 2, 64, 64, 128, True, 0, 0, 0),
+    (1, 16, 8, 1024, 1024, 128, True, 0, 0, None),
+]
+
+
+def _bwd_err(got, want):
+    """(max |got - want| over dQ, dK, dV, the worst of them relative to
+    its largest |want|)."""
+    abs_err = rel = 0.0
+    for a, b in zip(got, want):
+        e = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+        scale = float(b.float().abs().max()) if b.numel() else 0.0
+        abs_err = max(abs_err, e)
+        rel = max(rel, e / scale if scale > 0 else e)
+    return abs_err, rel
+
+
+def _check_bwd(label, q, k, v, out, lse, do, kw, got):
+    """Hold one backward launch's (dq, dk, dv) against the plain version on
+    the same inputs. Returns the max |kernel - plain|."""
+    from repro_torch.kernels import ref
+
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for a, b in zip(got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{label}: {a.dtype} {tuple(a.shape)} against {b.dtype} "
+              f"{tuple(b.shape)}")
+        check(bool(a.isfinite().all()), f"{label}: non-finite gradient")
+    abs_err, rel = _bwd_err(got, want)
+    tol = FLASH_BWD_TOL[str(q.dtype).replace("torch.", "")]
+    check(rel <= tol, f"{label}: K6 backward off its plain version by "
+                      f"{rel:.3g} of the largest gradient (tol {tol})")
+    log(f"kernel-check flash_attention_bwd {label}: max err {abs_err:.3g}, "
+        f"{rel:.3g} of the largest |gradient| (tol {tol})")
+    return abs_err
+
+
+def phase_flash_bwd_synthetic():
+    """K6's backward kernel against its plain version over
+    ``FLASH_BWD_CASES`` in both dtypes, on strided (B, S, H, D) views;
+    the forward kernel's lse against the plain lse; each call launched
+    once, and a second call equal bit for bit (no atomics). Returns the
+    worst |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst = 0.0
+    for b, h, hkv, sq, sk, d, causal, window, q_off, kv_len in \
+            FLASH_BWD_CASES:
+        kw = dict(causal=causal, window=window, q_offset=q_off,
+                  kv_len=kv_len)
+        for dtype in FLASH_BWD_TOL:
+            dt = getattr(torch, dtype)
+            q, k, v, do = (
+                torch.randn(b, s, n, d, generator=g, device="cuda").to(dt)
+                .transpose(1, 2)
+                for s, n in ((sq, h), (sk, hkv), (sk, hkv), (sq, h)))
+            out, lse = ops._flash_forward(q, k, v, causal, window, q_off,
+                                          sk if kv_len is None else kv_len,
+                                          want_lse=True)
+            _, lse_want = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                  **kw)
+            live = torch.isfinite(lse_want)
+            check(torch.equal(torch.isfinite(lse), live),
+                  "K6's lse is +inf exactly on the rows with no live key")
+            if bool(live.any()):
+                torch.testing.assert_close(lse[live], lse_want[live],
+                                           rtol=1e-5, atol=1e-4)
+            before = ops.launches["flash_attention_bwd"]
+            got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            check(ops.launches["flash_attention_bwd"] == before + 2,
+                  "flash_attention_bwd launched once a call")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  "K6's backward is not deterministic")
+            label = (f"B={b} H={h}/{hkv} Sq={sq} Sk={sk} D={d} "
+                     f"causal={causal} window={window} q_offset={q_off} "
+                     f"kv_len={kv_len} {dtype}")
+            worst = max(worst, _check_bwd(label, q, k, v, out, lse, do, kw,
+                                          got))
+            del q, k, v, do, out, lse, got, again
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _train_state(cfg, seed, opt):
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import TrainState
+
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    return model, TrainState(params, opt.init(params))
+
+
+def _bwd_case(q, k, v, out, lse, do, kw, launches):
+    """K6 backward's timing row on one launch's inputs: kernel, plain
+    version and SDPA's backward (the library yardstick: one autograd pass
+    through ``scaled_dot_product_attention`` on the same q, k, v and dO,
+    timed eagerly by CUDA events), with the bound from the bytes read and
+    written once and 5 products of 2 D operations per live pair."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    pairs = flash_live_pairs(sq, sk, kw["causal"], kw["window"],
+                             kw["q_offset"], kw.get("kv_len"))
+    esize = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * esize + lse.numel() * 4
+    nops = 10 * b * h * d * pairs
+    row = {"kernel": "flash_attention_bwd", "model": TRAIN_CONFIG,
+           "stage": "train layer 0", "launches": launches,
+           "shape": f"B={b} H={h} Hkv={k.shape[1]} Sq={sq} Sk={sk} D={d} "
+                    f"{str(q.dtype).replace('torch.', '')} causal",
+           "bytes": nbytes, "ops": nops}
+    row["ms"] = time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse,
+                                                        do, **kw),
+                        reps=3, inner=2)
+    row["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, **kw), reps=3, inner=1)
+    check(kw["causal"] and kw["window"] == 0 and sq == sk,
+          "the SDPA yardstick takes the main path's plain causal mask only")
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                       enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o, (qs, ks, vs), do,  # noqa
+                                           retain_graph=True)
+    sdpa_bwd()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(5):
+        sdpa_bwd()
+    ev[1].record()
+    ev[1].synchronize()
+    row["library_ms"] = ev[0].elapsed_time(ev[1]) / 5
+    peak = PEAK_OPS_PER_S["flash_attention_bwd"]
+    row["bound_ms"] = bound_ms(nbytes, nops, peak)
+    row["bound_by"] = bound_by(nbytes, nops, peak)
+    log(f"time flash_attention_bwd {row['stage']} {row['shape']}: kernel "
+        f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, library (SDPA "
+        f"backward, eager) {row['library_ms']:.6f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    del qs, ks, vs, o
+    return row
+
+
+def _train_full(smi):
+    """(a) Full-width, full-depth internlm2-1.8b (bf16, remat "full", S
+    4096, "auto" -> chunked) through ``DataPipeline`` and
+    ``make_train_step`` for ``TRAIN_STEPS`` steps of 4 sequences in 2
+    microbatches; counters set to 0 before the steps and read after; the
+    first microbatch's backward launches of layers 23 and 0 caught and
+    held against the plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import leaves
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.obs import timer
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(TRAIN_CONFIG)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16"
+          and (cfg.attn_impl == "chunked"
+               or cfg.attn_impl == "auto" and TRAIN_SEQ > 2048),
+          f"{TRAIN_CONFIG}: expected bf16, remat full and the chunked "
+          f"attention (K6)")
+    opt = make_optimizer(base_lr=3e-4, warmup=2, total=TRAIN_STEPS)
+    model, state = _train_state(cfg, SEED + 8, opt)
+    n_params = sum(t.numel() for t in leaves(state.params))
+    step = make_train_step(model, opt, microbatches=TRAIN_MICROBATCHES)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, seed=SEED)
+
+    real = ops.flash_attention_bwd
+    calls = []
+    caught = {}
+
+    def catch(q, k, v, out, lse, do, **kw):
+        got = real(q, k, v, out, lse, do, **kw)
+        i = len(calls)
+        calls.append(1)
+        if i in (0, cfg.n_layers - 1):     # layer 23, then layer 0
+            caught[cfg.n_layers - 1 - i] = tuple(
+                t.detach().clone() for t in (q, k, v, out, lse, do)) + (
+                kw, tuple(t.clone() for t in got))
+        return got
+
+    losses, step_s = [], []
+    ops.flash_attention_bwd = catch
+    try:
+        with DataPipeline(lambda s: data.batch(s, TRAIN_BATCH)) as pipe:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            for i in range(TRAIN_STEPS):
+                s, batch = next(pipe)
+                check(s == i, f"the pipeline handed out step {s} at {i}")
+                t0 = timer.now()
+                state, met = step(state, batch)
+                losses.append(float(met["loss"]))    # synchronises
+                step_s.append(timer.now() - t0)
+                log(f"lm train step {i + 1}: loss {losses[-1]:.6f}, "
+                    f"grad_norm {float(met['grad_norm']):.6f}, lr "
+                    f"{float(met['lr']):.3g}, {step_s[-1] * 1e3:.3f} ms")
+            torch.cuda.synchronize()
+            launches = dict(ops.launches)
+    finally:
+        ops.flash_attention_bwd = real
+    peak = torch.cuda.max_memory_allocated()
+    log(f"lm train launches ({TRAIN_STEPS} steps, {TRAIN_MICROBATCHES} "
+        f"microbatches, {cfg.n_layers} layers, remat full): "
+        f"{json.dumps(launches)}")
+    per_mb = TRAIN_STEPS * TRAIN_MICROBATCHES * cfg.n_layers
+    check(launches["flash_attention"] == 2 * per_mb,
+          f"K6 forward launched {launches['flash_attention']} times, "
+          f"expected {2 * per_mb} (a layer's forward and its recompute)")
+    check(launches["flash_attention_bwd"] == per_mb,
+          f"K6 backward launched {launches['flash_attention_bwd']} times, "
+          f"expected {per_mb}")
+    for name in TINY_KERNELS + (HEAD_KERNEL,) + BENCH_KERNELS:
+        check(launches[name] == 0, f"training launched {name}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    tail = statistics.mean(losses[-4:])
+    check(tail < losses[0], f"the loss did not fall: first {losses[0]}, "
+                            f"mean of the last 4 {tail}")
+
+    worst = 0.0
+    for layer in sorted(caught):
+        q, k, v, out, lse, do, kw, got = caught[layer]
+        worst = max(worst, _check_bwd(
+            f"layer {layer} on its training inputs {tuple(q.shape)} "
+            f"(strides {q.stride()})", q, k, v, out, lse, do, kw, got))
+    del state, model
+    torch.cuda.empty_cache()
+    q, k, v, out, lse, do, kw, _ = caught[0]
+    row = _bwd_case(q, k, v, out, lse, do, kw,
+                    launches["flash_attention_bwd"])
+    del caught
+    torch.cuda.empty_cache()
+
+    steady = statistics.median(step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / steady / BF16_OPS_PER_S
+    log(f"lm train {TRAIN_CONFIG} ({smi}): {n_params} parameters, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICROBATCHES} microbatches: "
+        f"step {steady * 1e3:.3f} ms (median of steps 2-{TRAIN_STEPS}; "
+        f"first {step_s[0] * 1e3:.3f} ms), {tokens / steady:.1f} tokens/s, "
+        f"6NT / step / 989e12 = {mfu:.4f}, peak memory "
+        f"{peak / 2**30:.3f} GiB ({peak} B); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    details = {"n_params": n_params, "step_ms": [t * 1e3 for t in step_s],
+               "steady_step_ms": steady * 1e3,
+               "tokens_per_s": tokens / steady, "mfu_6nt": mfu,
+               "peak_bytes": peak, "losses": losses,
+               "main_path_launches": launches}
+    return launches, worst, row, details
+
+
+def _same_checkpoints(a, b):
+    """Whether two checkpoint directories hold equal arrays, key by key."""
+    import numpy as np
+    from repro_torch.checkpoint.checkpoint import latest_step
+
+    pa = os.path.join(a, f"step_{latest_step(a):010d}", "arrays.npz")
+    pb = os.path.join(b, f"step_{latest_step(b):010d}", "arrays.npz")
+    with np.load(pa) as za, np.load(pb) as zb:
+        if sorted(za.files) != sorted(zb.files):
+            return False, ["keys"]
+        bad = [key for key in za.files
+               if not np.array_equal(za[key], zb[key])]
+    return not bad, bad
+
+
+class _InjectedCrash(Exception):
+    pass
+
+
+#: cuBLAS's workspace setting that deterministic algorithms need, set in
+#: the resume run's own process before its CUDA starts (set in this
+#: process, it would slow every later cuBLAS call, the decode timing's
+#: among them)
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+def _train_resume_in_child(smi):
+    """(b), run in a child process of this script whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA initialises; its log lines are
+    passed on, its result comes back as JSON on its last line."""
+    code = (f"import json, sys\nsys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
+            f"import chip_smoke\n"
+            f"res = chip_smoke._train_resume({smi!r})\n"
+            f"print(json.dumps(res))\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC)
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    check(r.returncode == 0 and lines, f"the resume run failed (exit "
+                                       f"{r.returncode}): {r.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def _train_resume(smi):
+    """(b) The full-width model cut to ``TRAIN_CUT_LAYERS`` layers under
+    ``torch.use_deterministic_algorithms(True)`` (the caller sets
+    ``CUBLAS_WORKSPACE_CONFIG``): ``run_training`` for ``TRAIN_CUT_STEPS``
+    steps uninterrupted, and again with a crash at step
+    ``TRAIN_CRASH_AT`` and a resume; the two final checkpoints must be
+    equal bit for bit. Checkpoints go to a temporary directory under
+    ``build/``."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.obs import timer
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_CONFIG),
+                              n_layers=TRAIN_CUT_LAYERS)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, seed=SEED)
+    marks = {}
+
+    def run(directory, hook=None):
+        opt = make_optimizer(base_lr=3e-4, warmup=2, total=TRAIN_CUT_STEPS)
+        model, state = _train_state(cfg, SEED + 9, opt)
+        lcfg = LoopConfig(total_steps=TRAIN_CUT_STEPS, ckpt_every=1000,
+                          ckpt_dir=directory, keep_n=1, log_every=1)
+        return run_training(make_train_step(model, opt, TRAIN_MICROBATCHES),
+                            state, lambda s: data.batch(s, TRAIN_BATCH), lcfg,
+                            step_hook=hook)
+
+    def crash(step):
+        if step == TRAIN_CRASH_AT:
+            marks["crash"] = timer.now()
+            raise _InjectedCrash(f"injected crash at step {step}")
+
+    def first_step(step):
+        marks.setdefault("resumed", timer.now())
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == CUBLAS_DETERMINISTIC,
+          "deterministic cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before "
+          "CUDA initialises")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lm-train-", dir=os.path.join(ROOT,
+                                                                "build"))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        whole_dir = os.path.join(tmp, "whole")
+        crash_dir = os.path.join(tmp, "crash")
+        whole = run(whole_dir)
+        torch.cuda.empty_cache()
+        try:
+            run(crash_dir, crash)
+            raise SmokeFailure("the injected crash did not propagate")
+        except _InjectedCrash:
+            save_s = timer.now() - marks["crash"]
+        check(latest_step(crash_dir) == TRAIN_CRASH_AT,
+              f"the crash path saved step {latest_step(crash_dir)}")
+        ckpt = os.path.join(crash_dir, f"step_{TRAIN_CRASH_AT:010d}")
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                     for f in os.listdir(ckpt))
+        torch.cuda.empty_cache()
+        t0 = timer.now()
+        resumed = run(crash_dir, first_step)
+        restore_s = marks["resumed"] - t0
+        check(resumed.resumed_from == TRAIN_CRASH_AT
+              and resumed.final_step == whole.final_step == TRAIN_CUT_STEPS,
+              f"resumed from {resumed.resumed_from} to {resumed.final_step}")
+        same, bad = _same_checkpoints(whole_dir, crash_dir)
+        check(same, f"the resumed run's final state differs from the "
+                    f"uninterrupted run's at {bad[:5]}")
+        losses = [h["loss"] for h in whole.metrics_history]
+        check([h["loss"] for h in resumed.metrics_history]
+              == losses[TRAIN_CRASH_AT:],
+              "the resumed run's losses differ from the uninterrupted run's")
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"lm train resume ({TRAIN_CONFIG} full width, {TRAIN_CUT_LAYERS} "
+        f"layers, deterministic algorithms): crash at step {TRAIN_CRASH_AT},"
+        f" resumed to {TRAIN_CUT_STEPS}, final state equal to the "
+        f"uninterrupted run bit for bit; checkpoint {nbytes} B, crash-path "
+        f"save {save_s:.3f} s, restore {restore_s:.3f} s (host clock; "
+        f"{smi}); losses {losses}")
+    return {"checkpoint_bytes": nbytes, "crash_save_s": save_s,
+            "restore_s": restore_s, "losses": losses}
+
+
+def _train_quantized():
+    """(c) ``weight_bits=8`` (QAT fake-quant) at full width, 2 layers: two
+    steps with finite losses."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_CONFIG),
+                              n_layers=TRAIN_CUT_LAYERS, weight_bits=8)
+    opt = make_optimizer(base_lr=3e-4, warmup=1, total=2)
+    model, state = _train_state(cfg, SEED + 10, opt)
+    step = make_train_step(model, opt, microbatches=TRAIN_MICROBATCHES)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, seed=SEED)
+    losses = []
+    for i in range(2):
+        state, met = step(state, data.batch(i, TRAIN_BATCH))
+        losses.append(float(met["loss"]))
+    check(all(math.isfinite(x) for x in losses), f"QAT losses {losses}")
+    log(f"lm train QAT weight_bits=8 {TRAIN_CONFIG} {TRAIN_CUT_LAYERS} "
+        f"layers: losses {losses}")
+    del state, model
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _train_launcher():
+    """(d) ``repro_torch.launch.train``'s ``main`` on the card (--reduced,
+    10 steps), with a checkpoint every 5 steps under ``build/``."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+
+    tmp = tempfile.mkdtemp(prefix="launch-train-",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        res = launch_train.main(["--arch", TRAIN_CONFIG, "--reduced",
+                                 "--steps", "10", "--batch", "4", "--seq",
+                                 "64", "--ckpt-every", "5", "--ckpt-dir",
+                                 tmp, "--device", "cuda"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(res.final_step == 10 and res.resumed_from is None,
+          f"launch.train ended at {res.final_step}")
+    loss = res.metrics_history[-1]["loss"] if res.metrics_history else None
+    check(loss is not None and math.isfinite(loss), f"launch loss {loss}")
+    log(f"lm train launcher (--reduced, 10 steps, cuda): final loss "
+        f"{loss:.6f}")
+    return loss
+
+
+def phase_lm_train(smi):
+    """Phase 19: the LM's training path on the card. K6's backward against
+    its plain version on synthetic cases, then (a) full width and depth,
+    (b) crash and exact resume at depth 2, (c) QAT at depth 2, (d) the
+    launcher. Returns (launches of (a), worst |kernel - plain| of K6's
+    backward, its timing row, details)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    worst = phase_flash_bwd_synthetic()
+    launches, worst_main, row, details = _train_full(smi)
+    details["resume"] = _train_resume_in_child(smi)
+    details["qat_losses"] = _train_quantized()
+    details["launcher_loss"] = _train_launcher()
+    return launches, max(worst, worst_main), row, details
+
+
 def _now():
     from repro_torch.obs import timer
 
@@ -3245,6 +3791,8 @@ def main() -> int:
         serving = phase_serving(models, tuned, smi)
         qat = phase_qat(smi, nonzero)
         papers = phase_paper_benches(smi)
+        train_launches, worst_train, k6_bwd_row, lm["train"] = \
+            phase_lm_train(smi)
         lm["profile"] = phase_lm_profile()
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
@@ -3257,12 +3805,15 @@ def main() -> int:
                                         worst_tiles)
         worst[HEAD_KERNEL] = worst_main[HEAD_KERNEL]
         worst["flash_attention"] = max(worst_lm, *worst_flash.values())
+        worst["flash_attention_bwd"] = worst_train
         for k in BENCH_KERNELS:
             worst[k] = max(worst_k45[k], worst_bench[k])
         launches = {**{k: launches[k] for k in TINY_KERNELS + (HEAD_KERNEL,)},
                     **{k: lm_launches[k] for k in LM_KERNELS},
+                    **{k: train_launches[k] for k in TRAIN_KERNELS},
                     **{k: bench_launches[k] for k in BENCH_KERNELS}}
-        line = kernels_line(rows + k6_rows + bench_rows, launches, worst)
+        line = kernels_line(rows + k6_rows + bench_rows + [k6_bwd_row],
+                            launches, worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)

@@ -43,9 +43,14 @@ ENTRY_POINTS = {
     # stages, M, cluster, row tile, residency flags, shared memory, stream
     "mlp_megakernel": ("mlp_megakernel_launch",
                        [_P] * 6 + [_I] * 6 + [_P]),
-    # q, k, v, out, 11 sizes and flags, host array of 12 strides, stream
+    # q, k, v, out, lse (or null), 11 sizes and flags, host array of 12
+    # strides, stream
     "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P] + [_I] * 11 + [_P, _P]),
+                        [_P] * 5 + [_I] * 11 + [_P, _P]),
+    # q, k, v, out, lse, d_out, dq, dk, dv, delta workspace, 11 sizes and
+    # flags, host array of 24 strides, stream
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_P] * 10 + [_I] * 11 + [_P, _P]),
     # acc, thr, out, M, C, S, channels per block (0: linear), stream
     "multi_threshold": ("multi_threshold_launch",
                         [_P, _P, _P] + [_I] * 4 + [_P]),

@@ -60,6 +60,11 @@
 // gives 0 only when none of the row's blocks is live, and a block-size
 // dependent mean otherwise). Ragged Sq and Sk are masked in the kernel;
 // tensors are addressed through their strides.
+//
+// Both kernels optionally write each row's log-sum-exp of its scaled live
+// scores, lse[b, h, i] = log sum_j exp(s_ij) (float32, (B, H, Sq)
+// contiguous; +inf on a row with no live key), which the backward kernel
+// (flash_attention_bwd.cu) rebuilds P from.
 
 #include <cmath>
 #include <cstdint>
@@ -85,6 +90,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;                           // (B, H, Sq) or null
   int H, Hkv, Sq, Sk, kv_len, causal, window, q_offset;
   float scale;
   // element strides of (batch, head, position) for q, k, v and out
@@ -242,6 +248,9 @@ flash_attention_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < DC; ++j)
       out[row * p.os[2] + c + 16 * j] = from_float<T>(acc[i][j] / denom);
+    if (p.lse != nullptr && c == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
@@ -283,6 +292,7 @@ constexpr int TC_BOX_BYTES = 128 * TC_BOX_COLS * 2;   // 128 rows per box
 
 struct TcParams {
   void* out;
+  float* lse;                           // (B, H, Sq) or null
   int H, Hkv, Sq, kv_len, causal, window, q_offset, n_qtiles;
   float scale_log2;                     // D^-1/2 * log2(e)
   long long os[3];                      // out's (batch, head, position)
@@ -671,6 +681,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = q0 + r0 + 8 * hf;
       if (row >= p.Sq) continue;
       const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+      // m is in units of log2 of the scaled score: lse = ln 2 (m + log2 l)
+      if (p.lse != nullptr && (lane & 3) == 0)
+        p.lse[((long long)b * p.H + h) * p.Sq + row] =
+            l[hf] > 0.f ? 0.6931471805599453f * (m[hf] + log2f(l[hf]))
+                        : INFINITY;
       __nv_bfloat16* orow = out + row * p.os[2];
 #pragma unroll
       for (int x = 0; x < NB; ++x)
@@ -739,8 +754,8 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int Hkv, int Sq, int Sk, int kv_len, int causal,
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int H, int Hkv, int Sq, int Sk, int kv_len, int causal,
               int window, int q_offset, const long long* strides,
               cudaStream_t stream) {
   constexpr int DP = D <= TC_BOX_COLS ? TC_BOX_COLS : 2 * TC_BOX_COLS;
@@ -760,6 +775,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   if (r != CUDA_SUCCESS) return TENSOR_MAP_ERROR + (int)r;
   TcParams p;
   p.out = out;
+  p.lse = lse;
   p.H = H;
   p.Hkv = Hkv;
   p.Sq = Sq;
@@ -780,7 +796,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q (B, H, Sq, D), k and v (B, Hkv, Sk, D), out (B, H, Sq, D), each
-// addressed through the element strides in ``strides``: 12 int64 values,
+// addressed through the element strides in ``strides``; lse, when not
+// null, receives each row's log-sum-exp, (B, H, Sq) float32 contiguous.
+// The strides are 12 int64 values,
 // (batch, head, position) for q, k, v and out; the last dimension is
 // contiguous. ``bf16`` selects bfloat16 tensors (the tensor-core kernel:
 // bases and strides of q, k and v multiples of 16 bytes), else float32.
@@ -788,7 +806,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 // than 16, 80 and 128), or TENSOR_MAP_ERROR plus the CUresult when a
 // tensor map cannot be built.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
+                                      const void* v, void* out, float* lse,
+                                      int B, int H,
                                       int Hkv, int Sq, int Sk, int D,
                                       int kv_len, int causal, int window,
                                       int q_offset, int bf16,
@@ -797,11 +816,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     switch (D) {
-      case 16: return launch_tc<16>(q, k, v, out, B, H, Hkv, Sq, Sk, kv_len,
-                                    causal, window, q_offset, strides, s);
-      case 80: return launch_tc<80>(q, k, v, out, B, H, Hkv, Sq, Sk, kv_len,
-                                    causal, window, q_offset, strides, s);
-      case 128: return launch_tc<128>(q, k, v, out, B, H, Hkv, Sq, Sk,
+      case 16: return launch_tc<16>(q, k, v, out, lse, B, H, Hkv, Sq, Sk,
+                                    kv_len, causal, window, q_offset,
+                                    strides, s);
+      case 80: return launch_tc<80>(q, k, v, out, lse, B, H, Hkv, Sq, Sk,
+                                    kv_len, causal, window, q_offset,
+                                    strides, s);
+      case 128: return launch_tc<128>(q, k, v, out, lse, B, H, Hkv, Sq, Sk,
                                       kv_len, causal, window, q_offset,
                                       strides, s);
       default: return (int)cudaErrorInvalidValue;
@@ -812,6 +833,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.out = out;
+  p.lse = lse;
   p.H = H;
   p.Hkv = Hkv;
   p.Sq = Sq;

@@ -2,7 +2,9 @@
 
 ``threshold_matmul``, ``conv_threshold``, ``mlp_megakernel``,
 ``flash_attention``, ``multi_threshold`` and ``qmatmul`` are the
-counterparts of the functions of the same names in ``repro.kernels.ops``;
+counterparts of the functions of the same names in ``repro.kernels.ops``
+(``flash_attention`` is differentiable: ``flash_attention_bwd`` is its
+backward, a kernel of its own);
 ``float_head`` runs the deployed models' float head with a reduction
 order that does not depend on the row count.
 Each one checks its arguments, then:
@@ -34,7 +36,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.conv_threshold import plan_conv_blocks
 
 __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
-           "flash_attention", "multi_threshold", "qmatmul", "float_head",
+           "flash_attention", "flash_attention_bwd", "multi_threshold",
+           "qmatmul", "float_head",
            "megakernel_plan", "megakernel_layout",
            "megakernel_pack_weights", "megakernel_active_clusters",
            "plan_conv_blocks",
@@ -48,6 +51,7 @@ __all__ = ["threshold_matmul", "conv_threshold", "mlp_megakernel",
 #: Kernel launches since the last ``reset_launches``, by kernel name.
 launches: Dict[str, int] = {"threshold_matmul": 0, "conv_threshold": 0,
                             "mlp_megakernel": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0,
                             "multi_threshold": 0, "qmatmul": 0,
                             "float_head": 0}
 
@@ -727,18 +731,10 @@ def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, q_offset: int = 0,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
-    """Flash attention with GQA, causal and sliding-window masks.
-
-    q (B, H, Sq, D), k/v (B, Hkv, Sk, D), bfloat16 or float32, D in
-    ``FLASH_HEAD_DIMS``; any strides with a contiguous last dimension (the
-    model passes its (B, S, H, D) tensors transposed, without a copy).
-    Query row i sits at position i + q_offset; keys at or beyond ``kv_len``
-    (default Sk) are masked. Returns (B, H, Sq, D) in q's dtype and
-    layout. Ragged Sq and Sk need no padding."""
-    kind = _device_kind(q)
+def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int, kv_len: Optional[int]) -> int:
+    """Check K6's arguments; returns ``kv_len`` resolved."""
+    _device_kind(q)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -760,15 +756,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if kind == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset, kv_len=kv_len)
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("q, k, v need a contiguous last dimension")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} or heads {h} above the grid's 65535")
+    if q.device.type == "cuda":
+        if d not in FLASH_HEAD_DIMS:
+            raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
+        if any(t.stride(-1) != 1 for t in (q, k, v)):
+            raise ValueError("q, k, v need a contiguous last dimension")
+        if b > 65535 or h > 65535:
+            raise ValueError(f"batch {b} or heads {h} above the grid's "
+                             f"65535")
+    return kv_len
+
+
+def _flash_forward(q, k, v, causal: bool, window: int, q_offset: int,
+                   kv_len: int, want_lse: bool):
+    """K6's forward: (out, lse or None); lse (B, H, Sq) float32 only when
+    ``want_lse`` (the backward needs it)."""
+    if q.device.type == "cpu":
+        res = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset, kv_len=kv_len,
+                                      return_lse=want_lse)
+        return res if want_lse else (res, None)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
         # the tensor-core kernel reads q, k and v through TMA tensor maps:
         # bases and the strides of every dimension of extent > 1 must be
@@ -779,18 +788,119 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(f"bf16 {name} (strides {t.stride()}) needs "
                                  f"a 16-byte aligned base and strides")
     out = torch.empty_like(q)          # q's layout (contiguous if not dense)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if out.numel() == 0:
-        return out
+        if lse is not None:
+            lse.fill_(float("inf"))
+        return out, lse
     strides = (ctypes.c_longlong * 12)(
         *[t.stride(i) for t in (q, k, v, out) for i in range(3)])
     fn = _build.entry_point("flash_attention")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-             hkv, sq, sk, d, kv_len, int(causal), window, q_offset,
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if lse is not None else None, b, h, hkv, sq, sk,
+             d, kv_len, int(causal), window, q_offset,
              int(q.dtype == torch.bfloat16), ctypes.addressof(strides),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error("flash_attention", err)
     launches["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K6 as a differentiable function: the forward kernel writes the
+    per-row log-sum-exp beside its output, and the backward runs
+    ``flash_attention_bwd`` (its kernel on CUDA tensors, the explicit
+    formulas of ``ref.flash_attention_bwd_ref`` on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
+        out, lse = _flash_forward(q, k, v, causal, window, q_offset, kv_len,
+                                  want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
+                        kv_len=kv_len)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, d_out,
+                                         **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Flash attention with GQA, causal and sliding-window masks.
+
+    q (B, H, Sq, D), k/v (B, Hkv, Sk, D), bfloat16 or float32, D in
+    ``FLASH_HEAD_DIMS``; any strides with a contiguous last dimension (the
+    model passes its (B, S, H, D) tensors transposed, without a copy).
+    Query row i sits at position i + q_offset; keys at or beyond ``kv_len``
+    (default Sk) are masked. Returns (B, H, Sq, D) in q's dtype and
+    layout. Ragged Sq and Sk need no padding. Differentiable: when grad
+    mode is on and q, k or v requires grad, the forward also keeps the
+    log-sum-exp and the backward runs ``flash_attention_bwd``."""
+    kv_len = _flash_check(q, k, v, window, kv_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                     kv_len)
+    return _flash_forward(q, k, v, causal, window, q_offset, kv_len,
+                          want_lse=False)[0]
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        d_out: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0,
+                        kv_len: Optional[int] = None):
+    """K6's backward: (dq, dk, dv) of ``flash_attention`` from its inputs,
+    its output ``out``, the forward's ``lse`` (B, H, Sq) float32 and the
+    output's gradient ``d_out`` (any strides; copied only when its last
+    dimension is not contiguous). dk and dv sum the query heads of a GQA
+    group in a fixed order and no float atomics decide any result, so the
+    gradients are the same on every run. Each comes back in its input's
+    dtype and layout."""
+    kv_len = _flash_check(q, k, v, window, kv_len)
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    for name, t in (("out", out), ("d_out", d_out)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}; q is {q.dtype} {tuple(q.shape)}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32 on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    mask = dict(causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, d_out, **mask)
+    if out.stride(-1) != 1:
+        out = out.contiguous()
+    if d_out.stride(-1) != 1:
+        d_out = d_out.contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *[t.stride(i) for t in (q, k, v, out, d_out, dq, dk, dv)
+          for i in range(3)])
+    fn = _build.entry_point("flash_attention_bwd")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), delta.data_ptr(), b, h, hkv, sq, sk, d, kv_len,
+             int(causal), window, q_offset, int(q.dtype == torch.bfloat16),
+             ctypes.addressof(strides),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error("flash_attention_bwd", err)
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 #: Shared memory ``multi_threshold``'s search kernel may take for banks:

@@ -18,7 +18,8 @@ from repro_torch.kernels.conv_threshold import conv_threshold_ref, int_matmul
 
 __all__ = ["multi_threshold_ref", "threshold_matmul_ref",
            "mlp_megakernel_ref", "conv_threshold_ref", "int_matmul",
-           "flash_attention_ref", "qmatmul_ref", "float_head_ref"]
+           "flash_attention_ref", "flash_attention_bwd_ref", "qmatmul_ref",
+           "float_head_ref"]
 
 NEG_INF = -1e30
 
@@ -91,9 +92,23 @@ def mlp_megakernel_ref(x_int: torch.Tensor, weights, banks) -> torch.Tensor:
     return h
 
 
+def _flash_live(sq: int, sk: int, causal: bool, window: int, q_offset: int,
+                kv_len: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: key j is live for query row i (K6's mask)."""
+    q_pos = torch.arange(sq, device=device) + q_offset
+    k_pos = torch.arange(sk, device=device)
+    ok = (k_pos < kv_len)[None, :].expand(sq, sk)
+    if causal:
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    return ok
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        q_offset: int = 0, kv_len=None) -> torch.Tensor:
+                        q_offset: int = 0, kv_len=None,
+                        return_lse: bool = False):
     """Dense-softmax attention with GQA, causal and sliding-window masks.
 
     q (B, H, Sq, D), k/v (B, Hkv, Sk, D); query head h reads KV head
@@ -101,21 +116,61 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     beyond ``kv_len`` (default Sk) are masked. Scores, statistics and the
     weighted sum in float32, output in q's dtype. Masked scores are -1e30
     and weigh 0, and the sum is divided by max(l, 1e-30), so a row with no
-    live key gives 0 (the kernel's rule)."""
+    live key gives 0 (the kernel's rule). With ``return_lse`` also the
+    per-row log-sum-exp of the scaled live scores, (B, H, Sq) float32,
+    +inf on a row with no live key (so exp(s - lse) is 0 there)."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     kv_len = sk if kv_len is None else kv_len
     qg = q.reshape(b, hkv, h // hkv, sq, d).to(torch.float32)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) * d ** -0.5
-    q_pos = torch.arange(sq, device=q.device) + q_offset
-    k_pos = torch.arange(sk, device=q.device)
-    ok = (k_pos < kv_len)[None, :].expand(sq, sk)
-    if causal:
-        ok = ok & (k_pos[None, :] <= q_pos[:, None])
-    if window > 0:
-        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    ok = _flash_live(sq, sk, causal, window, q_offset, kv_len, q.device)
     s = torch.where(ok, s, NEG_INF)
-    p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    lsum = p.sum(dim=-1, keepdim=True)
+    out = (out / lsum.clamp_min(1e-30)).reshape(b, h, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(lsum > 0, m + torch.log(lsum), float("inf"))
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0, kv_len=None):
+    """The backward of ``flash_attention_ref`` by its explicit formulas, in
+    float32: with s = D^-1/2 q k^T over the live keys,
+
+      P = exp(s - lse) (the softmax, rebuilt from the forward's lse),
+      dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dO * O)),
+      dQ = D^-1/2 dS K, dK = D^-1/2 dS^T Q,
+
+    dK and dV summed over the query heads that share a KV head. q, o, dO
+    (B, H, Sq, D), k, v (B, Hkv, Sk, D), lse (B, H, Sq) float32. Returns
+    (dq, dk, dv) in q's, k's and v's dtypes. A row with no live key has P
+    = 0, so it gets zero gradients and adds nothing to dK and dV."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kv_len = sk if kv_len is None else kv_len
+    g = h // hkv
+    scale = d ** -0.5
+
+    def grouped(t):
+        return t.reshape(b, hkv, g, sq, d).to(torch.float32)
+
+    qf, of, dof = grouped(q), grouped(o), grouped(do)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    ok = _flash_live(sq, sk, causal, window, q_offset, kv_len, q.device)
+    p = torch.where(ok, torch.exp(s - lse.reshape(b, hkv, g, sq, 1)), 0.0)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

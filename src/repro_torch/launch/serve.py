@@ -152,8 +152,10 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     model = Model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed),
-                        device=device)
+    with torch.inference_mode():
+        params = model.init(
+            torch.Generator(device=device).manual_seed(args.seed),
+            device=device)
     eng = ServeEngine(model, params, n_slots=args.slots, max_len=args.max_len,
                       device=device)
     rng = np.random.default_rng(args.seed)

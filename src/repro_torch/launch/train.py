@@ -1,0 +1,105 @@
+"""Training launcher: the train step, the synthetic token stream and the
+fault-tolerant loop with elastic restart, on one device. The port of
+``repro.launch.train``.
+
+    python -m repro_torch.launch.train --arch internlm2-1.8b --reduced \
+        --steps 50 --batch 8 --seq 64 --device cpu
+
+Everything runs on the card unless ``--device cpu`` is given; asking for
+the card without one raises. One device only: ``--model-parallel`` above
+1 raises ``NotImplementedError`` until ``parallel/`` and
+``launch/mesh.py`` are ported. Weights come from a ``torch.Generator``
+seeded with 0 (JAX's PRNG is not reproduced). A run resumes from the
+newest checkpoint in ``--ckpt-dir``; on ``ElasticRestart`` (the
+straggler watchdog) the launcher builds the state again on the same
+device and resumes from the checkpoint the loop wrote.
+"""
+
+import argparse
+import dataclasses
+import logging
+import os
+import tempfile
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.qir import resolve_device
+from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.models.model import Model
+from repro_torch.optim.adamw import make_optimizer
+from repro_torch.train.loop import ElasticRestart, LoopConfig, run_training
+from repro_torch.train.steps import TrainState, make_train_step
+
+logging.basicConfig(level=logging.INFO, format="%(message)s")
+log = logging.getLogger("repro_torch.launch.train")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3-8b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="CPU-scale same-family config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--quant-bits", type=int, default=16)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_launch_train"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--max-elastic-restarts", type=int, default=2)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 needs parallel/ and launch/mesh.py, which "
+            "are not ported yet; the port trains on one device")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.quant_bits < 16:
+        cfg = dataclasses.replace(cfg, weight_bits=args.quant_bits)
+    device = resolve_device(args.device)
+
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq)
+    restarts = 0
+    while True:
+        log.info("%s on %s", cfg.name, device)
+        model = Model(cfg)
+        params = model.init(
+            torch.Generator(device=device).manual_seed(0),
+            device=device)
+        opt = make_optimizer(base_lr=3e-4, warmup=10, total=args.steps)
+        state = TrainState(params=params, opt=opt.init(params))
+        step_fn = make_train_step(model, opt, microbatches=args.microbatches)
+
+        def batch_fn(step):
+            # host arrays; the step copies them to the device
+            return data.batch(step, args.batch)
+
+        lcfg = LoopConfig(total_steps=args.steps,
+                          ckpt_every=args.ckpt_every,
+                          ckpt_dir=args.ckpt_dir, log_every=10)
+        try:
+            res = run_training(step_fn, state, batch_fn, lcfg)
+            break
+        except ElasticRestart as e:
+            restarts += 1
+            log.warning("elastic restart %d: %s", restarts, e)
+            if restarts > args.max_elastic_restarts:
+                raise
+            # one card: the same device again, resumed from the checkpoint
+            continue
+
+    last = res.metrics_history[-1] if res.metrics_history else {}
+    log.info("finished at step %d (resumed_from=%s): %s",
+             res.final_step, res.resumed_from, last)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""repro_torch.models — the LM inference path (dense attention configs):
-``layers``, ``attention`` (its ``chunked_attention`` runs the port's flash
-attention kernel), ``transformer`` and ``model.Model``; and ``tiny``, the
+"""repro_torch.models — the LM (dense attention configs), inference and
+training: ``layers``, ``attention`` (its ``chunked_attention`` runs the
+port's flash attention kernel and, under autograd, its backward kernel),
+``transformer`` (remat) and ``model.Model``; and ``tiny``, the
 numpy-only descriptions of the paper's IC and CNV conv models."""

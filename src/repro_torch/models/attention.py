@@ -7,7 +7,11 @@ online-softmax jnp twin of its Pallas flash kernel — calls the port's
 flash attention kernel (``kernels.ops.flash_attention``): a launch on
 CUDA tensors, the kernel's plain version on CPU tensors. ``attn_apply``
 keeps the reference's dispatch: "chunked" runs the kernel, "naive" plain
-torch ops, "auto" chunked when S > 2048. ``decode_attention`` and
+torch ops, "auto" chunked when S > 2048. Both branches are
+differentiable: "naive" through autograd of its torch ops (it is jnp in
+the reference), "chunked" through the kernel's autograd function, whose
+backward is a kernel of its own (``ops.flash_attention_bwd``; the
+reference differentiates its jnp flash twin). ``decode_attention`` and
 ``_decode_ring`` stay plain torch ops, as they are jnp in the reference.
 M-RoPE is not ported yet (``layers.check_supported``).
 """

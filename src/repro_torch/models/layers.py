@@ -1,5 +1,5 @@
-"""Shared LM building blocks, the dense subset: norms, embeddings, float
-linears and the SwiGLU MLP.
+"""Shared LM building blocks, the dense subset: norms, embeddings,
+linears (float, or with QAT fake-quant weights) and the SwiGLU MLP.
 
 The counterpart of ``repro.models.layers``: explicit init/apply pairs over
 plain dicts of tensors, with the reference's parameter shapes and names so
@@ -10,11 +10,14 @@ cannot be reproduced. Plain matmuls are ``torch.matmul``, as the reference
 leaves them to XLA's ``dot_general``. The reference's ``shard(...)``
 constraints are the identity on one card and are left out.
 
+With ``weight_bits < 16`` every linear fake-quantizes its weight per
+tensor with the port's straight-through ``IntQuantizer`` (QAT), as the
+reference does.
+
 Not ported yet (``check_supported`` raises ``NotImplementedError``): MoE,
-SSM and hybrid blocks, M-RoPE, embedding inputs (vlm/audio frontends),
-QAT fake-quant (``weight_bits < 16``); the int8 serve path (``w_int``
-params) is refused where weights enter the port,
-``models.model.params_from_numpy``.
+SSM and hybrid blocks, M-RoPE, embedding inputs (vlm/audio frontends);
+the int8 serve path (``w_int`` params) is refused where weights enter
+the port, ``models.model.params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.quantizers import IntQuantizer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -38,8 +42,7 @@ def check_supported(cfg: ArchConfig) -> None:
     missing = [what for what, bad in (
         ("MoE blocks", cfg.is_moe), ("SSM blocks", cfg.has_ssm),
         ("M-RoPE", cfg.mrope),
-        ("embedding inputs (embed_inputs=False)", not cfg.embed_inputs),
-        ("quantized weights (weight_bits < 16)", cfg.weight_bits < 16))
+        ("embedding inputs (embed_inputs=False)", not cfg.embed_inputs))
         if bad]
     if missing:
         raise NotImplementedError(
@@ -104,8 +107,14 @@ def linear_init(generator, in_dim: int, out_shape, cfg: ArchConfig,
 
 
 def linear_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ w (+b), contracting x's last axis with w's first."""
+    """y = x @ w (+b), contracting x's last axis with w's first. With
+    ``cfg.weight_bits < 16`` w is fake-quantized first:
+    narrow signed codes at a per-tensor min-max scale, in float32, cast
+    back to w's dtype; the gradient passes straight through."""
     w = p["w"]
+    if cfg.weight_bits < 16:
+        wq = IntQuantizer(bits=cfg.weight_bits, signed=True, narrow=True)
+        w = wq(w.to(torch.float32)).to(w.dtype)
     y = torch.matmul(x, w.reshape(w.shape[0], -1))
     y = y.reshape(*x.shape[:-1], *w.shape[1:])
     if "b" in p:

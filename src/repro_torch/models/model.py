@@ -1,7 +1,14 @@
-"""Top-level LM: init / prefill / decode for the dense attention configs.
+"""Top-level LM: init / forward / loss / prefill / decode for the dense
+attention configs.
 
-The counterpart of ``repro.models.model.Model``'s inference entry points:
+The counterpart of ``repro.models.model.Model``:
 
+  * ``train_logits`` / ``loss`` -> the training forward (the reference's
+                        train_4k target): float32 logits and the aux loss;
+                        the loss is cross-entropy over ``labels >= 0``
+                        plus a 1e-4 z-loss plus 1e-2 x aux, differentiable
+                        through every layer (K6's backward kernel on the
+                        chunked path);
   * ``prefill``      -> the full-sequence forward (the reference's
                         prefill_32k target), float32 logits;
   * ``cache_init`` / ``decode_step`` -> one token per sequence against a
@@ -9,10 +16,14 @@ The counterpart of ``repro.models.model.Model``'s inference entry points:
                         for sliding-window configs).
 
 Tensors live on the card unless the caller passes ``device="cpu"``; asking
-for the card without one raises. Every entry point runs under
-``torch.inference_mode()``. ``params_from_numpy`` carries the reference's
-weights across (the tests feed both sides the same numbers). Training
-(``train_logits``, ``loss``) and ``quantize_params`` are not ported yet.
+for the card without one raises. ``init`` returns ordinary tensors (made
+under ``torch.no_grad()``), so training can take their gradients; called
+under ``torch.inference_mode()``, as the serving callers do, it returns
+inference tensors, whose views cost the host less on every decode step.
+The inference entry points run under ``torch.inference_mode()``.
+``params_from_numpy`` carries the reference's weights across (the tests
+feed both sides the same numbers). ``quantize_params`` (the int8 serve
+path) is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.pytree import tree_map
 from repro_torch.core.qir import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (_dtype, check_supported, embed_apply,
@@ -62,10 +74,12 @@ class Model:
         check_supported(self.cfg)
 
     # -- params --------------------------------------------------------
-    @torch.inference_mode()
+    @torch.no_grad()
     def init(self, generator: torch.Generator, device=None) -> Dict[str, Any]:
         """Random weights with the reference's distributions, drawn from
-        ``generator``, which must live on ``device`` (None: the card)."""
+        ``generator``, which must live on ``device`` (None: the card):
+        ordinary tensors, or inference tensors under
+        ``torch.inference_mode()``."""
         dev = resolve_device(device)
         cfg = self.cfg
         p: Dict[str, Any] = {"embed": embed_init(generator, cfg, device=dev),
@@ -95,13 +109,36 @@ class Model:
         return head_apply(self.cfg, params["embed"] if self.cfg.tie_embeddings
                           else params["head"], h)
 
+    def train_logits(self, params, batch):
+        """Returns (logits (B, S, V) float32, aux_loss), with autograd."""
+        h, positions = self._inputs_to_h(params, batch)
+        h, aux = tfm.stack_apply(self.cfg, params["blocks"], h, positions)
+        return self._head(params, h), aux
+
+    def loss(self, params, batch):
+        """batch {"tokens", "labels": (B, S) int} -> (total, {"ce",
+        "z_loss", "aux"}), the reference's terms: labels < 0 are masked.
+        The label's logit is gathered (the reference sums a one-hot
+        select, which gives the same value)."""
+        logits, aux = self.train_logits(params, batch)
+        labels = batch["labels"].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).to(torch.float32)
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        ce = ((lse - lab) * mask).sum() / denom
+        # z-loss keeps the softmax normalizer bounded (MaxText-style)
+        zl = 1e-4 * (lse.square() * mask).sum() / denom
+        total = ce + zl + 1e-2 * aux
+        return total, {"ce": ce, "z_loss": zl, "aux": aux}
+
     # -- inference ---------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, params, batch) -> torch.Tensor:
         """Full-sequence forward: batch {"tokens": (B, S) int} (optional
         "positions" (B, S)) -> logits (B, S, V) float32."""
         h, positions = self._inputs_to_h(params, batch)
-        h = tfm.stack_apply(self.cfg, params["blocks"], h, positions)
+        h, _ = tfm.stack_apply(self.cfg, params["blocks"], h, positions)
         return self._head(params, h)
 
     @torch.inference_mode()
@@ -110,7 +147,7 @@ class Model:
         dev = resolve_device(device)
         one = tfm.block_cache_init(self.cfg, batch, max_len, dtype,
                                    device=dev)
-        return tfm.map_tree(
+        return tree_map(
             lambda x: x.unsqueeze(0).repeat(self.cfg.n_groups,
                                             *([1] * x.dim())), one)
 

@@ -4,33 +4,38 @@ The counterpart of ``repro.models.transformer``. The stacked parameter
 layout is kept: every leaf of ``params["blocks"]`` carries a leading
 ``n_groups`` axis, as ``jax.vmap(block_init)`` builds it, so the
 reference's weights carry across leaf for leaf. ``stack_apply`` and
-``stack_decode`` loop in Python over the groups in place of ``lax.scan``.
-Remat is training only and is left out; SSM and MoE blocks are not ported
-(``layers.check_supported``).
+``stack_decode`` loop in Python over the groups in place of ``lax.scan``;
+``stack_apply`` takes the groups' slices through one ``unbind`` per leaf,
+so the backward stacks the groups' gradients once.
+
+Remat (``cfg.remat``, when grad mode is on) maps the reference's
+``jax.checkpoint`` policies onto ``torch.utils.checkpoint`` (non-reentrant):
+"full" recomputes the whole block in the backward; "dots" keeps the
+outputs of the 2-D matrix products (``aten.mm`` / ``addmm``, the
+reference's "no batch dims"), and "dots_saveable" those of the batched
+ones too (``aten.bmm``), recomputing the rest; "none" keeps everything.
+SSM and MoE blocks are not ported (``layers.check_supported``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.pytree import leaves, tree_map, unflatten_like
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (check_supported, mlp_apply, mlp_init,
                                        norm_apply, norm_init)
 
 
-def map_tree(fn, *trees):
-    """Apply ``fn`` leaf by leaf over nested dicts of the same structure."""
-    if isinstance(trees[0], dict):
-        return {k: map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def _group(tree, g: int):
     """Group ``g``'s slice of a stacked tree (views, no copy)."""
-    return map_tree(lambda x: x[g], tree)
+    return tree_map(lambda x: x[g], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -52,7 +57,9 @@ def block_init(generator, cfg: ArchConfig, device=None) -> Dict[str, Any]:
 
 
 def block_apply(cfg: ArchConfig, p, x, positions):
-    """Forward through one block."""
+    """Forward through one block. Returns (x, aux_loss); the aux loss is
+    MoE's and 0 for the dense blocks."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.block_period):
         sub = p[f"sub{i}"]
         h = norm_apply(cfg, sub["norm1"], x)
@@ -60,7 +67,7 @@ def block_apply(cfg: ArchConfig, p, x, positions):
         if cfg.d_ff > 0:
             h = norm_apply(cfg, sub["norm2"], x)
             x = x + mlp_apply(cfg, sub["mlp"], h)
-    return x
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -101,19 +108,57 @@ def stack_init(generator, cfg: ArchConfig, device=None):
     for g in range(cfg.n_groups):
         blk = block_init(generator, cfg, device=device)
         if stacked is None:
-            stacked = map_tree(lambda x: torch.empty((cfg.n_groups, *x.shape),
+            stacked = tree_map(lambda x: torch.empty((cfg.n_groups, *x.shape),
                                                  dtype=x.dtype,
                                                  device=x.device), blk)
-        map_tree(lambda dst, src: dst[g].copy_(src), stacked, blk)
+        tree_map(lambda dst, src: dst[g].copy_(src), stacked, blk)
         del blk
     return stacked
 
 
+#: the matrix products whose outputs each selective policy keeps
+_SAVED_PRODUCTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "dots_saveable": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default),
+}
+
+
+def _keep_products(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn`` under the config's remat policy (the identity without grad
+    mode, where there is no backward to recompute for)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat in _SAVED_PRODUCTS:
+        policy = functools.partial(_keep_products,
+                                   _SAVED_PRODUCTS[cfg.remat])
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       policy)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=context_fn)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _unstack(stacked, n: int):
+    """The ``n`` groups' parameter trees, each leaf one ``unbind`` slice."""
+    per = [x.unbind(0) for x in leaves(stacked)]
+    return [unflatten_like(stacked, [p[g] for p in per]) for g in range(n)]
+
+
 def stack_apply(cfg: ArchConfig, stacked, x, positions):
-    """Forward through all groups."""
-    for g in range(cfg.n_groups):
-        x = block_apply(cfg, _group(stacked, g), x, positions)
-    return x
+    """Forward through all groups, each block under ``cfg.remat``. Returns
+    (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(cfg, functools.partial(block_apply, cfg))
+    for p in _unstack(stacked, cfg.n_groups):
+        x, a = block(p, x, positions)
+        aux = aux + a
+    return x, aux
 
 
 def stack_decode(cfg: ArchConfig, stacked, caches, x, cur_index):

@@ -27,9 +27,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.pytree import tree_map
 from repro_torch.core.qir import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import map_tree
 from repro_torch.obs import timer as obs_timer
 
 
@@ -95,7 +95,7 @@ class ServeEngine:
         def write_slot(batch_c, one_c):
             batch_c[:, slot] = one_c[:, 0].to(batch_c.dtype)
 
-        map_tree(write_slot, self.caches, one_cache)
+        tree_map(write_slot, self.caches, one_cache)
         tok = int(torch.argmax(last_logits.reshape(-1)))
         req.output.append(tok)
         req.first_token_t = obs_timer.now()

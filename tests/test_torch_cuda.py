@@ -815,3 +815,122 @@ def test_graph_run_of_the_full_width_cnv_equals_the_cpu(cuda):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     assert torch.backends.cudnn.enabled
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,q_off,kv_len", [
+    (2, 8, 2, 300, 300, 128, True, 0, 0, None),
+    (1, 4, 4, 129, 255, 80, False, 70, 100, 200),
+    (2, 4, 1, 65, 200, 16, True, 32, 120, 150),
+    (1, 2, 2, 5, 5, 16, True, 0, -3, None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_equals_plain(cuda, b, h, hkv, sq, sk, d,
+                                                 causal, window, q_off,
+                                                 kv_len, dtype):
+    """K6's backward kernel against ``ref.flash_attention_bwd_ref`` on the
+    forward kernel's lse: dQ, dK, dV within 1e-5 (float32) / 2e-2 (bf16)
+    of the largest |gradient|; one launch a call; a second call equal bit
+    for bit (no atomics decide a result)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q, k, v, do = (torch.randn(b, s, n, d, generator=g, device=cuda).to(dt)
+                   .transpose(1, 2)
+                   for s, n in ((sq, h), (sk, hkv), (sk, hkv), (sq, h)))
+    kw = dict(causal=causal, window=window, q_offset=q_off, kv_len=kv_len)
+    out, lse = ops._flash_forward(q, k, v, causal, window, q_off,
+                                  sk if kv_len is None else kv_len, True)
+    before = ops.launches["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, a2)
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((a.float() - w.float()).abs().max()) <= tol * scale
+
+
+def test_flash_attention_autograd_launches_both_kernels(cuda):
+    """Under autograd on CUDA tensors the forward kernel writes the lse and
+    the backward kernel runs: one launch of each, gradients equal to the
+    plain backward on the same lse."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, 100, n, 128, generator=g, device=cuda)
+               .bfloat16().transpose(1, 2).requires_grad_(True)
+               for n in (8, 2, 2))
+    do = torch.randn(1, 8, 100, 128, generator=g, device=cuda).bfloat16()
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 1
+    assert ops.launches["flash_attention_bwd"] == 1
+    qd, kd, vd, od = (t.detach() for t in (q, k, v, out))
+    _, lse = ops._flash_forward(qd, kd, vd, True, 0, 0, 100, True)
+    direct = ops.flash_attention_bwd(qd, kd, vd, od, lse, do)
+    want = ref.flash_attention_bwd_ref(qd, kd, vd, od, lse, do)
+    for a, d, w in zip(grads, direct, want):
+        assert torch.equal(a, d)
+        assert float((a.float() - w.float()).abs().max()) <= \
+            2e-2 * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked"])
+def test_lm_train_step_on_the_card_equals_the_cpu(cuda, impl):
+    """One step of the reduced internlm2 (float32, remat "full") from the
+    same weights on the card and on the CPU: loss and metrics within
+    1e-5, updated parameters within 2e-5, the bound the CPU tests hold the
+    port's step to against the reference's (the card's float32 matmuls
+    and K6's kernels sum in other orders, and AdamW's first step moves a
+    parameter by lr g / (|g| + eps), which for a gradient near eps hangs
+    on its last bits)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import leaves, tree_map
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.steps import TrainState, make_train_step
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b").reduced(),
+                              attn_impl=impl)
+    m = Model(cfg)
+    p_cpu = m.init(torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    opt = make_optimizer(base_lr=1e-3, warmup=1, total=10)
+    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=64).batch(0, 4)
+    step = make_train_step(m, opt)
+    ops.reset_launches()
+    with full_fp32():
+        s_gpu, met_gpu = step(TrainState(p_gpu, opt.init(p_gpu)), batch)
+    torch.cuda.synchronize()
+    n = cfg.n_layers if impl == "chunked" else 0
+    assert ops.launches["flash_attention"] == 2 * n
+    assert ops.launches["flash_attention_bwd"] == n
+    s_cpu, met_cpu = step(TrainState(p_cpu, opt.init(p_cpu)), batch)
+    for key in met_cpu:
+        torch.testing.assert_close(met_gpu[key].cpu(), met_cpu[key],
+                                   rtol=1e-5, atol=1e-6)
+    for a, b in zip(leaves(s_gpu.params), leaves(s_cpu.params)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-5,
+                                   atol=2e-5)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint.checkpoint import restore, save
+
+    tree = {"w": torch.randn(4, 4).bfloat16(), "s": torch.tensor(3)}
+    save(str(tmp_path), 1, tree)
+    like = {"w": torch.empty(0, device=cuda), "s": torch.empty(0,
+                                                               device=cuda)}
+    got, step, _ = restore(str(tmp_path), like)
+    assert step == 1 and got["w"].device.type == "cuda"
+    assert got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].cpu(), tree["w"])
+    assert int(got["s"]) == 3

@@ -136,6 +136,7 @@ def test_apply_kernel_on_cpu_equals_apply_fast_and_ref(name):
             h = y
         assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
                                  "mlp_megakernel": 0, "flash_attention": 0,
+                                 "flash_attention_bwd": 0,
                                  "multi_threshold": 0, "qmatmul": 0,
                                  "float_head": 0}
 

@@ -192,14 +192,15 @@ def test_cpu_path_does_not_count_launches():
     tops.mlp_megakernel(x, [torch.ones((3, 2), dtype=torch.int8),
                             torch.ones((2, 2), dtype=torch.int8)],
                         [torch.zeros((1, 2), dtype=torch.int32)] * 2)
-    q = torch.ones((1, 2, 3, 16))
-    tops.flash_attention(q, q, q)
+    q = torch.ones((1, 2, 3, 16), requires_grad=True)
+    torch.autograd.grad(tops.flash_attention(q, q, q).sum(), q)  # + backward
     tops.multi_threshold(x, torch.zeros((3, 2), dtype=torch.int32))
     tops.qmatmul(torch.ones((2, 3), dtype=torch.int8),
                  torch.ones((3, 2), dtype=torch.int8), torch.ones(2),
                  out_scale=0.5)
     assert tops.launches == {"threshold_matmul": 0, "conv_threshold": 0,
                              "mlp_megakernel": 0, "flash_attention": 0,
+                             "flash_attention_bwd": 0,
                              "multi_threshold": 0, "qmatmul": 0,
                              "float_head": 0}
 

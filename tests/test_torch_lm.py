@@ -13,8 +13,9 @@ numpy tokens go to both sides:
     parameters;
   * ``ServeEngine`` against the reference's engine, token for token,
     including EOS and slot reuse;
-  * the carrier round trip, ``init``'s shapes and distributions, and the
-    families and paths the port does not run yet, which raise.
+  * the carrier round trip, ``init``'s shapes and distributions, QAT
+    weights (``weight_bits=8``) that build and train, and the families
+    and paths the port does not run yet, which raise.
 
 The JAX side is jitted so the suite stays quick.
 """
@@ -251,9 +252,20 @@ def test_families_not_ported_raise(name):
 
 
 def test_quantized_paths_raise():
+    """QAT (``weight_bits=8``, fake-quant weights) builds and trains; the
+    int8 serve path's ``w_int`` params still raise."""
     cfg = get_config("llama3-8b").reduced()
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(cfg, weight_bits=8))
+    m = Model(dataclasses.replace(cfg, weight_bits=8))
+    p = m.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(_tokens(3, (2, 17), cfg.vocab))
+    flat = jax.tree.leaves(p)
+    for t in flat:
+        t.requires_grad_(True)
+    loss, _ = m.loss(p, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    grads = torch.autograd.grad(loss, flat)
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    assert all(float(g.abs().max()) > 0 for g in grads)
     jm = JModel(jget_config("llama3-8b").reduced())
     jq = jm.quantize_params(jm.init(jax.random.PRNGKey(0)))
     with pytest.raises(NotImplementedError):
@@ -262,3 +274,38 @@ def test_quantized_paths_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             Model(cfg).init(torch.Generator())   # the default is the card
+
+
+def test_init_under_inference_mode_decodes_like_ordinary_params():
+    """``init`` makes ordinary tensors (training takes their gradients);
+    under ``inference_mode``, as the serving callers call it, inference
+    tensors. From one generator seed both hold the same numbers and decode
+    to the same logits, bit for bit."""
+    cfg = get_config("llama3-8b").reduced()
+    m = Model(cfg)
+    plain = m.init(torch.Generator().manual_seed(0), device="cpu")
+    with torch.inference_mode():
+        served = m.init(torch.Generator().manual_seed(0), device="cpu")
+    assert not any(t.is_inference() for t in jax.tree.leaves(plain))
+    assert all(t.is_inference() for t in jax.tree.leaves(served))
+    tok = torch.from_numpy(_tokens(4, (2, 1), cfg.vocab))
+    cur = torch.tensor([3, 9], dtype=torch.int32)
+    outs = []
+    for p in (plain, served):
+        cache = m.cache_init(2, 16, device="cpu")
+        logits, _ = m.decode_step(p, cache, tok, cur)
+        outs.append(logits)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_lm_decode_bench_times_both_parameter_kinds():
+    """``bench.lm_decode`` on the CPU at the reduced size: one round of
+    each parameter kind, finite medians."""
+    from repro_torch.bench import lm_decode
+
+    res = lm_decode.run("llama3-8b", True, "cpu", rounds=2, steps=2)
+    assert res["card"] == "cpu"
+    for kind in ("ordinary", "inference"):
+        assert len(res[f"{kind}_ms"]) == 2
+        assert np.isfinite(res[f"{kind}_median_ms"])
+        assert res[f"{kind}_median_ms"] > 0
