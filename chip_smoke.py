@@ -224,10 +224,13 @@ which fails the run with a non-zero exit:
                ``BENCH_torch_*.json`` artifacts and the trace under
                ``chiprun_out/``; its wall time printed.
 
- 19. LM training — the LM's training path (``phase_lm_train``): K6's
+ 19. LM training — the LM's training path (``phase_lm_train``): the
+               built ``flash_attention_bwd`` library must hold HGMMA
+               (wgmma) instructions (bf16 runs on the tensor cores); K6's
                backward kernel (``flash_attention_bwd``) against its plain
                version (``ref.flash_attention_bwd_ref``) over
-               ``FLASH_BWD_CASES`` in bf16 and float32 (ragged lengths,
+               ``FLASH_BWD_CASES`` in bf16 and float32 (ragged lengths on
+               both sides of the 64- and 128-row tiles,
                GQA groups 1/2/4, windows, query offsets, rows with no live
                key, kv_len 0, head dims 16/80/128; dQ, dK, dV within
                ``FLASH_BWD_TOL`` of the largest |gradient|: bf16 2e-2,
@@ -242,8 +245,9 @@ which fails the run with a non-zero exit:
                0 held against the plain version on their inputs; a finite
                loss whose mean over the last 4 steps is below the first;
                step ms, tokens/s, 6NT / step / 989e12 and peak memory; K6's
-               backward timed beside its plain version, SDPA's backward
-               and its bound; (b) the same width cut to 2 layers under
+               backward timed beside its plain version, SDPA's backward,
+               its bound (5 products) and the CUDA-core kernel's 30.500
+               ms; (b) the same width cut to 2 layers under
                ``torch.use_deterministic_algorithms(True)``:
                ``run_training`` with a crash at step 3 and a resume ends
                with a checkpoint equal bit for bit to an uninterrupted
@@ -271,6 +275,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3212,7 +3217,8 @@ TRAIN_CRASH_AT = 3
 FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: (B, H, Hkv, Sq, Sk, D, causal, window, q_offset, kv_len): ragged
 #: lengths, GQA groups of 1, 2 and 4, windows, query offsets (a decode
-#: chunk, and -3: rows with no live key), kv_len down to 0, each head dim
+#: chunk, and -3: rows with no live key), kv_len down to 0, each head dim;
+#: Sq and Sk on both sides of the bf16 route's 64- and 128-row tiles
 FLASH_BWD_CASES = [
     (2, 8, 8, 130, 130, 16, True, 0, 0, None),
     (1, 8, 4, 257, 257, 80, True, 32, 0, None),
@@ -3223,7 +3229,17 @@ FLASH_BWD_CASES = [
     (1, 2, 2, 5, 5, 16, True, 0, -3, None),
     (1, 4, 2, 64, 64, 128, True, 0, 0, 0),
     (1, 16, 8, 1024, 1024, 128, True, 0, 0, None),
+    *[(1, 4, 2, s, s, 128, True, 0, 0, None)
+      for s in (63, 64, 65, 127, 128, 129, 255)],
+    (1, 8, 2, 127, 65, 80, False, 0, 0, None),
+    (2, 8, 4, 16, 255, 128, True, 0, 239, None),
+    (1, 4, 2, 128, 128, 128, True, 0, -3, None),
+    (1, 4, 2, 129, 128, 16, False, 33, 7, 100),
+    (1, 4, 2, 65, 129, 80, True, 0, 0, 0),
 ]
+#: K6's backward per launch at the training shape before its redesign:
+#: the CUDA-core kernel on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md, §6)
+K6_BWD_CUDA_CORE_MS = 30.500383
 
 
 def _bwd_err(got, want):
@@ -3324,7 +3340,9 @@ def _bwd_case(q, k, v, out, lse, do, kw, launches):
     version and SDPA's backward (the library yardstick: one autograd pass
     through ``scaled_dot_product_attention`` on the same q, k, v and dO,
     timed eagerly by CUDA events), with the bound from the bytes read and
-    written once and 5 products of 2 D operations per live pair."""
+    written once and 5 products of 2 D operations per live pair; the
+    kernel's own count (7 products: S and dP are recomputed in the dQ
+    kernel) is logged beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -3365,10 +3383,25 @@ def _bwd_case(q, k, v, out, lse, do, kw, launches):
     peak = PEAK_OPS_PER_S["flash_attention_bwd"]
     row["bound_ms"] = bound_ms(nbytes, nops, peak)
     row["bound_by"] = bound_by(nbytes, nops, peak)
+    kernel_ops = 14 * b * h * d * pairs
+    split = _device_breakdown(lambda: ops.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw))
+    if split is not None:
+        row["kernels_ms"] = {
+            (re.findall(r"\w+_kernel", name) or [name])[0]: ms
+            for name, ms in split["top_kernels_ms"].items()}
+        log(f"flash_attention_bwd's kernels on one call (torch.profiler): "
+            f"{json.dumps(row['kernels_ms'])}")
     log(f"time flash_attention_bwd {row['stage']} {row['shape']}: kernel "
         f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, library (SDPA "
         f"backward, eager) {row['library_ms']:.6f} ms, bound "
-        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}); {nops:.4g} "
+        f"operations in 5 products ({nops / row['ms'] / 1e9:.1f} TFLOP/s), "
+        f"the kernel's own 7 products {kernel_ops:.4g} "
+        f"({kernel_ops / row['ms'] / 1e9:.1f} TFLOP/s); the CUDA-core "
+        f"kernel {K6_BWD_CUDA_CORE_MS:.6f} ms "
+        f"({K6_BWD_CUDA_CORE_MS / row['ms']:.1f}x faster now)")
+    row["kernel_ops"] = kernel_ops
     del qs, ks, vs, o
     return row
 
@@ -3685,10 +3718,18 @@ def phase_lm_train(smi):
     launcher. Returns (launches of (a), worst |kernel - plain| of K6's
     backward, its timing row, details)."""
     import torch
+    from repro_torch.kernels import _build
 
+    (lib,) = _build.build_all(["flash_attention_bwd"])
+    hgmma = sass_count(lib, "HGMMA")
+    log(f"K6 backward sass: {hgmma} HGMMA instructions in "
+        f"{os.path.basename(lib)}")
+    check(hgmma > 0, "the flash_attention_bwd library holds no HGMMA: the "
+                     "bf16 backward does not run on the tensor cores")
     torch.cuda.empty_cache()
     worst = phase_flash_bwd_synthetic()
     launches, worst_main, row, details = _train_full(smi)
+    details["hgmma"] = hgmma
     details["resume"] = _train_resume_in_child(smi)
     details["qat_losses"] = _train_quantized()
     details["launcher_loss"] = _train_launcher()

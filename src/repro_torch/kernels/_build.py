@@ -47,8 +47,8 @@ ENTRY_POINTS = {
     # strides, stream
     "flash_attention": ("flash_attention_launch",
                         [_P] * 5 + [_I] * 11 + [_P, _P]),
-    # q, k, v, out, lse, d_out, dq, dk, dv, delta workspace, 11 sizes and
-    # flags, host array of 24 strides, stream
+    # q, k, v, out, lse, d_out, dq, dk, dv, float32 workspace, 11 sizes
+    # and flags, host array of 24 strides, stream
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             [_P] * 10 + [_I] * 11 + [_P, _P]),
     # acc, thr, out, M, C, S, channels per block (0: linear), stream

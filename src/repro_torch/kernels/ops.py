@@ -767,6 +767,21 @@ def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kv_len
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 tensor-core kernels can read ``t`` through a TMA
+    tensor map: a 16-byte aligned base and, for every dimension of extent
+    > 1, a stride that is a multiple of 16 bytes (8 elements)."""
+    return t.data_ptr() % 16 == 0 and not any(
+        t.stride(i) % 8 for i in range(3) if t.shape[i] > 1)
+
+
+def _check_tma(*named: torch.Tensor) -> None:
+    for name, t in zip("qkv", named):
+        if not _tma_ready(t):
+            raise ValueError(f"bf16 {name} (strides {t.stride()}) needs "
+                             f"a 16-byte aligned base and strides")
+
+
 def _flash_forward(q, k, v, causal: bool, window: int, q_offset: int,
                    kv_len: int, want_lse: bool):
     """K6's forward: (out, lse or None); lse (B, H, Sq) float32 only when
@@ -779,14 +794,7 @@ def _flash_forward(q, k, v, causal: bool, window: int, q_offset: int,
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
-        # the tensor-core kernel reads q, k and v through TMA tensor maps:
-        # bases and the strides of every dimension of extent > 1 must be
-        # multiples of 16 bytes (8 elements)
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(
-                    t.stride(i) % 8 for i in range(3) if t.shape[i] > 1):
-                raise ValueError(f"bf16 {name} (strides {t.stride()}) needs "
-                                 f"a 16-byte aligned base and strides")
+        _check_tma(q, k, v)
     out = torch.empty_like(q)          # q's layout (contiguous if not dense)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
@@ -859,11 +867,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[int] = None):
     """K6's backward: (dq, dk, dv) of ``flash_attention`` from its inputs,
     its output ``out``, the forward's ``lse`` (B, H, Sq) float32 and the
-    output's gradient ``d_out`` (any strides; copied only when its last
-    dimension is not contiguous). dk and dv sum the query heads of a GQA
-    group in a fixed order and no float atomics decide any result, so the
-    gradients are the same on every run. Each comes back in its input's
-    dtype and layout."""
+    output's gradient ``d_out``. q, k and v take the forward's layouts
+    (bf16: 16-byte aligned bases and strides, as the tensor-core kernels
+    read them through TMA; the wrapper raises otherwise); ``out`` and
+    ``d_out`` come in whatever layout autograd hands over and are copied
+    when the kernels cannot read them as they are. dk and dv sum the query
+    heads of a GQA group in a fixed order and no float atomics decide any
+    result, so the gradients are the same on every run. Each comes back in
+    its input's dtype and layout."""
     kv_len = _flash_check(q, k, v, window, kv_len)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -879,23 +890,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_len=kv_len)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, d_out, **mask)
-    if out.stride(-1) != 1:
-        out = out.contiguous()
-    if d_out.stride(-1) != 1:
-        d_out = d_out.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_tma(q, k, v)
+    # out and d_out: a contiguous last dimension; in bf16 also the TMA
+    # rules (d_out is read through a tensor map) and no zero strides; else
+    # a fresh copy (``contiguous`` would keep a misaligned base)
+    out, d_out = (
+        t if t.stride(-1) == 1 and (not bf16 or _tma_ready(t) and all(
+            t.stride(i) for i in range(3) if t.shape[i] > 1))
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (out, d_out))
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # the kernels' workspace: delta (B, H, Sq) in float32; in bf16 lse
+    # log2(e) and delta, each (B, H, Sq rounded up to a multiple of 128)
+    rows = b * h * (-(-sq // 128) * 128 if bf16 else sq)
+    ws = torch.empty((2 * rows if bf16 else rows,), dtype=torch.float32,
+                     device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *[t.stride(i) for t in (q, k, v, out, d_out, dq, dk, dv)
           for i in range(3)])
     fn = _build.entry_point("flash_attention_bwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), delta.data_ptr(), b, h, hkv, sq, sk, d, kv_len,
-             int(causal), window, q_offset, int(q.dtype == torch.bfloat16),
+             dv.data_ptr(), ws.data_ptr(), b, h, hkv, sq, sk, d, kv_len,
+             int(causal), window, q_offset, int(bf16),
              ctypes.addressof(strides),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error("flash_attention_bwd", err)
@@ -1038,10 +1060,11 @@ def float_head(x_int: torch.Tensor, w: torch.Tensor, in_scale: float,
     """The deployed float head: (x_int as float32 @ w) * in_scale + b.
 
     x_int (M, K) int32 codes, w (K, N) float32, b (N,) float32; returns
-    (M, N) float32. The kernel sums each output's K products in order
-    k = 0 .. K-1, so a row's logits do not depend on how many rows come
-    with it (cuBLAS picks its reduction by shape); then the rescale and
-    the bias, each rounded on its own."""
+    (M, N) float32. The kernel sums each output's K products in an order
+    fixed by K alone (splits of 16 or 32 consecutive k, each one FMA
+    chain, added in split order), so a row's logits do not depend on how
+    many rows come with it (cuBLAS picks its reduction by shape); then the
+    rescale and the bias, each rounded on its own."""
     kind = _device_kind(x_int)
     _check(x_int, "x_int", torch.int32, 2, x_int.device)
     _check(w, "w", torch.float32, 2, x_int.device)
@@ -1057,8 +1080,6 @@ def float_head(x_int: torch.Tensor, w: torch.Tensor, in_scale: float,
     out = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
     if out.numel() == 0:
         return out
-    if -(-m // 8) > 65535:
-        raise ValueError(f"{m} rows: above the grid's 65535 x 8")
     fn = _build.entry_point("float_head")
     err = fn(x_int.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
              m, n, k, float(np.float32(in_scale)),

@@ -691,7 +691,9 @@ def _head_inputs(m, k, n, seed):
 
 
 @pytest.mark.parametrize("m,k,n", [(1024, 72, 128), (1024, 256, 12),
-                                   (1024, 512, 10), (37, 5, 3)])
+                                   (1024, 512, 10), (37, 5, 3),
+                                   (1000, 511, 12), (1, 256, 10),
+                                   (7, 1, 128), (130, 300, 200)])
 def test_float_head_rows_do_not_depend_on_the_row_count(cuda, m, k, n):
     """The float head's logits of any 64-row slice equal the same rows of
     the whole call bit for bit (cuBLAS's reduction depends on the shape;
@@ -705,8 +707,12 @@ def test_float_head_rows_do_not_depend_on_the_row_count(cuda, m, k, n):
     assert ops.launches["float_head"] == before + 1 + -(-m // 64)
 
 
-@pytest.mark.parametrize("m,k,n", [(1024, 72, 128), (1024, 256, 12),
-                                   (64, 512, 10), (1, 256, 10)])
+@pytest.mark.parametrize("m,k,n", [
+    (1024, 72, 128), (1024, 256, 12), (64, 512, 10), (1, 256, 10),
+    # the tiles' edges: M of 1, 7, 1000 and 1024, K from 1 to 512 (ragged
+    # against the 4-wide loads), N of 10, 12 and 128
+    *[(m, k, n) for m in (1, 7, 1000, 1024) for k in (1, 3, 72, 257, 512)
+      for n in (10, 12, 128)]])
 def test_float_head_kernel_equals_plain(cuda, m, k, n):
     x, w, b = (t.to(cuda) for t in _head_inputs(m, k, n, 7 * m + n))
     got = ops.float_head(x, w, 2.0 ** -7, b)
@@ -822,6 +828,17 @@ def test_graph_run_of_the_full_width_cnv_equals_the_cpu(cuda):
     (1, 4, 4, 129, 255, 80, False, 70, 100, 200),
     (2, 4, 1, 65, 200, 16, True, 32, 120, 150),
     (1, 2, 2, 5, 5, 16, True, 0, -3, None),
+    # the tensor-core route's tile edges (64-row and 128-row tiles)
+    *[(1, 4, 2, s, s, 128, True, 0, 0, None)
+      for s in (63, 64, 65, 127, 128, 129, 255)],
+    (1, 4, 4, 64, 129, 16, False, 0, 0, None),      # GQA 1, Sq != Sk
+    (1, 8, 2, 127, 65, 80, False, 0, 0, None),      # GQA 4
+    (2, 4, 2, 255, 255, 80, True, 40, 0, None),     # a window
+    (1, 4, 2, 129, 128, 16, False, 33, 7, 100),     # window, offset, kv_len
+    (2, 8, 4, 16, 255, 128, True, 0, 239, None),    # a decode chunk
+    (1, 4, 2, 128, 128, 128, True, 0, -3, None),    # rows with no live key
+    (1, 4, 2, 65, 129, 80, True, 0, 0, 0),          # kv_len 0
+    (2, 16, 8, 4096, 4096, 128, True, 0, 0, None),  # the training shape
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_equals_plain(cuda, b, h, hkv, sq, sk, d,
@@ -830,7 +847,11 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda, b, h, hkv, sq, sk, d,
     """K6's backward kernel against ``ref.flash_attention_bwd_ref`` on the
     forward kernel's lse: dQ, dK, dV within 1e-5 (float32) / 2e-2 (bf16)
     of the largest |gradient|; one launch a call; a second call equal bit
-    for bit (no atomics decide a result)."""
+    for bit (no atomics decide a result). The bf16 cases walk the
+    tensor-core route's edges: Sq and Sk around its 64- and 128-row
+    tiles, GQA groups of 1, 2 and 4, each head dim, windows, a query
+    offset of -3 and a decode chunk, kv_len 0, and the LM's training
+    shape."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
     q, k, v, do = (torch.randn(b, s, n, d, generator=g, device=cuda).to(dt)
@@ -851,6 +872,29 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda, b, h, hkv, sq, sk, d,
         assert torch.equal(a, a2)
         scale = max(float(w.float().abs().max()), 1e-30)
         assert float((a.float() - w.float()).abs().max()) <= tol * scale
+
+
+def test_flash_attention_bwd_copies_a_misaligned_d_out(cuda):
+    """bf16 d_out and out come in whatever layout autograd hands over: a
+    base off the 16-byte TMA rule is copied (the gradients equal those of
+    an aligned copy bit for bit), while a misaligned q raises, as the
+    forward's does."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, do = (torch.randn(1, n, 70, 128, generator=g, device=cuda)
+                   .bfloat16() for n in (4, 2, 2, 4))
+    out, lse = ops._flash_forward(q, k, v, True, 0, 0, 70, True)
+    flat = torch.empty(do.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(do.shape)
+    odd.copy_(do)
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, odd)
+    want = ops.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    qflat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    q_odd = qflat[1:].view(q.shape)
+    q_odd.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention_bwd(q_odd, k, v, out, lse, do)
 
 
 def test_flash_attention_autograd_launches_both_kernels(cuda):

@@ -1,8 +1,9 @@
 """Rules the port keeps: it imports neither JAX nor the JAX package, its
 clock reads go through ``repro_torch.obs.timer``, it builds no kernel and
-imports no ``triton`` when a module is imported, and its serving and
-deploy runtime holds no bare ``assert`` (the rule of
-``scripts/check_no_bare_assert.py``)."""
+imports no ``triton`` when a module is imported, its serving and deploy
+runtime holds no bare ``assert`` (the rule of
+``scripts/check_no_bare_assert.py``), and K6's backward sums without
+atomics (its gradients are the same on every run)."""
 
 import ast
 import os
@@ -91,6 +92,20 @@ def test_kernel_sources_are_in_the_package():
         assert src.is_file()
         assert "extern \"C\" int " + _build.ENTRY_POINTS[name][0] in \
             src.read_text()
+
+
+def test_flash_backward_holds_no_atomics():
+    """K6's backward (and the header it includes) writes every gradient
+    element once after sums in a fixed order: no atomicAdd, no PTX atom or
+    red instruction."""
+    from repro_torch.kernels import _build
+
+    assert '#include "hopper.cuh"' in (
+        _build.CSRC / "flash_attention_bwd.cu").read_text()
+    for name in ("flash_attention_bwd.cu", "hopper.cuh"):
+        text = (_build.CSRC / name).read_text()
+        code = re.sub(r"//[^\n]*", "", text)        # comments aside
+        assert not re.search(r"\batomic|\batom\.|\bred\.", code), name
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -232,6 +232,84 @@ def test_flash_backward_row_without_live_key_is_zero():
         assert torch.equal(t, torch.zeros_like(t))
 
 
+def _bf16_bwd_kernel_numerics(q, k, v, o, lse, do, *, causal, window,
+                              q_offset, kv_len, round_ops=True):
+    """K6's bf16 backward (``csrc/flash_attention_bwd.cu``, the tensor-core
+    route) in plain tensor ops: bf16 inputs widened to float32, delta, S,
+    P and dP in float32, P and dS rounded to bf16 before the three
+    products that take them (dV = P^T dO, dK = dS^T Q, dQ = dS K: the
+    tensor cores' register A operands), float32 sums, the gradients
+    rounded to bf16 once. ``round_ops=False`` keeps every value in
+    float32: then it is the explicit backward of the plain version."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kv_len = sk if kv_len is None else kv_len
+    g = h // hkv
+    qf, of, dof = (t.float().reshape(b, hkv, g, sq, d) for t in (q, o, do))
+    kf, vf = k.float(), v.float()
+    qpos = torch.arange(sq)[:, None] + q_offset
+    kpos = torch.arange(sk)[None, :]
+    live = kpos < kv_len
+    if causal:
+        live = live & (kpos <= qpos)
+    if window > 0:
+        live = live & (kpos > qpos - window)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * d ** -0.5
+    p = torch.where(live, torch.exp(s - lse.reshape(b, hkv, g, sq, 1)), 0.0)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    if round_ops:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * d ** -0.5
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * d ** -0.5
+    out_dtype = torch.bfloat16 if round_ops else torch.float32
+    return tuple(t.to(out_dtype) for t in (dq.reshape(b, h, sq, d), dk, dv))
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,q_offset,kv_len", [
+    (2, 4, 4, 65, 65, 16, True, 0, 0, None),        # GQA 1, a tile edge
+    (1, 4, 2, 129, 129, 80, True, 32, 0, None),     # a window
+    (2, 4, 2, 17, 95, 128, True, 0, 78, None),      # a decode chunk
+    (1, 4, 2, 63, 127, 128, False, 40, 50, 100),    # window, offset, kv_len
+    (1, 4, 1, 64, 64, 80, False, 0, 0, None),       # GQA 4
+    (1, 2, 2, 5, 5, 16, True, 0, -3, None),         # rows with no live key
+    (1, 4, 2, 64, 64, 128, True, 0, 0, 0),          # kv_len 0
+    (1, 4, 2, 128, 128, 128, True, 0, 0, None)])
+def test_flash_bf16_backward_numerics_within_the_tolerance(
+        b, h, hkv, sq, sk, d, causal, window, q_offset, kv_len):
+    """The tensor-core backward rounds P and dS to bf16 before its three
+    register-operand products, the plain version does not: on seeded
+    inputs the emulated kernel stays within the 2e-2 of the largest
+    |gradient| that the card holds K6's backward to against the plain
+    version (``FLASH_BWD_TOL``), over ``FLASH_BWD_CASES``' masks at small
+    size. Without the roundings the emulation is the float32 plain
+    backward, which ``test_flash_backward_matches_reference_vjp`` holds
+    against ``jax.vjp`` of the reference's ``chunked_attention``."""
+    rng = np.random.default_rng(sq * 7 + sk + d + h)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32))
+                   for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                                 (b, hkv, sk, d), (b, h, sq, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len)
+    kv = sk if kv_len is None else kv_len
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, GRAD_TOL)):
+        qd, kd, vd, dod = (t.to(dtype) for t in (q, k, v, do))
+        out, lse = ops._flash_forward(qd, kd, vd, causal, window, q_offset,
+                                      kv, want_lse=True)
+        want = ops.flash_attention_bwd(qd, kd, vd, out, lse, dod, **kw)
+        got = _bf16_bwd_kernel_numerics(
+            qd, kd, vd, out, lse, dod, round_ops=dtype == torch.bfloat16,
+            **kw)
+        for g_t, w_t in zip(got, want):
+            assert g_t.dtype == w_t.dtype == dtype
+            assert g_t.shape == w_t.shape
+            scale = max(float(w_t.float().abs().max()), 1e-30)
+            err = float((g_t.float() - w_t.float()).abs().max())
+            assert err <= tol * scale, (dtype, err, scale)
+
+
 @pytest.mark.parametrize("impl", ["naive", "chunked"])
 def test_every_remat_mode_gives_the_same_gradients(impl, monkeypatch):
     """"none", "full", "dots" and "dots_saveable" differ only in what the
