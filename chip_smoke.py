@@ -258,20 +258,63 @@ which fails the run with a non-zero exit:
                card. (b) runs in a child process whose environment sets
                ``CUBLAS_WORKSPACE_CONFIG`` before its CUDA starts: set in
                this process it would slow every later cuBLAS call.
+ 20. LM families — MoE, mamba, the jamba hybrid, M-RoPE and embedding
+               inputs (``phase_families``): (a) full-width sublayers in
+               float32 (TF32 off) on the card against the port on the CPU
+               with the same weights, outputs within ``SUBLAYER_TOL`` (1e-4)
+               of the largest |y|: a jamba MoE FFN (16 experts, top-2) and
+               a llama4-scout one (top-1 and the shared expert) at 1 x 128
+               tokens and at the 4-slot decode shape, their expert choices
+               and drops equal (a token whose top-k margin is under 1e-6 is
+               reported and left out); a jamba mamba mixer, prefill at S 512
+               then 8 decode steps from its conv window and state; a
+               qwen2-vl attention with M-RoPE positions at S 512 (naive, a
+               temporal row that is not an arange) and S 4096 (K6); (b)
+               jamba-v0.1-52b in bf16 at its published widths, 16 of its 32
+               layers (its weight count must equal ``ArchConfig.n_params``):
+               counters set to 0, one ``prefill`` of 1 x 4096 seeded tokens,
+               counters read: exactly 2 K6 launches and no other kernel,
+               finite logits; every K6 launch of phase 20's prefills held
+               against the plain version within ``FAMILY_K6_TOL`` (max
+               error 2e-2 of max |plain|, mean error 1e-2 of mean |plain|),
+               and the plain attention without its first key tile shown to
+               fail that check; prefill ms and peak memory; then
+               ``ServeEngine`` (4 slots, max_len 256) twice on 8 seeded
+               requests of 8-32 prompt tokens and 8 new tokens: both runs give the same tokens, and after
+               every insert the slot's mamba conv windows and states equal
+               the batch-1 prefill's bit for bit; the MoE choices the decode
+               batch drops are counted; the second run, which has no check
+               on its path, is the engine's reading; a decode step alone
+               at batch 1 and batch 4; (c) falcon-mamba-7b at full width
+               and depth in float32 (TF32 off): the engine against each
+               request's own sequential greedy decode, and a decode step
+               alone at batch 1 and batch 4; (d) qwen2-vl-2b and
+               hubert-xlarge at full width and depth in bf16: one counted
+               prefill at S 4096 from seeded embeddings (qwen2-vl with
+               M-RoPE positions), K6 launched 28 and 48 times and nothing
+               else, finite logits; each model's K6 timed at its layer-0
+               inputs beside SDPA and its bound; (e) ``launch.serve`` and
+               ``launch.train`` on jamba ``--reduced`` on the card. A
+               ``torch.profiler`` split of jamba's prefill and of one decode
+               step of jamba and of falcon-mamba at batch 4 and at batch 1
+               (the device's idle share) runs last, after phase 9's.
 
 Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
-phase 19 after it; phase 9's profile runs last of all. The last lines are
+phase 19 and 20 after it; the profiles of phases 9 and 20 run last of
+all. The last lines are
 the kernels JSON line, the card's name and power limit (``nvidia-smi``),
 and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
 ``"serving"``, training under ``"lm"`` / ``"train"``). Each kernel's
 ``launches`` comes from its own main path's counted run: phase 3 for
-K1-K3 and the float head, phase 9's prefill for K6, phase 19's full-width
+K1-K3 and the float head, phase 9's prefill and phase 20's three
+counted prefills for K6 (32 + 2 + 28 + 48), phase 19's full-width
 training for K6's backward, phase 13's checking pass for K4 and K5.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1307,10 +1350,11 @@ def flash_live_pairs(sq, sk, causal, window, q_offset, kv_len):
     return int(np.clip(hi - lo, 0, None).sum())
 
 
-def flash_case(label, q, k, v, kw):
+def flash_case(label, q, k, v, kw, model=LM_CONFIG):
     """A timing case for ``flash_attention`` on (q, k, v), (B, H, S, D)
     views; the yardstick is one ``scaled_dot_product_attention`` call on
-    the same tensors (GQA through ``enable_gqa``)."""
+    the same tensors (GQA through ``enable_gqa``), causal or not as the
+    case is."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1320,16 +1364,18 @@ def flash_case(label, q, k, v, kw):
     pairs = flash_live_pairs(sq, sk, kw["causal"], kw["window"],
                              kw["q_offset"], kw.get("kv_len"))
     esize = q.element_size()
-    sdpa_causal = kw["causal"] and kw["window"] == 0 and sq == sk
-    check(sdpa_causal and kw.get("kv_len") in (None, sk),
-          "the SDPA yardstick takes the main path's plain causal mask only")
-    return {"kernel": "flash_attention", "model": LM_CONFIG, "stage": label,
+    check(kw["window"] == 0 and kw["q_offset"] == 0 and sq == sk
+          and kw.get("kv_len") in (None, sk),
+          "the SDPA yardstick takes the main paths' plain masks only")
+    causal = kw["causal"]
+    return {"kernel": "flash_attention", "model": model, "stage": label,
             "shape": f"B={b} H={h} Hkv={k.shape[1]} Sq={sq} Sk={sk} D={d} "
-                     f"{str(q.dtype).replace('torch.', '')} causal",
+                     f"{str(q.dtype).replace('torch.', '')} "
+                     f"{'causal' if causal else 'not causal'}",
             "run": lambda: ops.flash_attention(q, k, v, **kw),
             "plain": lambda: ref.flash_attention_ref(q, k, v, **kw),
             "library": lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True),
+                q, k, v, is_causal=causal, enable_gqa=True),
             "library_is": "library (SDPA)",
             "bytes": (q.numel() * 2 + k.numel() + v.numel()) * esize,
             "ops": 4 * b * h * d * pairs}
@@ -1575,16 +1621,26 @@ def phase_k6_times(case):
                  "cuda_core_ms": K6_CUDA_CORE_MS}
 
 
-def _decode_call(model, params, g):
-    """One bf16 decode step of 4 slots at positions 17..200 of a 256-long
-    cache, as a closure (the cache is updated in place each call)."""
+def _decode_call(model, params, g, batch=4):
+    """One decode step of ``batch`` (4 or 1) slots at positions 17..200 of
+    a 256-long cache, as a closure (the cache is updated in place each
+    call)."""
     import torch
 
-    cache = model.cache_init(4, 256, device="cuda")
-    tok = torch.randint(0, model.cfg.vocab, (4, 1), generator=g,
+    cache = model.cache_init(batch, 256, device="cuda")
+    tok = torch.randint(0, model.cfg.vocab, (batch, 1), generator=g,
                         device="cuda")
-    cur = torch.tensor([17, 64, 100, 200], dtype=torch.int32, device="cuda")
+    cur = torch.tensor([17, 64, 100, 200][:batch], dtype=torch.int32,
+                       device="cuda")
     return lambda: model.decode_step(params, cache, tok, cur)
+
+
+def _decode_ms(model, params, g):
+    """Host ms of one decode step alone (median of 10, synchronised) at
+    batch 1, as the engine steps a prompt into its slot, and at batch 4,
+    the engine's decode batch."""
+    return {f"batch{b}": _host_ms(_decode_call(model, params, g, b), 10)
+            for b in (1, 4)}
 
 
 def phase_lm_profile():
@@ -3736,6 +3792,646 @@ def phase_lm_train(smi):
     return launches, max(worst, worst_main), row, details
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the LM families (MoE, mamba, the jamba hybrid, M-RoPE and
+# embedding inputs)
+# ---------------------------------------------------------------------------
+
+FAMILY_SEQ = 4096                # prefill length: "auto" takes K6 above 2048
+JAMBA_CONFIG = "jamba-v0.1-52b"
+JAMBA_LAYERS = 16                # of 32: two 8-sublayer groups, 48.5 GiB bf16
+#: K6 launches of one prefill of each family model: one an attention layer
+FAMILY_K6 = {JAMBA_CONFIG: 2, "qwen2-vl-2b": 28, "hubert-xlarge": 48}
+FAMILY_MAMBA_SEQ = 512           # the mamba mixer's prefill (4 chunks of 128)
+FAMILY_DECODE_STEPS = 8
+SUBLAYER_TOL = 1e-4              # of the largest |y|: card against the CPU
+#: K6 against its plain version on a family prefill's inputs (bf16):
+#: max |kernel - plain| over max |plain|, and mean |kernel - plain| over
+#: mean |plain|. One bf16 step is 2^-8 of a value, so rounding stays far
+#: under both; the plain attention without its first 64-key tile must
+#: break one of them on the same inputs, or the check has no power there.
+FAMILY_K6_TOL = {"max": 2e-2, "mean": 1e-2}
+TIE_MARGIN = 1e-6                # top-k margins under this are reported
+
+
+def _family_cfg(name, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), **over)
+
+
+def _to_cpu(tree):
+    from repro_torch.core.pytree import tree_map
+
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _close_to_cpu(label, got, want, rows=None):
+    """|card - CPU| at most ``SUBLAYER_TOL`` of the CPU's largest |y| (on
+    ``rows`` of the leading axis when given); returns that ratio."""
+    got, want = got.float().cpu(), want.float()
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    scale = float(want.abs().max())
+    ratio = float((got - want).abs().max()) / scale
+    check(ratio <= SUBLAYER_TOL, f"{label}: the card differs from the CPU by "
+                                 f"{ratio:.3g} of the largest |y| {scale:.4g}")
+    return ratio
+
+
+def _kept_choices(idx, n_experts, capacity):
+    """Which of the token-major (T*k) expert choices fit their expert's
+    ``capacity`` slots (the reference's rank-by-cumsum rule)."""
+    import torch
+
+    onehot = torch.nn.functional.one_hot(idx.reshape(-1).long(), n_experts)
+    return (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1 < capacity
+
+
+def _moe_sublayer(name, shapes, g):
+    """One full-width MoE FFN in float32 on the card against the port on
+    the CPU with the same weights, at each (batch, seq) of ``shapes``:
+    equal expert choices and drops (a token whose top-k margin is under
+    ``TIE_MARGIN`` is reported, and left out of the comparison), outputs
+    within ``SUBLAYER_TOL``."""
+    import torch
+    from repro_torch.models import layers
+
+    cfg = _family_cfg(name, dtype="float32")
+    with torch.inference_mode():
+        p = layers.moe_init(g, cfg, device="cuda")
+    cpu = _to_cpu(p)
+    out = {}
+    for shape in shapes:
+        x = torch.randn(*shape, cfg.d_model, generator=g, device="cuda")
+        T, k, E = shape[0] * shape[1], cfg.moe_top_k, cfg.moe_experts
+        with torch.inference_mode():
+            y, aux = layers.moe_apply(cfg, p, x)
+            _, _, idx = layers.moe_route(cfg, p, x)
+            y_c, aux_c = layers.moe_apply(cfg, cpu, x.cpu())
+            probs_c, _, idx_c = layers.moe_route(cfg, cpu, x.cpu())
+        top = torch.sort(probs_c.reshape(T, E), dim=-1,
+                         descending=True).values[:, :k + 1]
+        margin = (top[:, :-1] - top[:, 1:]).amin(dim=-1)
+        ties = (margin < TIE_MARGIN).nonzero().flatten().tolist()
+        rows = torch.ones(T, dtype=torch.bool)
+        rows[ties] = False
+        idx, idx_c = idx.cpu().reshape(T, k), idx_c.reshape(T, k)
+        label = f"{name} MoE FFN {shape[0]}x{shape[1]}"
+        check(torch.equal(idx[rows], idx_c[rows]),
+              f"{label}: expert choices differ from the CPU's")
+        C = layers.moe_capacity(cfg, T)
+        keep = _kept_choices(idx, E, C)
+        keep_c = _kept_choices(idx_c, E, C)
+        if not ties:
+            check(torch.equal(keep, keep_c), f"{label}: drops differ")
+        ratio = _close_to_cpu(label, y.reshape(T, -1), y_c.reshape(T, -1),
+                              rows if ties else None)
+        aux_err = abs(float(aux) - float(aux_c)) / float(aux_c)
+        check(aux_err <= SUBLAYER_TOL, f"{label}: aux {float(aux)} against "
+                                       f"{float(aux_c)}")
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "capacity": C, "dropped": int((~keep).sum()),
+            "tie_rows": ties, "min_margin": float(margin.min()),
+            "max_rel_err": ratio, "aux_rel_err": aux_err}
+        log(f"family {label} float32 (E {E}, top-{k}, capacity {C}"
+            f"{', shared expert' if cfg.moe_shared_expert else ''}): "
+            f"choices and drops equal the CPU's ({int((~keep).sum())} of "
+            f"{T * k} dropped; {len(ties)} near-tie rows, least top-k margin "
+            f"{float(margin.min()):.3g}); |card - CPU| {ratio:.3g} of the "
+            f"largest |y|")
+    del p, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mamba_sublayer(g):
+    """One full-width jamba mamba mixer in float32: ``ssm_apply`` over
+    ``FAMILY_MAMBA_SEQ`` tokens, then ``FAMILY_DECODE_STEPS`` decode steps
+    from that prefill's conv window and state, on the card and on the
+    CPU."""
+    import torch
+    from repro_torch.models import ssm
+
+    cfg = _family_cfg(JAMBA_CONFIG, dtype="float32")
+    S, n = FAMILY_MAMBA_SEQ, FAMILY_DECODE_STEPS
+    with torch.inference_mode():
+        p = ssm.ssm_init(g, cfg, device="cuda")
+    x = torch.randn(1, S + n, cfg.d_model, generator=g, device="cuda")
+    outs = {}
+    for dev, params in (("cuda", p), ("cpu", _to_cpu(p))):
+        xd = x.to(dev)
+        with torch.inference_mode():
+            y = ssm.ssm_apply(cfg, params, xd[:, :S])
+            xs, _, dt, B_t, C_t, A, conv = ssm._mix(cfg, params, xd[:, :S])
+            _, h = ssm.selective_scan_chunked(xs, dt, B_t, C_t, A,
+                                              params["D"], cfg.ssm_chunk)
+            cache = {"conv": conv.clone(), "h": h}
+            steps = torch.cat([ssm.ssm_decode(cfg, params,
+                                              xd[:, S + t:S + t + 1],
+                                              cache)[0]
+                               for t in range(n)], dim=1)
+        outs[dev] = (y[0], steps[0], cache["h"][0])
+    label = f"{JAMBA_CONFIG} mamba mixer"
+    res = {"prefill": _close_to_cpu(f"{label} prefill S {S}",
+                                    outs["cuda"][0], outs["cpu"][0]),
+           "decode": _close_to_cpu(f"{label} {n} decode steps",
+                                   outs["cuda"][1], outs["cpu"][1]),
+           "state": _close_to_cpu(f"{label} state", outs["cuda"][2],
+                                  outs["cpu"][2])}
+    log(f"family {label} float32 (d_inner {cfg.d_inner}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}): prefill S {S} then {n} "
+        f"decode steps from its state equal the CPU's; |card - CPU| over the "
+        f"largest |y|: {json.dumps(res)}")
+    del p, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mrope_positions(g, S, arange_t):
+    """(3, 1, S) M-RoPE positions on the card: a temporal row (an arange
+    run, or increasing steps of 0-2) and h / w rows of a 64 x 64 grid."""
+    import torch
+
+    steps = torch.randint(0, 3, (1, S), generator=g, device="cuda")
+    t = (torch.arange(S, device="cuda")[None] if arange_t
+         else steps.cumsum(dim=1))
+    hw = torch.randint(0, 64, (2, 1, S), generator=g, device="cuda")
+    return torch.cat([t[None], hw]).to(torch.int32)
+
+
+def _mrope_sublayer(g):
+    """One full-width qwen2-vl attention (q/k/v biases, GQA 12/2, head dim
+    128) in float32 with M-RoPE positions: at S 512 ("auto": the naive
+    path) with a non-arange temporal row, and at ``FAMILY_SEQ`` (K6) with
+    an arange one; h / w rows vary in both."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+
+    cfg = _family_cfg("qwen2-vl-2b", dtype="float32")
+    with torch.inference_mode():
+        p = attn.attn_init(g, cfg, device="cuda")
+    cpu = _to_cpu(p)
+    res = {}
+    for S, arange_t in ((512, False), (FAMILY_SEQ, True)):
+        x = torch.randn(1, S, cfg.d_model, generator=g, device="cuda")
+        pos = _mrope_positions(g, S, arange_t)
+        with torch.inference_mode():
+            before = ops.launches["flash_attention"]
+            y = attn.attn_apply(cfg, p, x, pos)
+            torch.cuda.synchronize()
+            n_k6 = ops.launches["flash_attention"] - before
+            y_c = attn.attn_apply(cfg, cpu, x.cpu(), pos.cpu())
+        check(n_k6 == (1 if S > 2048 else 0), f"qwen2-vl attention S {S}: "
+                                              f"K6 launched {n_k6} times")
+        res[S] = _close_to_cpu(f"qwen2-vl M-RoPE attention S {S}", y[0],
+                               y_c[0])
+        log(f"family qwen2-vl-2b M-RoPE attention float32 S {S} "
+            f"({'K6' if n_k6 else 'naive'}, temporal row "
+            f"{'arange' if arange_t else 'not arange'}): |card - CPU| "
+            f"{res[S]:.3g} of the largest |y|")
+    del p, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def _counted_prefill(model, params, batch):
+    """One ``prefill`` with the counters set to 0 just before it and read
+    just after; every K6 launch's inputs and output caught. Returns
+    (logits, launches, caught)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention
+    caught = []
+
+    def catch(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        caught.append((q, k, v, kw, out))
+        return out
+
+    ops.flash_attention = catch
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+    finally:
+        ops.flash_attention = real
+    return logits, launches, caught
+
+
+def _k6_error(out, want):
+    """(max |out - want|, its ratios to ``want``: ``max`` over max |want|,
+    ``mean`` over mean |want|, and ``max_plain``)."""
+    d = (out.float() - want.float()).abs()
+    w = want.float().abs()
+    return float(d.max()), {"max": float(d.max() / w.max()),
+                            "mean": float(d.mean() / w.mean()),
+                            "max_plain": float(w.max())}
+
+
+def _without_first_key_tile(q, k, v, kw):
+    """The plain attention of ``q`` over all keys but the first 64: a K6
+    that skipped its first key tile. Query positions shift with the keys,
+    so the causal and window masks keep their place."""
+    from repro_torch.kernels import ref
+
+    kw = dict(kw)
+    kw["q_offset"] = kw.get("q_offset", 0) - 64
+    if kw.get("kv_len") is not None:
+        kw["kv_len"] -= 64
+    return ref.flash_attention_ref(q, k[:, :, 64:], v[:, :, 64:], **kw)
+
+
+def _family_prefill(name, model, params, batch):
+    """The counted prefill of a family model at ``FAMILY_SEQ``: exactly
+    ``FAMILY_K6[name]`` K6 launches and no other kernel, finite float32
+    logits; every K6 launch held against the plain version on its inputs
+    (``FAMILY_K6_TOL``); the prefill's host ms (median of 3) and peak
+    memory.
+    Returns (launches, worst |kernel - plain|, K6 timing case, details)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    cfg = model.cfg
+    logits, launches, caught = _counted_prefill(model, params, batch)
+    log(f"family {name} main-path launches (one prefill, B=1 "
+        f"S={FAMILY_SEQ}): {json.dumps(launches)}")
+    check(launches["flash_attention"] == FAMILY_K6[name],
+          f"{name} prefill launched flash_attention "
+          f"{launches['flash_attention']} times, expected {FAMILY_K6[name]}")
+    for k, n in launches.items():
+        check(k == "flash_attention" or n == 0, f"{name} prefill launched {k}")
+    check(logits.shape == (1, FAMILY_SEQ, cfg.vocab)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"{name} logits {logits.dtype} {tuple(logits.shape)} not finite")
+    worst = 0.0
+    for i, (q, k, v, kw, out) in enumerate(caught):
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err, rel = _k6_error(out, want)
+        worst = max(worst, err)
+        log(f"kernel-check flash_attention {name} attention layer {i} on its "
+            f"prefill inputs {tuple(q.shape)} {q.dtype}: max err {err:.3g}, "
+            f"max |plain| {rel['max_plain']:.3g}, max err / max |plain| "
+            f"{rel['max']:.3g}, mean err / mean |plain| {rel['mean']:.3g} "
+            f"(tol {FAMILY_K6_TOL['max']:g} / {FAMILY_K6_TOL['mean']:g})")
+        check(rel["max"] <= FAMILY_K6_TOL["max"]
+              and rel["mean"] <= FAMILY_K6_TOL["mean"],
+              f"{name} attention layer {i}: K6 differs from its plain "
+              f"version by {rel['max']:.3g} of max |plain| and "
+              f"{rel['mean']:.3g} of mean |plain|")
+        if i == 0:
+            _, cut = _k6_error(_without_first_key_tile(q, k, v, kw), want)
+            log(f"kernel-check power {name}: the plain attention without "
+                f"its first 64 keys is {cut['max']:.3g} of max |plain| and "
+                f"{cut['mean']:.3g} of mean |plain| off")
+            check(cut["max"] > FAMILY_K6_TOL["max"]
+                  or cut["mean"] > FAMILY_K6_TOL["mean"],
+                  f"{name}: a K6 that skipped a key tile would pass the "
+                  f"check ({cut})")
+        del want
+    q0, k0, v0, kw0, _ = caught[0]
+    case = flash_case("prefill attention layer 0", q0, k0, v0, kw0,
+                      model=name)
+    case["launches"] = launches["flash_attention"]
+    del caught, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _host_ms(lambda: model.prefill(params, batch), 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"family {name} prefill {cfg.dtype} B=1 S={FAMILY_SEQ}: {ms:.3f} ms "
+        f"(host clock, median of 3, synchronised), peak {peak:.3f} GiB")
+    return launches, worst, case, {"prefill_ms": ms, "peak_gib": peak,
+                                   "main_path_launches": launches}
+
+
+def _family_model(name, seed, **over):
+    """``Model`` of ``name`` at full width (``over`` replaces fields), its
+    seeded weights on the card as inference tensors, whose count must equal
+    ``ArchConfig.n_params``; returns (model, params, the generator, which
+    drew them and draws the inputs next, details)."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.obs import timer
+
+    model = Model(_family_cfg(name, **over))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gc.collect()         # an engine wrapped by _hold_slot_state is a cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = timer.now()
+    with torch.inference_mode():
+        params = model.init(g, device="cuda")
+    torch.cuda.synchronize()
+    init_s = timer.now() - t0
+    n = sum(t.numel() for t in _leaves(params))
+    check(n == model.cfg.n_params(), f"{name}: {n} parameters, the config "
+                                     f"counts {model.cfg.n_params()}")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"family {name} init ({model.cfg.n_layers} layers, "
+        f"{model.cfg.dtype}): {n} parameters, {nbytes / 2 ** 30:.3f} GiB, "
+        f"init peak {peak:.3f} GiB, {init_s:.3f} s")
+    return model, params, g, {"n_params": n, "param_gib": nbytes / 2 ** 30,
+                              "init_peak_gib": peak, "init_s": init_s}
+
+
+def _engine_prompts(vocab, seed):
+    """8 seeded prompts of 8-32 tokens (phase 9's mix)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in rng.integers(8, 33, 8)]
+
+
+def _hold_slot_state(eng):
+    """Wrap ``eng``'s prefill and insert: after every insert, each mamba
+    sublayer's conv window and state in the slot must equal the batch-1
+    prefill's bit for bit, dtype included. Returns the list of checked
+    leaves per insert."""
+    import torch
+    from repro_torch.core.pytree import leaves_with_paths
+
+    real_prefill, real_insert = eng._prefill_one, eng._insert_into_slot
+    held, checked = [], []
+
+    def prefill_one(tokens):
+        cache, logits = real_prefill(tokens)
+        held.append(cache)
+        return cache, logits
+
+    def insert(slot, req):
+        real_insert(slot, req)
+        one = dict(leaves_with_paths(held.pop()))
+        n = 0
+        for path, leaf in leaves_with_paths(eng.caches):
+            if path.rsplit("/", 1)[-1] in ("h", "conv"):
+                check(leaf.dtype == one[path].dtype
+                      and torch.equal(leaf[:, slot], one[path][:, 0]),
+                      f"request {req.uid}: slot {slot}'s {path} differs from "
+                      f"its batch-1 prefill")
+                n += 1
+        checked.append(n)
+
+    eng._prefill_one = prefill_one
+    eng._insert_into_slot = insert
+    return checked
+
+
+def _serve(model, params, prompts, hold=False):
+    """``ServeEngine`` (4 slots, max_len 256) on ``prompts`` with 8 new
+    tokens each; returns (outputs, stats, checked slot-state leaves)."""
+    import torch
+    from repro_torch.obs import timer
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    eng = ServeEngine(model, params, n_slots=4, max_len=256, device="cuda")
+    checked = _hold_slot_state(eng) if hold else []
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+            for i, p in enumerate(prompts)]
+    t0 = timer.now()
+    for r in reqs:
+        eng.submit(r)
+    steps = eng.run_until_drained()
+    torch.cuda.synchronize()
+    engine_s = timer.now() - t0
+    check(len(eng.finished) == len(reqs),
+          f"{len(eng.finished)} of {len(reqs)} requests finished")
+    stats = dict(eng.stats(), steps=steps, engine_s=engine_s,
+                 prompt_tokens=int(sum(len(p) for p in prompts)),
+                 new_tokens=int(sum(len(r.output) for r in reqs)))
+    return [r.output for r in reqs], stats, checked
+
+
+def _jamba(smi):
+    """(b) jamba-v0.1-52b in bf16 at its published widths, ``JAMBA_LAYERS``
+    of 32 layers: the counted prefill (2 K6 launches), then
+    ``ServeEngine`` twice on 8 seeded requests: the same tokens both times,
+    and after every insert the slot's mamba state equal to the batch-1
+    prefill's bit for bit. The MoE choices the 4-slot decode batch drops
+    (capacity 1 a expert) are counted in the first run."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    model, params, g, det = _family_model(JAMBA_CONFIG, SEED + 20,
+                                          n_layers=JAMBA_LAYERS)
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab, (1, FAMILY_SEQ), generator=g,
+                           device="cuda")
+    launches, worst, case, pre = _family_prefill(JAMBA_CONFIG, model, params,
+                                                 {"tokens": tokens})
+    det.update(pre)
+    prompts = _engine_prompts(cfg.vocab, SEED + 20)
+    drops = []
+    real = tfm.moe_apply
+
+    def counting(c, sub, h):
+        if h.shape[0] == 4:
+            _, _, idx = layers.moe_route(c, sub, h)
+            drops.append((~_kept_choices(idx, c.moe_experts,
+                                         layers.moe_capacity(c, 4))).sum())
+        return real(c, sub, h)
+
+    tfm.moe_apply = counting
+    try:
+        first, stats, checked = _serve(model, params, prompts, hold=True)
+    finally:
+        tfm.moe_apply = real
+    second, stats2, _ = _serve(model, params, prompts)
+    check(first == second, f"jamba engine runs differ: {first} != {second}")
+    n_drop = int(sum(int(d) for d in drops))
+    steps = _decode_ms(model, params, g)
+    det["serving"] = dict(stats2, instrumented_engine_s=stats["engine_s"],
+                          instrumented_tok_s=stats["throughput_tok_s"],
+                          inserts_held=len(checked),
+                          state_leaves_held=sum(checked),
+                          decode_batch_moe_calls=len(drops),
+                          decode_batch_dropped=n_drop,
+                          decode_step_ms=steps)
+    log(f"family {JAMBA_CONFIG} serving {cfg.dtype} ({JAMBA_LAYERS} layers, "
+        f"4 slots): {len(prompts)} requests, {stats2['prompt_tokens']} "
+        f"prompt and {stats2['new_tokens']} new tokens in {stats2['steps']} "
+        f"engine steps, {stats2['engine_s']:.3f} s, "
+        f"{stats2['throughput_tok_s']:.3f} tokens/s (the first run, with the "
+        f"slot-state and drop checks on its path, {stats['engine_s']:.3f} s); "
+        f"both runs give the same tokens; {len(checked)} inserts, "
+        f"{sum(checked)} mamba leaves equal to their batch-1 prefill bit for "
+        f"bit; {n_drop} MoE choices dropped over {len(drops)} decode-batch "
+        f"MoE calls; a decode step alone {steps['batch1']:.3f} ms at batch 1, "
+        f"{steps['batch4']:.3f} ms at batch 4 (host clock, median of 10) "
+        f"({smi})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, worst, case, det
+
+
+def _falcon_engine(smi):
+    """(c) falcon-mamba-7b at full width and depth in float32 (TF32 off):
+    ``ServeEngine`` on 8 seeded requests, each request's tokens equal to
+    its own sequential greedy decode."""
+    import torch
+    from repro_torch.core.qir import full_fp32
+
+    name = "falcon-mamba-7b"
+    model, params, g, det = _family_model(name, SEED + 21, dtype="float32")
+    prompts = _engine_prompts(model.cfg.vocab, SEED + 21)
+    with full_fp32():
+        outputs, stats, _ = _serve(model, params, prompts)
+        for i, (p, out) in enumerate(zip(prompts, outputs)):
+            want = _greedy(model, params, p, 8, 256)
+            check(out == want, f"{name} request {i}: engine {out} != "
+                               f"sequential {want}")
+        steps = _decode_ms(model, params, g)
+    det["serving"] = dict(stats, decode_step_ms=steps)
+    log(f"family {name} serving float32 (64 layers, 4 slots): "
+        f"{len(prompts)} requests, {stats['prompt_tokens']} prompt and "
+        f"{stats['new_tokens']} new tokens in {stats['steps']} engine steps, "
+        f"{stats['engine_s']:.3f} s, {stats['throughput_tok_s']:.3f} "
+        f"tokens/s; every request equals its sequential greedy decode; a "
+        f"decode step alone {steps['batch1']:.3f} ms at batch 1, "
+        f"{steps['batch4']:.3f} ms at batch 4 (host clock, median of 10) "
+        f"({smi})")
+    del params
+    torch.cuda.empty_cache()
+    return det
+
+
+def _embed_prefill(name, seed):
+    """(d) a backbone that takes embeddings, at full width and depth in
+    bf16: the counted prefill at ``FAMILY_SEQ`` from seeded embeds (and
+    M-RoPE positions with an arange temporal row for qwen2-vl)."""
+    import torch
+
+    model, params, g, det = _family_model(name, seed)
+    cfg = model.cfg
+    batch = {"embeds": torch.randn(1, FAMILY_SEQ, cfg.d_model, generator=g,
+                                   device="cuda")}
+    if cfg.mrope:
+        batch["positions"] = _mrope_positions(g, FAMILY_SEQ, arange_t=True)
+    launches, worst, case, pre = _family_prefill(name, model, params, batch)
+    det.update(pre)
+    del params
+    torch.cuda.empty_cache()
+    return launches, worst, case, det
+
+
+def _family_launchers():
+    """(e) ``launch.serve`` and ``launch.train`` on jamba --reduced on the
+    card (train: 10 steps, checkpoints under ``build/``, removed)."""
+    import shutil
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    s = launch_serve.main(["--arch", JAMBA_CONFIG, "--reduced", "--device",
+                           "cuda"])
+    check(s["n_requests"] == 16, f"launch.serve drained {s['n_requests']}")
+    tmp = tempfile.mkdtemp(prefix="launch-train-",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        res = launch_train.main(["--arch", JAMBA_CONFIG, "--reduced",
+                                 "--steps", "10", "--batch", "4", "--seq",
+                                 "64", "--ckpt-every", "5", "--ckpt-dir",
+                                 tmp, "--device", "cuda"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loss = res.metrics_history[-1]["loss"] if res.metrics_history else None
+    check(res.final_step == 10 and loss is not None and math.isfinite(loss),
+          f"launch.train ended at {res.final_step}, loss {loss}")
+    log(f"family launchers {JAMBA_CONFIG} --reduced on the card: serve "
+        f"{s['n_requests']} requests at {s['throughput_tok_s']:.3f} tokens/s"
+        f", train 10 steps to loss {loss:.6f}")
+    return {"serve": s, "train_loss": loss}
+
+
+def phase_families(smi):
+    """Phase 20: the LM families. (a) full-width sublayers in float32
+    against the CPU port, (b) jamba in bf16, (c) falcon-mamba's engine,
+    (d) qwen2-vl and hubert prefill, (e) the launchers. Returns (K6
+    launches summed over the counted prefills, worst |kernel - plain|, K6
+    timing rows, one a model at its layer 0's inputs, details)."""
+    import torch
+    from repro_torch.core.qir import full_fp32
+
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    with full_fp32():
+        sub = {"jamba_moe": _moe_sublayer(JAMBA_CONFIG, [(1, 128), (4, 1)],
+                                          g),
+               "llama4_moe": _moe_sublayer("llama4-scout-17b-16e",
+                                           [(1, 128), (4, 1)], g),
+               "jamba_mamba": _mamba_sublayer(g),
+               "qwen2_vl_mrope": _mrope_sublayer(g)}
+    out = {"sublayers": sub}
+    k6, worst, rows = 0, 0.0, []
+    for name, run in ((JAMBA_CONFIG, lambda: _jamba(smi)),
+                      ("qwen2-vl-2b", lambda: _embed_prefill("qwen2-vl-2b",
+                                                             SEED + 22)),
+                      ("hubert-xlarge", lambda: _embed_prefill(
+                          "hubert-xlarge", SEED + 23))):
+        launches, w, case, out[name] = run()
+        k6 += launches["flash_attention"]
+        worst = max(worst, w)
+        rows.append(time_case(case, reps=5, inner=10))
+        del case
+    out["falcon-mamba-7b"] = _falcon_engine(smi)
+    out["launchers"] = _family_launchers()
+    return k6, worst, rows, out
+
+
+def phase_family_profile():
+    """Last, with phase 9's: jamba at ``JAMBA_LAYERS`` layers again (same
+    seed), one prefill and one decode step at batch 4 and at batch 1 under
+    ``torch.profiler``; then falcon-mamba-7b in float32, one decode step at
+    each batch. Returns the breakdowns (the decode steps' idle share says
+    whether the host holds the card back)."""
+    import torch
+    from repro_torch.core.qir import full_fp32
+
+    model, params, g, _ = _family_model(JAMBA_CONFIG, SEED + 20,
+                                        n_layers=JAMBA_LAYERS)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (1, FAMILY_SEQ),
+                                     generator=g, device="cuda")}
+    model.prefill(params, batch)
+    prof = {"prefill": _device_breakdown(lambda: model.prefill(params,
+                                                                batch))}
+    log(f"family profile {JAMBA_CONFIG} {model.cfg.dtype} prefill: "
+        f"{json.dumps(prof['prefill'])}")
+    prof.update(_decode_profiles(JAMBA_CONFIG, model, params, g))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = "falcon-mamba-7b"
+    model, params, g, _ = _family_model(name, SEED + 21, dtype="float32")
+    with full_fp32():
+        prof[name] = _decode_profiles(name, model, params, g)
+    del params
+    torch.cuda.empty_cache()
+    return prof
+
+
+def _decode_profiles(name, model, params, g):
+    """One decode step at batch 4 and at batch 1 under ``torch.profiler``,
+    each after an untraced one."""
+    out = {}
+    for b in (4, 1):
+        decode = _decode_call(model, params, g, b)
+        decode()
+        out[f"decode_batch{b}"] = d = _device_breakdown(decode)
+        log(f"family profile {name} {model.cfg.dtype} decode batch {b}: "
+            f"{json.dumps(d)}")
+    return out
+
+
 def _now():
     from repro_torch.obs import timer
 
@@ -3746,7 +4442,7 @@ def kernels_line(rows, launches, worst):
     """One entry per kernel. ``launches`` is the counted main-path run of
     the kernel's path: one offline call of each of the four models in each
     of the two modes (K1-K3, the float head), one full-width llama3-8b
-    prefill (K6); the
+    prefill and phase 20's jamba, qwen2-vl and hubert prefills (K6); the
     times and the bound are summed over the same launches (each main-path
     case weighted by its launches in that run, which must add up to the
     count); ``max_abs_err`` is the kernel's own worst |kernel - plain|
@@ -3834,23 +4530,31 @@ def main() -> int:
         papers = phase_paper_benches(smi)
         train_launches, worst_train, k6_bwd_row, lm["train"] = \
             phase_lm_train(smi)
+        fam_k6, worst_fam, fam_rows, lm["families"] = phase_families(smi)
+        k6_rows += fam_rows
         lm["profile"] = phase_lm_profile()
+        lm["families"]["profile"] = phase_family_profile()
+        jamba = lm["families"][JAMBA_CONFIG]
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
             f" ms per step (batch 4, bf16), engine "
             f"{lm['serving']['throughput_tok_s']:.3f} tokens/s (float32, "
-            f"4 slots)")
+            f"4 slots); {JAMBA_CONFIG} ({JAMBA_LAYERS} layers, bf16) prefill "
+            f"{jamba['prefill_ms']:.3f} ms, engine "
+            f"{jamba['serving']['throughput_tok_s']:.3f} tokens/s")
         worst = {k: max(worst_syn[k], worst_main[k], worst_wide[k])
                  for k in TINY_KERNELS}
         worst["threshold_matmul"] = max(worst["threshold_matmul"],
                                         worst_tiles)
         worst[HEAD_KERNEL] = worst_main[HEAD_KERNEL]
-        worst["flash_attention"] = max(worst_lm, *worst_flash.values())
+        worst["flash_attention"] = max(worst_lm, worst_fam,
+                                       *worst_flash.values())
         worst["flash_attention_bwd"] = worst_train
         for k in BENCH_KERNELS:
             worst[k] = max(worst_k45[k], worst_bench[k])
         launches = {**{k: launches[k] for k in TINY_KERNELS + (HEAD_KERNEL,)},
-                    **{k: lm_launches[k] for k in LM_KERNELS},
+                    "flash_attention": lm_launches["flash_attention"]
+                    + fam_k6,
                     **{k: train_launches[k] for k in TRAIN_KERNELS},
                     **{k: bench_launches[k] for k in BENCH_KERNELS}}
         line = kernels_line(rows + k6_rows + bench_rows + [k6_bwd_row],

@@ -1,9 +1,8 @@
 """Config registry: ``get_config(name)`` / ``list_configs()``.
 
 A copy of ``repro.configs``: the ten assigned architectures (public-
-literature configs, sources in each file). The port's LM path runs the
-dense attention families; ``repro_torch.models`` raises
-``NotImplementedError`` for the features it does not run yet.
+literature configs, sources in each file), every one of which the port's
+LM path runs.
 """
 
 from __future__ import annotations

@@ -13,6 +13,9 @@ Everything runs on the card unless ``--device cpu`` is given; asking for
 the card without one raises. The tiny models' weights come from
 ``numpy.random.default_rng(--seed)`` (``repro_torch.bench.models``), the
 LM's from a seeded ``torch.Generator``: JAX's PRNG is not reproduced.
+``--arch`` takes every configuration; the engine feeds token ids, so the
+backbones that take embeddings (qwen2-vl, hubert) are refused, hubert as
+encoder-only.
 """
 
 import argparse

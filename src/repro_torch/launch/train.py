@@ -12,7 +12,11 @@ the card without one raises. One device only: ``--model-parallel`` above
 seeded with 0 (JAX's PRNG is not reproduced). A run resumes from the
 newest checkpoint in ``--ckpt-dir``; on ``ElasticRestart`` (the
 straggler watchdog) the launcher builds the state again on the same
-device and resumes from the checkpoint the loop wrote.
+device and resumes from the checkpoint the loop wrote. ``--arch`` takes
+every configuration; the vlm / audio backbones (``embed_inputs=False``),
+whose frontends are stubs, train on seeded normal frame embeddings (one
+draw a step, so a resumed run sees the same batches) against the token
+stream's labels.
 """
 
 import argparse
@@ -21,6 +25,7 @@ import logging
 import os
 import tempfile
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
@@ -79,7 +84,12 @@ def main(argv=None):
 
         def batch_fn(step):
             # host arrays; the step copies them to the device
-            return data.batch(step, args.batch)
+            b = data.batch(step, args.batch)
+            if cfg.embed_inputs:
+                return b
+            frames = np.random.default_rng(step).standard_normal(
+                (*b["labels"].shape, cfg.d_model), dtype=np.float32)
+            return {"embeds": frames, "labels": b["labels"]}
 
         lcfg = LoopConfig(total_steps=args.steps,
                           ckpt_every=args.ckpt_every,

@@ -1,5 +1,5 @@
-"""Attention: GQA + RoPE / sliding window, flash attention for long
-sequences, and KV-cache decode.
+"""Attention: GQA + RoPE / M-RoPE / sliding window, flash attention for
+long sequences, and KV-cache decode.
 
 The counterpart of ``repro.models.attention``, on torch tensors in the
 reference's (B, S, H, hd) layout. ``chunked_attention`` — the reference's
@@ -13,7 +13,9 @@ the reference), "chunked" through the kernel's autograd function, whose
 backward is a kernel of its own (``ops.flash_attention_bwd``; the
 reference differentiates its jnp flash twin). ``decode_attention`` and
 ``_decode_ring`` stay plain torch ops, as they are jnp in the reference.
-M-RoPE is not ported yet (``layers.check_supported``).
+M-RoPE (Qwen2-VL) takes (3, B, S) positions, one row per (t, h, w)
+section of the rotary half-dims; the masks and the kernel read the
+temporal row, which on the flash path must be an arange run.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_freqs(cfg: ArchConfig, positions: torch.Tensor):
@@ -49,10 +51,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def mrope_cos_sin(cfg: ArchConfig, positions_thw: torch.Tensor):
+    """Qwen2-VL multimodal RoPE: positions_thw (3, B, S); the head_dim
+    halves are partitioned into (t, h, w) sections (cfg.mrope_sections
+    sums to hd//2), section i rotated by position row i."""
+    sec = list(cfg.mrope_sections)
+    if sum(sec) != cfg.hd // 2:
+        raise ValueError(f"mrope sections {sec} must sum to head_dim//2 "
+                         f"= {cfg.hd // 2}")
+    cos_all, sin_all = rope_freqs(cfg, positions_thw)     # (3, B, S, hd//2)
+    cos = torch.cat([part[i] for i, part in
+                     enumerate(torch.split(cos_all, sec, dim=-1))], dim=-1)
+    sin = torch.cat([part[i] for i, part in
+                     enumerate(torch.split(sin_all, sec, dim=-1))], dim=-1)
+    return cos, sin                                       # (B, S, hd//2)
+
+
 def positions_cos_sin(cfg: ArchConfig, positions: torch.Tensor):
-    """positions: (B, S) int."""
+    """positions: (B, S) int, or (3, B, S) for M-RoPE (a (B, S) text-only
+    input gives t, h and w the same positions)."""
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet")
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return mrope_cos_sin(cfg, positions)
     return rope_freqs(cfg, positions)
 
 
@@ -170,7 +191,8 @@ def _softmax_weighted(s, valid, v_cache):
 # ---------------------------------------------------------------------------
 
 def attn_apply(cfg: ArchConfig, p, x, positions):
-    """Training / prefill forward. x (B,S,d); positions (B,S)."""
+    """Training / prefill forward. x (B,S,d); positions (B,S) or
+    (3,B,S)."""
     B, S, _ = x.shape
     q = linear_apply(cfg, p["wq"], x)
     k = linear_apply(cfg, p["wk"], x)
@@ -182,10 +204,11 @@ def attn_apply(cfg: ArchConfig, p, x, positions):
     impl = cfg.attn_impl
     if impl == "auto":
         impl = "chunked" if S > 2048 else "naive"
+    pos1d = positions[0] if positions.dim() == 3 else positions
     if impl == "chunked":
-        out = chunked_attention(cfg, q, k, v, positions[0], positions[0])
+        out = chunked_attention(cfg, q, k, v, pos1d[0], pos1d[0])
     else:
-        bias = mask_bias(cfg, positions[0], positions[0])
+        bias = mask_bias(cfg, pos1d[0], pos1d[0])
         out = naive_attention(q, k, v, bias)
     out = out.reshape(B, S, cfg.n_heads * cfg.hd)
     return linear_apply(cfg, p["wo"], out)
@@ -212,7 +235,10 @@ def attn_decode(cfg: ArchConfig, p, x, cache, cur_index):
     v = linear_apply(cfg, p["wv"], x)
     cur = torch.as_tensor(cur_index, dtype=torch.int32,
                           device=x.device).expand(B)
-    cos, sin = positions_cos_sin(cfg, cur[:, None])
+    pos = cur[:, None]
+    if cfg.mrope:
+        pos = pos[None].expand(3, B, 1)
+    cos, sin = positions_cos_sin(cfg, pos)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 

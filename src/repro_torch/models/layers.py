@@ -1,5 +1,5 @@
-"""Shared LM building blocks, the dense subset: norms, embeddings,
-linears (float, or with QAT fake-quant weights) and the SwiGLU MLP.
+"""Shared LM building blocks: norms, embeddings, linears (float, or with
+QAT fake-quant weights), the SwiGLU MLP and the top-k MoE.
 
 The counterpart of ``repro.models.layers``: explicit init/apply pairs over
 plain dicts of tensors, with the reference's parameter shapes and names so
@@ -14,10 +14,14 @@ With ``weight_bits < 16`` every linear fake-quantizes its weight per
 tensor with the port's straight-through ``IntQuantizer`` (QAT), as the
 reference does.
 
-Not ported yet (``check_supported`` raises ``NotImplementedError``): MoE,
-SSM and hybrid blocks, M-RoPE, embedding inputs (vlm/audio frontends);
-the int8 serve path (``w_int`` params) is refused where weights enter
-the port, ``models.model.params_from_numpy``.
+The MoE (``moe_init`` / ``moe_apply``) is the reference's single-device
+branch: top-k routing in float32, the Switch aux loss, capacity-limited
+dispatch into an (E, C, d) buffer, the expert products as ``torch.bmm``
+(``jnp.einsum`` in the reference, outside any Pallas kernel) and an
+optional shared expert. The reference's ``shard_map`` branch waits for
+``parallel/``. The int8 serve path (``w_int`` params) is not ported yet:
+it is refused where weights enter the port,
+``models.model.params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -36,18 +40,19 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's LM path does not
-    run yet; it never silently takes another path."""
-    missing = [what for what, bad in (
-        ("MoE blocks", cfg.is_moe), ("SSM blocks", cfg.has_ssm),
-        ("M-RoPE", cfg.mrope),
-        ("embedding inputs (embed_inputs=False)", not cfg.embed_inputs))
-        if bad]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's LM path does not run {', '.join(missing)}"
-            f" yet")
+#: the parameter leaves (by the tail of their path) that are float32 in
+#: every config, as in the reference
+FLOAT32_LEAVES = (("router", "w"), ("A_log",), ("D",), ("dt_proj", "b"))
+
+
+def leaf_dtype(cfg: ArchConfig, path) -> torch.dtype:
+    """The reference's dtype of the parameter leaf at ``path`` (its dict
+    keys, from the root or from any subtree): the one owner of that choice,
+    read by the inits and by ``model.params_from_numpy``."""
+    path = tuple(path)
+    if any(path[-len(tail):] == tail for tail in FLOAT32_LEAVES):
+        return torch.float32
+    return _dtype(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -81,16 +86,17 @@ def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _normal(shape, std: float, cfg: ArchConfig, generator, device,
-            truncated: bool) -> torch.Tensor:
+            truncated: bool, dtype: Optional[torch.dtype] = None
+            ) -> torch.Tensor:
     """float32 draw (truncated at +-2 sigma or not) scaled by ``std``, cast
-    to the config's dtype, as the reference draws and casts."""
+    to ``dtype`` (None: the config's), as the reference draws and casts."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     if truncated:
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
     else:
         w.normal_(generator=generator)
-    return w.mul_(std).to(_dtype(cfg))
+    return w.mul_(std).to(dtype or _dtype(cfg))
 
 
 def linear_init(generator, in_dim: int, out_shape, cfg: ArchConfig,
@@ -162,3 +168,103 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     u = linear_apply(cfg, p["wi_up"], x)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
     return linear_apply(cfg, p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity-limited dispatch, expert FFNs)
+# ---------------------------------------------------------------------------
+
+def moe_init(generator, cfg: ArchConfig, device=None):
+    """The router (float32 whatever ``cfg.dtype``: ``leaf_dtype``), E
+    experts' SwiGLU weights stacked on a leading axis, and the shared
+    expert if the config has one."""
+    E, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+    std_in = d ** -0.5
+    std_out = (2 * cfg.n_layers * f) ** -0.5
+    p = {
+        "router": {"w": _normal((d, E), std_in, cfg, generator, device,
+                                truncated=False,
+                                dtype=leaf_dtype(cfg, ("router", "w")))},
+        "wi_gate": _normal((E, d, f), std_in, cfg, generator, device,
+                           truncated=False),
+        "wi_up": _normal((E, d, f), std_in, cfg, generator, device,
+                         truncated=False),
+        "wo": _normal((E, f, d), std_out, cfg, generator, device,
+                      truncated=False),
+    }
+    if cfg.moe_shared_expert:
+        p["shared"] = mlp_init(generator, cfg, device=device)
+    return p
+
+
+def _expert_ffn(x_ecd, wg, wu, wo):
+    """x: (E, C, d); weights (E, d, f) / (E, f, d) -> (E, C, d)."""
+    g = torch.bmm(x_ecd, wg)
+    u = torch.bmm(x_ecd, wu)
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(x_ecd.dtype) * u
+    return torch.bmm(h, wo)
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` tokens (at least 1)."""
+    return max(int(n_tokens * cfg.moe_top_k * cfg.capacity_factor
+                   / cfg.moe_experts), 1)
+
+
+def _moe_local(cfg: ArchConfig, x, idx, weights, wg, wu, wo):
+    """Dispatch -> expert FFN -> combine, the reference's ``_moe_local``
+    without a mesh.
+
+    A choice's place in its expert is its rank among the (T*k) choices,
+    token-major, that picked the same expert; choices ranked C or later are
+    dropped: they go to the overflow row E*C and add nothing. Kept slots
+    are unique, so the buffer is built by assignment (no atomics, the same
+    under ``torch.use_deterministic_algorithms``); only the overflow row,
+    which is cut off, can take several writes.
+    """
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    B, S, d = x.shape
+    T = B * S
+    flat_e = idx.reshape(-1)                                  # (T*k,)
+    onehot = torch.nn.functional.one_hot(flat_e, E)
+    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=-1) - 1
+    C = moe_capacity(cfg, T)
+    keep = pos < C
+    slot = torch.where(keep, flat_e * C + pos.clamp(0, C - 1),
+                       torch.full_like(flat_e, E * C))
+    x_rep = x.reshape(T, d).repeat_interleave(k, dim=0)      # token-major
+    buf = x.new_zeros((E * C + 1, d))
+    buf[slot] = x_rep
+    h = _expert_ffn(buf[:E * C].reshape(E, C, d), wg, wu, wo)
+    flat_h = torch.cat([h.reshape(E * C, d), h.new_zeros((1, d))], dim=0)
+    gate = (weights.reshape(-1) * keep.to(torch.float32))[:, None]
+    y = flat_h[slot] * gate.to(h.dtype)
+    return y.reshape(T, k, d).sum(dim=1).reshape(B, S, d)
+
+
+def moe_route(cfg: ArchConfig, p, x):
+    """(probs (B, S, E), weights (B, S, k), idx (B, S, k)), in float32.
+    Ties go to the lower expert index, as ``jax.lax.top_k`` breaks them:
+    ``torch.topk`` promises no order among equal values, a stable
+    descending sort does."""
+    logits = torch.matmul(x.to(torch.float32), p["router"]["w"])
+    probs = torch.softmax(logits, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_top_k
+    weights, idx = vals[..., :k], order[..., :k]
+    return probs, weights / weights.sum(dim=-1, keepdim=True), idx
+
+
+def moe_apply(cfg: ArchConfig, p, x):
+    """Returns (y, aux_loss): the routed experts' combine (plus the shared
+    expert) and the Switch load-balance loss."""
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    probs, weights, idx = moe_route(cfg, p, x)
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    ce = torch.nn.functional.one_hot(idx, E).to(torch.float32).sum(
+        dim=2).mean(dim=(0, 1)) / k
+    aux = E * (me * ce).sum()
+    y = _moe_local(cfg, x, idx, weights, p["wi_gate"], p["wi_up"], p["wo"])
+    if cfg.moe_shared_expert:
+        y = y + mlp_apply(cfg, p["shared"], x)
+    return y, aux

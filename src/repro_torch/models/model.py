@@ -1,5 +1,6 @@
-"""Top-level LM: init / forward / loss / prefill / decode for the dense
-attention configs.
+"""Top-level LM: init / forward / loss / prefill / decode for every
+configuration of ``repro_torch.configs``: dense, MoE, mamba, the jamba
+hybrid, and the vlm / audio backbones that take embeddings.
 
 The counterpart of ``repro.models.model.Model``:
 
@@ -24,6 +25,16 @@ The inference entry points run under ``torch.inference_mode()``.
 ``params_from_numpy`` carries the reference's weights across (the tests
 feed both sides the same numbers). ``quantize_params`` (the int8 serve
 path) is not ported yet.
+
+Inputs, as the reference takes them: text configs take ``tokens`` (B, S);
+configs with ``embed_inputs=False`` (qwen2-vl, hubert: the frontend is a
+stub) take ``embeds`` (B, S, d_model) and have no ``embed`` leaf. An
+optional ``positions`` is (B, S), or (3, B, S) for M-RoPE.
+
+Leaf dtypes are the reference's: ``cfg.dtype`` but for the MoE router's
+weight, the mamba ``A_log``, ``D`` and ``dt_proj.b``, which are float32
+in every config. ``layers.leaf_dtype`` alone decides this, for the inits
+and for ``params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -38,40 +49,36 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pytree import tree_map
 from repro_torch.core.qir import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (_dtype, check_supported, embed_apply,
-                                       embed_init, head_apply, norm_apply,
+from repro_torch.models.layers import (_dtype, embed_apply, embed_init,
+                                       head_apply, leaf_dtype, norm_apply,
                                        norm_init)
-
 
 def params_from_numpy(tree, cfg: ArchConfig, device=None):
     """The reference's ``Model.init`` pytree, every leaf converted to a
     numpy array, as the port's tensors: same nesting, same stacked
-    ``n_groups`` axis, each leaf in ``cfg.dtype`` on ``device`` (None: the
-    card). Convert JAX bf16 leaves to float32 first: ``np.asarray`` of one
-    gives an ``ml_dtypes`` array that torch does not take."""
+    ``n_groups`` axis, each leaf in the reference's dtype (``leaf_dtype``)
+    on ``device`` (None: the card). Convert JAX bf16 leaves to float32
+    first: ``np.asarray`` of one gives an ``ml_dtypes`` array that torch
+    does not take."""
     dev = resolve_device(device)
-    dtype = _dtype(cfg)
 
-    def conv(x):
+    def conv(x, path):
         if isinstance(x, dict):
             if "w_int" in x:
                 raise NotImplementedError("the int8 serve path (w_int "
                                           "params) is not ported yet")
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, path + (k,)) for k, v in x.items()}
         arr = np.asarray(x)
         if arr.dtype.kind != "f":
             raise TypeError(f"expected a float array, got {arr.dtype}")
-        return torch.tensor(arr, dtype=dtype, device=dev)
+        return torch.tensor(arr, dtype=leaf_dtype(cfg, path), device=dev)
 
-    return conv(tree)
+    return conv(tree, ())
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-
-    def __post_init__(self):
-        check_supported(self.cfg)
 
     # -- params --------------------------------------------------------
     @torch.no_grad()
@@ -82,10 +89,11 @@ class Model:
         ``torch.inference_mode()``."""
         dev = resolve_device(device)
         cfg = self.cfg
-        p: Dict[str, Any] = {"embed": embed_init(generator, cfg, device=dev),
-                             "blocks": tfm.stack_init(generator, cfg,
-                                                      device=dev),
-                             "final_norm": norm_init(cfg, device=dev)}
+        p: Dict[str, Any] = {}
+        if cfg.embed_inputs:
+            p["embed"] = embed_init(generator, cfg, device=dev)
+        p["blocks"] = tfm.stack_init(generator, cfg, device=dev)
+        p["final_norm"] = norm_init(cfg, device=dev)
         if not cfg.tie_embeddings:
             head = torch.empty((cfg.d_model, cfg.vocab), dtype=torch.float32,
                                device=dev).normal_(generator=generator)
@@ -93,10 +101,17 @@ class Model:
         return p
 
     # -- forward ---------------------------------------------------------
+    def _embed(self, params, tokens_or_embeds):
+        """Token ids through the table, or embeddings cast to the
+        config's dtype (``embed_inputs=False``)."""
+        if self.cfg.embed_inputs:
+            return embed_apply(self.cfg, params["embed"], tokens_or_embeds)
+        return tokens_or_embeds.to(_dtype(self.cfg))
+
     def _inputs_to_h(self, params, batch):
-        tokens = batch["tokens"]
-        h = embed_apply(self.cfg, params["embed"], tokens)
-        B, S = tokens.shape
+        h = self._embed(params, batch["tokens"] if self.cfg.embed_inputs
+                        else batch["embeds"])
+        B, S = h.shape[:2]
         if "positions" in batch:
             positions = batch["positions"]
         else:
@@ -116,7 +131,8 @@ class Model:
         return self._head(params, h), aux
 
     def loss(self, params, batch):
-        """batch {"tokens", "labels": (B, S) int} -> (total, {"ce",
+        """batch {"tokens" (or "embeds"), "labels": (B, S) int} -> (total,
+        {"ce",
         "z_loss", "aux"}), the reference's terms: labels < 0 are masked.
         The label's logit is gathered (the reference sums a one-hot
         select, which gives the same value)."""
@@ -135,15 +151,18 @@ class Model:
     # -- inference ---------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, params, batch) -> torch.Tensor:
-        """Full-sequence forward: batch {"tokens": (B, S) int} (optional
-        "positions" (B, S)) -> logits (B, S, V) float32."""
+        """Full-sequence forward: batch {"tokens": (B, S) int} or
+        {"embeds": (B, S, d)} (optional "positions" (B, S) or (3, B, S))
+        -> logits (B, S, V) float32."""
         h, positions = self._inputs_to_h(params, batch)
         h, _ = tfm.stack_apply(self.cfg, params["blocks"], h, positions)
         return self._head(params, h)
 
     @torch.inference_mode()
     def cache_init(self, batch: int, max_len: int, dtype=None, device=None):
-        """Zeroed KV caches, stacked (n_groups, batch, ...) per leaf."""
+        """Zeroed caches (KV for attention sublayers, conv window and
+        float32 state for mamba ones), stacked (n_groups, batch, ...) per
+        leaf."""
         dev = resolve_device(device)
         one = tfm.block_cache_init(self.cfg, batch, max_len, dtype,
                                    device=dev)
@@ -152,13 +171,13 @@ class Model:
                                             *([1] * x.dim())), one)
 
     @torch.inference_mode()
-    def decode_step(self, params, caches, tokens, cur_index):
+    def decode_step(self, params, caches, tokens_or_embeds, cur_index):
         """One token for every sequence in the batch.
 
-        tokens (B, 1) int; cur_index an int or a (B,) tensor of per-slot
-        positions. Returns (logits (B, 1, V) float32, caches), the caches
-        updated in place."""
-        h = embed_apply(self.cfg, params["embed"], tokens)
+        tokens (B, 1) int, or embeds (B, 1, d) for ``embed_inputs=False``;
+        cur_index an int or a (B,) tensor of per-slot positions. Returns
+        (logits (B, 1, V) float32, caches), the caches updated in place."""
+        h = self._embed(params, tokens_or_embeds)
         h, caches = tfm.stack_decode(self.cfg, params["blocks"], caches, h,
                                      cur_index)
         return self._head(params, h), caches

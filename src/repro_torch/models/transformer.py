@@ -1,9 +1,10 @@
-"""Block assembly and the layer stack, attention blocks only.
+"""Block assembly and the layer stack for every family: dense, MoE,
+pure mamba and the jamba hybrid.
 
 The counterpart of ``repro.models.transformer``. The stacked parameter
 layout is kept: every leaf of ``params["blocks"]`` carries a leading
-``n_groups`` axis, as ``jax.vmap(block_init)`` builds it, so the
-reference's weights carry across leaf for leaf. ``stack_apply`` and
+``n_groups`` axis, as the reference's ``jax.vmap(block_init)`` builds it,
+so the reference's weights carry across leaf for leaf. ``stack_apply`` and
 ``stack_decode`` loop in Python over the groups in place of ``lax.scan``;
 ``stack_apply`` takes the groups' slices through one ``unbind`` per leaf,
 so the backward stacks the groups' gradients once.
@@ -14,7 +15,9 @@ Remat (``cfg.remat``, when grad mode is on) maps the reference's
 outputs of the 2-D matrix products (``aten.mm`` / ``addmm``, the
 reference's "no batch dims"), and "dots_saveable" those of the batched
 ones too (``aten.bmm``), recomputing the rest; "none" keeps everything.
-SSM and MoE blocks are not ported (``layers.check_supported``).
+A block is ``cfg.block_period`` sublayers, each an attention or mamba
+mixer (``cfg.layer_kind``) and a dense or MoE FFN (``cfg.layer_is_moe``);
+the aux loss sums over the MoE sublayers.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pytree import leaves, tree_map, unflatten_like
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (check_supported, mlp_apply, mlp_init,
-                                       norm_apply, norm_init)
+from repro_torch.models import ssm
+from repro_torch.models.layers import (mlp_apply, mlp_init, moe_apply,
+                                       moe_init, norm_apply, norm_init)
 
 
 def _group(tree, g: int):
@@ -39,34 +43,48 @@ def _group(tree, g: int):
 
 
 # ---------------------------------------------------------------------------
-# one block (= block_period sublayers; 1 for the dense configs)
+# one block (= block_period sublayers: 1 for dense, 2 for MoE-every-2, 8
+# for jamba's 7 mamba + 1 attention with alternating dense / MoE FFNs)
 # ---------------------------------------------------------------------------
 
-def block_init(generator, cfg: ArchConfig, device=None) -> Dict[str, Any]:
-    check_supported(cfg)
-    p: Dict[str, Any] = {}
-    for i in range(cfg.block_period):
-        sub: Dict[str, Any] = {"norm1": norm_init(cfg, device=device),
-                               "attn": attn.attn_init(generator, cfg,
-                                                      device=device)}
-        if cfg.d_ff > 0:
-            sub["norm2"] = norm_init(cfg, device=device)
+def sublayer_init(generator, cfg: ArchConfig, i: int, device=None
+                  ) -> Dict[str, Any]:
+    """Sublayer ``i`` of a block: its norms, its mixer (attention or
+    mamba, ``cfg.layer_kind(i)``) and its FFN (MoE or dense,
+    ``cfg.layer_is_moe(i)``; none when d_ff is 0)."""
+    sub: Dict[str, Any] = {"norm1": norm_init(cfg, device=device)}
+    if cfg.layer_kind(i) == "attn":
+        sub["attn"] = attn.attn_init(generator, cfg, device=device)
+    else:
+        sub["ssm"] = ssm.ssm_init(generator, cfg, device=device)
+    if cfg.d_ff > 0:
+        sub["norm2"] = norm_init(cfg, device=device)
+        if cfg.layer_is_moe(i):
+            sub["moe"] = moe_init(generator, cfg, device=device)
+        else:
             sub["mlp"] = mlp_init(generator, cfg, device=device)
-        p[f"sub{i}"] = sub
-    return p
+    return sub
 
 
 def block_apply(cfg: ArchConfig, p, x, positions):
-    """Forward through one block. Returns (x, aux_loss); the aux loss is
-    MoE's and 0 for the dense blocks."""
+    """Forward through one block. Returns (x, aux_loss), the aux loss
+    summed over the block's MoE sublayers (0 without one)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.block_period):
         sub = p[f"sub{i}"]
         h = norm_apply(cfg, sub["norm1"], x)
-        x = x + attn.attn_apply(cfg, sub["attn"], h, positions)
+        if cfg.layer_kind(i) == "attn":
+            x = x + attn.attn_apply(cfg, sub["attn"], h, positions)
+        else:
+            x = x + ssm.ssm_apply(cfg, sub["ssm"], h)
         if cfg.d_ff > 0:
             h = norm_apply(cfg, sub["norm2"], x)
-            x = x + mlp_apply(cfg, sub["mlp"], h)
+            if cfg.layer_is_moe(i):
+                y, a = moe_apply(cfg, sub["moe"], h)
+                aux = aux + a
+            else:
+                y = mlp_apply(cfg, sub["mlp"], h)
+            x = x + y
     return x, aux
 
 
@@ -76,23 +94,34 @@ def block_apply(cfg: ArchConfig, p, x, positions):
 
 def block_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                      device=None):
-    check_supported(cfg)
-    return {f"sub{i}": attn.attn_cache_init(cfg, batch, max_len, dtype,
-                                            device=device)
+    """Per sublayer: a KV cache (attention) or a conv window and state
+    (mamba)."""
+    return {f"sub{i}": (attn.attn_cache_init(cfg, batch, max_len, dtype,
+                                             device=device)
+                        if cfg.layer_kind(i) == "attn" else
+                        ssm.ssm_cache_init(cfg, batch, dtype, device=device))
             for i in range(cfg.block_period)}
 
 
 def block_decode(cfg: ArchConfig, p, x, cache, cur_index):
-    """One decode step through one block; the cache is updated in place."""
+    """One decode step through one block; the caches are updated in
+    place."""
     for i in range(cfg.block_period):
         sub = p[f"sub{i}"]
         h = norm_apply(cfg, sub["norm1"], x)
-        mixed, _ = attn.attn_decode(cfg, sub["attn"], h, cache[f"sub{i}"],
-                                    cur_index)
+        if cfg.layer_kind(i) == "attn":
+            mixed, _ = attn.attn_decode(cfg, sub["attn"], h,
+                                        cache[f"sub{i}"], cur_index)
+        else:
+            mixed, _ = ssm.ssm_decode(cfg, sub["ssm"], h, cache[f"sub{i}"])
         x = x + mixed
         if cfg.d_ff > 0:
             h = norm_apply(cfg, sub["norm2"], x)
-            x = x + mlp_apply(cfg, sub["mlp"], h)
+            if cfg.layer_is_moe(i):
+                y, _ = moe_apply(cfg, sub["moe"], h)
+            else:
+                y = mlp_apply(cfg, sub["mlp"], h)
+            x = x + y
     return x, cache
 
 
@@ -102,17 +131,22 @@ def block_decode(cfg: ArchConfig, p, x, cache, cur_index):
 
 def stack_init(generator, cfg: ArchConfig, device=None):
     """Every group's block, stacked leaf by leaf along a leading
-    ``n_groups`` axis. Built one group at a time into the stacked tensors,
-    so at most one unstacked block is alive beside them."""
-    stacked = None
+    ``n_groups`` axis, each block ``sub0`` .. ``sub{block_period - 1}``.
+    Drawn sublayer by sublayer (groups outer) straight into the stacked
+    tensors, so at most one sublayer is alive beside them: a jamba block
+    is 8 sublayers, a third of a 16-layer model."""
+    stacked: Dict[str, Any] = {}
     for g in range(cfg.n_groups):
-        blk = block_init(generator, cfg, device=device)
-        if stacked is None:
-            stacked = tree_map(lambda x: torch.empty((cfg.n_groups, *x.shape),
-                                                 dtype=x.dtype,
-                                                 device=x.device), blk)
-        tree_map(lambda dst, src: dst[g].copy_(src), stacked, blk)
-        del blk
+        for i in range(cfg.block_period):
+            sub = sublayer_init(generator, cfg, i, device=device)
+            if g == 0:
+                stacked[f"sub{i}"] = tree_map(
+                    lambda x: torch.empty((cfg.n_groups, *x.shape),
+                                          dtype=x.dtype, device=x.device),
+                    sub)
+            tree_map(lambda dst, src: dst[g].copy_(src), stacked[f"sub{i}"],
+                     sub)
+            del sub
     return stacked
 
 

@@ -10,6 +10,11 @@ reference's semantics:
   * every engine step decodes all slots with a per-slot ``cur_index``
     vector; finished sequences free their slot at once.
 
+Mamba sublayers' conv windows and states go into the slot as the KV
+caches do, each leaf in the slot cache's dtype. Configs that take
+embeddings (``embed_inputs=False``) are refused: the engine feeds token
+ids, as the reference's does.
+
 The engine runs on the card unless it is given ``device="cpu"``; asking for
 the card without one raises.
 
@@ -50,6 +55,10 @@ class ServeEngine:
     def __init__(self, model: Model, params, n_slots: int = 4,
                  max_len: int = 256, device=None):
         self.device = resolve_device(device)
+        if not model.cfg.embed_inputs:
+            raise ValueError(f"{model.cfg.name} takes embeddings, not "
+                             f"tokens (embed_inputs=False): the engine "
+                             f"feeds token ids and has no frontend")
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params are on {table.device}, the engine on "
