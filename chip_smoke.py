@@ -299,9 +299,44 @@ which fails the run with a non-zero exit:
                step of jamba and of falcon-mamba at batch 4 and at batch 1
                (the device's idle share) runs last, after phase 9's.
 
+ 21. int8 serve — the LM's int8 serve path (``phase_int8_serve``):
+               full-width llama3-8b (32 layers, published widths) in bf16
+               and its ``Model.quantize_params(bits=8)`` tree, both held on
+               the card (tree bytes and the quantize time printed);
+               counters set to 0, one int8 ``prefill`` of 1 x 4096 seeded
+               tokens, counters read: exactly ``K5_PER_PASS`` (7 linears x
+               32 layers + the head = 225) K5 launches, 32 K6 launches and
+               nothing else; every K5 launch of layers 0 and 31 and the
+               head held against ``ref.qmatmul_ref`` bit for bit on its own
+               activations; finite logits; the top-1 agreement of the int8
+               logits with the bf16 ones printed; one decode step at batch
+               4 counted (225 K5 launches); prefill and decode ms, int8 and
+               bf16 in turns; peak memory; ``examples.serve_lm``'s loop
+               (8 requests of 3-9 prompt tokens and 12 new tokens, 4
+               slots: 96 tokens in about 22 engine steps, prompt steps
+               most of them, so its tokens/s is a smoke reading, not the
+               engine's throughput) on both trees; K5 timed at
+               each of the prefill's five shapes (weighted by its launches
+               for the kernels line) beside its plain version,
+               ``torch._int_mm`` + the scale and its bound, and at the
+               decode step's shapes. A ``torch.profiler`` split of the
+               int8 prefill and decode step (K5's share of the device
+               time) runs last (``phase_int8_profile``).
+ 22. mesh — the mesh layer on a one-rank NCCL group (``phase_mesh``):
+               ``make_elastic_mesh(2)`` is (1, 1); ``make_ddp_compressed_
+               step`` on the reference's least-squares toy, its loss
+               falling under 0.05 of the first in 60 steps; ``moe_apply``
+               under the mesh, plain and as a remat block, equal bit for
+               bit to it without one, on a reduced jamba MoE sublayer
+               (output, aux loss and gradients), the block's recompute
+               run on autograd's device thread under the mesh; then ``python -m repro_torch.launch.train
+               --reduced --model-parallel 2`` as a child process (its own
+               group of one rank, a (1, 1) mesh, 4 steps).
+
+Phase 21 runs right after phase 9's serving, before phases 11-16.
 Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
-phase 19 and 20 after it; the profiles of phases 9 and 20 run last of
-all. The last lines are
+phase 19 and 20 after it, 22 after those; the profiles of phases 9, 20
+and 21 run last of all. The last lines are
 the kernels JSON line, the card's name and power limit (``nvidia-smi``),
 and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
@@ -309,7 +344,8 @@ and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``launches`` comes from its own main path's counted run: phase 3 for
 K1-K3 and the float head, phase 9's prefill and phase 20's three
 counted prefills for K6 (32 + 2 + 28 + 48), phase 19's full-width
-training for K6's backward, phase 13's checking pass for K4 and K5.
+training for K6's backward, phase 13's checking pass for K4 and K5,
+and for K5 also phase 21's int8 prefill (1 + 225).
 """
 
 from __future__ import annotations
@@ -1424,7 +1460,7 @@ def phase_flash_synthetic():
 
 def _device_breakdown(fn):
     """Device time of one call of ``fn`` by kernel family, from a
-    ``torch.profiler`` trace: K6, matmuls (cuBLAS), everything else; the
+    ``torch.profiler`` trace: K6, K5, matmuls (cuBLAS), everything else; the
     busy time is the union of the kernels' intervals and the idle share is
     the rest of the span from the first kernel's start to the last one's
     end; the 8 costliest kernels and host ops (self CPU time). None when
@@ -1449,11 +1485,13 @@ def _device_breakdown(fn):
         if e.device_type == torch.autograd.DeviceType.CPU:
             host[e.name] = (host.get(e.name, 0.0)
                             + e.self_cpu_time_total / 1e3)
-    by = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    by = {"flash_attention": 0.0, "qmatmul": 0.0, "matmul": 0.0,
+          "other": 0.0}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     for e in kern:
         name = e.name.lower()
         fam = ("flash_attention" if "flash_attention" in name else
+               "qmatmul" if "qmatmul" in name else
                "matmul" if any(t in name for t in ("gemm", "nvjet", "xmma",
                                                    "cutlass", "sm90_"))
                else "other")
@@ -4432,6 +4470,434 @@ def _decode_profiles(name, model, params, g):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the int8 serve path (K5 on every linear); phase 22: the mesh
+# ---------------------------------------------------------------------------
+
+INT8_SEQ = LM_SEQ                # the int8 prefill: 1 x 4096, as phase 9's
+#: K5's launches in one pass of full-width llama3-8b: 7 linears (q, k, v,
+#: o, gate, up, down) x 32 layers + the head
+K5_PER_PASS = 7 * 32 + 1
+MESH_DDP_STEPS = 60              # the reference's test_ddp_compressed_step
+
+
+def _tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _int8_rows(cases, counts):
+    """K5 timed at each of the int8 prefill's shapes on the layer's own
+    codes: kernel, plain version, ``torch._int_mm`` + the scale (cuBLAS
+    int8, the same function in two calls), bound; ``launches`` is the
+    shape's count in the counted prefill."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for (m, k, n), (x, w, sc) in cases.items():
+        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n
+        row = {"kernel": "qmatmul", "model": f"{LM_CONFIG} int8",
+               "stage": "prefill", "shape": f"M={m} K={k} N={n}",
+               "bytes": nbytes, "ops": nops, "launches": counts[(m, k, n)],
+               "ms": time_ms(lambda: ops.qmatmul(x, w, sc), reps=5, inner=5),
+               "plain_ms": time_ms(lambda: ref.qmatmul_ref(x, w, sc),
+                                   reps=3, inner=1),
+               "library_ms": time_ms(
+                   lambda: torch._int_mm(x, w).to(torch.float32) * sc,
+                   reps=5, inner=5),
+               "bound_ms": bound_ms(nbytes, nops, INT8_OPS_PER_S),
+               "bound_by": bound_by(nbytes, nops, INT8_OPS_PER_S)}
+        row["int8_peak_share"] = nops / (row["ms"] * 1e-3) / INT8_OPS_PER_S
+        rows.append(row)
+        log(f"time qmatmul {LM_CONFIG} int8 prefill {row['shape']} x "
+            f"{row['launches']}: kernel {row['ms']:.6f} ms (tile "
+            f"{ops.qmatmul_plan(m, k, n)['block_m']} x "
+            f"{ops.qmatmul_plan(m, k, n)['block_n']}), plain "
+            f"{row['plain_ms']:.6f} ms, torch._int_mm + scale "
+            f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}), {row['int8_peak_share']:.1%} of the int8 "
+            f"peak")
+    return rows
+
+
+def _counted_int8(fn, checks):
+    """Counters to 0, ``fn()``, counters read; K5's calls caught: the
+    shape (M, K, N) of each, in order, and for the launches whose index is
+    in ``checks`` the output held against ``ref.qmatmul_ref`` bit for bit
+    and the inputs kept, one set a shape. Returns (launches, shapes, worst
+    |kernel - plain|, {shape: inputs}, ``fn()``'s result)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    real = ops.qmatmul
+    shapes, kept, worst = [], {}, [0.0]
+
+    def catch(x_int, w_int, scale, *a, **kw):
+        out = real(x_int, w_int, scale, *a, **kw)
+        i = len(shapes)
+        shape = (x_int.shape[0], x_int.shape[1], w_int.shape[1])
+        shapes.append(shape)
+        if i in checks:
+            want = ref.qmatmul_ref(x_int, w_int, scale, *a, **kw)
+            err = float((out - want).abs().max())
+            worst[0] = max(worst[0], err)
+            check(torch.equal(out, want), f"int8 K5 launch {i} {shape}: "
+                                          f"max err {err} against the plain "
+                                          f"version")
+            del want
+            kept.setdefault(shape, (x_int, w_int, scale))
+        return out
+
+    ops.qmatmul = catch
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+    finally:
+        ops.qmatmul = real
+    return launches, shapes, worst[0], kept, out
+
+
+def phase_int8_serve(smi):
+    """Phase 21 (module docstring). Returns (K5 launches of the counted
+    prefill, worst |kernel - plain|, timing rows, details)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples.serve_lm import serve
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import Model
+    from repro_torch.obs import timer
+
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_CONFIG)
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    with torch.inference_mode():
+        params = model.init(g, device="cuda")
+        torch.cuda.synchronize()
+        t0 = timer.now()
+        qparams = model.quantize_params(params, bits=8)
+        torch.cuda.synchronize()
+        quant_s = timer.now() - t0
+    out = {"card": smi, "quantize_s": quant_s,
+           "bf16_tree_bytes": _tree_bytes(params),
+           "int8_tree_bytes": _tree_bytes(qparams),
+           "int8_leaf_bytes": sum(t.numel() for t in _leaves(qparams)
+                                  if t.dtype == torch.int8)}
+    log(f"int8 {LM_CONFIG}: quantize_params {quant_s:.3f} s; trees bf16 "
+        f"{out['bf16_tree_bytes'] / 2**30:.3f} GiB, int8 "
+        f"{out['int8_tree_bytes'] / 2**30:.3f} GiB (int8 codes "
+        f"{out['int8_leaf_bytes'] / 2**30:.3f} GiB), both on the card")
+    tokens = torch.randint(0, cfg.vocab, (1, INT8_SEQ), generator=g,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    per_layer = 7
+    checks = set(range(per_layer)) | set(range(K5_PER_PASS - per_layer - 1,
+                                                K5_PER_PASS))
+    launches, shapes, worst, kept, logits = _counted_int8(
+        lambda: model.prefill(qparams, batch), checks)
+    log(f"int8 main-path launches (one prefill, B=1 S={INT8_SEQ}): "
+        f"{json.dumps(launches)}; {len(checks)} K5 launches (layers 0 and "
+        f"{cfg.n_layers - 1}, the head) equal the plain version bit for "
+        f"bit")
+    check(launches["qmatmul"] == K5_PER_PASS == len(shapes),
+          f"int8 prefill launched qmatmul {launches['qmatmul']} times, "
+          f"expected {K5_PER_PASS}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"int8 prefill launched K6 {launches['flash_attention']} times")
+    for name in TINY_KERNELS + TRAIN_KERNELS + (HEAD_KERNEL,
+                                                "multi_threshold"):
+        check(launches[name] == 0, f"int8 prefill launched {name}")
+    check(logits.shape == (1, INT8_SEQ, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"int8 logits {tuple(logits.shape)} not finite")
+    ref_logits = model.prefill(params, batch)
+    out["top1_agreement"] = float(
+        (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    out["max_abs_logit_diff"] = float((logits - ref_logits).abs().max())
+    out["max_abs_logit"] = float(ref_logits.abs().max())
+    log(f"int8 against bf16 logits: top-1 agreement "
+        f"{out['top1_agreement']:.4f} over {INT8_SEQ} positions, max "
+        f"|diff| {out['max_abs_logit_diff']:.4f} (max |bf16 logit| "
+        f"{out['max_abs_logit']:.4f})")
+    del logits, ref_logits
+    counts = {}
+    for sh in shapes:
+        counts[sh] = counts.get(sh, 0) + 1
+
+    decode_q = _decode_call(model, qparams, g)
+    decode_f = _decode_call(model, params, g)
+    dl, dshapes, dworst, dkept, _ = _counted_int8(
+        decode_q, set(range(K5_PER_PASS)))
+    check(dl["qmatmul"] == K5_PER_PASS,
+          f"int8 decode step launched qmatmul {dl['qmatmul']} times")
+    worst = max(worst, dworst)
+    out["decode_launches"] = dl
+    prefill_q = lambda: model.prefill(qparams, batch)   # noqa: E731
+    prefill_f = lambda: model.prefill(params, batch)    # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_q()
+    torch.cuda.synchronize()
+    out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"int8 prefill peak memory {out['prefill_peak_gib']:.3f} GiB "
+        f"(both trees on the card)")
+    times = {"prefill_bf16": [], "prefill_int8": [], "decode_bf16": [],
+             "decode_int8": []}
+    for label, fn, n in (("prefill_bf16", prefill_f, 3),
+                         ("prefill_int8", prefill_q, 3),
+                         ("decode_bf16", decode_f, 10),
+                         ("decode_int8", decode_q, 10)):
+        times[label].append(_host_ms(fn, n))
+    for label, fn, n in (("prefill_int8", prefill_q, 3),
+                         ("prefill_bf16", prefill_f, 3),
+                         ("decode_int8", decode_q, 10),
+                         ("decode_bf16", decode_f, 10)):
+        times[label].append(_host_ms(fn, n))
+    out["host_ms"] = times
+    log(f"int8 times ({smi}; host clock, synchronised, medians in turns "
+        f"bf16/int8 then int8/bf16): prefill B=1 S={INT8_SEQ} bf16 "
+        f"{times['prefill_bf16']} ms, int8 {times['prefill_int8']} ms; "
+        f"decode batch 4 bf16 {times['decode_bf16']} ms, int8 "
+        f"{times['decode_int8']} ms")
+    for label, tree in (("bf16", params), ("int8", qparams)):
+        eng, steps, dt = serve(model, tree, device="cuda")
+        st = eng.stats()
+        check(len(eng.finished) == 8, f"serve_lm {label}: "
+                                      f"{len(eng.finished)} of 8 finished")
+        out[f"engine_{label}"] = {"steps": steps, "wall_s": dt,
+                                  "throughput_tok_s": st["throughput_tok_s"],
+                                  "mean_ttft_s": st["mean_ttft_s"]}
+        log(f"int8 serve_lm loop {LM_CONFIG} {label} (8 requests, 4 slots, "
+            f"12 new tokens): {steps} engine steps in {dt:.3f} s, "
+            f"{st['throughput_tok_s']:.3f} tokens/s")
+    del params, prefill_f, decode_f, prefill_q, decode_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = _int8_rows(kept, counts)
+    check(sum(r["launches"] for r in rows) == K5_PER_PASS,
+          "the timed K5 shapes do not cover the prefill's launches")
+    dec = {}
+    for (m, k, n), (x, w, sc) in dkept.items():
+        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n
+        dec[f"M={m} K={k} N={n}"] = d = {
+            "launches": dshapes.count((m, k, n)),
+            "ms": time_ms(lambda: ops.qmatmul(x, w, sc), reps=5, inner=10),
+            "plain_ms": time_ms(lambda: ref.qmatmul_ref(x, w, sc), reps=3,
+                                inner=3),
+            "bound_ms": bound_ms(nbytes, nops, INT8_OPS_PER_S)}
+        log(f"time qmatmul {LM_CONFIG} int8 decode M={m} K={k} N={n} x "
+            f"{d['launches']}: kernel {d['ms']:.6f} ms (tile "
+            f"{ops.qmatmul_plan(m, k, n)['block_m']} x "
+            f"{ops.qmatmul_plan(m, k, n)['block_n']}), plain "
+            f"{d['plain_ms']:.6f} ms, bound {d['bound_ms']:.6f} ms")
+    out["decode_k5"] = dec
+    out["decode_k5_ms"] = sum(d["ms"] * d["launches"] for d in dec.values())
+    out["prefill_k5_ms"] = sum(r["ms"] * r["launches"] for r in rows)
+    log(f"int8 K5 device time summed over a pass: prefill "
+        f"{out['prefill_k5_ms']:.3f} ms, decode step "
+        f"{out['decode_k5_ms']:.3f} ms")
+    del qparams, kept, dkept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["qmatmul"], worst, rows, out
+
+
+def phase_int8_profile():
+    """Last, with the other profiles: full-width llama3-8b quantized again
+    (same seed; the bf16 tree dropped first), one int8 prefill and one
+    decode step at batch 4 under ``torch.profiler``: K5's share of the
+    device time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    model = Model(get_config(LM_CONFIG))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    with torch.inference_mode():
+        params = model.init(g, device="cuda")
+        qparams = model.quantize_params(params, bits=8)
+    del params
+    torch.cuda.empty_cache()
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (1, INT8_SEQ),
+                                     generator=g, device="cuda")}
+    decode = _decode_call(model, qparams, g)
+    model.prefill(qparams, batch)
+    decode()
+    out = {"prefill": _device_breakdown(lambda: model.prefill(qparams,
+                                                               batch)),
+           "decode": _device_breakdown(decode)}
+    for k in ("prefill", "decode"):
+        d = out[k]
+        if d is not None:
+            d["k5_share_of_busy"] = d["ms_by_family"]["qmatmul"] / d[
+                "busy_ms"]
+        log(f"int8 profile {LM_CONFIG} {k}: {json.dumps(d)}")
+    del qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_moe(mesh):
+    """A reduced jamba MoE sublayer (float32) on the card, forward and
+    backward with and without ``mesh``: equal bit for bit; then under
+    ``mesh`` as a remat block (``transformer._remat``, "full"): equal
+    again, and its recompute, which autograd runs on its device thread,
+    saw the mesh."""
+    import dataclasses
+    import threading
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models import layers, transformer
+    from repro_torch.parallel.sharding import active_mesh, use_mesh_rules
+
+    cfg = get_config(JAMBA_CONFIG).reduced()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    p = layers.moe_init(g, cfg, device="cuda")
+    x = torch.randn((4, 64, cfg.d_model), generator=g, device="cuda")
+    calls = []
+
+    def moe(q, x):
+        calls.append((threading.get_ident(), active_mesh()))
+        return layers.moe_apply(cfg, q, x)
+
+    runs = []
+    with full_fp32():
+        for m, fn in ((None, moe), (mesh, moe), (mesh, transformer._remat(
+                dataclasses.replace(cfg, remat="full"), moe))):
+            q = {k: (v.clone().requires_grad_(True) if k != "router"
+                     else v) for k, v in p.items()}
+            with use_mesh_rules(m):
+                y, aux = fn(q, x)
+            grads = torch.autograd.grad((y * y).sum() + aux,
+                                        [q["wi_gate"], q["wi_up"], q["wo"]])
+            runs.append([y.detach(), aux.detach(), *grads])
+    same = all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(runs[0], run))
+    check(same, "moe_apply under the (1, 1) mesh (plain or remat) differs "
+                "from it without one")
+    main = threading.get_ident()
+    check(len(calls) == 4 and calls[3][0] != main and calls[3][1] is mesh,
+          f"the remat block's recompute: {calls[2:]} (main thread {main})")
+    q = {k: (v.clone().requires_grad_(True) if k != "router" else v)
+         for k, v in p.items()}
+
+    def step(m):
+        with full_fp32(), use_mesh_rules(m):
+            y, aux = layers.moe_apply(cfg, q, x)
+            torch.autograd.grad((y * y).sum() + aux,
+                                [q["wi_gate"], q["wi_up"], q["wo"]])
+
+    # the mesh branch's cost on one rank (its collectives are skipped):
+    # forward + backward in turns, without / with / with / without
+    ms = {"local": [], "mesh": []}
+    for label, m in (("local", None), ("mesh", mesh), ("mesh", mesh),
+                     ("local", None)):
+        ms[label].append(_host_ms(lambda: step(m), 20))
+    return {"tokens": 4 * 64, "equal_bit_for_bit": same,
+            "recompute_on_autograd_thread_saw_mesh": True,
+            "fwd_bwd_ms": ms}
+
+
+def _mesh_ddp(mesh):
+    """The reference's least-squares toy through
+    ``make_ddp_compressed_step`` on the card: the loss falls under 0.05 of
+    the first in ``MESH_DDP_STEPS`` steps."""
+    import numpy as np
+    import torch
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.steps import (init_ddp_state,
+                                         make_ddp_compressed_step)
+
+    opt = make_optimizer(base_lr=0.05, warmup=1, total=100, weight_decay=0.0)
+    state = init_ddp_state({"w": torch.zeros(3, device="cuda")}, opt)
+    step = make_ddp_compressed_step(
+        lambda p, b: (((b["x"] @ p["w"] - b["y"]) ** 2).mean(), {}), opt,
+        mesh)
+    w_true = np.asarray([2.0, -1.0, 0.5], np.float32)
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(MESH_DDP_STEPS):
+        x = rng.standard_normal((16, 3)).astype(np.float32)
+        state, m = step(state, {"x": x, "y": x @ w_true})
+        losses.append(float(m["loss"]))
+    check(losses[-1] < 0.05 * losses[0],
+          f"compressed DDP loss {losses[0]} -> {losses[-1]}")
+    return losses
+
+
+def _mesh_launcher():
+    """``python -m repro_torch.launch.train --reduced --model-parallel 2``
+    as a plain child process: its own group of one rank, a (1, 1) mesh."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="launch-mesh-",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+             "--model-parallel", "2", "--steps", "4", "--batch", "2",
+             "--seq", "64", "--ckpt-dir", tmp, "--device", "cuda"],
+            env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+            text=True, timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    text = r.stdout + r.stderr
+    check(r.returncode == 0, f"launch.train --model-parallel 2 exited "
+                             f"{r.returncode}: {text[-2000:]}")
+    check("mesh {'data': 1, 'model': 1} over 1 ranks" in text
+          and "finished at step 4" in text,
+          f"launch.train --model-parallel 2: {text[-2000:]}")
+    return text.strip().splitlines()
+
+
+def phase_mesh(smi):
+    """Phase 22 (module docstring). Returns details."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_elastic_mesh, mesh_devices
+    from repro_torch.obs import timer
+
+    t0 = timer.now()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_elastic_mesh(2)
+        shape = tuple(mesh.shape)
+        check(shape == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+              and mesh.device_type == "cuda",
+              f"make_elastic_mesh(2) on one rank: {mesh}")
+        log(f"mesh: make_elastic_mesh(2) on a one-rank NCCL group -> "
+            f"{dict(zip(mesh.mesh_dim_names, shape))} over "
+            f"{mesh_devices(mesh)} rank ({torch.cuda.get_device_name(0)})")
+        losses = _mesh_ddp(mesh)
+        log(f"mesh: make_ddp_compressed_step {MESH_DDP_STEPS} steps on the "
+            f"card: loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+        moe = _mesh_moe(mesh)
+        log(f"mesh: moe_apply ({JAMBA_CONFIG} reduced, 4 x 64 tokens) "
+            f"under the (1, 1) mesh, plain and as a remat block, equals it "
+            f"without one bit for bit (output, aux, gradients); the "
+            f"recompute ran on autograd's device thread under the mesh; "
+            f"forward + backward ({smi}, host clock, medians of 20 in "
+            f"turns) without the mesh {moe['fwd_bwd_ms']['local']} ms, "
+            f"with it {moe['fwd_bwd_ms']['mesh']} ms")
+    finally:
+        dist.destroy_process_group()
+    lines = _mesh_launcher()
+    log(f"mesh: launch.train --reduced --model-parallel 2: "
+        f"{' | '.join(lines[:2])} ... {lines[-1]}")
+    out = {"card": smi, "shape": list(shape), "ddp_losses": losses,
+           "moe": moe, "launcher": lines, "wall_s": timer.now() - t0}
+    log(f"mesh phase: {out['wall_s']:.3f} s")
+    return out
+
+
 def _now():
     from repro_torch.obs import timer
 
@@ -4442,7 +4908,8 @@ def kernels_line(rows, launches, worst):
     """One entry per kernel. ``launches`` is the counted main-path run of
     the kernel's path: one offline call of each of the four models in each
     of the two modes (K1-K3, the float head), one full-width llama3-8b
-    prefill and phase 20's jamba, qwen2-vl and hubert prefills (K6); the
+    prefill and phase 20's jamba, qwen2-vl and hubert prefills (K6), the
+    kernel bench's checking pass and phase 21's int8 prefill (K5); the
     times and the bound are summed over the same launches (each main-path
     case weighted by its launches in that run, which must add up to the
     count); ``max_abs_err`` is the kernel's own worst |kernel - plain|
@@ -4512,6 +4979,7 @@ def main() -> int:
         del k6_case
         lm["depth_cut_max_diff"] = phase_lm_depth_cut()
         lm["serving"] = phase_lm_serving()
+        k5_int8, worst_int8, int8_rows, lm["int8"] = phase_int8_serve(smi)
         worst_k45, k5_big = phase_k4_k5()
         worst_tiles = phase_k1_tiles()
         bench_launches, bench_rows, worst_bench, bench = phase_kernel_bench()
@@ -4532,8 +5000,10 @@ def main() -> int:
             phase_lm_train(smi)
         fam_k6, worst_fam, fam_rows, lm["families"] = phase_families(smi)
         k6_rows += fam_rows
+        mesh = phase_mesh(smi)
         lm["profile"] = phase_lm_profile()
         lm["families"]["profile"] = phase_family_profile()
+        lm["int8"]["profile"] = phase_int8_profile()
         jamba = lm["families"][JAMBA_CONFIG]
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
@@ -4541,7 +5011,12 @@ def main() -> int:
             f"{lm['serving']['throughput_tok_s']:.3f} tokens/s (float32, "
             f"4 slots); {JAMBA_CONFIG} ({JAMBA_LAYERS} layers, bf16) prefill "
             f"{jamba['prefill_ms']:.3f} ms, engine "
-            f"{jamba['serving']['throughput_tok_s']:.3f} tokens/s")
+            f"{jamba['serving']['throughput_tok_s']:.3f} tokens/s; int8 "
+            f"prefill {lm['int8']['host_ms']['prefill_int8']} ms, decode "
+            f"{lm['int8']['host_ms']['decode_int8']} ms, engine "
+            f"{lm['int8']['engine_int8']['throughput_tok_s']:.3f} tokens/s "
+            f"(bf16 {lm['int8']['engine_bf16']['throughput_tok_s']:.3f}), "
+            f"K5 {lm['int8']['prefill_k5_ms']:.3f} ms of a prefill")
         worst = {k: max(worst_syn[k], worst_main[k], worst_wide[k])
                  for k in TINY_KERNELS}
         worst["threshold_matmul"] = max(worst["threshold_matmul"],
@@ -4552,13 +5027,15 @@ def main() -> int:
         worst["flash_attention_bwd"] = worst_train
         for k in BENCH_KERNELS:
             worst[k] = max(worst_k45[k], worst_bench[k])
+        worst["qmatmul"] = max(worst["qmatmul"], worst_int8)
         launches = {**{k: launches[k] for k in TINY_KERNELS + (HEAD_KERNEL,)},
                     "flash_attention": lm_launches["flash_attention"]
                     + fam_k6,
                     **{k: train_launches[k] for k in TRAIN_KERNELS},
                     **{k: bench_launches[k] for k in BENCH_KERNELS}}
-        line = kernels_line(rows + k6_rows + bench_rows + [k6_bwd_row],
-                            launches, worst)
+        launches["qmatmul"] += k5_int8
+        line = kernels_line(rows + k6_rows + bench_rows + [k6_bwd_row]
+                            + int8_rows, launches, worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -4575,7 +5052,7 @@ def main() -> int:
                                        "main_path_shape": k6_rows},
                    "lm": lm, "kernel_bench": bench,
                    "scenarios": scenarios, "serving": serving, "qat": qat,
-                   "paper_benches": papers,
+                   "paper_benches": papers, "mesh": mesh,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,

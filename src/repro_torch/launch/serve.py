@@ -15,7 +15,11 @@ the card without one raises. The tiny models' weights come from
 LM's from a seeded ``torch.Generator``: JAX's PRNG is not reproduced.
 ``--arch`` takes every configuration; the engine feeds token ids, so the
 backbones that take embeddings (qwen2-vl, hubert) are refused, hubert as
-encoder-only.
+encoder-only. ``--quant-bits`` below 16 serves the int8 path
+(``Model.quantize_params``: ``bits``-bit weight codes held in int8,
+int8 activations, every linear on K5), as the reference does.
+
+    python -m repro_torch.launch.serve --quant-bits 8 --device cpu
 """
 
 import argparse
@@ -147,11 +151,6 @@ def main(argv=None):
         cfg = cfg.reduced()
     if cfg.encoder_only:
         raise SystemExit(f"{args.arch} is encoder-only: no decode path")
-    if args.quant_bits < 16:
-        raise NotImplementedError(
-            "deployment quantization (--quant-bits < 16, the int8 serve "
-            "path) is not ported yet: ROADMAP.md, queue 1 item 5 (the rest "
-            "of the LM stack)")
 
     device = resolve_device(args.device)
     model = Model(cfg)
@@ -159,6 +158,10 @@ def main(argv=None):
         params = model.init(
             torch.Generator(device=device).manual_seed(args.seed),
             device=device)
+        if args.quant_bits < 16:
+            params = model.quantize_params(params, bits=args.quant_bits)
+            log.info("deployment quantization: int%d weights",
+                     args.quant_bits)
     eng = ServeEngine(model, params, n_slots=args.slots, max_len=args.max_len,
                       device=device)
     rng = np.random.default_rng(args.seed)

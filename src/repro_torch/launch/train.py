@@ -1,14 +1,23 @@
-"""Training launcher: the train step, the synthetic token stream and the
-fault-tolerant loop with elastic restart, on one device. The port of
-``repro.launch.train``.
+"""Training launcher: mesh construction, the train step, the synthetic
+token stream and the fault-tolerant loop with elastic restart. The port
+of ``repro.launch.train``.
 
     python -m repro_torch.launch.train --arch internlm2-1.8b --reduced \
         --steps 50 --batch 8 --seq 64 --device cpu
 
 Everything runs on the card unless ``--device cpu`` is given; asking for
-the card without one raises. One device only: ``--model-parallel`` above
-1 raises ``NotImplementedError`` until ``parallel/`` and
-``launch/mesh.py`` are ported. Weights come from a ``torch.Generator``
+the card without one raises. The mesh is ``launch.mesh.make_elastic_mesh
+(--model-parallel)`` over the ranks of the process group, and the loop
+runs under ``parallel.sharding.use_mesh_rules(mesh)``. Run as a plain
+process, the launcher brings up a group of one rank itself (NCCL on the
+card, ``gloo`` on the CPU, an in-memory store: no address, no port) and
+takes it down at the end; the mesh is then (1, 1) whatever
+``--model-parallel`` says, as the reference's launcher gives on one
+device. A group that is already up (the caller's) is used as it is;
+with more than one rank the step holds the params whole on every rank,
+which only the (1, 1) mesh makes a correct step, so the launcher refuses
+a larger mesh (``train.steps.make_ddp_compressed_step`` is the
+data-parallel step). Weights come from a ``torch.Generator``
 seeded with 0 (JAX's PRNG is not reproduced). A run resumes from the
 newest checkpoint in ``--ckpt-dir``; on ``ElasticRestart`` (the
 straggler watchdog) the launcher builds the state again on the same
@@ -27,12 +36,15 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.qir import resolve_device
 from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.launch.mesh import make_elastic_mesh, mesh_devices
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import make_optimizer
+from repro_torch.parallel.sharding import use_mesh_rules
 from repro_torch.train.loop import ElasticRestart, LoopConfig, run_training
 from repro_torch.train.steps import TrainState, make_train_step
 
@@ -59,10 +71,6 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs parallel/ and launch/mesh.py, which "
-            "are not ported yet; the port trains on one device")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -70,9 +78,33 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, weight_bits=args.quant_bits)
     device = resolve_device(args.device)
 
+    own_group = not dist.is_initialized()
+    if own_group:
+        if device.type == "cuda":       # NCCL's communicator takes this card
+            torch.cuda.set_device(device.index or 0)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        return _train(args, cfg, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device):
     data = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq)
     restarts = 0
     while True:
+        mesh = make_elastic_mesh(args.model_parallel)
+        log.info("mesh %s over %d ranks", dict(zip(
+            mesh.mesh_dim_names, mesh.shape)), mesh_devices(mesh))
+        if mesh_devices(mesh) != 1:
+            raise ValueError(
+                f"a {tuple(mesh.shape)} mesh: the launcher's step holds the "
+                f"params whole on every rank, right on a (1, 1) mesh only; "
+                f"train over data ranks with "
+                f"train.steps.make_ddp_compressed_step")
         log.info("%s on %s", cfg.name, device)
         model = Model(cfg)
         params = model.init(
@@ -95,7 +127,8 @@ def main(argv=None):
                           ckpt_every=args.ckpt_every,
                           ckpt_dir=args.ckpt_dir, log_every=10)
         try:
-            res = run_training(step_fn, state, batch_fn, lcfg)
+            with use_mesh_rules(mesh):
+                res = run_training(step_fn, state, batch_fn, lcfg)
             break
         except ElasticRestart as e:
             restarts += 1

@@ -23,8 +23,10 @@ under ``torch.inference_mode()``, as the serving callers do, it returns
 inference tensors, whose views cost the host less on every decode step.
 The inference entry points run under ``torch.inference_mode()``.
 ``params_from_numpy`` carries the reference's weights across (the tests
-feed both sides the same numbers). ``quantize_params`` (the int8 serve
-path) is not ported yet.
+feed both sides the same numbers), quantized ones too.
+``quantize_params`` makes the int8 serve path's tree: every linear as
+int8 codes with per-output-channel float32 scales, which run on K5
+(``layers.linear_apply``).
 
 Inputs, as the reference takes them: text configs take ``tokens`` (B, S);
 configs with ``embed_inputs=False`` (qwen2-vl, hubert: the frontend is a
@@ -51,27 +53,31 @@ from repro_torch.core.qir import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (_dtype, embed_apply, embed_init,
                                        head_apply, leaf_dtype, norm_apply,
-                                       norm_init)
+                                       norm_init, quantize_linear_params)
 
 def params_from_numpy(tree, cfg: ArchConfig, device=None):
-    """The reference's ``Model.init`` pytree, every leaf converted to a
-    numpy array, as the port's tensors: same nesting, same stacked
-    ``n_groups`` axis, each leaf in the reference's dtype (``leaf_dtype``)
-    on ``device`` (None: the card). Convert JAX bf16 leaves to float32
-    first: ``np.asarray`` of one gives an ``ml_dtypes`` array that torch
-    does not take."""
+    """The reference's ``Model.init`` pytree (or its ``quantize_params``
+    tree), every leaf converted to a numpy array, as the port's tensors:
+    same nesting, same stacked ``n_groups`` axis, each float leaf in the
+    reference's dtype (``leaf_dtype``), ``w_int`` codes as int8 and
+    ``w_scale`` as float32, on ``device`` (None: the card). Convert JAX
+    bf16 leaves to float32 first: ``np.asarray`` of one gives an
+    ``ml_dtypes`` array that torch does not take."""
     dev = resolve_device(device)
 
     def conv(x, path):
         if isinstance(x, dict):
-            if "w_int" in x:
-                raise NotImplementedError("the int8 serve path (w_int "
-                                          "params) is not ported yet")
             return {k: conv(v, path + (k,)) for k, v in x.items()}
         arr = np.asarray(x)
+        if path[-1:] == ("w_int",):
+            if arr.dtype != np.int8:
+                raise TypeError(f"expected int8 w_int codes, got {arr.dtype}")
+            return torch.tensor(arr, dtype=torch.int8, device=dev)
         if arr.dtype.kind != "f":
             raise TypeError(f"expected a float array, got {arr.dtype}")
-        return torch.tensor(arr, dtype=leaf_dtype(cfg, path), device=dev)
+        dtype = (torch.float32 if path[-1:] == ("w_scale",)
+                 else leaf_dtype(cfg, path))
+        return torch.tensor(arr, dtype=dtype, device=dev)
 
     return conv(tree, ())
 
@@ -169,6 +175,47 @@ class Model:
         return tree_map(
             lambda x: x.unsqueeze(0).repeat(self.cfg.n_groups,
                                             *([1] * x.dim())), one)
+
+    # -- deployment quantization (the int8 serve path) ---------------------
+    @torch.no_grad()
+    def quantize_params(self, params, bits: int = 8):
+        """Every linear weight as int codes + per-output-channel scales
+        (``layers.quantize_linear_params``), on the params' device, with
+        the reference's ``visit`` rule: a dict whose ``"w"`` has ndim >= 2
+        (>= 3 inside ``blocks``, whose leaves carry the stacked
+        ``n_groups`` axis: quantized group by group, so the scales stay
+        per layer and output channel) is a linear; ``router`` is left
+        alone, as are bare tensors (the MoE's expert weights, norms, the
+        mamba conv and ``A_log`` / ``D``) and ``embed``; ``head`` is
+        visited unstacked. Groups are quantized one at a time, so no
+        float32 copy of a whole stacked leaf is made."""
+
+        def qlin(p, stacked):
+            if not stacked:
+                return quantize_linear_params(p, bits)
+            groups = [quantize_linear_params(
+                {k: v[g] for k, v in p.items()}, bits)
+                for g in range(p["w"].shape[0])]
+            return {k: torch.stack([q[k] for q in groups]) for k in groups[0]}
+
+        def visit(p, stacked):
+            if isinstance(p, dict) and "w" in p and p["w"].dim() >= (
+                    3 if stacked else 2):
+                return qlin(p, stacked)
+            if isinstance(p, dict):
+                return {k: (v if k == "router" else visit(v, stacked))
+                        for k, v in p.items()}
+            return p
+
+        out = {}
+        for k, v in params.items():
+            if k == "blocks":
+                out[k] = visit(v, True)
+            elif k == "head":
+                out[k] = visit(v, False)
+            else:
+                out[k] = v
+        return out
 
     @torch.inference_mode()
     def decode_step(self, params, caches, tokens_or_embeds, cur_index):

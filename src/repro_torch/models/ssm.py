@@ -165,8 +165,10 @@ def _mix(cfg: ArchConfig, p, x, conv_state=None):
     xs = F.silu(xs.to(torch.float32)).to(x.dtype)
     dbc = linear_apply(cfg, p["x_proj"], xs)
     dt_r, B_t, C_t = torch.split(dbc, [dtr, st, st], dim=-1)
-    # dt_proj through linear_apply (QAT fake-quant applies), bias apart
-    dt_lin = linear_apply(cfg, {"w": p["dt_proj"]["w"]}, dt_r)
+    # dt_proj through linear_apply (QAT fake-quant and the int8 serve
+    # path's w_int apply), every leaf but the bias, added in float32 below
+    dt_lin = linear_apply(cfg, {k: v for k, v in p["dt_proj"].items()
+                                if k != "b"}, dt_r)
     dt = F.softplus(dt_lin.to(torch.float32) + p["dt_proj"]["b"])
     A = -torch.exp(p["A_log"])
     return xs, z, dt, B_t, C_t, A, conv_state

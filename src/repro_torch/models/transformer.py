@@ -15,6 +15,9 @@ Remat (``cfg.remat``, when grad mode is on) maps the reference's
 outputs of the 2-D matrix products (``aten.mm`` / ``addmm``, the
 reference's "no batch dims"), and "dots_saveable" those of the batched
 ones too (``aten.bmm``), recomputing the rest; "none" keeps everything.
+The recompute runs in the backward, on the card on autograd's own
+thread, where the caller's thread-local mesh and rules are not active:
+the block re-enters the ones of its forward.
 A block is ``cfg.block_period`` sublayers, each an attention or mamba
 mixer (``cfg.layer_kind``) and a dense or MoE FFN (``cfg.layer_is_moe``);
 the aux loss sums over the MoE sublayers.
@@ -35,6 +38,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (mlp_apply, mlp_init, moe_apply,
                                        moe_init, norm_apply, norm_init)
+from repro_torch.parallel.sharding import (active_mesh, active_rules,
+                                           use_mesh_rules)
 
 
 def _group(tree, g: int):
@@ -163,19 +168,30 @@ def _keep_products(saved, ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _under(mesh, rules, fn, *args):
+    with use_mesh_rules(mesh, rules):
+        return fn(*args)
+
+
 def _remat(cfg: ArchConfig, fn):
     """``fn`` under the config's remat policy (the identity without grad
-    mode, where there is no backward to recompute for)."""
+    mode, where there is no backward to recompute for), run with the mesh
+    and rules active at its call, in the forward and the recompute."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
+    kwargs = {"use_reentrant": False}
     if cfg.remat in _SAVED_PRODUCTS:
         policy = functools.partial(_keep_products,
                                    _SAVED_PRODUCTS[cfg.remat])
-        context_fn = functools.partial(create_selective_checkpoint_contexts,
-                                       policy)
-        return functools.partial(checkpoint, fn, use_reentrant=False,
-                                 context_fn=context_fn)
-    return functools.partial(checkpoint, fn, use_reentrant=False)
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+
+    def run(*args):
+        return checkpoint(functools.partial(_under, active_mesh(),
+                                            active_rules(), fn),
+                          *args, **kwargs)
+
+    return run
 
 
 def _unstack(stacked, n: int):

@@ -10,9 +10,12 @@ batch is split along its first axis and the microbatches' gradients are
 summed in float32 in order, then divided by their count, as the
 reference's ``lax.scan`` does.
 
-``make_ddp_compressed_step`` and ``init_ddp_state`` (int8-compressed
-gradient all-reduce) need ``parallel/collectives.py`` and come with the
-parallel slice.
+``make_ddp_compressed_step`` is the explicit data-parallel step with
+int8-compressed gradients: the params are replicated on every rank of
+the mesh's data axes, each rank takes its slice of the batch, its
+gradients go through ``parallel.collectives.compressed_psum_tree`` (error
+feedback in ``DDPState.err``), AdamW runs replicated and the loss is
+averaged over the data ranks.
 """
 
 from __future__ import annotations
@@ -21,10 +24,13 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.pytree import leaves, unflatten_like
+from repro_torch.core.pytree import leaves, tree_map, unflatten_like
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import Optimizer
+from repro_torch.parallel.collectives import compressed_psum_tree
+from repro_torch.parallel.sharding import axis_group
 from repro_torch.train.loop import TornStateError
 
 
@@ -40,13 +46,14 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def _grads(model: Model, params, batch):
-    """(loss, metrics, gradients in leaf order) of ``model.loss``."""
+def _grads(loss_fn: Callable, params, batch):
+    """(loss, metrics, gradients in leaf order) of ``loss_fn(params,
+    batch) -> (loss, metrics)``."""
     flat = leaves(params)
     for p in flat:
         if not p.requires_grad:
             p.requires_grad_(True)
-    loss, metrics = model.loss(params, batch)
+    loss, metrics = loss_fn(params, batch)
     grads = torch.autograd.grad(loss, flat)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
@@ -62,7 +69,7 @@ def make_train_step(model: Model, optimizer: Optimizer,
         device = leaves(state.params)[0].device
         batch = batch_to_device(batch, device)
         if microbatches == 1:
-            loss, metrics, flat = _grads(model, state.params, batch)
+            loss, metrics, flat = _grads(model.loss, state.params, batch)
         else:
             parts = {k: v.reshape(microbatches, -1, *v.shape[1:])
                      for k, v in batch.items()}
@@ -70,7 +77,7 @@ def make_train_step(model: Model, optimizer: Optimizer,
                     for p in leaves(state.params)]
             lsum = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(microbatches):
-                loss_i, _, g = _grads(model, state.params,
+                loss_i, _, g = _grads(model.loss, state.params,
                                       {k: v[i] for k, v in parts.items()})
                 for acc, gi in zip(flat, g):
                     acc.add_(gi)
@@ -82,16 +89,19 @@ def make_train_step(model: Model, optimizer: Optimizer,
             metrics = {}
         grads = unflatten_like(state.params, flat)
         del flat
-        try:
-            new_params, new_opt, opt_metrics = optimizer.update(
-                grads, state.opt, state.params)
-        except Exception as e:     # the update writes the state in place
-            raise TornStateError(f"optimizer update failed: {e}") from e
+        new_params, new_opt, opt_metrics = _update(optimizer, grads, state)
         out = {"loss": loss, **opt_metrics}
         out.update(metrics)
         return TrainState(new_params, new_opt), out
 
     return train_step
+
+
+def _update(optimizer: Optimizer, grads, state):
+    try:
+        return optimizer.update(grads, state.opt, state.params)
+    except Exception as e:     # the update writes the state in place
+        raise TornStateError(f"optimizer update failed: {e}") from e
 
 
 def make_eval_step(model: Model) -> Callable:
@@ -102,3 +112,48 @@ def make_eval_step(model: Model) -> Callable:
         return {"loss": loss, **metrics}
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# explicit-DP with compressed gradients
+# ---------------------------------------------------------------------------
+
+class DDPState(NamedTuple):
+    params: Any
+    opt: Any
+    err: Any          # error-feedback residuals (float32, per rank)
+
+
+def make_ddp_compressed_step(loss_fn: Callable, optimizer: Optimizer,
+                             mesh, data_axes=("data",)) -> Callable:
+    """Params replicated, batch split over ``data_axes`` of ``mesh``: each
+    rank takes its contiguous slice of every batch array's first axis
+    (the global batch, as the reference's step takes it); per-rank grads
+    are all-reduced as int8 with error feedback, then AdamW runs
+    replicated. ``loss_fn(params, batch) -> (loss, metrics)``: the rank's
+    loss, the mean over its slice. A loss whose graph holds collectives
+    (the MoE's mesh branch) must give each rank the gradient whose mean
+    over the data group is the global loss's, the convention
+    ``models.layers.moe_apply`` states."""
+    group = axis_group(mesh, data_axes)
+    axis_size, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def step(state: DDPState, batch):
+        device = leaves(state.params)[0].device
+        batch = {k: v.chunk(axis_size)[rank]
+                 for k, v in batch_to_device(batch, device).items()}
+        loss, _, flat = _grads(loss_fn, state.params, batch)
+        mean_grads, new_err = compressed_psum_tree(
+            unflatten_like(state.params, flat), state.err, group, axis_size)
+        new_params, new_opt, om = _update(optimizer, mean_grads, state)
+        dist.all_reduce(loss, group=group)
+        return (DDPState(new_params, new_opt, new_err),
+                {"loss": loss / axis_size, "grad_norm": om["grad_norm"]})
+
+    return step
+
+
+def init_ddp_state(params, optimizer: Optimizer) -> DDPState:
+    err = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+    return DDPState(params=params, opt=optimizer.init(params), err=err)

@@ -978,3 +978,32 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
     assert got["w"].dtype == torch.bfloat16
     assert torch.equal(got["w"].cpu(), tree["w"])
     assert int(got["s"]) == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_linear_on_the_card_equals_the_cpu(cuda, dtype):
+    """The int8 serve path's linear: one K5 launch on the card, equal bit
+    for bit to the same linear on the CPU (K5's plain version; the
+    activation quantizer's elementwise ops round alike on both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(),
+                              dtype={torch.float32: "float32",
+                                     torch.bfloat16: "bfloat16"}[dtype])
+    g = torch.Generator().manual_seed(7)
+    d = cfg.d_model
+    q = layers.quantize_linear_params(
+        {"w": (torch.randn((d, 3, 40), generator=g) * 0.1).to(dtype),
+         "b": torch.randn((3, 40), generator=g).to(dtype)}, 8)
+    x = (torch.randn((2, 37, d), generator=g) * 2).to(dtype)
+    want = layers.linear_apply(cfg, q, x)
+    before = ops.launches["qmatmul"]
+    got = layers.linear_apply(cfg, {k: v.to(cuda) for k, v in q.items()},
+                              x.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launches["qmatmul"] == before + 1
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+

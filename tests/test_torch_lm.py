@@ -15,7 +15,8 @@ numpy tokens go to both sides:
     including EOS and slot reuse;
   * the carrier round trip, ``init``'s shapes and distributions, QAT
     weights (``weight_bits=8``) that build and train, and the int8 serve
-    path's ``w_int`` params, which the port does not run yet and refuses.
+    path's ``w_int`` params carried across (the path itself is held in
+    ``test_torch_int8_serve.py``).
 
 The other families (MoE, mamba, the hybrid, M-RoPE, embedding inputs) are
 held against the reference in ``test_torch_families.py``.
@@ -245,9 +246,11 @@ def test_init_matches_reference_shapes_and_scales():
     assert abs(float(emb.std()) / std - 1) < 0.1
 
 
-def test_quantized_paths_raise():
+def test_qat_trains_and_quantized_reference_tree_carries_across():
     """QAT (``weight_bits=8``, fake-quant weights) builds and trains; the
-    int8 serve path's ``w_int`` params still raise."""
+    reference's ``quantize_params`` tree carries across: ``w_int`` stays
+    int8 (float codes are refused), ``w_scale`` is float32, the rest
+    keeps the reference's dtypes."""
     cfg = get_config("llama3-8b").reduced()
     m = Model(dataclasses.replace(cfg, weight_bits=8))
     p = m.init(torch.Generator().manual_seed(0), device="cpu")
@@ -262,7 +265,20 @@ def test_quantized_paths_raise():
     assert all(float(g.abs().max()) > 0 for g in grads)
     jm = JModel(jget_config("llama3-8b").reduced())
     jq = jm.quantize_params(jm.init(jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError):
+    q = params_from_numpy(jax.tree.map(
+        lambda x: np.asarray(x) if x.dtype == jnp.int8
+        else np.asarray(x, np.float32), jq), cfg, "cpu")
+    wq = q["blocks"]["sub0"]["attn"]["wq"]
+    assert sorted(wq) == ["w_int", "w_scale"] and "w_int" in q["head"]
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jq):
+        got = q
+        for key in path:
+            got = got[key.key]
+        want = {"w_int": torch.int8, "w_scale": torch.float32}.get(
+            path[-1].key, torch.float32)
+        assert got.dtype == want, path
+        np.testing.assert_array_equal(got.numpy(), np.asarray(leaf))
+    with pytest.raises(TypeError):         # float codes are not int8 codes
         params_from_numpy(jax.tree.map(lambda x: np.asarray(x, np.float32),
                                        jq), cfg, "cpu")
     if not torch.cuda.is_available():

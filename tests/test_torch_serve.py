@@ -677,8 +677,10 @@ def test_launch_serve_lm_stack_on_the_cpu():
     s = main(["--device", "cpu", "--requests", "3", "--max-new", "3",
               "--slots", "2"])
     assert s["n_requests"] == 3 and s["throughput_tok_s"] > 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        main(["--device", "cpu", "--quant-bits", "8"])
+    # deployment quantization is served, not refused (the int8 path)
+    q = main(["--device", "cpu", "--requests", "3", "--max-new", "3",
+              "--slots", "2", "--quant-bits", "8"])
+    assert q["n_requests"] == 3 and q["throughput_tok_s"] > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--stack", "tiny", "--requests", "2"])

@@ -557,8 +557,10 @@ def test_launcher_trains_resumes_and_refuses_model_parallel(tmp_path):
     assert res.final_step == 4 and res.resumed_from is None
     again = launch.main(args[:4] + ["6"] + args[5:])
     assert again.resumed_from == 4 and again.final_step == 6
-    with pytest.raises(NotImplementedError):
-        launch.main(args + ["--model-parallel", "2"])
+    # --model-parallel is no longer refused: on one rank the elastic mesh
+    # is (1, 1), as the reference's on one device, and the run resumes
+    mp = launch.main(args[:4] + ["8"] + args[5:] + ["--model-parallel", "2"])
+    assert mp.resumed_from == 6 and mp.final_step == 8
     # a MoE config trains too (the loop logs its metrics every 10 steps)
     moe = launch.main(["--arch", "grok-1-314b", "--reduced", "--steps", "10",
                        "--batch", "2", "--seq", "16", "--device", "cpu",
