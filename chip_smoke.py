@@ -333,10 +333,37 @@ which fails the run with a non-zero exit:
                --reduced --model-parallel 2`` as a child process (its own
                group of one rank, a (1, 1) mesh, 4 steps).
 
+ 23. dry run — the dry run, the op-trace analysis and the roofline
+               (``phase_dryrun``): (a) ``python -m
+               repro_torch.launch.dryrun --all --mesh both`` as a child
+               process (the meta device, torch's fake process group of 512
+               ranks, whose internal module must import here), then
+               ``launch.roofline`` on its records for both meshes (the
+               collective column ``n/a``) and ``bench.run --only roofline``
+               in a directory that holds them; the reference's bar
+               (``tests/test_roofline_launch.py``): per mesh 40 cells, 32
+               ok, 8 skipped, no error, every ok cell's useful ratio in
+               (0, 1.5]; its wall time; the records go to
+               ``chiprun_out/dryrun/``, the tables to
+               ``chiprun_out/roofline.txt``. (b) Three steps that fit one
+               card (``DRYRUN_STEPS``): phase 19's internlm2-1.8b train
+               step (4 x 4096, 2 microbatches, remat full), a bf16
+               llama3-8b prefill of 1 x 4096 and its int8 prefill (K5),
+               each traced on meta and then, with seeded weights, once on
+               the card under the same analysis: equal FLOPs, argument
+               bytes equal to the trees' bytes on both, the measured
+               ``max_memory_allocated`` over the meta trace's peak in
+               [0.5, 2.0], the same kernel calls, each call's count equal
+               to its kernel row's ops (``k5_ops``, ``k6_ops``,
+               ``k6_bwd_ops``) and the launch counters equal to the calls;
+               then the step timed without the analysis beside its
+               roofline row (compute, memory, the bound and the step's
+               share of it).
+
 Phase 21 runs right after phase 9's serving, before phases 11-16.
 Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
-phase 19 and 20 after it, 22 after those; the profiles of phases 9, 20
-and 21 run last of all. The last lines are
+phase 19 and 20 after it, 22 after those, 23 after 22; the profiles of
+phases 9, 20 and 21 run last of all. The last lines are
 the kernels JSON line, the card's name and power limit (``nvidia-smi``),
 and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
@@ -489,6 +516,22 @@ def bound_ms(n_bytes, n_ops, ops_per_s=INT8_OPS_PER_S):
     kernel's tensor-core peak, whichever is larger (published H100 SXM
     peaks)."""
     return max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s) * 1e3
+
+
+def k5_ops(m, k, n):
+    """K5's operations: m k n multiply-adds, 2 each."""
+    return 2 * m * k * n
+
+
+def k6_ops(b, h, d, pairs):
+    """K6's operations: two products of 2 d operations a live pair."""
+    return 4 * b * h * d * pairs
+
+
+def k6_bwd_ops(b, h, d, pairs):
+    """K6 backward's operations for its bound: five products of 2 d
+    operations a live pair (the kernel itself makes seven)."""
+    return 10 * b * h * d * pairs
 
 
 def bound_by(n_bytes, n_ops, ops_per_s):
@@ -1414,7 +1457,7 @@ def flash_case(label, q, k, v, kw, model=LM_CONFIG):
                 q, k, v, is_causal=causal, enable_gqa=True),
             "library_is": "library (SDPA)",
             "bytes": (q.numel() * 2 + k.numel() + v.numel()) * esize,
-            "ops": 4 * b * h * d * pairs}
+            "ops": k6_ops(b, h, d, pairs)}
 
 
 def phase_flash_synthetic():
@@ -1958,7 +2001,7 @@ def phase_k5_big(rng):
     want = ref.qmatmul_ref(x, w, sc, b, **kw)
     check(torch.equal(got, want), f"qmatmul {m}x{k}x{n}: kernel != plain")
     del want
-    nbytes, nops = m * k + k * n + 8 * n + m * n, 2 * m * k * n
+    nbytes, nops = m * k + k * n + 8 * n + m * n, k5_ops(m, k, n)
     row = {"kernel": "qmatmul", "shape": f"M={m} K={k} N={n} relu "
                                          f"out_scale=0.125",
            "bytes": nbytes, "ops": nops,
@@ -3447,7 +3490,7 @@ def _bwd_case(q, k, v, out, lse, do, kw, launches):
                              kw["q_offset"], kw.get("kv_len"))
     esize = q.element_size()
     nbytes = (4 * q.numel() + 4 * k.numel()) * esize + lse.numel() * 4
-    nops = 10 * b * h * d * pairs
+    nops = k6_bwd_ops(b, h, d, pairs)
     row = {"kernel": "flash_attention_bwd", "model": TRAIN_CONFIG,
            "stage": "train layer 0", "launches": launches,
            "shape": f"B={b} H={h} Hkv={k.shape[1]} Sq={sq} Sk={sk} D={d} "
@@ -4495,7 +4538,7 @@ def _int8_rows(cases, counts):
 
     rows = []
     for (m, k, n), (x, w, sc) in cases.items():
-        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n
+        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, k5_ops(m, k, n)
         row = {"kernel": "qmatmul", "model": f"{LM_CONFIG} int8",
                "stage": "prefill", "shape": f"M={m} K={k} N={n}",
                "bytes": nbytes, "ops": nops, "launches": counts[(m, k, n)],
@@ -4681,7 +4724,7 @@ def phase_int8_serve(smi):
           "the timed K5 shapes do not cover the prefill's launches")
     dec = {}
     for (m, k, n), (x, w, sc) in dkept.items():
-        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n
+        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, k5_ops(m, k, n)
         dec[f"M={m} K={k} N={n}"] = d = {
             "launches": dshapes.count((m, k, n)),
             "ms": time_ms(lambda: ops.qmatmul(x, w, sc), reps=5, inner=10),
@@ -4898,6 +4941,292 @@ def phase_mesh(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the dry run, the op-trace analysis and the roofline
+# ---------------------------------------------------------------------------
+
+#: the dry run's bar, the reference's (``tests/test_roofline_launch.py``):
+#: per mesh, 40 cells, 32 of them traced and 8 skipped by assignment
+DRYRUN_CELLS, DRYRUN_OK, DRYRUN_SKIPPED = 40, 32, 8
+DRYRUN_USEFUL_MAX = 1.5
+DRYRUN_TIMEOUT_S = 600
+#: measured peak memory over the meta trace's predicted peak
+PEAK_RATIO_RANGE = (0.5, 2.0)
+#: the steps that fit one card, checked against their meta traces:
+#: (label, config, (seq, batch, kind), weight bits, microbatches)
+DRYRUN_STEPS = (
+    ("train", TRAIN_CONFIG, (TRAIN_SEQ, TRAIN_BATCH, "train"), 16,
+     TRAIN_MICROBATCHES),
+    ("prefill bf16", LM_CONFIG, (LM_SEQ, 1, "prefill"), 16, 1),
+    ("prefill int8", LM_CONFIG, (LM_SEQ, 1, "prefill"), 8, 1),
+)
+#: the device phase 23 (b) runs its steps on (the CPU in a rehearsal)
+DRYRUN_DEVICE = "cuda"
+
+
+def _run_module(args, cwd, timeout):
+    """``python -m <args>`` with ``src`` on the path; (rc, stdout, stderr)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    r = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+def _dryrun_all():
+    """(a) The dry run over every cell of both meshes on the meta device,
+    the roofline tables and the bench harness's roofline section, from
+    child processes; the reference's bar on the records."""
+    import importlib
+    import shutil
+
+    from repro_torch.launch.roofline import analyze, load_artifacts
+
+    # the fake process group's module is internal to torch: it must exist
+    # in the card's torch
+    importlib.import_module("torch.testing._internal.distributed.fake_pg")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dryrun-",
+                                     dir=os.path.join(ROOT, "build")) as tmp:
+        arts = os.path.join(tmp, "artifacts", "dryrun")
+        t0 = _now()
+        rc, so, se = _run_module(["repro_torch.launch.dryrun", "--all",
+                                  "--mesh", "both", "--out", arts], ROOT,
+                                 DRYRUN_TIMEOUT_S)
+        out["dryrun_s"] = _now() - t0
+        check(rc == 0, f"launch.dryrun --all --mesh both: rc {rc}: "
+                       f"{so[-2000:]} {se[-2000:]}")
+        log(f"dryrun: {so.strip().splitlines()[-1]} in "
+            f"{out['dryrun_s']:.3f} s (the meta device, one process)")
+        tables = {}
+        for mesh in ("single", "multi"):
+            rc, so, se = _run_module(["repro_torch.launch.roofline", "--dir",
+                                      arts, "--mesh", mesh], ROOT, 120)
+            check(rc == 0 and "n/a" in so,
+                  f"launch.roofline --mesh {mesh}: rc {rc}: {se[-2000:]}")
+            tables[mesh] = so
+            log(f"roofline {mesh}: " + " | ".join(
+                ln for ln in so.splitlines() if ln.startswith(
+                    ("worst", "most"))))
+        rc, so, se = _run_module(["repro_torch.bench.run", "--only",
+                                  "roofline"], tmp, 300)
+        check(rc == 0 and "1/1 sections ok" in so,
+              f"bench.run --only roofline: rc {rc}: {so[-1000:]} "
+              f"{se[-2000:]}")
+        rows = [analyze(r) for r in load_artifacts(arts)]
+        for mesh in ("single", "multi"):
+            cells = [r for r in rows if r.mesh == mesh
+                     and r.tag == "baseline"]
+            ok = [r for r in cells if r.status == "ok"]
+            n_skip = sum(r.status == "skipped" for r in cells)
+            check(len(cells) == DRYRUN_CELLS and len(ok) == DRYRUN_OK
+                  and n_skip == DRYRUN_SKIPPED,
+                  f"dryrun {mesh}: {len(cells)} cells, {len(ok)} ok, "
+                  f"{n_skip} skipped, errors "
+                  f"{[(r.arch, r.shape, r.reason[:200]) for r in cells if r.status == 'error']}")
+            for r in ok:
+                check(r.t_compute > 0
+                      and 0 < r.useful_ratio <= DRYRUN_USEFUL_MAX,
+                      f"dryrun {mesh} {r.arch} x {r.shape}: compute "
+                      f"{r.t_compute}, useful {r.useful_ratio}")
+            out[mesh] = {f"{r.arch} {r.shape}": {
+                "compute_s": r.t_compute, "memory_s": r.t_memory,
+                "dominant": r.dominant, "useful": r.useful_ratio,
+                "roofline_fraction": r.roofline_fraction} for r in ok}
+        dest = os.path.join(ROOT, "chiprun_out", "dryrun")
+        shutil.rmtree(dest, ignore_errors=True)
+        shutil.copytree(arts, dest)
+        with open(os.path.join(ROOT, "chiprun_out", "roofline.txt"),
+                  "w") as f:
+            for mesh, table in tables.items():
+                f.write(f"--- {mesh} ---\n{table}\n")
+    log(f"dryrun: {DRYRUN_CELLS} cells a mesh, {DRYRUN_OK} ok, "
+        f"{DRYRUN_SKIPPED} skipped, useful ratio in (0, "
+        f"{DRYRUN_USEFUL_MAX}] on every ok cell, both meshes; records "
+        f"under chiprun_out/dryrun, tables in chiprun_out/roofline.txt")
+    return out
+
+
+def _kernel_row_ops(name, d):
+    """One call's operations by the formula of its kernel row."""
+    from repro_torch.launch.hlo_analysis import flash_live_pairs
+
+    if name == "qmatmul":
+        return k5_ops(d["m"], d["k"], d["n"])
+    pairs = flash_live_pairs(d["sq"], d["sk"], d["causal"], d["window"],
+                             d["q_offset"], d["kv_len"])
+    if name == "flash_attention":
+        return k6_ops(d["b"], d["h"], d["d"], pairs)
+    return k6_bwd_ops(d["b"], d["h"], d["d"], pairs)
+
+
+def _card_trees(model, shape, bits, seed):
+    """The step's trees on the card: seeded weights (quantized for an
+    int8 step), the optimizer state (train), seeded tokens (and
+    labels)."""
+    import torch
+    from repro_torch.optim.adamw import make_optimizer
+
+    dev = DRYRUN_DEVICE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(g, device=dev)
+    if bits < 16:
+        params = model.quantize_params(params, bits)
+    gc.collect()
+    B, S = shape.global_batch, shape.seq_len
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, (B, S),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+    if shape.kind == "train":
+        batch["labels"] = torch.randint(0, model.cfg.vocab, (B, S),
+                                        generator=g, device=dev,
+                                        dtype=torch.int32)
+    trees = {"params": params, "batch": batch}
+    if shape.kind == "train":
+        trees["opt"] = make_optimizer().init(params)
+    return trees
+
+
+def _step_ms(model, shape, trees, microbatches, reps=3):
+    """Host ms of the step without the analysis (synchronised): the
+    median of ``reps`` after one warm call."""
+    import torch
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.steps import TrainState, make_train_step
+
+    if shape.kind == "train":
+        step = make_train_step(model, make_optimizer(),
+                               microbatches=microbatches)
+        state = TrainState(trees["params"], trees["opt"])
+        run = lambda: step(state, trees["batch"])      # noqa: E731
+    else:
+        run = lambda: model.prefill(trees["params"], trees["batch"])  # noqa
+    run()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = _now()
+        run()
+        torch.cuda.synchronize()
+        times.append((_now() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def _dryrun_step(label, arch, dims, bits, microbatches, smi):
+    """(b) One step: its meta trace against the same step traced on the
+    card under the same analysis; then timed without the analysis beside
+    its roofline bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.pytree import leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import compute_seconds, memory_seconds
+
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"{dims[2]}_{dims[1]}x{dims[0]}", dims[0], dims[1],
+                        dims[2])
+    model, meta_trees = dryrun._abstract_trees(cfg, shape, bits)
+    t0 = _now()
+    meta = dryrun.trace_step(model, shape, meta_trees, microbatches)
+    meta_s = _now() - t0
+    del meta_trees
+    trees = _card_trees(model, shape, bits, SEED + 23)
+    tree_bytes = sum(t.numel() * t.element_size() for t in leaves(trees))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what the caching allocator holds at the start besides the trees
+    # (earlier phases' tensors, cuBLAS workspaces): in the measured peak,
+    # not in the prediction
+    others = torch.cuda.memory_allocated() - tree_bytes
+    ops.reset_launches()
+    t0 = _now()
+    card = dryrun.trace_step(model, shape, trees, microbatches)
+    torch.cuda.synchronize()
+    card_s = _now() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.launches)
+    check(card.stats.flops == meta.stats.flops,
+          f"{label}: FLOPs on the card {card.stats.flops!r} != meta "
+          f"{meta.stats.flops!r}")
+    check(card.argument_bytes == meta.argument_bytes == tree_bytes,
+          f"{label}: argument bytes card {card.argument_bytes}, meta "
+          f"{meta.argument_bytes}, the trees {tree_bytes}")
+    ratio = peak / meta.peak_bytes
+    check(PEAK_RATIO_RANGE[0] <= ratio <= PEAK_RATIO_RANGE[1],
+          f"{label}: measured peak {peak} B over the predicted "
+          f"{meta.peak_bytes} B = {ratio:.4f}, outside {PEAK_RATIO_RANGE}")
+    check([(k[0], k[1]) for k in card.kernels]
+          == [(k[0], k[1]) for k in meta.kernels],
+          f"{label}: the card's kernel calls differ from the meta trace's")
+    calls = {}
+    for name, d, n_ops, _ in card.kernels:
+        calls[name] = calls.get(name, 0) + 1
+        want = _kernel_row_ops(name, d)
+        check(n_ops == want, f"{label}: {name} {d}: counted {n_ops}, its "
+                             f"kernel row {want}")
+    check(all(launches[n] == c for n, c in calls.items())
+          and sum(launches.values()) == len(card.kernels),
+          f"{label}: launches {launches} != the analysis' calls {calls}")
+    shapes = sorted({(k[0], tuple(sorted(k[1].items())))
+                     for k in card.kernels})
+    step_ms, times = _step_ms(model, shape, trees, microbatches)
+    t_c = compute_seconds(meta.stats.flops, bits)
+    state = sum(t.numel() * t.element_size()
+                for t in leaves({k: v for k, v in trees.items()
+                                 if k != "batch"}))
+    t_m = memory_seconds(max(meta.bytes_accessed, state + meta.output_bytes))
+    bound_ms_ = max(t_c, t_m) * 1e3
+    res = {"card": smi, "flops": meta.stats.flops,
+           "argument_bytes": meta.argument_bytes,
+           "predicted_peak_bytes": meta.peak_bytes,
+           "card_trace_peak_bytes": card.peak_bytes,
+           "measured_peak_bytes": peak, "peak_ratio": ratio,
+           "held_besides_trees_bytes": others,
+           "bytes_accessed": meta.bytes_accessed, "calls": calls,
+           "kernel_shapes": len(shapes), "meta_trace_s": meta_s,
+           "card_trace_s": card_s, "step_ms": step_ms, "step_ms_all": times,
+           "compute_ms": t_c * 1e3, "memory_ms": t_m * 1e3,
+           "bound_ms": bound_ms_,
+           "dominant": "compute" if t_c >= t_m else "memory",
+           "bound_share": bound_ms_ / step_ms}
+    log(f"dryrun check {label} ({arch}, {dims[1]} x {dims[0]}, "
+        f"{microbatches} microbatch(es)) ({smi}): FLOPs meta == card "
+        f"{meta.stats.flops:.6e}; argument bytes meta == card == trees "
+        f"{tree_bytes}; peak measured {peak / 2**30:.3f} GiB / predicted "
+        f"{meta.peak_bytes / 2**30:.3f} GiB = {ratio:.4f} (the card's own "
+        f"trace {card.peak_bytes / 2**30:.3f} GiB; {others / 2**30:.3f} GiB "
+        f"held at the start besides the trees); kernel calls {calls} "
+        f"over {len(shapes)} shapes, each equal to its kernel row's ops; "
+        f"traces meta {meta_s:.3f} s, card {card_s:.3f} s")
+    log(f"dryrun check {label}: step {step_ms:.3f} ms (median of "
+        f"{len(times)}, host clock, synchronised, no analysis); roofline "
+        f"row: compute {t_c * 1e3:.3f} ms, memory {t_m * 1e3:.3f} ms "
+        f"({meta.bytes_accessed:.4e} B accessed), bound {bound_ms_:.3f} ms "
+        f"({res['dominant']}): the bound is {res['bound_share']:.1%} of the "
+        f"step")
+    del trees, card, meta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dryrun(smi):
+    """Phase 23 (module docstring). Returns details."""
+    t0 = _now()
+    out = {"all": _dryrun_all()}
+    for label, arch, dims, bits, mb in DRYRUN_STEPS:
+        out[label] = _dryrun_step(label, arch, dims, bits, mb, smi)
+    out["wall_s"] = _now() - t0
+    log(f"dryrun phase: {out['wall_s']:.3f} s (the dry run "
+        f"{out['all']['dryrun_s']:.3f} s)")
+    return out
+
+
 def _now():
     from repro_torch.obs import timer
 
@@ -5001,6 +5330,7 @@ def main() -> int:
         fam_k6, worst_fam, fam_rows, lm["families"] = phase_families(smi)
         k6_rows += fam_rows
         mesh = phase_mesh(smi)
+        dryrun = phase_dryrun(smi)
         lm["profile"] = phase_lm_profile()
         lm["families"]["profile"] = phase_family_profile()
         lm["int8"]["profile"] = phase_int8_profile()
@@ -5053,6 +5383,7 @@ def main() -> int:
                    "lm": lm, "kernel_bench": bench,
                    "scenarios": scenarios, "serving": serving, "qat": qat,
                    "paper_benches": papers, "mesh": mesh,
+                   "dryrun": dryrun,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,

@@ -1,5 +1,6 @@
 """The port's bench harness: one section per paper table and figure, plus
-the kernel bench, the serving bench and the obs and cost-model benches.
+the kernel bench, the serving bench, the obs and cost-model benches and
+the dry run's roofline table.
 
     python -m repro_torch.bench.run                      # every section
     python -m repro_torch.bench.run --only table6,obs    # some of them
@@ -10,9 +11,10 @@ The port of ``benchmarks/run.py``. Each section prints CSV rows
 is run and reported, and the harness exits 1 naming the sections that
 raised. ``--device`` goes to the sections that take one (the default is the
 card); ``kernels`` and ``serve`` time device work and need the card;
-``table2``, ``fig2`` and ``fig3`` run on the host. The reference's
-``roofline`` section is not here yet: it reads ``launch/roofline.py``,
-which the port does not have.
+``table2``, ``fig2`` and ``fig3`` run on the host; ``roofline`` renders
+the tables of ``artifacts/dryrun`` (under the working directory: run
+``python -m repro_torch.launch.dryrun --all`` first) on the H100's
+constants, and prints a note when there are none.
 """
 
 from __future__ import annotations
@@ -38,6 +40,35 @@ from repro_torch.bench import (
 )
 from repro_torch.obs import timer as obs_timer
 
+
+def _roofline_section():
+    """Render the dry run's roofline tables (the paper-faithful baseline,
+    and the optimized and serving re-sweeps where their tags exist) if
+    artifacts exist."""
+    import os
+
+    from repro_torch.bench.common import banner
+    from repro_torch.launch.roofline import (analyze, load_artifacts,
+                                             render_table)
+
+    banner("Roofline table (from dry-run artifacts)")
+    if not os.path.isdir("artifacts/dryrun"):
+        print("roofline: no artifacts/dryrun — run "
+              "repro_torch.launch.dryrun first")
+        return []
+    rows = [analyze(r) for r in load_artifacts("artifacts/dryrun")]
+    print("--- paper-faithful baseline ---")
+    print(render_table(rows, mesh="single", tag="baseline"))
+    if any(r.tag == "optimized" for r in rows):
+        print("\n--- beyond-paper optimized ---")
+        print(render_table(rows, mesh="single", tag="optimized"))
+    if any(r.tag == "serving" for r in rows):
+        print("\n--- decode cells under the serving layout "
+              "(tponly + int8 weights) ---")
+        print(render_table(rows, mesh="single", tag="serving"))
+    return rows
+
+
 #: section -> callable of the device (None: the card)
 SECTIONS = {
     "table1": lambda d: table1_models.run(d),
@@ -53,6 +84,7 @@ SECTIONS = {
     "serve": lambda d: serve_bench.run(),
     "obs": lambda d: obs_bench.run(d),
     "costmodel": lambda d: costmodel_bench.run(d),
+    "roofline": lambda d: _roofline_section(),
 }
 
 

@@ -1,8 +1,8 @@
 """Hardware-cost metrics: BOPs, weight memory, inference cost, schedule
 traffic, and the megakernel residency accounting.
 
-The port of ``repro.core.bops`` (all but ``lm_model_flops``, which the
-LM roofline, ``launch/roofline.py``, brings). Eq. 1 / Eq. 2 of the paper:
+The port of ``repro.core.bops``, ``lm_model_flops`` (the LM roofline's
+useful work, ``launch/roofline.py``) included. Eq. 1 / Eq. 2 of the paper:
 
   BOPs ~= m*n*k^2 * (b_a*b_w + b_a + b_w + log2(n*k^2))          (Eq. 1)
   C     = 0.5 * (BOPs/BOPs_ref + WM/WM_ref)                      (Eq. 2)
@@ -315,3 +315,13 @@ def staged_traffic_bytes(stages, wave_rows: int) -> float:
         total += float(math.prod(s.stage.w_int.shape))
         total += 4.0 * float(math.prod(s.stage.thresholds.shape))
     return total
+
+
+# ---------------------------------------------------------------------------
+# LM-scale model FLOPs (used by launch/roofline.py)
+# ---------------------------------------------------------------------------
+
+def lm_model_flops(n_active_params: int, n_tokens: int, training: bool = True) -> float:
+    """6*N*D for training (fwd+bwd), 2*N*D for inference forward."""
+    mult = 6.0 if training else 2.0
+    return mult * n_active_params * n_tokens

@@ -17,6 +17,19 @@ Each one checks its arguments, then:
 ``launches`` counts kernel launches per kernel, and only those: the plain
 versions do not count, so a run can show that it went through the
 kernels (``reset_launches`` before, read after).
+
+``qmatmul``, ``flash_attention`` and ``flash_attention_bwd`` also take
+tensors on the ``meta`` device: they check their arguments and return
+outputs of the shape, dtype and layout the kernel would write, and launch
+nothing (the dry run, ``launch.dryrun``, traces the LM's steps there). The
+other wrappers raise on meta tensors.
+
+``kernel_observers`` see every wrapper call on every device, once, with
+the kernel's name and its dimensions, before the call runs; while the call
+runs ``inside_kernel()`` is true, so an op counter
+(``launch.hlo_analysis``) counts the kernel by its own formula and skips
+the ops inside it (the plain version on the CPU, the output's
+allocation).
 """
 
 from __future__ import annotations
@@ -75,6 +88,38 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+#: Callables ``(kernel name, dims)`` told of every wrapper call
+#: (``launch.hlo_analysis.OpCounter`` installs one while it counts).
+kernel_observers: list = []
+_inside = [0]
+
+
+def inside_kernel() -> bool:
+    """Whether a wrapper call is running (the ops it issues are its own)."""
+    return _inside[0] > 0
+
+
+def _observed(name: str, dims=None):
+    """Tell ``kernel_observers`` of each call of the wrapped wrapper (its
+    name and ``dims(*args, **kwargs)``) and mark the call's span for
+    ``inside_kernel``; a call made inside another is not told again."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrap(*args, **kwargs):
+            if not kernel_observers or _inside[0]:
+                return fn(*args, **kwargs)
+            d = dims(*args, **kwargs) if dims is not None else {}
+            for observer in tuple(kernel_observers):
+                observer(name, d)
+            _inside[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _inside[0] -= 1
+        return wrap
+    return deco
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if t.dtype != dtype:
@@ -87,8 +132,10 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _device_kind(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+def _device_kind(x: torch.Tensor, meta: bool = False) -> str:
+    """"cpu" or "cuda", or "meta" where the wrapper has a meta branch."""
+    if x.device.type not in ("cpu", "cuda") and not (
+            meta and x.device.type == "meta"):
         raise ValueError(f"no kernel or plain path for device {x.device}")
     return x.device.type
 
@@ -169,6 +216,7 @@ def _tmm_launch(x_int: torch.Tensor, w_int: torch.Tensor,
     return out
 
 
+@_observed("threshold_matmul")
 def threshold_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                      thresholds: torch.Tensor, *,
                      block_m: Optional[int] = None,
@@ -345,6 +393,7 @@ def _conv_launch(x_pad: torch.Tensor, w2d: torch.Tensor,
     return out
 
 
+@_observed("conv_threshold")
 def conv_threshold(x_int: torch.Tensor, w2d: torch.Tensor,
                    thresholds: torch.Tensor, *, kernel: int, stride: int,
                    padding: str, out_h: int, out_w: int,
@@ -689,6 +738,7 @@ def _mk_args(x_int, out, weights, banks, plan, dims, steps):
                   plan["smem_bytes"])
 
 
+@_observed("mlp_megakernel")
 def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
                    banks: Sequence[torch.Tensor], *,
                    cluster: Optional[int] = None,
@@ -734,7 +784,7 @@ def mlp_megakernel(x_int: torch.Tensor, weights: Sequence[torch.Tensor],
 def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: int, kv_len: Optional[int]) -> int:
     """Check K6's arguments; returns ``kv_len`` resolved."""
-    _device_kind(q)
+    _device_kind(q, meta=True)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -756,7 +806,7 @@ def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):     # the kernel's own limits
         if d not in FLASH_HEAD_DIMS:
             raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
         if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -782,10 +832,27 @@ def _check_tma(*named: torch.Tensor) -> None:
                              f"a 16-byte aligned base and strides")
 
 
+def _flash_dims(q, k, v, causal, window, q_offset, kv_len, want_lse=False):
+    """K6's dimensions and mask, as ``kernel_observers`` get them."""
+    b, h, sq, d = q.shape
+    return {"b": b, "h": h, "hkv": k.shape[1], "sq": sq, "sk": k.shape[2],
+            "d": d, "causal": bool(causal), "window": int(window),
+            "q_offset": int(q_offset),
+            "kv_len": k.shape[2] if kv_len is None else int(kv_len),
+            "esize": q.element_size(), "lse": bool(want_lse)}
+
+
+@_observed("flash_attention", _flash_dims)
 def _flash_forward(q, k, v, causal: bool, window: int, q_offset: int,
                    kv_len: int, want_lse: bool):
     """K6's forward: (out, lse or None); lse (B, H, Sq) float32 only when
-    ``want_lse`` (the backward needs it)."""
+    ``want_lse`` (the backward needs it). On meta tensors: empty outputs
+    in the kernel's layout, nothing launched."""
+    if q.device.type == "meta":
+        b, h, sq, _ = q.shape
+        return torch.empty_like(q), (
+            torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+            if want_lse else None)
     if q.device.type == "cpu":
         res = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset, kv_len=kv_len,
@@ -860,6 +927,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           want_lse=False)[0]
 
 
+@_observed("flash_attention_bwd",
+           lambda q, k, v, out, lse, d_out, *, causal=True, window=0,
+           q_offset=0, kv_len=None: _flash_dims(q, k, v, causal, window,
+                                               q_offset, kv_len))
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         d_out: torch.Tensor, *, causal: bool = True,
@@ -874,7 +945,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when the kernels cannot read them as they are. dk and dv sum the query
     heads of a GQA group in a fixed order and no float atomics decide any
     result, so the gradients are the same on every run. Each comes back in
-    its input's dtype and layout."""
+    its input's dtype and layout (on meta tensors: empty, nothing
+    launched)."""
     kv_len = _flash_check(q, k, v, window, kv_len)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -888,6 +960,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
     mask = dict(causal=causal, window=window, q_offset=q_offset,
                 kv_len=kv_len)
+    if q.device.type == "meta":
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, d_out, **mask)
     bf16 = q.dtype == torch.bfloat16
@@ -947,6 +1021,7 @@ def multi_threshold_plan(c: int, s: int) -> int:
     return bc
 
 
+@_observed("multi_threshold")
 def multi_threshold(acc: torch.Tensor, thresholds: torch.Tensor
                     ) -> torch.Tensor:
     """Standalone FINN multi-threshold activation.
@@ -1005,6 +1080,11 @@ def qmatmul_plan(m: int, k: int, n: int) -> Dict[str, object]:
             "blocks": -(-m // bm) * -(-n // bn), "cp_async": k % 16 == 0}
 
 
+@_observed("qmatmul",
+           lambda x_int, w_int, scale, bias=None, **kw: {
+               "m": x_int.shape[0], "k": x_int.shape[1], "n": w_int.shape[1],
+               "bias": bias is not None,
+               "int8_out": kw.get("out_scale") is not None})
 def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
             bias: Optional[torch.Tensor] = None, *, relu: bool = False,
             out_scale: Optional[float] = None) -> torch.Tensor:
@@ -1015,8 +1095,9 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     Returns (M, N) float32, or int8 codes clip(round(y / out_scale)) when
     ``out_scale`` is set (the multiply by its float32 reciprocal, as the
     Pallas kernel does). Ragged M, N and K need no padding;
-    ``qmatmul_plan`` picks the kernel's tile."""
-    kind = _device_kind(x_int)
+    ``qmatmul_plan`` picks the kernel's tile. On meta tensors: the empty
+    output, nothing launched."""
+    kind = _device_kind(x_int, meta=True)
     _check(x_int, "x_int", torch.int8, 2, x_int.device)
     _check(w_int, "w_int", torch.int8, 2, x_int.device)
     _check(scale, "scale", torch.float32, 1, x_int.device)
@@ -1038,7 +1119,7 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), device=x_int.device,
                       dtype=torch.float32 if out_scale is None
                       else torch.int8)
-    if out.numel() == 0:
+    if kind == "meta" or out.numel() == 0:
         return out
     plan = qmatmul_plan(m, k, n)
     if -(-n // plan["block_n"]) > 65535:
@@ -1055,6 +1136,7 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+@_observed("float_head")
 def float_head(x_int: torch.Tensor, w: torch.Tensor, in_scale: float,
                b: torch.Tensor) -> torch.Tensor:
     """The deployed float head: (x_int as float32 @ w) * in_scale + b.

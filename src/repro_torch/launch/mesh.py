@@ -12,6 +12,16 @@ process group. The caller brings the group up first
 (``init_process_group``: NCCL for ranks on cards, ``gloo`` on the CPU);
 the mesh's device type follows the backend.
 
+The dry run (``launch.dryrun``) builds the production meshes without a
+cluster: ``init_fake_process_group`` brings up torch's ``fake`` process
+group, 512 ranks (or any count) in this one process, where no collective
+moves data, in place of the 512 host devices the reference forces with
+``XLA_FLAGS=--xla_force_host_platform_device_count=512``. Its module
+(``torch.testing._internal.distributed.fake_pg``) is internal to torch
+and imported at the call. ``mesh_shape`` reads a mesh's axis sizes by
+name, from a ``DeviceMesh`` or anything with ``mesh_dim_names`` and
+``shape``.
+
 ``make_elastic_mesh`` builds the best-fitting ("data", "model") mesh from
 the ranks that are alive, the reference's clamp: the model axis takes
 ``min(model_parallel, n)``, lowered until it divides n, and the data axis
@@ -21,7 +31,7 @@ the rest, so on one rank every ``model_parallel`` gives (1, 1).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,6 +49,20 @@ def _mesh(ranks: Sequence[int], shape: Tuple[int, ...],
                       torch.tensor(list(ranks), dtype=torch.int64).reshape(
                           shape),
                       mesh_dim_names=names)
+
+
+def init_fake_process_group(world_size: int = 512) -> None:
+    """Bring up torch's ``fake`` process group: ``world_size`` ranks, this
+    process rank 0, collectives that return at once and move nothing."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis name: size} of ``mesh``."""
+    return {name: int(n) for name, n in zip(mesh.mesh_dim_names, mesh.shape)}
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -20,11 +20,13 @@ temporal row, which on the flash path must be an arange run.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dtype, linear_apply, linear_init
+from repro_torch.models.layers import _dtype, _mx, linear_apply, linear_init
 
 NEG_INF = -1e30
 
@@ -96,6 +98,24 @@ def attn_init(generator, cfg: ArchConfig, device=None):
     }
 
 
+def attn_specs(cfg: ArchConfig):
+    fsdp, heads = _mx("fsdp")[0], _mx("heads")[0]
+    kvh, hflat = _mx("kv_heads")[0], _mx("heads_flat")[0]
+    q = {"w": (fsdp, heads, None)}
+    kv = {"w": (fsdp, kvh, None)}
+    if cfg.qkv_bias:
+        q["b"] = (heads, None)
+        kv["b"] = (kvh, None)
+    return {
+        "wq": q,
+        "wk": dict(kv),
+        "wv": dict(kv),
+        # fan-in of wo is flattened (H*hd,): shardable even when H itself
+        # does not divide the model axis (e.g. qwen1.5's 20 heads)
+        "wo": {"w": (hflat, fsdp)},
+    }
+
+
 # ---------------------------------------------------------------------------
 # masks
 # ---------------------------------------------------------------------------
@@ -132,7 +152,11 @@ def naive_attention(q, k, v, bias):
 def _arange_offset(pos: torch.Tensor, name: str) -> int:
     """The offset of positions that must be ``offset + arange(n)``: the
     kernel takes implicit arange positions, as every call site of the
-    reference passes them (its ``live_block_pairs`` assumes the same)."""
+    reference passes them (its ``live_block_pairs`` assumes the same).
+    Positions on the meta device hold no values to check: they are taken
+    as an arange from 0 (the dry run's traces)."""
+    if pos.device.type == "meta":
+        return 0
     offset = int(pos[0]) if pos.numel() else 0
     want = torch.arange(pos.numel(), device=pos.device) + offset
     if not torch.equal(pos.to(want.dtype), want):
@@ -140,16 +164,21 @@ def _arange_offset(pos: torch.Tensor, name: str) -> int:
     return offset
 
 
-def chunked_attention(cfg: ArchConfig, q, k, v, q_pos, k_pos):
+def chunked_attention(cfg: ArchConfig, q, k, v, q_pos, k_pos,
+                      q_offset: Optional[int] = None):
     """Flash attention over (B, S, H, hd) tensors through the port's
     kernel (``ops.flash_attention``), with the config's causal and window
     masks. Positions must be arange runs with k_pos starting at 0; q_pos's
-    start becomes the kernel's ``q_offset``. The heads move to axis 1 as
+    start becomes the kernel's ``q_offset``. A caller that built the
+    positions itself passes that start as ``q_offset``, and nothing is
+    read back from them (no host sync, and the meta device can trace the
+    call); otherwise they are checked here. The heads move to axis 1 as
     strided views: the kernel reads the tensors in place and writes its
     output in the same layout."""
-    if _arange_offset(k_pos, "k_pos") != 0:
-        raise ValueError("k_pos must start at 0")
-    q_offset = _arange_offset(q_pos, "q_pos")
+    if q_offset is None:
+        if _arange_offset(k_pos, "k_pos") != 0:
+            raise ValueError("k_pos must start at 0")
+        q_offset = _arange_offset(q_pos, "q_pos")
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=cfg.causal and not cfg.encoder_only, window=cfg.window,
@@ -190,9 +219,12 @@ def _softmax_weighted(s, valid, v_cache):
 # full blocks
 # ---------------------------------------------------------------------------
 
-def attn_apply(cfg: ArchConfig, p, x, positions):
+def attn_apply(cfg: ArchConfig, p, x, positions,
+               pos_offset: Optional[int] = None):
     """Training / prefill forward. x (B,S,d); positions (B,S) or
-    (3,B,S)."""
+    (3,B,S). ``pos_offset`` (the model's own positions, an arange from
+    it; 0 on every path today) spares the flash branch its check of the
+    positions; None: they come from the caller and are checked."""
     B, S, _ = x.shape
     q = linear_apply(cfg, p["wq"], x)
     k = linear_apply(cfg, p["wk"], x)
@@ -206,7 +238,10 @@ def attn_apply(cfg: ArchConfig, p, x, positions):
         impl = "chunked" if S > 2048 else "naive"
     pos1d = positions[0] if positions.dim() == 3 else positions
     if impl == "chunked":
-        out = chunked_attention(cfg, q, k, v, pos1d[0], pos1d[0])
+        if pos_offset not in (None, 0):
+            raise ValueError("k_pos must start at 0")
+        out = chunked_attention(cfg, q, k, v, pos1d[0], pos1d[0],
+                                q_offset=pos_offset)
     else:
         bias = mask_bias(cfg, pos1d[0], pos1d[0])
         out = naive_attention(q, k, v, bias)
@@ -221,6 +256,11 @@ def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_cache_specs(cfg: ArchConfig):
+    b, s = _mx("batch")[0], _mx("kv_seq")[0]
+    return {"k": (b, s, None, None), "v": (b, s, None, None)}
 
 
 def attn_decode(cfg: ArchConfig, p, x, cache, cur_index):

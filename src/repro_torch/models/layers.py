@@ -25,6 +25,14 @@ per-channel scale ``s_x * w_scale`` formed in float32 first), so it
 equals the reference's ``acc.astype(f32) * (s_x * w_scale)`` bit for bit
 on equal inputs; then the cast to the config's dtype and the bias.
 
+Each init has a sibling ``*_specs`` that returns the same tree with a
+sharding spec at every leaf: a plain tuple, as
+``parallel.sharding.logical_to_spec`` gives it (an entry is None, a mesh
+axis or a tuple of them), built from the logical rules active at the call
+(``use_mesh_rules``), the reference's ``PartitionSpec`` tree entry for
+entry. The dry run (``launch.dryrun``) reads them for the per-device
+bytes.
+
 The MoE (``moe_init`` / ``moe_apply``): top-k routing in float32, the
 Switch aux loss, capacity-limited dispatch into an (E, C, d) buffer, the
 expert products as ``torch.bmm`` (``jnp.einsum`` in the reference,
@@ -84,6 +92,21 @@ def norm_init(cfg: ArchConfig, device=None):
     if cfg.norm == "ln":
         p["bias"] = torch.zeros(d, dtype=_dtype(cfg), device=device)
     return p
+
+
+def _mx(logical):
+    """A logical axis as a 1-tuple of its spec entry (mesh axes or None),
+    to splice into a spec tuple: the reference's ``_mx``."""
+    r = active_rules().get(logical)
+    if r is None:
+        return (None,)
+    return (r if not (isinstance(r, tuple) and len(r) == 1) else r[0],)
+
+
+def norm_specs(cfg: ArchConfig):
+    if cfg.norm == "ln":
+        return {"scale": (), "bias": ()}
+    return {"scale": ()}
 
 
 def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +212,10 @@ def embed_init(generator, cfg: ArchConfig, device=None):
                              cfg, generator, device, truncated=False)}
 
 
+def embed_specs(cfg: ArchConfig):
+    return {"table": (*_mx("vocab"), *_mx("fsdp"))}
+
+
 def embed_apply(cfg: ArchConfig, p, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens.long()].to(_dtype(cfg))
 
@@ -217,6 +244,13 @@ def mlp_init(generator, cfg: ArchConfig, device=None):
                           scale=(2 * cfg.n_layers * cfg.d_ff) ** -0.5,
                           device=device),
     }
+
+
+def mlp_specs(cfg: ArchConfig):
+    in_spec = (*_mx("fsdp"), *_mx("mlp"))
+    out_spec = (*_mx("mlp"), *_mx("fsdp"))
+    return {"wi_gate": {"w": in_spec}, "wi_up": {"w": in_spec},
+            "wo": {"w": out_spec}}
 
 
 def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -250,6 +284,15 @@ def moe_init(generator, cfg: ArchConfig, device=None):
     }
     if cfg.moe_shared_expert:
         p["shared"] = mlp_init(generator, cfg, device=device)
+    return p
+
+
+def moe_specs(cfg: ArchConfig):
+    ein = (*_mx("experts"), *_mx("fsdp"), *_mx("mlp"))
+    eout = (*_mx("experts"), *_mx("mlp"), *_mx("fsdp"))
+    p = {"router": {"w": ()}, "wi_gate": ein, "wi_up": ein, "wo": eout}
+    if cfg.moe_shared_expert:
+        p["shared"] = mlp_specs(cfg)
     return p
 
 

@@ -51,9 +51,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pytree import tree_map
 from repro_torch.core.qir import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (_dtype, embed_apply, embed_init,
-                                       head_apply, leaf_dtype, norm_apply,
-                                       norm_init, quantize_linear_params)
+from repro_torch.models.layers import (_dtype, _mx, embed_apply, embed_init,
+                                       embed_specs, head_apply, leaf_dtype,
+                                       norm_apply, norm_init, norm_specs,
+                                       quantize_linear_params)
 
 def params_from_numpy(tree, cfg: ArchConfig, device=None):
     """The reference's ``Model.init`` pytree (or its ``quantize_params``
@@ -92,7 +93,10 @@ class Model:
         """Random weights with the reference's distributions, drawn from
         ``generator``, which must live on ``device`` (None: the card):
         ordinary tensors, or inference tensors under
-        ``torch.inference_mode()``."""
+        ``torch.inference_mode()``. On ``device="meta"`` the tree has its
+        shapes and dtypes and no values, and nothing is allocated (the
+        reference's ``jax.eval_shape(model.init, key)``); ``generator``
+        may then be None."""
         dev = resolve_device(device)
         cfg = self.cfg
         p: Dict[str, Any] = {}
@@ -106,6 +110,17 @@ class Model:
             p["head"] = {"w": head.mul_(cfg.d_model ** -0.5).to(_dtype(cfg))}
         return p
 
+    def param_specs(self) -> Dict[str, Any]:
+        """``init``'s tree with a spec tuple at every leaf, under the
+        logical rules active at the call (``use_mesh_rules``)."""
+        p: Dict[str, Any] = {"blocks": tfm.stack_specs(self.cfg),
+                             "final_norm": norm_specs(self.cfg)}
+        if self.cfg.embed_inputs:
+            p["embed"] = embed_specs(self.cfg)
+        if not self.cfg.tie_embeddings:
+            p["head"] = {"w": (_mx("fsdp")[0], _mx("vocab")[0])}
+        return p
+
     # -- forward ---------------------------------------------------------
     def _embed(self, params, tokens_or_embeds):
         """Token ids through the table, or embeddings cast to the
@@ -115,15 +130,17 @@ class Model:
         return tokens_or_embeds.to(_dtype(self.cfg))
 
     def _inputs_to_h(self, params, batch):
+        """(h, positions, their offset): the caller's positions (offset
+        None: the attention layers check them), or the arange built here
+        (offset 0: nothing is read back from it)."""
         h = self._embed(params, batch["tokens"] if self.cfg.embed_inputs
                         else batch["embeds"])
         B, S = h.shape[:2]
         if "positions" in batch:
-            positions = batch["positions"]
-        else:
-            positions = torch.arange(S, dtype=torch.int32,
-                                     device=h.device)[None].expand(B, S)
-        return h, positions
+            return h, batch["positions"], None
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+        return h, positions, 0
 
     def _head(self, params, h):
         h = norm_apply(self.cfg, params["final_norm"], h)
@@ -132,8 +149,9 @@ class Model:
 
     def train_logits(self, params, batch):
         """Returns (logits (B, S, V) float32, aux_loss), with autograd."""
-        h, positions = self._inputs_to_h(params, batch)
-        h, aux = tfm.stack_apply(self.cfg, params["blocks"], h, positions)
+        h, positions, offset = self._inputs_to_h(params, batch)
+        h, aux = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
+                                 offset)
         return self._head(params, h), aux
 
     def loss(self, params, batch):
@@ -160,8 +178,9 @@ class Model:
         """Full-sequence forward: batch {"tokens": (B, S) int} or
         {"embeds": (B, S, d)} (optional "positions" (B, S) or (3, B, S))
         -> logits (B, S, V) float32."""
-        h, positions = self._inputs_to_h(params, batch)
-        h, _ = tfm.stack_apply(self.cfg, params["blocks"], h, positions)
+        h, positions, offset = self._inputs_to_h(params, batch)
+        h, _ = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
+                               offset)
         return self._head(params, h)
 
     @torch.inference_mode()
@@ -175,6 +194,10 @@ class Model:
         return tree_map(
             lambda x: x.unsqueeze(0).repeat(self.cfg.n_groups,
                                             *([1] * x.dim())), one)
+
+    def cache_specs(self):
+        """``cache_init``'s tree with a spec tuple at every leaf."""
+        return tfm.add_layers_axis(tfm.block_cache_specs(self.cfg))
 
     # -- deployment quantization (the int8 serve path) ---------------------
     @torch.no_grad()

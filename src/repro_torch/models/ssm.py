@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (_dtype, _normal, leaf_dtype,
+from repro_torch.models.layers import (_dtype, _mx, _normal, leaf_dtype,
                                        linear_apply, linear_init)
 
 
@@ -155,6 +155,20 @@ def ssm_init(generator, cfg: ArchConfig, device=None):
     }
 
 
+def ssm_specs(cfg: ArchConfig):
+    fsdp, m = _mx("fsdp")[0], _mx("model")[0]
+    return {
+        "in_proj": {"w": (fsdp, m)},
+        "conv_w": (None, m),
+        "conv_b": (m,),
+        "x_proj": {"w": (m, fsdp)},
+        "dt_proj": {"w": (fsdp, m), "b": (m,)},
+        "A_log": (m, None),
+        "D": (m,),
+        "out_proj": {"w": (m, fsdp)},
+    }
+
+
 def _mix(cfg: ArchConfig, p, x, conv_state=None):
     """The shared front of prefill and decode: in_proj, the causal conv,
     SiLU, x_proj and dt. Returns (xs, z, dt, B_t, C_t, A, new conv
@@ -191,6 +205,11 @@ def ssm_cache_init(cfg: ArchConfig, batch: int, dtype=None, device=None):
         "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
                          dtype=torch.float32, device=device),
     }
+
+
+def ssm_cache_specs(cfg: ArchConfig):
+    b, m = _mx("batch")[0], _mx("model")[0]
+    return {"conv": (b, None, m), "h": (b, m, None)}
 
 
 def ssm_decode(cfg: ArchConfig, p, x, cache):

@@ -18,6 +18,10 @@ ones too (``aten.bmm``), recomputing the rest; "none" keeps everything.
 The recompute runs in the backward, on the card on autograd's own
 thread, where the caller's thread-local mesh and rules are not active:
 the block re-enters the ones of its forward.
+``block_specs``, ``block_cache_specs`` and ``stack_specs`` give the
+sharding spec trees of the same structures (``layers``' spec tuples), the
+stacked leaves' leading "layers" axis first and replicated, as the
+reference's ``stack_specs`` prepends it.
 A block is ``cfg.block_period`` sublayers, each an attention or mamba
 mixer (``cfg.layer_kind``) and a dense or MoE FFN (``cfg.layer_is_moe``);
 the aux loss sums over the MoE sublayers.
@@ -36,8 +40,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pytree import leaves, tree_map, unflatten_like
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.layers import (mlp_apply, mlp_init, moe_apply,
-                                       moe_init, norm_apply, norm_init)
+from repro_torch.models.layers import (mlp_apply, mlp_init, mlp_specs,
+                                       moe_apply, moe_init, moe_specs,
+                                       norm_apply, norm_init, norm_specs)
 from repro_torch.parallel.sharding import (active_mesh, active_rules,
                                            use_mesh_rules)
 
@@ -71,15 +76,36 @@ def sublayer_init(generator, cfg: ArchConfig, i: int, device=None
     return sub
 
 
-def block_apply(cfg: ArchConfig, p, x, positions):
+def block_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """``sublayer_init``'s trees of one block, as spec tuples."""
+    p: Dict[str, Any] = {}
+    for i in range(cfg.block_period):
+        sub: Dict[str, Any] = {"norm1": norm_specs(cfg)}
+        if cfg.layer_kind(i) == "attn":
+            sub["attn"] = attn.attn_specs(cfg)
+        else:
+            sub["ssm"] = ssm.ssm_specs(cfg)
+        if cfg.d_ff > 0:
+            sub["norm2"] = norm_specs(cfg)
+            if cfg.layer_is_moe(i):
+                sub["moe"] = moe_specs(cfg)
+            else:
+                sub["mlp"] = mlp_specs(cfg)
+        p[f"sub{i}"] = sub
+    return p
+
+
+def block_apply(cfg: ArchConfig, p, x, positions, pos_offset=None):
     """Forward through one block. Returns (x, aux_loss), the aux loss
-    summed over the block's MoE sublayers (0 without one)."""
+    summed over the block's MoE sublayers (0 without one).
+    ``pos_offset``: ``attention.attn_apply``'s."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.block_period):
         sub = p[f"sub{i}"]
         h = norm_apply(cfg, sub["norm1"], x)
         if cfg.layer_kind(i) == "attn":
-            x = x + attn.attn_apply(cfg, sub["attn"], h, positions)
+            x = x + attn.attn_apply(cfg, sub["attn"], h, positions,
+                                    pos_offset)
         else:
             x = x + ssm.ssm_apply(cfg, sub["ssm"], h)
         if cfg.d_ff > 0:
@@ -105,6 +131,13 @@ def block_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                                              device=device)
                         if cfg.layer_kind(i) == "attn" else
                         ssm.ssm_cache_init(cfg, batch, dtype, device=device))
+            for i in range(cfg.block_period)}
+
+
+def block_cache_specs(cfg: ArchConfig):
+    return {f"sub{i}": (attn.attn_cache_specs(cfg)
+                        if cfg.layer_kind(i) == "attn" else
+                        ssm.ssm_cache_specs(cfg))
             for i in range(cfg.block_period)}
 
 
@@ -155,6 +188,21 @@ def stack_init(generator, cfg: ArchConfig, device=None):
     return stacked
 
 
+def add_layers_axis(specs):
+    """Every spec tuple of ``specs`` with the stacked "layers" axis
+    (replicated) in front."""
+    if isinstance(specs, dict):
+        return {k: add_layers_axis(v) for k, v in specs.items()}
+    return (None, *specs)
+
+
+def stack_specs(cfg: ArchConfig):
+    """``stack_init``'s tree as spec tuples. The port always stacks the
+    groups (``cfg.scan_layers`` is True in every config; the reference
+    gives a list of unstacked blocks when it is False)."""
+    return add_layers_axis(block_specs(cfg))
+
+
 #: the matrix products whose outputs each selective policy keeps
 _SAVED_PRODUCTS = {
     "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
@@ -200,11 +248,12 @@ def _unstack(stacked, n: int):
     return [unflatten_like(stacked, [p[g] for p in per]) for g in range(n)]
 
 
-def stack_apply(cfg: ArchConfig, stacked, x, positions):
+def stack_apply(cfg: ArchConfig, stacked, x, positions, pos_offset=None):
     """Forward through all groups, each block under ``cfg.remat``. Returns
-    (x, aux_loss)."""
+    (x, aux_loss). ``pos_offset``: ``attention.attn_apply``'s."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _remat(cfg, functools.partial(block_apply, cfg))
+    block = _remat(cfg, functools.partial(block_apply, cfg,
+                                          pos_offset=pos_offset))
     for p in _unstack(stacked, cfg.n_groups):
         x, a = block(p, x, positions)
         aux = aux + a
