@@ -360,10 +360,50 @@ which fails the run with a non-zero exit:
                roofline row (compute, memory, the bound and the step's
                share of it).
 
+ 24. spmd — the SPMD train step over two ranks that share the card
+               (``phase_spmd``): two child processes (this file with
+               ``--spmd-worker``) in a ``gloo`` group over the card's
+               tensors (NCCL refuses two ranks on one device; gloo takes
+               the step's all-reduces and all-gathers of float32, bf16
+               and int32 CUDA tensors), ``CUBLAS_WORKSPACE_CONFIG`` set in
+               their environment. (a) Reduced llama3-8b in float32 (TF32
+               off) with the chunked attention (K6), 8 x 64, on the
+               ("data", "model") meshes (1, 2) and (2, 1) under
+               ``launch.dryrun.arch_rules``, 3 steps each: the losses
+               within rtol 2e-3 of one rank's on the same weights and
+               batches (the reference's bar between its SPMD step and one
+               device), the same on both ranks, and the first step's
+               gradient blocks within 1e-5 of each leaf's largest |g| of
+               the one-rank gradients' blocks. (b) internlm2-1.8b at its
+               published widths, all 24 layers, bf16, remat "full", S
+               4096, on (1, 2) (heads 8 / 8 kv heads 4 a rank, d_ff and
+               vocab split): 2 sequences a step in one microbatch (cut
+               from phase 19's 4 in 2, as two ranks share the card), 3
+               steps; counters set to 0 before the steps and read after:
+               K6 2 x 24 and its backward 24 a step on each rank, nothing
+               else; every K6 and K6-backward launch of the first step
+               held against its plain version (forward: 2e-2 of max
+               |plain| and 1e-2 of mean |plain|, as phase 20; backward:
+               2e-2 of the largest |gradient|, as phase 19); finite
+               losses, equal on both ranks and within 1e-2 relative of
+               one rank's (rank 0 alone, the same weights and batches);
+               each rank's step ms (host clock: through gloo and the
+               host, a smoke reading and not a tensor-parallel
+               throughput) and peak memory; K6 and its backward timed at
+               the rank-local shape (rows of the kernels line, with the
+               launches of both ranks). (c) One step of reduced llama3-8b
+               on (2, 1), saved with the state's spec tree (gathered,
+               rank 0 writes), restored on one rank: equal to the
+               gathered state bit for bit, and a step from it equal bit
+               for bit to the one-rank step from the gathered state
+               (deterministic algorithms on). A rank that fails ends the
+               other and the phase; the ranks' logs go to
+               ``chiprun_out/spmd_rank*.log``.
+
 Phase 21 runs right after phase 9's serving, before phases 11-16.
 Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
-phase 19 and 20 after it, 22 after those, 23 after 22; the profiles of
-phases 9, 20 and 21 run last of all. The last lines are
+phase 19 and 20 after it, 22 after those, 23 after 22, 24 after 23; the
+profiles of phases 9, 20 and 21 run last of all. The last lines are
 the kernels JSON line, the card's name and power limit (``nvidia-smi``),
 and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
@@ -372,7 +412,9 @@ and ``{"ok": true, "device": {...}}``. Per-shape details go to
 K1-K3 and the float head, phase 9's prefill and phase 20's three
 counted prefills for K6 (32 + 2 + 28 + 48), phase 19's full-width
 training for K6's backward, phase 13's checking pass for K4 and K5,
-and for K5 also phase 21's int8 prefill (1 + 225).
+and for K5 also phase 21's int8 prefill (1 + 225); phase 24's counted
+run adds its two ranks' launches to K6 (2 x 144) and its backward
+(2 x 72).
 """
 
 from __future__ import annotations
@@ -3472,7 +3514,8 @@ def _train_state(cfg, seed, opt):
     return model, TrainState(params, opt.init(params))
 
 
-def _bwd_case(q, k, v, out, lse, do, kw, launches):
+def _bwd_case(q, k, v, out, lse, do, kw, launches, model=TRAIN_CONFIG,
+              stage="train layer 0"):
     """K6 backward's timing row on one launch's inputs: kernel, plain
     version and SDPA's backward (the library yardstick: one autograd pass
     through ``scaled_dot_product_attention`` on the same q, k, v and dO,
@@ -3491,8 +3534,8 @@ def _bwd_case(q, k, v, out, lse, do, kw, launches):
     esize = q.element_size()
     nbytes = (4 * q.numel() + 4 * k.numel()) * esize + lse.numel() * 4
     nops = k6_bwd_ops(b, h, d, pairs)
-    row = {"kernel": "flash_attention_bwd", "model": TRAIN_CONFIG,
-           "stage": "train layer 0", "launches": launches,
+    row = {"kernel": "flash_attention_bwd", "model": model,
+           "stage": stage, "launches": launches,
            "shape": f"B={b} H={h} Hkv={k.shape[1]} Sq={sq} Sk={sk} D={d} "
                     f"{str(q.dtype).replace('torch.', '')} causal",
            "bytes": nbytes, "ops": nops}
@@ -5227,6 +5270,471 @@ def phase_dryrun(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the SPMD train step over two ranks that share the card
+# ---------------------------------------------------------------------------
+
+SPMD_RANKS = 2
+SPMD_STEPS = 3
+SPMD_TIMEOUT_S = 600
+#: (a) reduced llama3-8b, float32, the chunked attention (K6) at S 64
+SPMD_SMALL = "llama3-8b"
+SPMD_SMALL_MESHES = ((1, 2), (2, 1))
+SPMD_SMALL_BATCH, SPMD_SMALL_SEQ = 8, 64
+#: the reference's bar between its SPMD step and one device
+SPMD_LOSS_RTOL = 2e-3
+#: the first step's gradient blocks against the one-rank gradients', of
+#: each leaf's largest |g|
+SPMD_GRAD_TOL = 1e-5
+#: (b) internlm2-1.8b at its published widths, all 24 layers, bf16,
+#: remat "full", S 4096 on the (1, 2) mesh: 2 sequences a step in one
+#: microbatch (phase 19's step takes 4 in 2), as two ranks share the card
+SPMD_FULL = "internlm2-1.8b"
+SPMD_FULL_MESH = (1, 2)
+SPMD_FULL_BATCH = 2
+#: bf16: the SPMD step's losses against one rank's on the same batches
+SPMD_FULL_RTOL = 1e-2
+#: (c) the checkpoint's mesh
+SPMD_CKPT_MESH = (2, 1)
+
+
+def _spmd_batches(vocab, seq, batch):
+    from repro_torch.data.synthetic import SyntheticTokens
+
+    data = SyntheticTokens(vocab=vocab, seq_len=seq, seed=SEED)
+    return [data.batch(t, batch) for t in range(SPMD_STEPS)]
+
+
+def _clone_tree(tree):
+    from repro_torch.core.pytree import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _spmd_mesh(shape, cfg, batch):
+    from repro_torch.launch.dryrun import arch_rules, batch_logical_axes
+    from repro_torch.launch.mesh import make_elastic_mesh
+
+    mesh = make_elastic_mesh(shape[1])
+    check(tuple(mesh.shape) == tuple(shape), f"mesh {tuple(mesh.shape)}, "
+                                             f"expected {shape}")
+    return mesh, arch_rules(cfg, mesh, batch_logical_axes(batch, mesh))
+
+
+def _spmd_small(rank):
+    """(a): reduced llama3-8b in float32 (TF32 off) with K6, on (1, 2)
+    and (2, 1) against one rank on the same weights and batches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import leaves
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.parallel.sharding import (local_block, shard_tree,
+                                               spec_leaves, use_mesh_rules)
+    from repro_torch.train.steps import (TrainState, batch_to_device,
+                                         make_train_step, step_grads,
+                                         train_state_specs)
+
+    cfg = dataclasses.replace(get_config(SPMD_SMALL).reduced(),
+                              attn_impl="chunked")
+    model = Model(cfg)
+    batches = _spmd_batches(cfg.vocab, SPMD_SMALL_SEQ, SPMD_SMALL_BATCH)
+    b0 = batch_to_device(batches[0], "cuda")
+
+    def opt():
+        return make_optimizer(base_lr=1e-3, warmup=1, total=10)
+
+    def run(params):
+        step = make_train_step(model, opt())
+        state = TrainState(params, opt().init(params))
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return losses
+
+    out = {}
+    with full_fp32():
+        full = model.init(torch.Generator(device="cuda").manual_seed(
+            SEED + 40), device="cuda")
+        _, _, one_grads = step_grads(model, _clone_tree(full), b0)
+        one = run(_clone_tree(full))
+        for shape in SPMD_SMALL_MESHES:
+            mesh, rules = _spmd_mesh(shape, cfg, SPMD_SMALL_BATCH)
+            with use_mesh_rules(mesh, rules):
+                specs = train_state_specs(model)
+                params = shard_tree(full, specs.params)
+                _, _, grads = step_grads(model, params, b0, 1, specs.params)
+                worst = 0.0
+                for g, want, spec in zip(grads, one_grads,
+                                         spec_leaves(specs.params)):
+                    block = local_block(want, spec)
+                    err = float((g - block).abs().max())
+                    scale = float(want.abs().max())
+                    check(g.shape == block.shape
+                          and err <= SPMD_GRAD_TOL * scale,
+                          f"spmd {shape} rank {rank}: a gradient block "
+                          f"{tuple(g.shape)} off the one-rank one by {err} "
+                          f"(largest |g| {scale})")
+                    worst = max(worst, err / scale if scale else err)
+                losses = run(params)
+            check(all(abs(a - b) <= SPMD_LOSS_RTOL * abs(b)
+                      for a, b in zip(losses, one)),
+                  f"spmd {shape}: losses {losses}, one rank {one}")
+            out[f"{shape[0]}x{shape[1]}"] = {
+                "losses": losses, "one_rank_losses": one,
+                "grad_err_of_max": worst,
+                "leaves": len(leaves(params))}
+    return out
+
+
+def _spmd_checked_k6(caught):
+    """Wrappers of K6's forward and backward launches that hold each one
+    against its plain version on the same inputs (the plain versions are
+    not launches), keeping the first launches' inputs in ``caught``."""
+    from repro_torch.kernels import ops, ref
+
+    real_fwd, real_bwd = ops._flash_forward, ops.flash_attention_bwd
+    worst = {"fwd": 0.0, "bwd": 0.0, "fwd_rel": 0.0, "n_fwd": 0,
+             "n_bwd": 0}
+
+    def fwd(q, k, v, causal, window, q_offset, kv_len, want_lse):
+        out, lse = real_fwd(q, k, v, causal, window, q_offset, kv_len,
+                            want_lse)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err, rel = _k6_error(out, want)
+        check(rel["max"] <= FAMILY_K6_TOL["max"]
+              and rel["mean"] <= FAMILY_K6_TOL["mean"],
+              f"spmd K6 {tuple(q.shape)} / {tuple(k.shape)}: off its plain "
+              f"version by {rel['max']:.3g} of max |plain| and "
+              f"{rel['mean']:.3g} of mean |plain|")
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["fwd_rel"] = max(worst["fwd_rel"], rel["max"])
+        worst["n_fwd"] += 1
+        if "fwd" not in caught:
+            caught["fwd"] = tuple(t.detach().clone() for t in (q, k, v)) + (
+                kw,)
+        return out, lse
+
+    def bwd(q, k, v, out, lse, do, **kw):
+        got = real_bwd(q, k, v, out, lse, do, **kw)
+        worst["bwd"] = max(worst["bwd"], _check_bwd(
+            f"spmd {tuple(q.shape)} / {tuple(k.shape)}", q, k, v, out, lse,
+            do, kw, got))
+        worst["n_bwd"] += 1
+        if "bwd" not in caught:
+            caught["bwd"] = tuple(t.detach().clone()
+                                  for t in (q, k, v, out, lse, do)) + (kw,)
+        return got
+
+    def restore():
+        ops._flash_forward, ops.flash_attention_bwd = real_fwd, real_bwd
+
+    ops._flash_forward, ops.flash_attention_bwd = fwd, bwd
+    return worst, restore
+
+
+def _spmd_full(rank, smi):
+    """(b): internlm2-1.8b at full width on (1, 2): the counted run of 3
+    steps (every K6 launch of the first held against its plain version),
+    the step times and peak memory; then one rank (rank 0, while rank 1
+    waits) trains the same weights on the same batches; rank 0 times K6
+    and its backward at the rank-local shape."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.obs import timer
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
+    from repro_torch.train.steps import (TrainState, make_train_step,
+                                         train_state_specs)
+
+    cfg = get_config(SPMD_FULL)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16"
+          and (cfg.attn_impl == "chunked"
+               or cfg.attn_impl == "auto" and TRAIN_SEQ > 2048),
+          f"{SPMD_FULL}: expected bf16, remat full and the chunked "
+          f"attention (K6)")
+    model = Model(cfg)
+    batches = _spmd_batches(cfg.vocab, TRAIN_SEQ, SPMD_FULL_BATCH)
+
+    def opt():
+        return make_optimizer(base_lr=3e-4, warmup=2, total=SPMD_STEPS)
+
+    def init():
+        return model.init(torch.Generator(device="cuda").manual_seed(
+            SEED + 41), device="cuda")
+
+    mesh, rules = _spmd_mesh(SPMD_FULL_MESH, cfg, SPMD_FULL_BATCH)
+    caught = {}
+    losses, step_s = [], []
+    with use_mesh_rules(mesh, rules):
+        specs = train_state_specs(model)
+        params = shard_tree(init(), specs.params)
+        torch.cuda.empty_cache()
+        state = TrainState(params, opt().init(params))
+        step = make_train_step(model, opt())
+        worst, unwrap = _spmd_checked_k6(caught)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            for i in range(SPMD_STEPS):
+                t0 = timer.now()
+                state, m = step(state, batches[i])
+                losses.append(float(m["loss"]))         # synchronises
+                step_s.append(timer.now() - t0)
+                if i == 0:
+                    unwrap()
+            torch.cuda.synchronize()
+            launches = dict(ops.launches)
+        finally:
+            unwrap()
+        peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers
+    check(launches["flash_attention"] == 2 * SPMD_STEPS * n
+          and launches["flash_attention_bwd"] == SPMD_STEPS * n,
+          f"spmd rank {rank} launches {launches}: expected "
+          f"{2 * SPMD_STEPS * n} K6 and {SPMD_STEPS * n} K6 backward")
+    for k, v in launches.items():
+        check(k in ("flash_attention", "flash_attention_bwd") or v == 0,
+              f"spmd training launched {k}")
+    check(worst["n_fwd"] == 2 * n and worst["n_bwd"] == n,
+          f"spmd rank {rank}: held {worst['n_fwd']} forward and "
+          f"{worst['n_bwd']} backward launches of the first step")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    q, k, v, kw = caught["fwd"]
+    log(f"spmd rank {rank}: {SPMD_FULL} on {SPMD_FULL_MESH} ({smi}): "
+        f"losses {losses}; K6 at q {tuple(q.shape)} k {tuple(k.shape)} "
+        f"{q.dtype}; launches {json.dumps(launches)}; step ms "
+        f"{[round(t * 1e3, 3) for t in step_s]} (host clock, through gloo "
+        f"and the host: a smoke reading, not a TP throughput), peak "
+        f"{peak / 2**30:.3f} GiB")
+    del state, params
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "peak_bytes": peak, "launches": launches,
+           "k6_q_shape": list(q.shape), "k6_k_shape": list(k.shape),
+           "k6_worst_fwd": worst["fwd"], "k6_worst_fwd_of_max":
+           worst["fwd_rel"], "k6_worst_bwd": worst["bwd"],
+           "k6_held": [worst["n_fwd"], worst["n_bwd"]]}
+    if rank == 0:
+        step = make_train_step(model, opt())
+        params = init()
+        state = TrainState(params, opt().init(params))
+        one = []
+        for b in batches:
+            state, m = step(state, b)
+            one.append(float(m["loss"]))
+        del state, params
+        torch.cuda.empty_cache()
+        out["one_rank_losses"] = one
+        case = flash_case(f"spmd {SPMD_FULL_MESH} attention layer 0", q, k,
+                          v, kw, model=SPMD_FULL)
+        out["k6_row"] = time_case(case, reps=5, inner=10)
+        bq, bk, bv, bo, blse, bdo, bkw = caught["bwd"]
+        out["k6_bwd_row"] = _bwd_case(
+            bq, bk, bv, bo, blse, bdo, bkw, 0, model=SPMD_FULL,
+            stage=f"spmd {SPMD_FULL_MESH} train layer 0")
+    del caught
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _spmd_ckpt(rank, workdir):
+    """(c): one step of reduced llama3-8b on (2, 1), saved with the spec
+    tree (gathered, rank 0 writes); rank 0 restores it on one rank (no
+    mesh): equal bit for bit to the gathered state, and one step from
+    each equal bit for bit (under ``torch.use_deterministic_algorithms``,
+    with ``CUBLAS_WORKSPACE_CONFIG`` set in the ranks' environment)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import leaves
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.parallel.sharding import (gather_tree, shard_tree,
+                                               use_mesh_rules)
+    from repro_torch.train.steps import (TrainState, make_train_step,
+                                         train_state_specs)
+
+    cfg = dataclasses.replace(get_config(SPMD_SMALL).reduced(),
+                              attn_impl="chunked")
+    model = Model(cfg)
+    batches = _spmd_batches(cfg.vocab, SPMD_SMALL_SEQ, SPMD_SMALL_BATCH)
+    opt = make_optimizer(base_lr=1e-3, warmup=1, total=10)
+    step = make_train_step(model, opt)
+    directory = os.path.join(workdir, "ckpt")
+    out = {}
+    with full_fp32():
+        full = model.init(torch.Generator(device="cuda").manual_seed(
+            SEED + 42), device="cuda")
+        mesh, rules = _spmd_mesh(SPMD_CKPT_MESH, cfg, SPMD_SMALL_BATCH)
+        with use_mesh_rules(mesh, rules):
+            specs = train_state_specs(model)
+            params = shard_tree(full, specs.params)
+            state, _ = step(TrainState(params, opt.init(params)), batches[0])
+            save(directory, 1, state, specs=specs)
+            whole = gather_tree(state, specs)
+        if rank == 0:
+            # the embedding's backward accumulates into rows that several
+            # tokens share: its atomic adds are ordered only so
+            torch.use_deterministic_algorithms(True)
+            restored, at, _ = restore(directory, whole)
+            same = at == 1 and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(leaves(restored), leaves(whole)))
+            check(same, "the checkpoint written on (2, 1) and restored on "
+                        "one rank differs from the gathered state")
+            a, ma = step(restored, batches[1])
+            b, mb = step(_clone_tree(whole), batches[1])
+            stepped = float(ma["loss"]) == float(mb["loss"]) and all(
+                torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+            torch.use_deterministic_algorithms(False)
+            check(stepped, "a step after the restore differs from the "
+                           "one-rank step on the gathered state")
+            out = {"restored_bit_for_bit": same,
+                   "step_after_restore_bit_for_bit": stepped,
+                   "loss": float(ma["loss"]),
+                   "leaves": len(leaves(whole))}
+    dist.barrier()
+    return out
+
+
+def _spmd_worker(argv):
+    """One rank of phase 24 (``chip_smoke.py --spmd-worker RANK WORLD
+    INIT DIR``): a gloo group over the card's tensors; its results go to
+    ``DIR/rank<RANK>.json``."""
+    rank, world, init, workdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    out = {"rank": rank, "small": _spmd_small(rank),
+           "full": _spmd_full(rank, smi), "ckpt": _spmd_ckpt(rank, workdir)}
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spmd_ranks(workdir):
+    """Start the ranks, wait for both (a rank that fails ends the other),
+    return their results."""
+    import shutil
+
+    from repro_torch.obs import timer
+
+    init = f"file://{os.path.join(workdir, 'store')}"
+    env = dict(os.environ, PYTHONPATH=SRC,
+               CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC)
+    logs = [os.path.join(workdir, f"rank{r}.log") for r in range(SPMD_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spmd-worker", str(r),
+         str(SPMD_RANKS), init, workdir], env=env,
+        stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+        for r in range(SPMD_RANKS)]
+    deadline = timer.now() + SPMD_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or timer.now() > deadline:
+                break
+            timer.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    for r, path in enumerate(logs):
+        shutil.copy(path, os.path.join(ROOT, "chiprun_out",
+                                       f"spmd_rank{r}.log"))
+        with open(path) as f:
+            for line in f.read().splitlines():
+                log(f"[rank {r}] {line}")
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * SPMD_RANKS, f"spmd ranks exited {codes} (logs in "
+                                     f"chiprun_out/spmd_rank*.log)")
+    res = []
+    for r in range(SPMD_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_spmd(smi):
+    """Phase 24 (module docstring). Returns (K6 and K6-backward launches
+    of the counted run, their worst |kernel - plain|, the two timing rows,
+    details)."""
+    import shutil
+
+    from repro_torch.obs import timer
+
+    t0 = timer.now()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="spmd-", dir=os.path.join(ROOT,
+                                                                 "build"))
+    try:
+        res = _spmd_ranks(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for mesh in res[0]["small"]:
+        check(all(r["small"][mesh]["losses"] == res[0]["small"][mesh][
+            "losses"] for r in res), f"spmd {mesh}: the ranks' losses differ")
+    full = [r["full"] for r in res]
+    check(all(f["losses"] == full[0]["losses"] for f in full),
+          f"spmd full: the ranks' losses differ: "
+          f"{[f['losses'] for f in full]}")
+    one = full[0]["one_rank_losses"]
+    losses = full[0]["losses"]
+    check(all(abs(a - b) <= SPMD_FULL_RTOL * abs(b)
+              for a, b in zip(losses, one)),
+          f"spmd {SPMD_FULL}: losses {losses} against one rank's {one}")
+    launches = {k: sum(f["launches"][k] for f in full)
+                for k in ("flash_attention", "flash_attention_bwd")}
+    k6_row, bwd_row = full[0]["k6_row"], full[0]["k6_bwd_row"]
+    k6_row["launches"] = launches["flash_attention"]
+    bwd_row["launches"] = launches["flash_attention_bwd"]
+    worst = {"flash_attention": max(f["k6_worst_fwd"] for f in full),
+             "flash_attention_bwd": max(f["k6_worst_bwd"] for f in full)}
+    details = {"card": smi, "small": res[0]["small"], "full": full,
+               "ckpt": res[0]["ckpt"], "launches": launches,
+               "wall_s": timer.now() - t0}
+    log(f"spmd phase ({smi}): (a) {SPMD_SMALL} reduced float32 K6, losses "
+        f"{json.dumps({k: v['losses'] for k, v in res[0]['small'].items()})}"
+        f" against one rank {res[0]['small']['1x2']['one_rank_losses']}; "
+        f"(b) {SPMD_FULL} full width on {SPMD_FULL_MESH}: losses {losses} "
+        f"against one rank {one}, K6 {launches['flash_attention']} and its "
+        f"backward {launches['flash_attention_bwd']} launches over both "
+        f"ranks, step ms {[f['step_ms'] for f in full]} (host clock, "
+        f"through gloo and the host: a smoke reading, not a TP "
+        f"throughput), peak GiB "
+        f"{[round(f['peak_bytes'] / 2**30, 3) for f in full]}; (c) "
+        f"{json.dumps(res[0]['ckpt'])}; {details['wall_s']:.3f} s")
+    return launches, worst, [k6_row, bwd_row], details
+
+
+
 def _now():
     from repro_torch.obs import timer
 
@@ -5331,6 +5839,7 @@ def main() -> int:
         k6_rows += fam_rows
         mesh = phase_mesh(smi)
         dryrun = phase_dryrun(smi)
+        spmd_launches, worst_spmd, spmd_rows, spmd = phase_spmd(smi)
         lm["profile"] = phase_lm_profile()
         lm["families"]["profile"] = phase_family_profile()
         lm["int8"]["profile"] = phase_int8_profile()
@@ -5353,8 +5862,10 @@ def main() -> int:
                                         worst_tiles)
         worst[HEAD_KERNEL] = worst_main[HEAD_KERNEL]
         worst["flash_attention"] = max(worst_lm, worst_fam,
+                                       worst_spmd["flash_attention"],
                                        *worst_flash.values())
-        worst["flash_attention_bwd"] = worst_train
+        worst["flash_attention_bwd"] = max(
+            worst_train, worst_spmd["flash_attention_bwd"])
         for k in BENCH_KERNELS:
             worst[k] = max(worst_k45[k], worst_bench[k])
         worst["qmatmul"] = max(worst["qmatmul"], worst_int8)
@@ -5364,8 +5875,10 @@ def main() -> int:
                     **{k: train_launches[k] for k in TRAIN_KERNELS},
                     **{k: bench_launches[k] for k in BENCH_KERNELS}}
         launches["qmatmul"] += k5_int8
+        for k, n in spmd_launches.items():
+            launches[k] += n
         line = kernels_line(rows + k6_rows + bench_rows + [k6_bwd_row]
-                            + int8_rows, launches, worst)
+                            + int8_rows + spmd_rows, launches, worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -5383,7 +5896,7 @@ def main() -> int:
                    "lm": lm, "kernel_bench": bench,
                    "scenarios": scenarios, "serving": serving, "qat": qat,
                    "paper_benches": papers, "mesh": mesh,
-                   "dryrun": dryrun,
+                   "dryrun": dryrun, "spmd": spmd,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,
@@ -5400,4 +5913,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--spmd-worker"]:
+        sys.exit(_spmd_worker(sys.argv[2:]))
     sys.exit(main())

@@ -19,6 +19,16 @@ same ``TrainState`` tree and the reference reads the port's.
 numpy has no bfloat16: a bf16 leaf is stored as its uint16 bit pattern,
 with dtype ``"bfloat16"`` in the manifest, and restored bit for bit.
 ``restore`` places each leaf on the device of the target tree's tensor.
+
+Under a mesh (``parallel.sharding.use_mesh_rules``) with the state's spec
+tree (``specs``): ``save`` gathers every leaf whole on every rank
+(``parallel.sharding.gather_tree``, a collective) and the mesh's first
+rank writes it, so the file is the one a single rank would write of the
+same state; ``restore`` reads each leaf whole and keeps the rank's block
+for the current mesh, whatever mesh wrote it (the counterpart of the
+reference's ``restore`` and ``device_put`` onto a new topology). A
+blocking save ends at a barrier over the mesh, so every rank then sees
+the checkpoint.
 """
 
 from __future__ import annotations
@@ -32,9 +42,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.pytree import leaves_with_paths, unflatten_like
 from repro_torch.obs import timer as obs_timer
+from repro_torch.parallel.sharding import (active_mesh, gather_tree,
+                                           local_block, mesh_group,
+                                           mesh_leader, spec_leaves)
 
 BF16 = "bfloat16"
 
@@ -98,9 +112,32 @@ def _write(directory: str, step: int, flat: Dict[str, Tuple[np.ndarray, str]],
         raise
 
 
-def save(directory: str, step: int, tree, extra_meta: Optional[dict] = None):
-    """Write one checkpoint atomically."""
-    _write(directory, step, _flatten(tree), extra_meta)
+def _snapshot(tree, specs):
+    """The host copy of ``tree`` that this rank writes: every leaf (whole
+    under a mesh with ``specs``), or None on a rank of a mesh that does
+    not write."""
+    mesh = active_mesh()
+    if specs is None or mesh is None:
+        return _flatten(tree)
+    whole = gather_tree(tree, specs)
+    return _flatten(whole) if mesh_leader(mesh) else None
+
+
+def _barrier(specs) -> None:
+    mesh = active_mesh()
+    if specs is not None and mesh is not None and mesh.size() > 1:
+        dist.barrier(group=mesh_group(mesh))
+
+
+def save(directory: str, step: int, tree, extra_meta: Optional[dict] = None,
+         specs=None):
+    """Write one checkpoint atomically (under a mesh with ``specs``: the
+    gathered leaves, by the mesh's first rank; every rank returns once it
+    is written)."""
+    flat = _snapshot(tree, specs)
+    if flat is not None:
+        _write(directory, step, flat, extra_meta)
+    _barrier(specs)
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -114,11 +151,12 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, tree_like, step: Optional[int] = None
-            ) -> Tuple[Any, int, dict]:
+def restore(directory: str, tree_like, step: Optional[int] = None,
+            specs=None) -> Tuple[Any, int, dict]:
     """Load a checkpoint into the structure of ``tree_like``, each leaf a
     tensor in its stored dtype on the device of ``tree_like``'s tensor at
-    the same path. Returns (tree, step, manifest)."""
+    the same path (under a mesh with ``specs``: the rank's block of the
+    stored leaf). Returns (tree, step, manifest)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -127,20 +165,30 @@ def restore(directory: str, tree_like, step: Optional[int] = None
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     dtypes = manifest["dtypes"]
+    blocks = (spec_leaves(specs) if specs is not None
+              and active_mesh() is not None else None)
     out = []
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        for key, like in leaves_with_paths(tree_like):
-            out.append(_from_host(z[key], dtypes[key], like))
+        for i, (key, like) in enumerate(leaves_with_paths(tree_like)):
+            t = _from_host(z[key], dtypes[key], None)
+            if blocks is not None:
+                t = local_block(t, blocks[i])
+            out.append(t.to(like.device) if isinstance(like, torch.Tensor)
+                       else t)
     return unflatten_like(tree_like, out), step, manifest
 
 
 class CheckpointManager:
-    """save-every-N with async write + retention, plus auto-resume."""
+    """save-every-N with async write + retention, plus auto-resume; under
+    a mesh with the state's spec tree ``specs``, as ``save`` and
+    ``restore`` do it."""
 
-    def __init__(self, directory: str, every: int = 100, keep_n: int = 3):
+    def __init__(self, directory: str, every: int = 100, keep_n: int = 3,
+                 specs=None):
         self.directory = directory
         self.every = every
         self.keep_n = keep_n
+        self.specs = specs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -150,7 +198,11 @@ class CheckpointManager:
             return False
         self.wait()
         # snapshot on the caller's thread (device -> host copy), write async
-        flat = _flatten(tree)
+        flat = _snapshot(tree, self.specs)
+        if flat is None:            # a rank of the mesh that does not write
+            if block:
+                _barrier(self.specs)
+            return True
 
         def work():
             try:
@@ -163,6 +215,7 @@ class CheckpointManager:
         self._thread.start()
         if block:
             self.wait()
+            _barrier(self.specs)
         return True
 
     def wait(self):
@@ -182,4 +235,4 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def restore_latest(self, tree_like):
-        return restore(self.directory, tree_like)
+        return restore(self.directory, tree_like, specs=self.specs)

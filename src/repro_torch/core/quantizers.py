@@ -173,8 +173,12 @@ class IntQuantizer:
             s = quantize_po2(s)
         return s
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.scale(x)
+    def __call__(self, x: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The fake-quantized ``x``; ``scale`` (None: ``self.scale(x)``)
+        is given where x is a block of the tensor whose min-max sets
+        it."""
+        s = self.scale(x) if scale is None else scale
         q = ste_round(x / s)
         q = ste_clip(q, float(self.qmin), float(self.qmax))
         return q * s

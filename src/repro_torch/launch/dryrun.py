@@ -5,7 +5,8 @@ The port of ``repro.launch.dryrun``: the same functions, flags and record
 keys. What does not carry over is XLA: the reference lowers and compiles
 each cell's jitted step for 512 fake host devices and reads the
 partitioned HLO. The port has no XLA, no HLO and no SPMD partitioner (its
-dense linears have no tensor parallelism), so for each cell this module:
+model partitions itself, one process a rank: the rank-local step is not
+traced here), so for each cell this module:
 
   1. builds the production mesh (16 x 16 single-pod / 2 x 16 x 16
      multi-pod) over torch's ``fake`` process group: 512 ranks in this

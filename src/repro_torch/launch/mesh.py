@@ -25,7 +25,10 @@ name, from a ``DeviceMesh`` or anything with ``mesh_dim_names`` and
 ``make_elastic_mesh`` builds the best-fitting ("data", "model") mesh from
 the ranks that are alive, the reference's clamp: the model axis takes
 ``min(model_parallel, n)``, lowered until it divides n, and the data axis
-the rest, so on one rank every ``model_parallel`` gives (1, 1).
+the rest, so on one rank every ``model_parallel`` gives (1, 1). A mesh
+over some of the group's ranks (``ranks``) is built by every rank of the
+group; those outside it hold no coordinate and take no part in its
+collectives.
 """
 
 from __future__ import annotations
@@ -43,12 +46,18 @@ def _device_type() -> str:
 
 def _mesh(ranks: Sequence[int], shape: Tuple[int, ...],
           names: Tuple[str, ...]):
+    """The mesh, with the group over all its ranks made too: every rank
+    of the process group calls this, and creating a group takes them
+    all (a rank outside ``ranks`` holds no coordinate in it)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh(_device_type(),
+    mesh = DeviceMesh(_device_type(),
                       torch.tensor(list(ranks), dtype=torch.int64).reshape(
                           shape),
                       mesh_dim_names=names)
+    if len(names) > 1:
+        mesh._flatten()
+    return mesh
 
 
 def init_fake_process_group(world_size: int = 512) -> None:

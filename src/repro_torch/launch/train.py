@@ -13,16 +13,25 @@ process, the launcher brings up a group of one rank itself (NCCL on the
 card, ``gloo`` on the CPU, an in-memory store: no address, no port) and
 takes it down at the end; the mesh is then (1, 1) whatever
 ``--model-parallel`` says, as the reference's launcher gives on one
-device. A group that is already up (the caller's) is used as it is;
-with more than one rank the step holds the params whole on every rank,
-which only the (1, 1) mesh makes a correct step, so the launcher refuses
-a larger mesh (``train.steps.make_ddp_compressed_step`` is the
-data-parallel step). Weights come from a ``torch.Generator``
+device. A group that is already up (the caller's: N processes, each
+calling ``main`` after its own ``init_process_group``) is used as it is,
+and the step is SPMD over its ranks: under ``launch.dryrun.arch_rules``
+of the mesh (a logical axis goes to "model" only where its dimension
+divides the axis; the batch over the largest of ("data",) that divides
+``--batch``), every rank draws the same seeded weights, keeps its blocks
+of them (``parallel.sharding.shard_tree`` over ``Model.param_specs``)
+and of the optimizer state, takes its rows of each global batch, and the
+checkpoints gather and reshard (``train.steps.make_train_step``,
+``checkpoint``). The mamba and hybrid families have no rank-local form
+yet: under a mesh of more than one rank the launcher refuses them,
+naming the ``ROADMAP.md`` item. Weights come from a ``torch.Generator``
 seeded with 0 (JAX's PRNG is not reproduced). A run resumes from the
 newest checkpoint in ``--ckpt-dir``; on ``ElasticRestart`` (the
-straggler watchdog) the launcher builds the state again on the same
-device and resumes from the checkpoint the loop wrote. ``--arch`` takes
-every configuration; the vlm / audio backbones (``embed_inputs=False``),
+straggler watchdog, taken by every rank alike) the launcher builds the
+mesh again over the group's ranks (no failure detector hands back a
+smaller set, as in the reference), builds the state again and resumes
+from the checkpoint the loop wrote, resharded onto the mesh. ``--arch``
+takes every configuration; the vlm / audio backbones (``embed_inputs=False``),
 whose frontends are stubs, train on seeded normal frame embeddings (one
 draw a step, so a resumed run sees the same batches) against the token
 stream's labels.
@@ -41,12 +50,14 @@ import torch.distributed as dist
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.qir import resolve_device
 from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.launch.dryrun import arch_rules, batch_logical_axes
 from repro_torch.launch.mesh import make_elastic_mesh, mesh_devices
-from repro_torch.models.model import Model
+from repro_torch.models.model import SSM_MESH_ITEM, Model
 from repro_torch.optim.adamw import make_optimizer
-from repro_torch.parallel.sharding import use_mesh_rules
+from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
 from repro_torch.train.loop import ElasticRestart, LoopConfig, run_training
-from repro_torch.train.steps import TrainState, make_train_step
+from repro_torch.train.steps import (TrainState, make_train_step,
+                                     train_state_specs)
 
 logging.basicConfig(level=logging.INFO, format="%(message)s")
 log = logging.getLogger("repro_torch.launch.train")
@@ -99,18 +110,18 @@ def _train(args, cfg, device):
         mesh = make_elastic_mesh(args.model_parallel)
         log.info("mesh %s over %d ranks", dict(zip(
             mesh.mesh_dim_names, mesh.shape)), mesh_devices(mesh))
-        if mesh_devices(mesh) != 1:
-            raise ValueError(
-                f"a {tuple(mesh.shape)} mesh: the launcher's step holds the "
-                f"params whole on every rank, right on a (1, 1) mesh only; "
-                f"train over data ranks with "
-                f"train.steps.make_ddp_compressed_step")
+        if mesh_devices(mesh) != 1 and cfg.has_ssm:
+            raise NotImplementedError(
+                f"{cfg.name} on a {tuple(mesh.shape)} mesh: {SSM_MESH_ITEM}")
+        rules = arch_rules(cfg, mesh, batch_logical_axes(args.batch, mesh))
         log.info("%s on %s", cfg.name, device)
         model = Model(cfg)
-        params = model.init(
-            torch.Generator(device=device).manual_seed(0),
-            device=device)
         opt = make_optimizer(base_lr=3e-4, warmup=10, total=args.steps)
+        with use_mesh_rules(mesh, rules):
+            specs = train_state_specs(model)
+            params = shard_tree(model.init(
+                torch.Generator(device=device).manual_seed(0),
+                device=device), specs.params)
         state = TrainState(params=params, opt=opt.init(params))
         step_fn = make_train_step(model, opt, microbatches=args.microbatches)
 
@@ -127,15 +138,16 @@ def _train(args, cfg, device):
                           ckpt_every=args.ckpt_every,
                           ckpt_dir=args.ckpt_dir, log_every=10)
         try:
-            with use_mesh_rules(mesh):
-                res = run_training(step_fn, state, batch_fn, lcfg)
+            with use_mesh_rules(mesh, rules):
+                res = run_training(step_fn, state, batch_fn, lcfg,
+                                   state_specs=specs)
             break
         except ElasticRestart as e:
             restarts += 1
             log.warning("elastic restart %d: %s", restarts, e)
             if restarts > args.max_elastic_restarts:
                 raise
-            # one card: the same device again, resumed from the checkpoint
+            # the group's ranks again, resumed from the checkpoint
             continue
 
     last = res.metrics_history[-1] if res.metrics_history else {}

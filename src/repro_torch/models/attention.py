@@ -13,6 +13,9 @@ the reference), "chunked" through the kernel's autograd function, whose
 backward is a kernel of its own (``ops.flash_attention_bwd``; the
 reference differentiates its jnp flash twin). ``decode_attention`` and
 ``_decode_ring`` stay plain torch ops, as they are jnp in the reference.
+Under a mesh ``attn_apply`` runs on the rank's heads (its docstring says
+how), with K6 at the rank-local head counts; decode under a mesh of
+more than one rank is not ported.
 M-RoPE (Qwen2-VL) takes (3, B, S) positions, one row per (t, h, w)
 section of the rotary half-dims; the masks and the kernel read the
 temporal row, which on the flash path must be an arange run.
@@ -27,6 +30,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dtype, _mx, linear_apply, linear_init
+from repro_torch.parallel.collectives import copy_to_group, sum_over_group
+from repro_torch.parallel.sharding import (local_dim, logical_block,
+                                           logical_group)
 
 NEG_INF = -1e30
 
@@ -219,16 +225,57 @@ def _softmax_weighted(s, valid, v_cache):
 # full blocks
 # ---------------------------------------------------------------------------
 
+def _kv_heads_of(cfg: ArchConfig, lo: int, n: int):
+    """The kv heads that q heads ``lo`` .. ``lo + n - 1`` read (q head h
+    reads kv head h // (H / KV)): each distinct one once where they form
+    even GQA groups in order, else one a q head."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    per_q = [h // group for h in range(lo, lo + n)]
+    uniq = sorted(set(per_q))
+    if n % len(uniq) == 0 and per_q == [u for u in uniq
+                                        for _ in range(n // len(uniq))]:
+        return uniq
+    return per_q
+
+
+def _rank_proj(cfg: ArchConfig, lin, x, tp, split: bool):
+    """A q / k / v projection under the attention's group ``tp``: the
+    rank's heads of a weight split over it; a weight it leaves whole,
+    whose output the rank then slices, enters by Megatron's ``f`` so that
+    its gradient is summed over the group."""
+    if tp is not None and not split:
+        lin = {k: copy_to_group(v, tp) for k, v in lin.items()}
+    return linear_apply(cfg, lin, x, fsdp_dim=0,
+                        split=tp if split else None)
+
+
 def attn_apply(cfg: ArchConfig, p, x, positions,
                pos_offset: Optional[int] = None):
     """Training / prefill forward. x (B,S,d); positions (B,S) or
     (3,B,S). ``pos_offset`` (the model's own positions, an arange from
     it; 0 on every path today) spares the flash branch its check of the
-    positions; None: they come from the caller and are checked."""
+    positions; None: they come from the caller and are checked.
+
+    Under a mesh the rank computes its block of the heads: "heads_flat"
+    splits ``wo``'s fan-in (row-parallel, the partial outputs summed over
+    its group) and x enters by Megatron's ``f``. Where "heads" and
+    "kv_heads" are split too, q, k and v are the rank's heads; where only
+    "heads" is, every rank projects all kv heads and keeps the ones its
+    q heads read; where "heads" is not split, every rank computes every
+    head and keeps its block of the flattened output before ``wo``."""
     B, S, _ = x.shape
-    q = linear_apply(cfg, p["wq"], x)
-    k = linear_apply(cfg, p["wk"], x)
-    v = linear_apply(cfg, p["wv"], x)
+    tp = logical_group("heads_flat")
+    heads_split = logical_group("heads") is not None
+    kv_split = logical_group("kv_heads") is not None
+    x = copy_to_group(x, tp)
+    q = _rank_proj(cfg, p["wq"], x, tp, heads_split)
+    k = _rank_proj(cfg, p["wk"], x, tp, kv_split)
+    v = _rank_proj(cfg, p["wv"], x, tp, kv_split)
+    if heads_split and not kv_split:
+        idx = _kv_heads_of(cfg, logical_block("heads")[0] * q.shape[2],
+                           q.shape[2])
+        idx = torch.tensor(idx, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     cos, sin = positions_cos_sin(cfg, positions)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -245,8 +292,12 @@ def attn_apply(cfg: ArchConfig, p, x, positions,
     else:
         bias = mask_bias(cfg, pos1d[0], pos1d[0])
         out = naive_attention(q, k, v, bias)
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
-    return linear_apply(cfg, p["wo"], out)
+    out = out.reshape(B, S, q.shape[2] * cfg.hd)
+    if tp is not None and not heads_split:
+        n = local_dim("heads_flat", out.shape[-1])
+        out = out.narrow(-1, logical_block("heads_flat")[0] * n, n)
+    return sum_over_group(linear_apply(cfg, p["wo"], out, fsdp_dim=1,
+                                       split=tp), tp)
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype=None,

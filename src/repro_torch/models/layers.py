@@ -7,12 +7,26 @@ that weights carry across (``repro_torch.models.model.params_from_numpy``).
 Inits draw the reference's distributions from an explicit
 ``torch.Generator`` on an explicit device; JAX's PRNG values themselves
 cannot be reproduced. Plain matmuls are ``torch.matmul``, as the reference
-leaves them to XLA's ``dot_general``. The reference's ``shard(...)``
-constraints are the identity on one card and are left out.
+leaves them to XLA's ``dot_general``.
+
+Under a mesh (``parallel.sharding.use_mesh_rules``) the layers run in the
+SPMD form of one process a rank, where the reference's GSPMD partitions
+along its ``shard(...)`` constraints: each rank holds the blocks of the
+parameters that the spec trees give, gathers the ``fsdp`` blocks before
+use (``parallel.collectives.gather_blocks``, whose backward is the
+reduce-scatter), and splits the work over the groups of the active rules
+(``parallel.sharding.logical_group``): the MLP's ``wi_gate`` / ``wi_up``
+by columns and ``wo`` by rows over "mlp", its input in through Megatron's
+``f`` and its output out through ``g``; the embedding's vocab rows over
+"vocab" (a token outside the rank's block looks up zeros, and the
+lookups are summed over the group); the head's logits over "vocab" (the
+loss is vocab-parallel, ``models.model``). A group of one rank, or a
+logical axis the rules leave unsplit, runs the plain code.
 
 With ``weight_bits < 16`` every linear fake-quantizes its weight per
 tensor with the port's straight-through ``IntQuantizer`` (QAT), as the
-reference does.
+reference does; a weight split over ranks takes the scale of the whole
+tensor (the block's max |w| reduced over the group that splits it).
 
 The int8 serve path: ``quantize_linear_params`` turns a float linear into
 int codes (``w_int``, int8, w's shape) and per-output-channel scales over
@@ -40,11 +54,12 @@ outside any Pallas kernel) and an optional shared expert. Under a mesh
 (``parallel.sharding.use_mesh_rules``) it takes the reference's
 ``shard_map`` branch in the SPMD form of one process a rank: each rank
 passes its own tokens and its own blocks of the expert tensors (the
-``fsdp`` axis of d, the ``model`` axis of d_ff); the blocks are gathered
+``fsdp`` axis of d, the ``mlp`` axis of d_ff); the blocks are gathered
 over the fsdp group, the rank's tokens run through the local branch, and
-the partial sums over d_ff are all-reduced over the model group. The
-router and the shared expert are whole on every rank. ``moe_apply``
-states how the gradients are split among the ranks.
+the partial sums over d_ff are all-reduced over the mlp group. The
+router is whole on every rank; the shared expert is a dense MLP, split
+as ``mlp_apply`` splits it. ``moe_apply`` states how the gradients are
+split among the ranks.
 """
 
 from __future__ import annotations
@@ -52,13 +67,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantizers import IntQuantizer
 from repro_torch.kernels import ops
+from repro_torch.parallel.collectives import (copy_to_group, gather_blocks,
+                                              max_over_group,
+                                              mean_over_group,
+                                              sum_over_group)
 from repro_torch.parallel.sharding import (active_mesh, active_rules,
-                                           axis_group, batch_axes, model_axes)
+                                           logical_block, logical_group)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -154,19 +172,29 @@ def linear_init(generator, in_dim: int, out_shape, cfg: ArchConfig,
     return p
 
 
-def linear_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+def linear_apply(cfg: ArchConfig, p, x: torch.Tensor,
+                 fsdp_dim: Optional[int] = None, split=None) -> torch.Tensor:
     """y = x @ w (+b), contracting x's last axis with w's first. With
     ``cfg.weight_bits < 16`` w is fake-quantized first:
     narrow signed codes at a per-tensor min-max scale, in float32, cast
     back to w's dtype; the gradient passes straight through. A ``w_int``
-    linear (the int8 serve path) runs on K5 instead."""
+    linear (the int8 serve path) runs on K5 instead.
+
+    Under a mesh: w's "fsdp" blocks along ``fsdp_dim`` are gathered
+    first; ``split`` is the group over which w is a block (tensor
+    parallelism), whose max |w| sets the fake-quant scale."""
     if "w_int" in p:
         y = _int8_linear(cfg, p["w_int"], p["w_scale"], x)
     else:
         w = p["w"]
+        if fsdp_dim is not None:
+            w = gather_blocks(w, logical_group("fsdp"), fsdp_dim)
         if cfg.weight_bits < 16:
             wq = IntQuantizer(bits=cfg.weight_bits, signed=True, narrow=True)
-            w = wq(w.to(torch.float32)).to(w.dtype)
+            wf = w.to(torch.float32)
+            scale = (None if split is None else wq.scale(
+                max_over_group(wf.abs().amax(), split)))
+            w = wq(wf, scale).to(w.dtype)
         y = torch.matmul(x, w.reshape(w.shape[0], -1))
         y = y.reshape(*x.shape[:-1], *w.shape[1:])
     if "b" in p:
@@ -217,16 +245,34 @@ def embed_specs(cfg: ArchConfig):
 
 
 def embed_apply(cfg: ArchConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()].to(_dtype(cfg))
+    """The table's rows of ``tokens``. Under a mesh that splits the vocab,
+    the rank's rows of the table look up the tokens in its block, the
+    others zeros, and the lookups are summed over the group (one rank
+    adds a row, so the sum is exact)."""
+    table = gather_blocks(p["table"], logical_group("fsdp"), 1)
+    tp = logical_group("vocab")
+    if tp is None:
+        return table[tokens.long()].to(_dtype(cfg))
+    rows = table.shape[0]
+    local = tokens.long() - logical_block("vocab")[0] * rows
+    mine = ((local >= 0) & (local < rows))[..., None]
+    x = torch.where(mine, table[local.clamp(0, rows - 1)], 0.0)
+    return sum_over_group(x.to(_dtype(cfg)), tp)
 
 
 def head_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     """Logits in float32 through the tied table or a separate head; an
     int8 head (``w_int``) runs as a linear, so its logits pass through
-    the config's dtype on the way, as in the reference."""
+    the config's dtype on the way, as in the reference. Under a mesh that
+    splits the vocab: the rank's block of the logits."""
     if "w_int" in p:
         return linear_apply(cfg, p, x).to(torch.float32)
-    w = p["table"].t() if "table" in p else p["w"]
+    fsdp = logical_group("fsdp")
+    if "table" in p:
+        w = gather_blocks(p["table"], fsdp, 1).t()
+    else:
+        w = gather_blocks(p["w"], fsdp, 0)
+    x = copy_to_group(x, logical_group("vocab"))
     return torch.matmul(x, w).to(torch.float32)
 
 
@@ -254,10 +300,15 @@ def mlp_specs(cfg: ArchConfig):
 
 
 def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    g = linear_apply(cfg, p["wi_gate"], x)
-    u = linear_apply(cfg, p["wi_up"], x)
+    """SwiGLU; under a mesh the rank's d_ff block (column-parallel in,
+    row-parallel out, the partial outputs summed over the "mlp" group)."""
+    tp = logical_group("mlp")
+    x = copy_to_group(x, tp)
+    g = linear_apply(cfg, p["wi_gate"], x, fsdp_dim=0, split=tp)
+    u = linear_apply(cfg, p["wi_up"], x, fsdp_dim=0, split=tp)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    return linear_apply(cfg, p["wo"], h)
+    return sum_over_group(
+        linear_apply(cfg, p["wo"], h, fsdp_dim=1, split=tp), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -354,97 +405,15 @@ def moe_route(cfg: ArchConfig, p, x):
     return probs, weights / weights.sum(dim=-1, keepdim=True), idx
 
 
-class _GatherBlocks(torch.autograd.Function):
-    """All-gather of the group's blocks along ``dim`` (tiled, in rank
-    order); the backward is its transpose, a reduce-scatter: the gradient
-    summed over the group, the rank's block kept (an all-reduce and a
-    slice, which every backend has)."""
-
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        n = dist.get_world_size(group)
-        ctx.group, ctx.dim, ctx.n = group, dim, n
-        ctx.rank = dist.get_rank(group)
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
-
-    @staticmethod
-    def backward(ctx, gy):
-        g = gy.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g.chunk(ctx.n, dim=ctx.dim)[ctx.rank].contiguous(), None, None
-
-
-class _SumOverGroup(torch.autograd.Function):
-    """The reference's ``psum`` over ranks that hold the same tokens and
-    one loss: the SUM all-reduce of their partials, the output's gradient
-    passed back as it is (Megatron's ``g``)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, gy):
-        return gy, None
-
-
-class _CopyToGroup(torch.autograd.Function):
-    """The identity into a computation split over ranks that hold the
-    same tokens and one loss; the backward sums the ranks' partial
-    gradients (Megatron's ``f``, the transpose of ``_SumOverGroup``)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, gy):
-        g = gy.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _MeanOverGroup(torch.autograd.Function):
-    """The mean of the group's values, on every rank; the backward is its
-    exact transpose, the group's cotangents summed and divided by its
-    size (so a cotangent that every rank holds comes back whole)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.n = group, dist.get_world_size(group)
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y / ctx.n
-
-    @staticmethod
-    def backward(ctx, gy):
-        g = gy.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g / ctx.n, None
-
-
-def _over_group(fn, x, group, *args):
-    """``fn`` over ``group``, or ``x`` itself on a group of one rank (no
-    copy, no collective)."""
-    if group is None or dist.get_world_size(group) == 1:
-        return x
-    return fn.apply(x, group, *args)
-
-
 def moe_apply(cfg: ArchConfig, p, x):
     """Returns (y, aux_loss): the routed experts' combine (plus the shared
     expert) and the Switch load-balance loss.
 
     Under a mesh, x is the rank's tokens and ``wi_gate`` / ``wi_up`` /
-    ``wo`` its blocks (d over the fsdp axes, d_ff over the model axes):
+    ``wo`` its blocks (d over the fsdp axes, d_ff over the mlp axes):
     the blocks are gathered over the fsdp group, the rank's tokens
     dispatched with its own capacity, the partial sums over d_ff
-    all-reduced over the model group, and the aux loss's two means taken
+    all-reduced over the mlp group, and the aux loss's two means taken
     over the batch group's tokens, as the reference's global ones.
     Collectives over a group of one rank are skipped.
 
@@ -473,19 +442,17 @@ def moe_apply(cfg: ArchConfig, p, x):
     if mesh is None:
         y = _moe_local(cfg, x, idx, weights, wg, wu, wo)
     else:
-        group = axis_group(mesh, batch_axes())
-        me = _over_group(_MeanOverGroup, me, group)
-        ce = _over_group(_MeanOverGroup, ce, group)
-        fsdp = active_rules().get("fsdp")
-        if fsdp:      # FSDP all-gather (backward: reduce-scatter)
-            group = axis_group(mesh, fsdp)
-            wg = _over_group(_GatherBlocks, wg, group, 1)
-            wu = _over_group(_GatherBlocks, wu, group, 1)
-            wo = _over_group(_GatherBlocks, wo, group, 2)
-        group = axis_group(mesh, model_axes())
-        y = _moe_local(cfg, _over_group(_CopyToGroup, x, group), idx,
-                       _over_group(_CopyToGroup, weights, group), wg, wu, wo)
-        y = _over_group(_SumOverGroup, y, group)   # TP reduce over 'model'
+        group = logical_group("batch")
+        me = mean_over_group(me, group)
+        ce = mean_over_group(ce, group)
+        fsdp = logical_group("fsdp")  # FSDP all-gather (bwd: reduce-scatter)
+        wg = gather_blocks(wg, fsdp, 1)
+        wu = gather_blocks(wu, fsdp, 1)
+        wo = gather_blocks(wo, fsdp, 2)
+        tp = logical_group("mlp")
+        y = _moe_local(cfg, copy_to_group(x, tp), idx,
+                       copy_to_group(weights, tp), wg, wu, wo)
+        y = sum_over_group(y, tp)   # TP reduce over the d_ff blocks
     aux = E * (me * ce).sum()
     if cfg.moe_shared_expert:
         y = y + mlp_apply(cfg, p["shared"], x)

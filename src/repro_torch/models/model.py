@@ -55,6 +55,56 @@ from repro_torch.models.layers import (_dtype, _mx, embed_apply, embed_init,
                                        embed_specs, head_apply, leaf_dtype,
                                        norm_apply, norm_init, norm_specs,
                                        quantize_linear_params)
+from repro_torch.parallel.collectives import (max_over_group, sum_detached,
+                                              sum_over_batch, sum_over_group)
+from repro_torch.parallel.sharding import (active_mesh, batch_block,
+                                           logical_block, logical_group)
+
+#: the ROADMAP.md items that a mesh of more than one rank still lacks
+SSM_MESH_ITEM = ("ROADMAP.md queue 1: mamba and the hybrid blocks under a "
+                 "multi-rank mesh")
+INFERENCE_MESH_ITEM = ("ROADMAP.md queue 1: prefill and decode under a "
+                       "mesh, with the kv_seq-sharded cache")
+
+
+def _refuse_multi_rank(cfg: ArchConfig, what: str,
+                       inference: bool = False) -> None:
+    """Raise where a mesh of more than one rank is active and ``what``
+    has no rank-local form yet."""
+    mesh = active_mesh()
+    if mesh is None or mesh.size() == 1:
+        return
+    if inference:
+        raise NotImplementedError(
+            f"{what} under a {tuple(mesh.shape)} mesh is not ported "
+            f"({INFERENCE_MESH_ITEM})")
+    if cfg.has_ssm:
+        raise NotImplementedError(f"{cfg.name} ({what}) under a "
+                                  f"{tuple(mesh.shape)} mesh is not ported "
+                                  f"({SSM_MESH_ITEM})")
+
+
+def _lse_and_label_logit(logits, labels):
+    """(log-sum-exp over the vocab, the label's logit) of float32 logits;
+    labels < 0 give any logit (the loss masks them). Where the vocab is
+    split the rank holds its block of the logits: the log-sum-exp is the
+    group's max (a constant under the gradient) plus the log of the
+    exponentials' sum over the group, and the label's logit is summed
+    over the group from the one rank whose block holds it."""
+    tp = logical_group("vocab")
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse, torch.gather(logits, -1,
+                                 labels.clamp_min(0)[..., None])[..., 0]
+    rows = logits.shape[-1]
+    m = max_over_group(logits.amax(dim=-1), tp)
+    lse = m + torch.log(sum_over_group(
+        torch.exp(logits - m[..., None]).sum(dim=-1), tp))
+    local = labels - logical_block("vocab")[0] * rows
+    mine = (local >= 0) & (local < rows)
+    lab = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    return lse, sum_over_group(torch.where(mine, lab, 0.0), tp)
+
 
 def params_from_numpy(tree, cfg: ArchConfig, device=None):
     """The reference's ``Model.init`` pytree (or its ``quantize_params``
@@ -132,12 +182,14 @@ class Model:
     def _inputs_to_h(self, params, batch):
         """(h, positions, their offset): the caller's positions (offset
         None: the attention layers check them), or the arange built here
-        (offset 0: nothing is read back from it)."""
-        h = self._embed(params, batch["tokens"] if self.cfg.embed_inputs
-                        else batch["embeds"])
+        (offset 0: nothing is read back from it). Under a mesh that
+        splits the batch, of the rank's rows of the global batch."""
+        h = self._embed(params, batch_block(
+            batch["tokens"] if self.cfg.embed_inputs else batch["embeds"]))
         B, S = h.shape[:2]
         if "positions" in batch:
-            return h, batch["positions"], None
+            pos = batch["positions"]
+            return h, batch_block(pos, dim=pos.dim() - 2), None
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S)
         return h, positions, 0
@@ -148,7 +200,10 @@ class Model:
                           else params["head"], h)
 
     def train_logits(self, params, batch):
-        """Returns (logits (B, S, V) float32, aux_loss), with autograd."""
+        """Returns (logits (B, S, V) float32, aux_loss), with autograd.
+        Under a mesh: the rank's rows and, where the vocab is split, its
+        block of the vocab."""
+        _refuse_multi_rank(self.cfg, "train_logits")
         h, positions, offset = self._inputs_to_h(params, batch)
         h, aux = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
                                  offset)
@@ -159,16 +214,26 @@ class Model:
         {"ce",
         "z_loss", "aux"}), the reference's terms: labels < 0 are masked.
         The label's logit is gathered (the reference sums a one-hot
-        select, which gives the same value)."""
+        select, which gives the same value).
+
+        Under a mesh ``batch`` is the global batch and every rank returns
+        the global loss: the cross-entropy's and the z-loss's numerators
+        and the count of labels are summed over the batch group (so
+        ranks with different numbers of masked labels give the global
+        mean), and where the vocab is split the log-sum-exp and the
+        label's logit are vocab-parallel (``_lse_and_label_logit``). The
+        gradients follow the convention of
+        ``parallel.collectives``."""
         logits, aux = self.train_logits(params, batch)
-        labels = batch["labels"].long()
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+        labels = batch_block(batch["labels"]).long()
+        lse, lab = _lse_and_label_logit(logits, labels)
         mask = (labels >= 0).to(torch.float32)
-        denom = torch.clamp_min(mask.sum(), 1.0)
-        ce = ((lse - lab) * mask).sum() / denom
+        batch_group = logical_group("batch")
+        denom = torch.clamp_min(sum_detached(mask.sum(), batch_group), 1.0)
+        ce = sum_over_batch(((lse - lab) * mask).sum(), batch_group) / denom
         # z-loss keeps the softmax normalizer bounded (MaxText-style)
-        zl = 1e-4 * (lse.square() * mask).sum() / denom
+        zl = 1e-4 * sum_over_batch((lse.square() * mask).sum(),
+                                   batch_group) / denom
         total = ce + zl + 1e-2 * aux
         return total, {"ce": ce, "z_loss": zl, "aux": aux}
 
@@ -178,6 +243,7 @@ class Model:
         """Full-sequence forward: batch {"tokens": (B, S) int} or
         {"embeds": (B, S, d)} (optional "positions" (B, S) or (3, B, S))
         -> logits (B, S, V) float32."""
+        _refuse_multi_rank(self.cfg, "prefill", inference=True)
         h, positions, offset = self._inputs_to_h(params, batch)
         h, _ = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
                                offset)
@@ -247,6 +313,7 @@ class Model:
         tokens (B, 1) int, or embeds (B, 1, d) for ``embed_inputs=False``;
         cur_index an int or a (B,) tensor of per-slot positions. Returns
         (logits (B, 1, V) float32, caches), the caches updated in place."""
+        _refuse_multi_rank(self.cfg, "decode_step", inference=True)
         h = self._embed(params, tokens_or_embeds)
         h, caches = tfm.stack_decode(self.cfg, params["blocks"], caches, h,
                                      cur_index)

@@ -17,8 +17,11 @@ import math
 from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.pytree import leaves, tree_map, unflatten_like
+from repro_torch.parallel.sharding import (active_mesh, axis_group,
+                                           spec_axes, spec_leaves)
 
 
 class AdamWState(NamedTuple):
@@ -35,12 +38,40 @@ def adamw_init(params) -> AdamWState:
                       m=zeros, v=tree_map(torch.clone, zeros))
 
 
+def _sumsq(g: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.square(g.to(torch.float32)))
+
+
+def _global_sumsq(grads, specs) -> torch.Tensor:
+    """The squared norm of the whole gradient of which ``grads`` holds the
+    rank's blocks under the active mesh: each leaf's squares summed over
+    the groups that split it (the leaves split alike summed together, one
+    all-reduce a group), a leaf no group splits counted once."""
+    mesh = active_mesh()
+    by_axes = {}
+    for g, spec in zip(leaves(grads), spec_leaves(specs)):
+        axes = tuple(a for a in mesh.mesh_dim_names
+                     if any(a in spec_axes(e) for e in spec))
+        by_axes.setdefault(axes, []).append(_sumsq(g))
+    total = None
+    for axes, parts in by_axes.items():
+        part = sum(parts)
+        if axes:
+            dist.all_reduce(part, group=axis_group(mesh, axes))
+        total = part if total is None else total + part
+    return total
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, specs=None):
     """(grads scaled to a global norm of at most ``max_norm``, each in its
-    own dtype, and the norm before scaling)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in leaves(grads)))
+    own dtype, and the norm before scaling). ``specs`` (the gradients'
+    spec tree) under a mesh: ``grads`` are the rank's blocks and the norm
+    is the whole gradient's."""
+    if specs is None or active_mesh() is None:
+        gn = torch.sqrt(sum(_sumsq(g) for g in leaves(grads)))
+    else:
+        gn = torch.sqrt(_global_sumsq(grads, specs))
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), gn
@@ -105,8 +136,11 @@ class Optimizer:
     def init(self, params) -> AdamWState:
         return adamw_init(params)
 
-    def update(self, grads, state, params):
-        grads, gn = clip_by_global_norm(grads, self.max_grad_norm)
+    def update(self, grads, state, params, specs=None):
+        """One step; under a mesh ``specs`` is the parameters' spec tree
+        (the global norm's groups): AdamW itself is elementwise, so it
+        runs on the rank's blocks as it is."""
+        grads, gn = clip_by_global_norm(grads, self.max_grad_norm, specs)
         lr = self.lr_fn(state.step + 1)
         new_p, new_s = adamw_update(
             grads, state, params, lr,

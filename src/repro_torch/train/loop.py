@@ -33,9 +33,11 @@ import tempfile
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager, latest_step
 from repro_torch.obs import timer as obs_timer
+from repro_torch.parallel.sharding import active_mesh, mesh_group
 
 log = logging.getLogger("repro_torch.train")
 
@@ -82,6 +84,18 @@ def _block_until_ready(x: Any) -> None:
         torch.cuda.current_stream(x.device).synchronize()
 
 
+def _all_ranks_agree(flag: bool, specs) -> bool:
+    """``flag`` or'ed over the ranks of the active mesh (a rank-local
+    decision that every rank must take alike: the watchdog's restart)."""
+    mesh = active_mesh()
+    if specs is None or mesh is None or mesh.size() == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32,
+                     device=mesh.device_type)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh_group(mesh))
+    return bool(t.item())
+
+
 def run_training(
     train_step: Callable,
     init_state: Any,
@@ -89,12 +103,16 @@ def run_training(
     cfg: LoopConfig,
     step_hook: Optional[Callable[[int], None]] = None,
     time_fn: Optional[Callable[[], float]] = None,
+    state_specs=None,
 ) -> LoopResult:
-    """Run (or resume) training until cfg.total_steps."""
+    """Run (or resume) training until cfg.total_steps. Under a mesh
+    ``state_specs`` is the state's spec tree: checkpoints gather the
+    rank's blocks and restores reshard them (``checkpoint``), and the
+    watchdog's restart is taken by every rank of the mesh or by none."""
     if time_fn is None:
         time_fn = obs_timer.now   # injectable process-wide clock
     mgr = CheckpointManager(cfg.ckpt_dir, every=cfg.ckpt_every,
-                            keep_n=cfg.keep_n)
+                            keep_n=cfg.keep_n, specs=state_specs)
     state = init_state
     start = 0
     resumed_from = None
@@ -139,7 +157,9 @@ def run_training(
                                 dt, med)
                 else:
                     consecutive_slow = 0
-                if consecutive_slow >= cfg.max_consecutive_slow:
+                if _all_ranks_agree(
+                        consecutive_slow >= cfg.max_consecutive_slow,
+                        state_specs):
                     mgr.maybe_save(step, state, block=True, force=True)
                     raise ElasticRestart(
                         f"{consecutive_slow} consecutive straggler steps at "
