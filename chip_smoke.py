@@ -334,13 +334,17 @@ which fails the run with a non-zero exit:
                group of one rank, a (1, 1) mesh, 4 steps).
 
  23. dry run — the dry run, the op-trace analysis and the roofline
-               (``phase_dryrun``): (a) ``python -m
-               repro_torch.launch.dryrun --all --mesh both`` as a child
-               process (the meta device, torch's fake process group of 512
-               ranks, whose internal module must import here), then
-               ``launch.roofline`` on its records for both meshes (the
-               collective column ``n/a``) and ``bench.run --only roofline``
-               in a directory that holds them; the reference's bar
+               (``phase_dryrun``): (a) the cells of ``python -m
+               repro_torch.launch.dryrun --all --mesh both`` in child
+               processes, eight at a time (a cell a process for the SSM
+               configs, an (arch, shape) pair for the others; the meta
+               device, torch's fake process group of 512 ranks, whose
+               internal module must import here; each cell traces rank
+               0's step), then ``launch.roofline`` on the records for both
+               meshes (the collective column filled on every ok cell, the
+               most collective-bound cell named) and ``bench.run --only
+               roofline`` in a directory that holds them; every ok cell
+               has its collective bytes; the reference's bar
                (``tests/test_roofline_launch.py``): per mesh 40 cells, 32
                ok, 8 skipped, no error, every ok cell's useful ratio in
                (0, 1.5]; its wall time; the records go to
@@ -400,10 +404,71 @@ which fails the run with a non-zero exit:
                other and the phase; the ranks' logs go to
                ``chiprun_out/spmd_rank*.log``.
 
+ 25. spmd inference — mamba, the hybrid blocks, prefill and decode under
+               a mesh (``phase_spmd_inference``): two ranks sharing the
+               card over ``gloo`` as in phase 24 (this file with
+               ``--spmd-inference-worker``; logs to
+               ``chiprun_out/spmd_inference_rank*.log``). (a) Reduced
+               falcon-mamba-7b and jamba-v0.1-52b (capacity factor 4: no
+               drop under any dispatch grouping) in float32, 8 x 64, 3
+               steps on (1, 2) and (2, 1): losses within rtol 2e-3 of one
+               rank's, the same on both ranks. (b) falcon-mamba-7b at its
+               published widths (d_model 4096, d_inner 8192: 4096 mixer
+               channels a rank, the ``in_proj`` blocks exchanged by an
+               all-to-all) cut to ``SPMD2_MAMBA_LAYERS`` (16) of its 64
+               layers, bf16, remat full, one 4096-token sequence a step on
+               (1, 2), 3 steps (the first under the op-trace analysis):
+               losses within 1e-2 relative of one rank's (rank 0 alone),
+               step ms and peak memory a rank. (c) llama3-8b whole on (1,
+               2): a bf16 prefill of 1 x 4096 (every K6 launch held
+               against its plain version at the rank-local 16 / 4 heads)
+               and 8 decode steps at batch 4 against a 256-position cache
+               split 128 / 128 over the ranks (slots at 17, 64, 100 and
+               200), then the same on the int8 tree that
+               ``quantize_params`` makes of the rank's blocks (K5; the
+               launches of layers 0 and 31 and the head of the prefill,
+               and of the first decode step, equal to the plain version
+               bit for bit), and again on the int8 tree with float32
+               activations (TF32 off; every K6 launch held against its
+               plain version); counters set to 0 before and read after
+               each. Rank 0's int8 blocks equal the blocks of the whole
+               int8 tree bit for bit. Then rank 0 alone runs the whole
+               trees: the bf16 logits within ``SPMD2_NOISE_FACTOR`` (3x
+               the max, 2x the mean) of bf16's own noise (one rank's
+               logits against its run with float32 activations, TF32
+               off), the top-1 equal wherever one rank's top-2 margin
+               exceeds twice the largest |diff|; on the int8 tree, layer
+               0's wq, wk, wv and wo K5 launches of the mesh take the
+               leading blocks of one rank's codes, weights and scales
+               (and give those of its outputs) bit for bit
+               (``SPMD2_K5_EXACT``), and the logits, in bf16 and float32
+               activations, are a reading beside the tree's noise; the
+               top-1 agreement over all positions is reported; decode
+               step ms; K6 (bf16 and float32) and K5 timed at the
+               rank-local shapes (rows of the kernels line, with both
+               ranks' launches). (d)
+               jamba-v0.1-52b at its published widths cut to
+               ``SPMD2_JAMBA_LAYERS`` (8: one group of 7 mamba mixers, an
+               attention one and 4 MoE FFNs of 16 experts), in float32
+               (TF32 off: at 4 decode tokens an expert takes one token,
+               and bf16 noise flips near-tied routing choices), the
+               rank's blocks drawn one rank at a time: a counted prefill
+               of 1 x 4096 (K6 once a rank, held against its plain
+               version and timed) and 4 decode steps, within
+               ``SUBLAYER_TOL`` of rank 0 alone's largest |logit|. (e)
+               The collectives of the real
+               rank-local steps (the op-trace counter on CUDA tensors: the
+               train step of (b), the prefills and first decode steps of
+               (c)) equal, type by type in count and bytes, the same
+               steps traced on meta over a fake group of two ranks
+               (``launch.dryrun.rank_trees`` / ``trace_step``), printed
+               beside phase 23's records of falcon-mamba-7b train_4k,
+               llama3-8b prefill_32k and decode_32k (single-pod).
+
 Phase 21 runs right after phase 9's serving, before phases 11-16.
 Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
-phase 19 and 20 after it, 22 after those, 23 after 22, 24 after 23; the
-profiles of phases 9, 20 and 21 run last of all. The last lines are
+phase 19 and 20 after it, 22 after those, 23 after 22, 24 after 23, 25
+after 24; the profiles of phases 9, 20 and 21 run last of all. The last lines are
 the kernels JSON line, the card's name and power limit (``nvidia-smi``),
 and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
@@ -414,7 +479,9 @@ counted prefills for K6 (32 + 2 + 28 + 48), phase 19's full-width
 training for K6's backward, phase 13's checking pass for K4 and K5,
 and for K5 also phase 21's int8 prefill (1 + 225); phase 24's counted
 run adds its two ranks' launches to K6 (2 x 144) and its backward
-(2 x 72).
+(2 x 72); phase 25's add to K6 (2 x (32 + 32 + 32 + 1): the bf16, int8
+and int8 float32-activation prefills of (c), jamba's of (d)) and to K5
+(2 x 2 x 9 x 225: the int8 prefills and 8 decode steps of (c)).
 """
 
 from __future__ import annotations
@@ -1299,7 +1366,7 @@ def time_case(c, reps=7, inner=20):
     row["ms"] = time_ms(c["run"], reps=reps, inner=inner)
     row["plain_ms"] = time_ms(c["plain"], reps=3, inner=3)
     row["library_ms"] = time_ms(c["library"], reps=reps, inner=inner)
-    peak = PEAK_OPS_PER_S[c["kernel"]]
+    peak = c.get("peak", PEAK_OPS_PER_S[c["kernel"]])
     row["bound_ms"] = bound_ms(c["bytes"], c["ops"], peak)
     row["bound_by"] = bound_by(c["bytes"], c["ops"], peak)
     staged = ""
@@ -1475,7 +1542,8 @@ def flash_case(label, q, k, v, kw, model=LM_CONFIG):
     """A timing case for ``flash_attention`` on (q, k, v), (B, H, S, D)
     views; the yardstick is one ``scaled_dot_product_attention`` call on
     the same tensors (GQA through ``enable_gqa``), causal or not as the
-    case is."""
+    case is. Its bound takes the peak of q's type: float32 runs outside
+    the tensor cores."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -1499,7 +1567,9 @@ def flash_case(label, q, k, v, kw, model=LM_CONFIG):
                 q, k, v, is_causal=causal, enable_gqa=True),
             "library_is": "library (SDPA)",
             "bytes": (q.numel() * 2 + k.numel() + v.numel()) * esize,
-            "ops": k6_ops(b, h, d, pairs)}
+            "ops": k6_ops(b, h, d, pairs),
+            "peak": (FP32_OPS_PER_S if q.dtype == torch.float32
+                     else BF16_OPS_PER_S)}
 
 
 def phase_flash_synthetic():
@@ -5017,10 +5087,19 @@ def _run_module(args, cwd, timeout):
     return r.returncode, r.stdout, r.stderr
 
 
+#: cells that phase 23's dry run traces at once (its ``--jobs``)
+DRYRUN_PROCS = 8
+#: (e) of phase 25 reads these single-pod cells' collectives
+DRYRUN_COLLECTIVE_CELLS = ("falcon-mamba-7b train_4k", "llama3-8b prefill_32k",
+                           "llama3-8b decode_32k")
+
+
 def _dryrun_all():
-    """(a) The dry run over every cell of both meshes on the meta device,
-    the roofline tables and the bench harness's roofline section, from
-    child processes; the reference's bar on the records."""
+    """(a) ``launch.dryrun --all --mesh both`` over every cell of both
+    meshes on the meta device, ``DRYRUN_PROCS`` cells at a time, the
+    roofline tables and the bench harness's
+    roofline section, from child processes; the reference's bar on the
+    records; every ok cell's rank-local collectives."""
     import importlib
     import shutil
 
@@ -5036,19 +5115,32 @@ def _dryrun_all():
         arts = os.path.join(tmp, "artifacts", "dryrun")
         t0 = _now()
         rc, so, se = _run_module(["repro_torch.launch.dryrun", "--all",
-                                  "--mesh", "both", "--out", arts], ROOT,
+                                  "--mesh", "both", "--jobs",
+                                  str(DRYRUN_PROCS), "--out", arts], ROOT,
                                  DRYRUN_TIMEOUT_S)
         out["dryrun_s"] = _now() - t0
         check(rc == 0, f"launch.dryrun --all --mesh both: rc {rc}: "
                        f"{so[-2000:]} {se[-2000:]}")
         log(f"dryrun: {so.strip().splitlines()[-1]} in "
-            f"{out['dryrun_s']:.3f} s (the meta device, one process)")
+            f"{out['dryrun_s']:.3f} s (the meta device, {DRYRUN_PROCS} "
+            f"cells at a time)")
+        recs = {f"{r['arch']} {r['shape']}": r
+                for r in load_artifacts(arts) if r["mesh"] == "single"}
+        out["records"] = {k: recs[k] for k in DRYRUN_COLLECTIVE_CELLS}
+        for r in load_artifacts(arts):
+            check(r["status"] != "ok" or (
+                r["collective_bytes_per_device"] is not None
+                and r["collective_bytes_per_device"] > 0),
+                f"dryrun {r['arch']} x {r['shape']} x {r['mesh']}: no "
+                f"collective bytes")
         tables = {}
         for mesh in ("single", "multi"):
             rc, so, se = _run_module(["repro_torch.launch.roofline", "--dir",
                                       arts, "--mesh", mesh], ROOT, 120)
-            check(rc == 0 and "n/a" in so,
-                  f"launch.roofline --mesh {mesh}: rc {rc}: {se[-2000:]}")
+            check(rc == 0 and "n/a" not in so
+                  and "most collective-bound   : n/a" not in so,
+                  f"launch.roofline --mesh {mesh}: rc {rc}: {se[-2000:]} "
+                  f"{so[-2000:]}")
             tables[mesh] = so
             log(f"roofline {mesh}: " + " | ".join(
                 ln for ln in so.splitlines() if ln.startswith(
@@ -5076,6 +5168,7 @@ def _dryrun_all():
                       f"{r.t_compute}, useful {r.useful_ratio}")
             out[mesh] = {f"{r.arch} {r.shape}": {
                 "compute_s": r.t_compute, "memory_s": r.t_memory,
+                "collective_s": r.t_collective,
                 "dominant": r.dominant, "useful": r.useful_ratio,
                 "roofline_fraction": r.roofline_fraction} for r in ok}
         dest = os.path.join(ROOT, "chiprun_out", "dryrun")
@@ -5637,23 +5730,27 @@ def _spmd_worker(argv):
     return 0
 
 
-def _spmd_ranks(workdir):
-    """Start the ranks, wait for both (a rank that fails ends the other),
-    return their results."""
+def _spmd_ranks(workdir, flag="--spmd-worker", log_name="spmd_rank",
+                timeout=SPMD_TIMEOUT_S, extra_env=None):
+    """Start the ranks (this file with ``flag``, ``extra_env`` added to
+    their environment), wait for both (a rank that fails ends the
+    other), return their results; their logs go to
+    ``chiprun_out/<log_name><rank>.log``."""
     import shutil
 
     from repro_torch.obs import timer
 
     init = f"file://{os.path.join(workdir, 'store')}"
     env = dict(os.environ, PYTHONPATH=SRC,
-               CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC)
+               CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC,
+               **(extra_env or {}))
     logs = [os.path.join(workdir, f"rank{r}.log") for r in range(SPMD_RANKS)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--spmd-worker", str(r),
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
          str(SPMD_RANKS), init, workdir], env=env,
         stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
         for r in range(SPMD_RANKS)]
-    deadline = timer.now() + SPMD_TIMEOUT_S
+    deadline = timer.now() + timeout
     try:
         while any(p.poll() is None for p in procs):
             failed = [p for p in procs if p.poll() not in (None, 0)]
@@ -5668,13 +5765,13 @@ def _spmd_ranks(workdir):
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     for r, path in enumerate(logs):
         shutil.copy(path, os.path.join(ROOT, "chiprun_out",
-                                       f"spmd_rank{r}.log"))
+                                       f"{log_name}{r}.log"))
         with open(path) as f:
             for line in f.read().splitlines():
                 log(f"[rank {r}] {line}")
     codes = [p.returncode for p in procs]
     check(codes == [0] * SPMD_RANKS, f"spmd ranks exited {codes} (logs in "
-                                     f"chiprun_out/spmd_rank*.log)")
+                                     f"chiprun_out/{log_name}*.log)")
     res = []
     for r in range(SPMD_RANKS):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
@@ -5732,6 +5829,960 @@ def phase_spmd(smi):
         f"{[round(f['peak_bytes'] / 2**30, 3) for f in full]}; (c) "
         f"{json.dumps(res[0]['ckpt'])}; {details['wall_s']:.3f} s")
     return launches, worst, [k6_row, bwd_row], details
+
+
+
+# ---------------------------------------------------------------------------
+# phase 25: mamba, the hybrid blocks, prefill and decode under a mesh of
+# two ranks that share the card
+# ---------------------------------------------------------------------------
+
+SPMD2_SSM = ("falcon-mamba-7b", JAMBA_CONFIG)
+#: (a) jamba's capacity factor: 4, its experts, so that no token is
+#: dropped whether the tokens are dispatched at once or a data rank's at
+#: a time, and one rank's step is the same function
+SPMD2_SMALL_OVER = {JAMBA_CONFIG: {"capacity_factor": 4.0}}
+#: (b) falcon-mamba-7b at its published widths (d_model 4096, d_inner
+#: 8192), cut to 16 of its 64 layers (about 2.0 B parameters, so that
+#: two ranks, and then one, train on the card), bf16, remat "full", one
+#: 4096-token sequence a step on (1, 2): 4096 mixer channels a rank
+SPMD2_MAMBA = "falcon-mamba-7b"
+SPMD2_MAMBA_LAYERS = 16
+SPMD2_MAMBA_BATCH = 1
+SPMD2_MESH = (1, 2)
+#: (c) llama3-8b whole, bf16 and int8: a prefill of 1 x 4096, then
+#: decode steps at batch 4 against a cache of 256 positions split over
+#: the two ranks (128 a rank), slots at 17, 64, 100 and 200 (rank 1's
+#: block holds the last)
+SPMD2_DECODE_STEPS = 8
+SPMD2_DECODE_LEN = 256
+SPMD2_DECODE_CUR = (17, 64, 100, 200)
+#: (d) jamba-v0.1-52b at its published widths, cut to 8 of its 32
+#: layers: one 8-sublayer group, 7 mamba mixers and an attention one, 4
+#: MoE FFNs of 16 experts
+SPMD2_JAMBA_LAYERS = 8
+SPMD2_JAMBA_DECODE_STEPS = 4
+#: bf16 logits of the mesh against one rank's (max |diff| over max |one|,
+#: mean |diff| over mean |one|), held to bf16's own noise on the same
+#: weights: one rank's bf16 logits against its float32 run of the
+#: weights upcast (TF32 off). The mesh rounds each row-parallel partial
+#: output to bf16 before the all-reduce sums it, where one rank rounds the
+#: whole sum once, so its distance from one rank is of the order of that
+#: noise (over 32 layers it reaches 4.5% of the mean |logit| of a
+#: llama3-8b decode step); a block in the wrong place moves the logits by
+#: their own size. The mesh must stay within these multiples of the noise
+#: (max, mean), and its top-1 must agree wherever one rank's top-2 margin
+#: exceeds twice the largest |diff| (``_top1_check``)
+SPMD2_NOISE_FACTOR = {"max": 3.0, "mean": 2.0}
+#: (c)'s int8 tree: K5's first launches of the prefill, layer 0's wq, wk,
+#: wv (column-parallel) and wo (row-parallel). Their inputs are the same
+#: on the mesh and on one rank, up to the block, so rank 0's codes,
+#: weights, scales and (column-parallel) outputs must be the leading
+#: blocks of one rank's bit for bit: a scale not maxed over its group or
+#: a block out of place changes them. Past layer 0's wo the mesh's sum of
+#: partials rounds differently from one rank's, a code at a rounding
+#: boundary flips, and int8 carries the flip onward: the logits then
+#: differ at the int8 tree's own noise, in float32 activations too, so
+#: they are a reading, not a bar
+SPMD2_K5_EXACT = (0, 1, 2, 3)
+SPMD2_TIMEOUT_S = 900
+#: (b)'s scan saves thousands of 32-64 MiB chunks for its backward: two
+#: ranks' caching allocators fragment the card unless their segments
+#: can grow
+SPMD2_RANK_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+
+def _spmd2_small(rank):
+    """(a): reduced falcon-mamba-7b and jamba in float32 (TF32 off) on
+    (1, 2) and (2, 1), 3 steps each, against one rank on the same
+    weights and batches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
+    from repro_torch.train.steps import (TrainState, make_train_step,
+                                         train_state_specs)
+
+    def opt():
+        return make_optimizer(base_lr=1e-3, warmup=1, total=10)
+
+    def run(model, params, batches):
+        step = make_train_step(model, opt())
+        state = TrainState(params, opt().init(params))
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return losses
+
+    out = {}
+    with full_fp32():
+        for i, name in enumerate(SPMD2_SSM):
+            cfg = dataclasses.replace(get_config(name).reduced(),
+                                      **SPMD2_SMALL_OVER.get(name, {}))
+            model = Model(cfg)
+            batches = _spmd_batches(cfg.vocab, SPMD_SMALL_SEQ,
+                                    SPMD_SMALL_BATCH)
+            full = model.init(torch.Generator(device="cuda").manual_seed(
+                SEED + 50 + i), device="cuda")
+            one = run(model, _clone_tree(full), batches)
+            res = {"one_rank_losses": one}
+            for shape in SPMD_SMALL_MESHES:
+                mesh, rules = _spmd_mesh(shape, cfg, SPMD_SMALL_BATCH)
+                with use_mesh_rules(mesh, rules):
+                    params = shard_tree(full, train_state_specs(model).params)
+                    losses = run(model, params, batches)
+                check(all(abs(a - b) <= SPMD_LOSS_RTOL * abs(b)
+                          for a, b in zip(losses, one)),
+                      f"spmd inference (a) {name} {shape} rank {rank}: "
+                      f"losses {losses}, one rank {one}")
+                res[f"{shape[0]}x{shape[1]}"] = losses
+            out[name] = res
+    return out
+
+
+def _collectives(report):
+    """A trace report's collectives: {"bytes", "by_type", "by_count"}."""
+    s = report.stats
+    return {"bytes": float(s.collective_bytes),
+            "by_type": {k: float(v) for k, v in s.by_type.items()},
+            "by_count": {k: int(v) for k, v in s.by_count.items()}}
+
+
+def _spmd2_mamba(rank, smi):
+    """(b): falcon-mamba-7b at full width, 16 layers, on (1, 2): 3 steps,
+    the first under the op-trace analysis (its collectives: (e)), the
+    other two timed; then rank 0 alone trains the same weights on the
+    same batches."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.hlo_analysis import analyze_call
+    from repro_torch.models.model import Model
+    from repro_torch.obs import timer
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
+    from repro_torch.train.steps import (TrainState, make_train_step,
+                                         train_state_specs)
+
+    cfg = dataclasses.replace(get_config(SPMD2_MAMBA),
+                              n_layers=SPMD2_MAMBA_LAYERS)
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full"
+          and cfg.d_inner == 8192, f"{SPMD2_MAMBA}: expected bf16, remat "
+                                   f"full and d_inner 8192")
+    model = Model(cfg)
+    batches = _spmd_batches(cfg.vocab, TRAIN_SEQ, SPMD2_MAMBA_BATCH)
+
+    def opt():
+        return make_optimizer(base_lr=3e-4, warmup=2, total=SPMD_STEPS)
+
+    def init():
+        return model.init(torch.Generator(device="cuda").manual_seed(
+            SEED + 52), device="cuda")
+
+    mesh, rules = _spmd_mesh(SPMD2_MESH, cfg, SPMD2_MAMBA_BATCH)
+    losses, step_s = [], []
+    with use_mesh_rules(mesh, rules):
+        specs = train_state_specs(model)
+        params = shard_tree(init(), specs.params)
+        torch.cuda.empty_cache()
+        state = TrainState(params, opt().init(params))
+        step = make_train_step(model, opt())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(SPMD_STEPS):
+            t0 = timer.now()
+            if i == 0:
+                (state, m), rep = analyze_call(step, state, batches[i])
+                coll = _collectives(rep)
+                del rep
+            else:
+                state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))             # synchronises
+            step_s.append(timer.now() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    log(f"spmd inference (b) rank {rank}: {SPMD2_MAMBA} ({cfg.n_layers} of "
+        f"64 layers, d_inner {cfg.d_inner}) on {SPMD2_MESH} ({smi}): losses "
+        f"{losses}; step ms {[round(t * 1e3, 3) for t in step_s]} (the "
+        f"first under the op-trace analysis; host clock, through gloo and "
+        f"the host: a smoke reading), peak {peak / 2**30:.3f} GiB "
+        f"allocated, {peak_reserved / 2**30:.3f} GiB reserved; "
+        f"collectives a step {json.dumps(coll)}")
+    del state, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "peak_bytes": peak, "peak_reserved_bytes": peak_reserved,
+           "collectives": coll,
+           "n_layers": cfg.n_layers}
+    dist.barrier()
+    if rank == 0:
+        params = init()
+        state = TrainState(params, opt().init(params))
+        step = make_train_step(model, opt())
+        one, one_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            t0 = timer.now()
+            state, m = step(state, b)
+            one.append(float(m["loss"]))
+            one_s.append(timer.now() - t0)
+        out["one_rank_losses"] = one
+        out["one_rank_step_ms"] = [t * 1e3 for t in one_s]
+        out["one_rank_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del state, params, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _float32_tree(tree):
+    """``tree``'s float leaves made float32 in place, one leaf at a time
+    (each bf16 leaf freed as its copy is made, so the bf16 and float32
+    trees are never whole on the card together)."""
+    for key in list(tree):
+        if isinstance(tree[key], dict):
+            _float32_tree(tree[key])
+        elif tree[key].is_floating_point():
+            tree[key] = tree[key].float()
+    return tree
+
+
+def _k5_keep(store, indices):
+    """Wrap K5's wrapper so that the launches whose index (in call order
+    from now) is in ``indices`` keep clones of their inputs and output in
+    ``store[index]``; returns the function that unwraps it."""
+    from repro_torch.kernels import ops
+
+    real, n = ops.qmatmul, [0]
+
+    def keep(x_int, w_int, scale, *a, **kw):
+        out = real(x_int, w_int, scale, *a, **kw)
+        if n[0] in indices:
+            store[n[0]] = tuple(t.clone() for t in (x_int, w_int, scale,
+                                                    out))
+        n[0] += 1
+        return out
+
+    def restore():
+        ops.qmatmul = real
+
+    ops.qmatmul = keep
+    return restore
+
+
+def _k5_blocks_check(label, mesh, one):
+    """Rank 0's kept K5 launches ``SPMD2_K5_EXACT`` of the mesh against
+    one rank's: the codes, ``w_int``, the scale vector and, where the
+    rank holds a block of the outputs (column-parallel), the output, each
+    the leading block of one rank's, bit for bit; wo's codes are the
+    rank's block of the contraction axis (row-parallel, its output a
+    partial sum). Returns each launch's split."""
+    import torch
+
+    splits = []
+    for i in SPMD2_K5_EXACT:
+        m, o = mesh[i], one[i]
+        split = "k" if m[0].shape[1] < o[0].shape[1] else "n"
+        splits.append(split)
+        for name, a, b in zip(("codes", "w_int", "scale", "out"), m, o):
+            if name == "out" and split == "k":
+                continue
+            block = b[tuple(slice(0, n) for n in a.shape)]
+            check(a.dtype == b.dtype and torch.equal(a, block),
+                  f"{label}: K5 launch {i} ({split}-split): the mesh's "
+                  f"{name} {tuple(a.shape)} is not the leading block of "
+                  f"one rank's {tuple(b.shape)}")
+    check(splits == ["n", "n", "n", "k"],
+          f"{label}: layer 0's wq, wk, wv, wo split as {splits}")
+    return splits
+
+
+def _noise_check(label, mesh_err, noise):
+    """The mesh's distance from one rank within ``SPMD2_NOISE_FACTOR`` of
+    bf16's own noise (one rank's bf16 against its float32), both as
+    (max ratio, mean ratio); a float32 model, which has no such noise,
+    within phase 20's ``SUBLAYER_TOL``."""
+    check(mesh_err[0] <= max(SPMD2_NOISE_FACTOR["max"] * noise[0],
+                             SUBLAYER_TOL)
+          and mesh_err[1] <= max(SPMD2_NOISE_FACTOR["mean"] * noise[1],
+                                 SUBLAYER_TOL),
+          f"{label}: the mesh's logits off one rank's by {mesh_err[0]:.3g} "
+          f"of max |logit| and {mesh_err[1]:.3g} of mean |logit|, against "
+          f"bf16's noise (one rank against float32) of {noise[0]:.3g} and "
+          f"{noise[1]:.3g}")
+
+
+def _one_rank_runs(model, params, tokens, dec_tokens):
+    """Rank 0 alone: (prefill logits, every decode step's logits) on the
+    whole tree, from a zeroed cache at the slots of (c)."""
+    import torch
+
+    pre = model.prefill(params, {"tokens": tokens})
+    cache = model.cache_init(len(SPMD2_DECODE_CUR), SPMD2_DECODE_LEN,
+                             device="cuda")
+    cur0 = torch.tensor(SPMD2_DECODE_CUR, dtype=torch.int32, device="cuda")
+    steps = []
+    for t, tok in enumerate(dec_tokens):
+        logits, cache = model.decode_step(params, cache, tok, cur0 + t)
+        steps.append(logits)
+    return pre, steps
+
+
+def _against_one_rank(label, model, full, mesh_pre, mesh_steps, tokens,
+                      dec_tokens, int8=None):
+    """The mesh's logits against rank 0 alone on the whole tree ``full``
+    (bf16, or the int8 tree with bf16 activations), beside the same
+    tree's own noise (its float leaves made float32 in place afterwards,
+    run with float32 activations, TF32 off) and ``_top1_check``; the
+    top-1 agreement over all positions is reported beside the noise
+    run's. The bf16 tree is held within ``SPMD2_NOISE_FACTOR`` of its
+    noise. The int8 tree (``int8``: the mesh's kept K5 launches and its
+    float32-activation logits) is held by ``_k5_blocks_check``; its
+    logits in either activation type are a reading
+    (``SPMD2_K5_EXACT``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.model import Model
+
+    start = torch.cuda.memory_allocated()
+    kept = {}
+    unkeep = _k5_keep(kept, SPMD2_K5_EXACT) if int8 else (lambda: None)
+    try:
+        one_pre, one_steps = _one_rank_runs(model, full, tokens, dec_tokens)
+    finally:
+        unkeep()
+    out = {"prefill": _logits_error(mesh_pre, one_pre),
+           "prefill_top1": _top1_check(f"{label} prefill", mesh_pre,
+                                       one_pre),
+           "decode": [_logits_error(a, b) for a, b in zip(mesh_steps,
+                                                           one_steps)],
+           "decode_top1": [_top1_check(f"{label} decode step {t}", a, b)
+                           for t, (a, b) in enumerate(zip(mesh_steps,
+                                                          one_steps))]}
+    if int8:
+        out["k5_layer0_splits"] = _k5_blocks_check(label, int8["kept"],
+                                                   kept)
+    del kept
+    model32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
+    held = torch.cuda.memory_allocated()
+    _float32_tree(full)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_gib"] = {"start": start / 2**30, "bf16": held / 2**30,
+                            "float32": torch.cuda.memory_allocated() / 2**30}
+    log(f"{label}: one rank's bf16 run, then the tree made float32: "
+        f"{json.dumps(out['allocated_gib'])} GiB allocated")
+    with full_fp32():
+        f_pre, f_steps = _one_rank_runs(model32, full, tokens, dec_tokens)
+    out["noise_prefill"] = _logits_error(one_pre, f_pre)
+    out["noise_decode"] = [_logits_error(a, b) for a, b in zip(one_steps,
+                                                                f_steps)]
+    out["top1_agreement"] = {
+        "mesh": _agreement([mesh_pre] + mesh_steps, [one_pre] + one_steps),
+        "noise": _agreement([f_pre] + f_steps, [one_pre] + one_steps)}
+    del one_pre
+    if int8:
+        m_pre, m_steps = int8["float32"]
+        out["float32"] = {
+            "prefill": _logits_error(m_pre, f_pre),
+            "decode": [_logits_error(a, b) for a, b in zip(m_steps,
+                                                            f_steps)],
+            "top1_agreement": _agreement([m_pre] + m_steps,
+                                         [f_pre] + f_steps)}
+        return out
+    del f_pre
+    _noise_check(f"{label} prefill", out["prefill"], out["noise_prefill"])
+    for t, (e, n) in enumerate(zip(out["decode"], out["noise_decode"])):
+        _noise_check(f"{label} decode step {t}", e, n)
+    return out
+
+
+def _agreement(got, want):
+    """The share of positions whose top-1 agrees, over lists of logits."""
+    same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+               for a, b in zip(got, want))
+    return same / sum(b.shape[:-1].numel() for b in want)
+
+
+def _float32_check(label, got, want):
+    """float32 logits of the mesh within ``SUBLAYER_TOL`` of one rank's
+    largest |logit|, and ``_top1_check``; returns the ratio."""
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    check(err <= SUBLAYER_TOL, f"{label}: the mesh's float32 logits off one "
+                               f"rank's by {err:.3g} of max |logit|")
+    _top1_check(label, got, want)
+    return err
+
+
+def _logits_error(got, want):
+    """bf16 logits of the mesh against one rank's: (max |diff| over max
+    |want|, mean |diff| over mean |want|)."""
+    d = (got - want).abs()
+    w = want.abs()
+    return float(d.max() / w.max()), float(d.mean() / w.mean())
+
+
+def _top1_check(label, got, want):
+    """Top-1 of the mesh's logits against one rank's at every position
+    whose top-2 margin exceeds twice the largest |diff|; returns (equal
+    positions, positions checked, positions within the margin)."""
+    import torch
+
+    top2 = torch.topk(want.float(), 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    err = float((got - want).abs().max())
+    sure = margin > 2 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    n_sure, n_same = int(sure.sum()), int((same & sure).sum())
+    check(n_same == n_sure, f"{label}: top-1 differs from one rank's at "
+                            f"{n_sure - n_same} of {n_sure} positions "
+                            f"whose margin exceeds twice the largest "
+                            f"|diff| {err:.4g}")
+    return {"equal": n_same, "checked": n_sure,
+            "within_margin": int((~sure).sum()),
+            "equal_everywhere": bool(same.all())}
+
+
+def _mesh_inference(model, params, tokens, dec_tokens, checks_k5=None):
+    """One prefill and the decode steps under the active mesh on the
+    rank's blocks ``params``, counted (the prefill and the first decode
+    step under the op-trace analysis): (the gathered prefill logits, the
+    gathered decode logits, the counters, the two traced calls'
+    collectives, the decode steps' ms, K5's worst |kernel - plain|, K5's
+    kept inputs, K5's shapes in launch order). K5's launches are held
+    against its plain version where ``checks_k5`` names them."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.hlo_analysis import analyze_call
+    from repro_torch.models.model import gather_logits
+
+    def prefill():
+        out, rep = analyze_call(model.prefill, params, {"tokens": tokens})
+        return gather_logits(out), rep
+
+    def decode():
+        cache = model.cache_init(len(SPMD2_DECODE_CUR), SPMD2_DECODE_LEN,
+                                 device="cuda")
+        cur0 = torch.tensor(SPMD2_DECODE_CUR, dtype=torch.int32,
+                            device="cuda")
+        steps, ms = [], []
+        for t, tok in enumerate(dec_tokens):
+            torch.cuda.synchronize()
+            t0 = _now()
+            if t == 0:
+                (logits, cache), rep = analyze_call(
+                    model.decode_step, params, cache, tok, cur0 + t)
+            else:
+                logits, cache = model.decode_step(params, cache, tok,
+                                                  cur0 + t)
+            torch.cuda.synchronize()
+            ms.append((_now() - t0) * 1e3)
+            steps.append(gather_logits(logits))
+        return steps, ms, rep
+
+    def both():
+        pre, rep = prefill()
+        steps, ms, drep = decode()
+        return pre, rep, steps, ms, drep
+
+    launches, shapes, worst, kept, (pre, rep, steps, ms, drep) = \
+        _counted_int8(both, checks_k5 or set())
+    coll = {"prefill": _collectives(rep), "decode": _collectives(drep)}
+    return pre, steps, launches, coll, ms, worst, kept, shapes
+
+
+def _spmd2_llama(rank, smi):
+    """(c): llama3-8b whole on (1, 2): bf16 and int8 prefills and decode
+    steps of the rank's blocks, counted (every K6 launch of the bf16
+    prefill held against its plain version; K5's first and last layers'
+    launches of the int8 prefill and every one of the first decode step
+    too), then the int8 tree's again with float32 activations (TF32 off;
+    every K6 launch held against its plain version); rank 0 holds its
+    int8 blocks against the blocks of the whole int8 tree, then alone runs
+    the same on the whole trees and holds the mesh against them
+    (``_against_one_rank``); rank 0 times K6 and K5 at the rank-local
+    shapes."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.pytree import leaves_with_paths
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import (quantized_specs, shard_tree,
+                                               use_mesh_rules)
+
+    cfg = get_config(LM_CONFIG)
+    model = Model(cfg)
+    model32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=g,
+                           device="cuda")
+    dec_tokens = [torch.randint(0, cfg.vocab, (len(SPMD2_DECODE_CUR), 1),
+                                generator=g, device="cuda")
+                  for _ in range(SPMD2_DECODE_STEPS)]
+    mesh, rules = _spmd_mesh(SPMD2_MESH, cfg, 1)
+    check(rank != 0 or mesh.get_local_rank("model") == 0,
+          "rank 0 does not hold the leading blocks")
+    out = {}
+    caught, caught32, kept = {}, {}, {}
+    per_pass = 7 * cfg.n_layers + 1
+    checks = set(range(7)) | set(range(per_pass - 8, per_pass)) | set(
+        range(per_pass, 2 * per_pass))
+    with torch.inference_mode():
+        full = model.init(g, device="cuda")
+        with use_mesh_rules(mesh, rules):
+            pspecs = model.param_specs()
+            params = shard_tree(full, pspecs)
+            if rank != 0:
+                del full
+            torch.cuda.empty_cache()
+            worst_k6, unwrap = _spmd_checked_k6(caught)
+            try:
+                bf16 = _mesh_inference(model, params, tokens, dec_tokens)
+            finally:
+                unwrap()
+            qparams = model.quantize_params(params)
+            del params
+            torch.cuda.empty_cache()
+            unkeep = _k5_keep(kept, SPMD2_K5_EXACT)
+            try:
+                int8 = _mesh_inference(model, qparams, tokens, dec_tokens,
+                                       checks)
+            finally:
+                unkeep()
+        if rank == 0:
+            # outside the mesh: the whole tree, quantized on one rank
+            qfull = model.quantize_params(full)
+            with use_mesh_rules(mesh, rules):
+                want = shard_tree(qfull, quantized_specs(qfull, pspecs))
+            diff = [path for (path, a), (_, b) in zip(
+                leaves_with_paths(qparams), leaves_with_paths(want))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+            check(not diff, f"int8 blocks on the mesh differ from the "
+                            f"whole int8 tree's at {diff[:5]}")
+            out["int8_blocks_equal"] = True
+            del want
+        with use_mesh_rules(mesh, rules), full_fp32():
+            worst32, unwrap = _spmd_checked_k6(caught32)
+            try:
+                int8_f32 = _mesh_inference(model32, _float32_tree(qparams),
+                                           tokens, dec_tokens, checks)
+            finally:
+                unwrap()
+            del qparams
+        torch.cuda.empty_cache()
+        runs = {"bf16": bf16, "int8": int8, "int8_float32": int8_f32}
+        for label, res in runs.items():
+            pre, steps, launches, coll, ms, _, _, _ = res
+            out[label] = {"launches": launches, "collectives": coll,
+                          "decode_ms": ms}
+            log(f"spmd inference (c) rank {rank}: {LM_CONFIG} {label} on "
+                f"{SPMD2_MESH} ({smi}): launches {json.dumps(launches)}; "
+                f"collectives {json.dumps(coll)}; decode step ms "
+                f"{[round(x, 3) for x in ms]} (host clock, through gloo: "
+                f"a smoke reading)")
+        n = cfg.n_layers
+        check(bf16[2]["flash_attention"] == n and bf16[2]["qmatmul"] == 0,
+              f"bf16 mesh prefill and decode launched {bf16[2]}")
+        for label in ("int8", "int8_float32"):
+            check(runs[label][2]["flash_attention"] == n
+                  and runs[label][2]["qmatmul"]
+                  == per_pass * (1 + SPMD2_DECODE_STEPS),
+                  f"{label} mesh prefill and decode launched "
+                  f"{runs[label][2]}")
+        check(worst_k6["n_fwd"] == n and worst32["n_fwd"] == n,
+              f"held {worst_k6['n_fwd']} bf16 and {worst32['n_fwd']} "
+              f"float32 K6 launches")
+        out["k6_worst"] = max(worst_k6["fwd"], worst32["fwd"])
+        out["k6_worst_of_max"] = max(worst_k6["fwd_rel"], worst32["fwd_rel"])
+        out["k5_worst"] = max(int8[5], int8_f32[5])
+        dist.barrier()
+        if rank == 0:
+            cmp = {"int8": _against_one_rank(
+                f"spmd {LM_CONFIG} int8", model, qfull, int8[0], int8[1],
+                tokens, dec_tokens,
+                int8={"kept": kept, "float32": (int8_f32[0], int8_f32[1])})}
+            del qfull, kept
+            gc.collect()
+            torch.cuda.empty_cache()
+            cmp["bf16"] = _against_one_rank(
+                f"spmd {LM_CONFIG} bf16", model, full, bf16[0], bf16[1],
+                tokens, dec_tokens)
+            del full
+            torch.cuda.empty_cache()
+            out["against_one_rank"] = cmp
+            log(f"spmd inference (c): {LM_CONFIG} on {SPMD2_MESH} against "
+                f"one rank: {json.dumps(cmp)}")
+            q, k, v, kw = caught["fwd"]
+            out["k6_row"] = time_case(flash_case(
+                f"spmd inference {SPMD2_MESH} prefill layer 0", q, k, v, kw),
+                reps=5, inner=10)
+            q, k, v, kw = caught32["fwd"]
+            out["k6_f32_row"] = time_case(flash_case(
+                f"spmd inference {SPMD2_MESH} int8 float32 prefill layer 0",
+                q, k, v, kw), reps=3, inner=3)
+            out["k5_rows"] = _spmd2_k5_rows(int8[6], int8[7] + int8_f32[7])
+        del bf16, int8, int8_f32, runs, caught, caught32
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _spmd2_k5_rows(kept, shapes):
+    """K5 timed at each rank-local shape of the mesh's int8 prefill and
+    decode steps, on the rank's own codes; ``launches``: the shape's
+    count on this rank (the parent doubles it for the two ranks)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for (m, k, n), (x, w, sc) in kept.items():
+        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, k5_ops(m, k, n)
+        row = {"kernel": "qmatmul", "model": f"{LM_CONFIG} int8 on "
+                                             f"{SPMD2_MESH}",
+               "stage": "prefill" if m > len(SPMD2_DECODE_CUR) else
+               "decode", "shape": f"M={m} K={k} N={n}", "bytes": nbytes,
+               "ops": nops, "launches": shapes.count((m, k, n)),
+               "ms": time_ms(lambda: ops.qmatmul(x, w, sc), reps=5, inner=5),
+               "plain_ms": time_ms(lambda: ref.qmatmul_ref(x, w, sc),
+                                   reps=3, inner=1),
+               "library_ms": time_ms(
+                   lambda: torch._int_mm(x, w).to(torch.float32) * sc
+                   if m > 16 else
+                   torch._int_mm(torch.nn.functional.pad(x, (0, 0, 0,
+                                                             17 - m)),
+                                 w).to(torch.float32)[:m] * sc,
+                   reps=5, inner=5),
+               "bound_ms": bound_ms(nbytes, nops, INT8_OPS_PER_S),
+               "bound_by": bound_by(nbytes, nops, INT8_OPS_PER_S)}
+        rows.append(row)
+        log(f"time qmatmul {row['model']} {row['stage']} {row['shape']} x "
+            f"{row['launches']} a rank: kernel {row['ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.6f} ms, torch._int_mm + scale "
+            f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms")
+    check(sum(r["launches"] for r in rows) == len(shapes),
+          "the timed K5 shapes do not cover the mesh's launches")
+    return rows
+
+
+def _spmd2_jamba(rank, smi):
+    """(d): jamba-v0.1-52b at full width, 8 layers, in float32 (TF32
+    off) on (1, 2): the rank's blocks drawn one rank at a time (bf16
+    draws, the whole tree 25 GB, made float32 as blocks), a counted
+    prefill of 1 x 4096 (its K6 launch held against its plain version)
+    and 4 decode steps at batch 4; then rank 0 alone on the whole tree
+    (the same draws made float32), the mesh's logits within
+    ``SUBLAYER_TOL`` of its largest |logit|. float32, because at a
+    decode step's 4 tokens an expert takes one token (capacity factor
+    1.25, 16 experts, top-2) and bf16 noise flips near-tied routing
+    choices, which moves a token's output by its own size."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
+
+    cfg16 = dataclasses.replace(get_config(JAMBA_CONFIG),
+                                n_layers=SPMD2_JAMBA_LAYERS)
+    cfg = dataclasses.replace(cfg16, dtype="float32")
+    kinds = [cfg.layer_kind(i) for i in range(cfg.block_period)]
+    moe = [cfg.layer_is_moe(i) for i in range(cfg.block_period)]
+    check("attn" in kinds and "ssm" in kinds and any(moe),
+          f"jamba cut to {cfg.n_layers} layers lacks a sublayer kind")
+    model = Model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 54)
+    tokens = torch.randint(0, cfg.vocab, (1, FAMILY_SEQ), generator=g,
+                           device="cuda")
+    dec_tokens = [torch.randint(0, cfg.vocab, (len(SPMD2_DECODE_CUR), 1),
+                                generator=g, device="cuda")
+                  for _ in range(SPMD2_JAMBA_DECODE_STEPS)]
+
+    def init():
+        return Model(cfg16).init(torch.Generator(device="cuda").manual_seed(
+            SEED + 55), device="cuda")
+
+    mesh, rules = _spmd_mesh(SPMD2_MESH, cfg, 1)
+    out, caught = {}, {}
+    with torch.inference_mode(), full_fp32(), use_mesh_rules(mesh, rules):
+        params = None
+        for r in range(2):
+            if rank == r:
+                full = init()
+                params = shard_tree(full, model.param_specs())
+                del full
+                params = _float32_tree(params)
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = _now()
+        worst_k6, unwrap = _spmd_checked_k6(caught)
+        try:
+            pre, steps, launches, coll, ms, _, _, _ = _mesh_inference(
+                model, params, tokens, dec_tokens)
+        finally:
+            unwrap()
+        out.update(launches=launches, collectives=coll,
+                   decode_ms=ms, wall_s=_now() - t0,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   k6_worst=worst_k6["fwd"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(launches["flash_attention"] == kinds.count("attn") * cfg.n_groups
+          == worst_k6["n_fwd"], f"jamba mesh prefill launched {launches}")
+    log(f"spmd inference (d) rank {rank}: {JAMBA_CONFIG} ({cfg.n_layers} "
+        f"layers: {kinds}, MoE {moe}; float32) on {SPMD2_MESH} ({smi}): "
+        f"launches {json.dumps(launches)}; collectives {json.dumps(coll)}; "
+        f"decode step ms {[round(x, 3) for x in ms]}; prefill and decode "
+        f"{out['wall_s']:.3f} s, peak {out['peak_bytes'] / 2**30:.3f} GiB")
+    dist.barrier()
+    if rank == 0:
+        with torch.inference_mode(), full_fp32():
+            one_pre, one_steps = _one_rank_runs(
+                model, _float32_tree(init()), tokens, dec_tokens)
+            out["against_one_rank"] = {
+                "prefill": _float32_check(f"spmd {JAMBA_CONFIG} prefill",
+                                          pre, one_pre),
+                "decode": [_float32_check(
+                    f"spmd {JAMBA_CONFIG} decode step {t}", a, b)
+                    for t, (a, b) in enumerate(zip(steps, one_steps))]}
+            del one_pre, one_steps
+            gc.collect()
+            torch.cuda.empty_cache()
+            q, k, v, kw = caught["fwd"]
+            out["k6_row"] = time_case(flash_case(
+                f"spmd inference {SPMD2_MESH} float32 prefill", q, k, v, kw,
+                model=JAMBA_CONFIG), reps=3, inner=3)
+        log(f"spmd inference (d): {JAMBA_CONFIG} against one rank "
+            f"(float32, max |diff| over max |logit|): "
+            f"{json.dumps(out['against_one_rank'])}")
+    del pre, steps, caught
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _spmd2_worker(argv):
+    """One rank of phase 25 (``chip_smoke.py --spmd-inference-worker RANK
+    WORLD INIT DIR``): a gloo group over the card's tensors; its results
+    go to ``DIR/rank<RANK>.json``."""
+    rank, world, init, workdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    out = {"rank": rank}
+    for key, fn in (("small", lambda: _spmd2_small(rank)),
+                    ("mamba", lambda: _spmd2_mamba(rank, smi)),
+                    ("llama", lambda: _spmd2_llama(rank, smi)),
+                    ("jamba", lambda: _spmd2_jamba(rank, smi))):
+        t0 = _now()
+        out[key] = fn()
+        out[key + "_s"] = _now() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spmd2_meta_collectives():
+    """(e): the same steps as (b) and (c) (the train step, the prefills
+    and the first decode steps) traced rank-locally on meta by
+    the dry run's machinery, over torch's fake process group of two
+    ranks on the (1, 2) mesh: {label: collectives}."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_process_group
+    from repro_torch.parallel.sharding import use_mesh_rules
+
+    mamba = dataclasses.replace(get_config(SPMD2_MAMBA),
+                                n_layers=SPMD2_MAMBA_LAYERS)
+    llama = get_config(LM_CONFIG)
+    cells = {
+        "train (b)": (mamba, ShapeConfig("train", TRAIN_SEQ,
+                                         SPMD2_MAMBA_BATCH, "train"), 16),
+        "prefill bf16 (c)": (llama, ShapeConfig("prefill", LM_SEQ, 1,
+                                                "prefill"), 16),
+        "prefill int8 (c)": (llama, ShapeConfig("prefill", LM_SEQ, 1,
+                                                "prefill"), 8),
+        "decode bf16 (c)": (llama, ShapeConfig(
+            "decode", SPMD2_DECODE_LEN, len(SPMD2_DECODE_CUR), "decode"),
+            16),
+        "decode int8 (c)": (llama, ShapeConfig(
+            "decode", SPMD2_DECODE_LEN, len(SPMD2_DECODE_CUR), "decode"), 8),
+    }
+    out = {}
+    init_fake_process_group(SPMD_RANKS)
+    try:
+        for label, (cfg, shape, bits) in cells.items():
+            model, trees = dryrun._abstract_trees(cfg, shape, bits)
+            mesh, rules = _spmd_mesh(SPMD2_MESH, cfg, shape.global_batch)
+            with use_mesh_rules(mesh, rules):
+                rep = dryrun.trace_step(model, shape, dryrun.rank_trees(
+                    model, shape, trees))
+            out[label] = _collectives(rep)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _production_collectives(dryrun_details):
+    """(e): the collective bytes a device of phase 23's dry run records
+    for a train, a prefill and a decode cell of the single-pod mesh."""
+    recs = dryrun_details["all"]["records"]
+    out = {}
+    for key in ("falcon-mamba-7b train_4k", "llama3-8b prefill_32k",
+                "llama3-8b decode_32k"):
+        rec = recs[key]
+        check(rec["collective_bytes_per_device"] is not None
+              and rec["collective_bytes_per_device"] > 0,
+              f"dry run {key}: no collective bytes")
+        out[key] = {k: rec[k] for k in ("collective_bytes_per_device",
+                                        "collectives_by_type",
+                                        "collectives_count")}
+    return out
+
+
+def phase_spmd_inference(smi, dryrun_details):
+    """Phase 25 (module docstring). Returns (K6 and K5 launches of the
+    mesh's counted runs, their worst |kernel - plain|, the timing rows,
+    details)."""
+    import shutil
+
+    import torch
+    from repro_torch.obs import timer
+
+    t0 = timer.now()
+    # the ranks need the card's memory: this process's cached blocks are
+    # freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    log(f"spmd inference: this process holds {json.dumps(held)} of the "
+        f"card as the ranks start")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="spmd2-", dir=os.path.join(ROOT,
+                                                                  "build"))
+    try:
+        res = _spmd_ranks(workdir, "--spmd-inference-worker",
+                          "spmd_inference_rank", SPMD2_TIMEOUT_S,
+                          SPMD2_RANK_ENV)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    small = res[0]["small"]
+    for name in SPMD2_SSM:
+        for mesh in SPMD_SMALL_MESHES:
+            key = f"{mesh[0]}x{mesh[1]}"
+            check(all(r["small"][name][key] == small[name][key]
+                      for r in res),
+                  f"spmd inference (a) {name} {mesh}: the ranks' losses "
+                  f"differ: {[r['small'][name][key] for r in res]}")
+    mamba = [r["mamba"] for r in res]
+    check(all(m["losses"] == mamba[0]["losses"] for m in mamba),
+          f"spmd inference (b): the ranks' losses differ: "
+          f"{[m['losses'] for m in mamba]}")
+    one = mamba[0]["one_rank_losses"]
+    check(all(abs(a - b) <= SPMD_FULL_RTOL * abs(b)
+              for a, b in zip(mamba[0]["losses"], one)),
+          f"spmd inference (b) {SPMD2_MAMBA}: losses {mamba[0]['losses']} "
+          f"against one rank's {one}")
+    llama, jamba = [r["llama"] for r in res], [r["jamba"] for r in res]
+    int8_runs = ("int8", "int8_float32")
+    launches = {
+        "flash_attention": sum(x[k]["launches"]["flash_attention"]
+                               for x in llama
+                               for k in ("bf16",) + int8_runs)
+        + sum(x["launches"]["flash_attention"] for x in jamba),
+        "qmatmul": sum(x[k]["launches"]["qmatmul"] for x in llama
+                       for k in int8_runs)}
+    k6_row = llama[0]["k6_row"]
+    k6_row["launches"] = sum(x[k]["launches"]["flash_attention"]
+                             for x in llama for k in ("bf16", "int8"))
+    k6_llama_f32_row = llama[0]["k6_f32_row"]
+    k6_llama_f32_row["launches"] = sum(
+        x["int8_float32"]["launches"]["flash_attention"] for x in llama)
+    k6_f32_row = jamba[0]["k6_row"]
+    k6_f32_row["launches"] = sum(x["launches"]["flash_attention"]
+                                 for x in jamba)
+    k5_rows = llama[0]["k5_rows"]
+    for row in k5_rows:
+        row["launches"] *= SPMD_RANKS
+    check(sum(r["launches"] for r in k5_rows) == launches["qmatmul"],
+          "phase 25's K5 rows do not cover the two ranks' launches")
+    worst = {"flash_attention": max(x["k6_worst"] for x in llama + jamba),
+             "qmatmul": max(x["k5_worst"] for x in llama)}
+    # (e): the real steps' collectives against the meta traces of the
+    # same steps, and the production cells of the dry run
+    meta = _spmd2_meta_collectives()
+    real = {"train (b)": mamba[0]["collectives"]}
+    for label in ("bf16", "int8"):
+        for call in ("prefill", "decode"):
+            real[f"{call} {label} (c)"] = llama[0][label]["collectives"][call]
+    for label, want in meta.items():
+        check(real[label] == want,
+              f"spmd inference (e) {label}: the card's rank-local step "
+              f"counted {json.dumps(real[label])}, its meta trace "
+              f"{json.dumps(want)}")
+    production = _production_collectives(dryrun_details)
+    details = {"card": smi, "parent_held": held, "small": small,
+               "mamba": mamba, "llama": llama,
+               "jamba": jamba, "launches": launches,
+               "collectives": {"card": real, "meta": meta,
+                               "dry_run_single_pod": production},
+               "ranks_s": {k: res[0][k + "_s"] for k in
+                           ("small", "mamba", "llama", "jamba")},
+               "wall_s": timer.now() - t0}
+    log(f"spmd inference phase ({smi}): (a) {json.dumps(small)}; (b) "
+        f"{SPMD2_MAMBA} {SPMD2_MAMBA_LAYERS} layers on {SPMD2_MESH}: losses "
+        f"{mamba[0]['losses']} against one rank {one}, step ms "
+        f"{[m['step_ms'] for m in mamba]} (host clock, through gloo and the "
+        f"host: a smoke reading; the first under the op-trace analysis), "
+        f"peak GiB {[round(m['peak_bytes'] / 2**30, 3) for m in mamba]}; "
+        f"(c) {LM_CONFIG}: K6 {launches['flash_attention']} and K5 "
+        f"{launches['qmatmul']} launches over both ranks (with (d)), "
+        f"against one rank {json.dumps(llama[0]['against_one_rank'])}; (d) "
+        f"{JAMBA_CONFIG}: {json.dumps(jamba[0]['against_one_rank'])}; (e) "
+        f"collective bytes a rank, card = meta: "
+        f"{json.dumps({k: v['bytes'] for k, v in real.items()})}; the dry "
+        f"run's single-pod cells a device: "
+        f"{json.dumps({k: v['collective_bytes_per_device'] for k, v in production.items()})}; "
+        f"ranks' phases s {json.dumps(details['ranks_s'])}; "
+        f"{details['wall_s']:.3f} s")
+    return (launches, worst, [k6_row, k6_llama_f32_row, k6_f32_row]
+            + k5_rows, details)
 
 
 
@@ -5840,6 +6891,8 @@ def main() -> int:
         mesh = phase_mesh(smi)
         dryrun = phase_dryrun(smi)
         spmd_launches, worst_spmd, spmd_rows, spmd = phase_spmd(smi)
+        spmd2_launches, worst_spmd2, spmd2_rows, spmd2 = \
+            phase_spmd_inference(smi, dryrun)
         lm["profile"] = phase_lm_profile()
         lm["families"]["profile"] = phase_family_profile()
         lm["int8"]["profile"] = phase_int8_profile()
@@ -5863,22 +6916,26 @@ def main() -> int:
         worst[HEAD_KERNEL] = worst_main[HEAD_KERNEL]
         worst["flash_attention"] = max(worst_lm, worst_fam,
                                        worst_spmd["flash_attention"],
+                                       worst_spmd2["flash_attention"],
                                        *worst_flash.values())
         worst["flash_attention_bwd"] = max(
             worst_train, worst_spmd["flash_attention_bwd"])
         for k in BENCH_KERNELS:
             worst[k] = max(worst_k45[k], worst_bench[k])
-        worst["qmatmul"] = max(worst["qmatmul"], worst_int8)
+        worst["qmatmul"] = max(worst["qmatmul"], worst_int8,
+                               worst_spmd2["qmatmul"])
         launches = {**{k: launches[k] for k in TINY_KERNELS + (HEAD_KERNEL,)},
                     "flash_attention": lm_launches["flash_attention"]
                     + fam_k6,
                     **{k: train_launches[k] for k in TRAIN_KERNELS},
                     **{k: bench_launches[k] for k in BENCH_KERNELS}}
         launches["qmatmul"] += k5_int8
-        for k, n in spmd_launches.items():
+        for k, n in list(spmd_launches.items()) + list(
+                spmd2_launches.items()):
             launches[k] += n
         line = kernels_line(rows + k6_rows + bench_rows + [k6_bwd_row]
-                            + int8_rows + spmd_rows, launches, worst)
+                            + int8_rows + spmd_rows + spmd2_rows, launches,
+                            worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -5897,6 +6954,7 @@ def main() -> int:
                    "scenarios": scenarios, "serving": serving, "qat": qat,
                    "paper_benches": papers, "mesh": mesh,
                    "dryrun": dryrun, "spmd": spmd,
+                   "spmd_inference": spmd2,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,
@@ -5915,4 +6973,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--spmd-worker"]:
         sys.exit(_spmd_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--spmd-inference-worker"]:
+        sys.exit(_spmd2_worker(sys.argv[2:]))
     sys.exit(main())

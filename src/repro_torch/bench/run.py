@@ -49,7 +49,7 @@ def _roofline_section():
 
     from repro_torch.bench.common import banner
     from repro_torch.launch.roofline import (analyze, load_artifacts,
-                                             render_table)
+                                             render_table, summary_lines)
 
     banner("Roofline table (from dry-run artifacts)")
     if not os.path.isdir("artifacts/dryrun"):
@@ -59,6 +59,8 @@ def _roofline_section():
     rows = [analyze(r) for r in load_artifacts("artifacts/dryrun")]
     print("--- paper-faithful baseline ---")
     print(render_table(rows, mesh="single", tag="baseline"))
+    for line in summary_lines(rows, mesh="single", tag="baseline"):
+        print(line)
     if any(r.tag == "optimized" for r in rows):
         print("\n--- beyond-paper optimized ---")
         print(render_table(rows, mesh="single", tag="optimized"))

@@ -183,9 +183,12 @@ class IntQuantizer:
         q = ste_clip(q, float(self.qmin), float(self.qmax))
         return q * s
 
-    def quantize_int(self, x: torch.Tensor):
-        """Return (int codes, scale) — the deployment-side representation."""
-        s = self.scale(x)
+    def quantize_int(self, x: torch.Tensor,
+                     scale: Optional[torch.Tensor] = None):
+        """Return (int codes, scale) — the deployment-side representation;
+        ``scale`` (None: ``self.scale(x)``) is given where x is a block of
+        the tensor whose min-max sets it."""
+        s = self.scale(x) if scale is None else scale
         q = torch.clamp(torch.round(x / s), self.qmin, self.qmax)
         if self.bits <= 8:
             # JAX's float -> int8 cast saturates (unsigned 8-bit codes above

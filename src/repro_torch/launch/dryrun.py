@@ -4,61 +4,75 @@ device.
 The port of ``repro.launch.dryrun``: the same functions, flags and record
 keys. What does not carry over is XLA: the reference lowers and compiles
 each cell's jitted step for 512 fake host devices and reads the
-partitioned HLO. The port has no XLA, no HLO and no SPMD partitioner (its
-model partitions itself, one process a rank: the rank-local step is not
-traced here), so for each cell this module:
+partitioned HLO. The port's model partitions itself, one process a rank
+(``parallel.sharding``), so for each cell this module traces rank 0's
+step:
 
   1. builds the production mesh (16 x 16 single-pod / 2 x 16 x 16
      multi-pod) over torch's ``fake`` process group: 512 ranks in this
-     one process, nothing moved (``launch.mesh.init_fake_process_group``;
-     ``main`` and ``run_cell`` bring it up when no group is);
-  2. builds the params, the optimizer state, the caches and the batch on
-     the ``meta`` device: shapes and dtypes, nothing allocated (the
-     reference's ``jax.eval_shape``);
-  3. runs the cell's global step once on them, under the op-trace
-     analysis (``launch.hlo_analysis``): ``train.steps.make_train_step``
-     with ``optim.adamw``, ``Model.prefill``, or ``Model.decode_step`` on
-     ``Model.cache_init``. The kernels take their meta branches (K5, K6
-     and K6's backward: counted by their own formulas, nothing launched);
+     one process, this process rank 0, collectives that return at once
+     and move nothing (``launch.mesh.init_fake_process_group``; ``main``
+     and ``run_cell`` bring it up when no group is);
+  2. builds the whole params, optimizer state, caches and batch on the
+     ``meta`` device: shapes and dtypes, nothing allocated (the
+     reference's ``jax.eval_shape``), then, under the cell's mesh and
+     rules, rank 0's blocks of them (``rank_trees``: ``shard_tree`` of
+     the params under ``Model.param_specs`` or the quantized spec tree,
+     AdamW's state of those blocks, ``Model.cache_init`` under the mesh);
+     the batch stays global, the model takes its rows;
+  3. runs the rank's step once on them under the op-trace analysis
+     (``launch.hlo_analysis``): ``train.steps.make_train_step`` with
+     ``optim.adamw``, ``Model.prefill``, or ``Model.decode_step``. The
+     kernels take their meta branches (K5, K6 and K6's backward: counted
+     by their own formulas, nothing launched), and every collective the
+     rank issues reaches the counter as a c10d op on the fake group;
   4. records what the reference records, from the spec trees under the
      mesh's rules and from the trace:
 
      * ``params_local_bytes``, ``state_local_bytes``,
-       ``cache_local_bytes``: ``local_bytes`` of the spec trees
-       (``Model.param_specs`` / ``cache_specs``), the reference's
-       arithmetic;
-     * ``hlo_flops_per_device``: the traced FLOPs divided evenly over the
-       mesh's devices. The reference's partitioned count also holds the
-       work every device repeats (replicated norms, the router, ...), so
-       it reads higher where such work is large;
-     * ``memory_analysis``: the trace's argument bytes, output bytes, and
-       the peak live bytes above the arguments (``temp_size_in_bytes``),
-       for the global step on one device;
-     * ``xla_cost_analysis``: the traced FLOPs and bytes accessed (every
-       op's operand and result bytes, a kernel's once), global;
-     * ``collective_bytes_per_device``: null, ``collectives_by_type`` and
-       ``collectives_count`` empty: no partitioner places collectives;
-     * ``lower_s``: seconds to build the meta trees; ``compile_s``: the
-       traced step's seconds.
+       ``cache_local_bytes``: ``local_bytes`` of the spec trees, the
+       reference's arithmetic;
+     * ``hlo_flops_per_device``: the rank's traced FLOPs, its share of
+       the split work plus the work every rank repeats (norms, the
+       router, ...), as the reference's partitioned count holds it;
+     * ``memory_analysis``: the rank's argument bytes, output bytes, and
+       the peak live bytes above the arguments (``temp_size_in_bytes``);
+     * ``xla_cost_analysis``: the rank's traced FLOPs and bytes accessed
+       (every op's operand and result bytes, a kernel's once) times the
+       mesh's ranks, each of which runs the same step on its blocks;
+     * ``collective_bytes_per_device``, ``collectives_by_type``,
+       ``collectives_count``: the output bytes and the count of the
+       rank's collectives by the reference's kinds (all-reduce,
+       all-gather, all-to-all; the FSDP gathers' backward reduce-scatter
+       is an all-reduce of the gathered gradient, of which the rank
+       keeps its block);
+     * ``lower_s``: seconds to build the trees; ``compile_s``: the traced
+       step's seconds.
 
-The trace does not depend on the mesh, so it is run once per (arch,
-shape, options) and both meshes read it. A failing cell is recorded with
-``status: "error"`` and its traceback; ``--all`` exits 1 if any failed.
+Each mesh traces its own step. Rules that split an axis no rank-local
+form of the port reads (``NOT_PORTED``: the ``seqpar`` and ``ep``
+strategies, ``--seq-parallel``) give a record whose three collective
+fields are null, with a ``"not_ported"`` key naming the ``ROADMAP.md``
+item; its FLOPs are the global step's, split evenly. A failing cell is
+recorded with ``status: "error"`` and its traceback; ``--all`` exits 1
+if any failed.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all --mesh both   # every cell
-  ... --mesh multi --seq-parallel --quant 8 --remat dots  # variants
+  ... --all --mesh both --jobs 8   # 8 cells at once, a child process each
+  ... --mesh multi --quant 8 --remat dots --strategy tponly  # variants
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import json
+import multiprocessing
 import os
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 from typing import Any, Dict, Optional
 
 import torch
@@ -67,6 +81,7 @@ import torch.distributed as dist
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
                                       shape_applicable)
+from repro_torch.core.pytree import leaves_with_paths
 from repro_torch.launch.hlo_analysis import analyze_call
 from repro_torch.launch.mesh import (init_fake_process_group,
                                      make_production_mesh, mesh_shape)
@@ -74,7 +89,8 @@ from repro_torch.models.layers import _dtype
 from repro_torch.models.model import Model
 from repro_torch.obs import timer as obs_timer
 from repro_torch.optim.adamw import make_optimizer
-from repro_torch.parallel.sharding import use_mesh_rules
+from repro_torch.parallel.sharding import (quantized_specs, shard_tree,
+                                           use_mesh_rules)
 from repro_torch.train.steps import TrainState, make_train_step
 
 #: ranks of the fake process group: the multi-pod mesh's
@@ -262,36 +278,40 @@ def local_bytes(tree, spec_tree, mesh) -> int:
 
 
 def _quantized_specs(params, pspecs):
-    """Spec tree matching the quantized param structure: w_int inherits w's
-    spec; w_scale keeps the output-channel shards but replicates every axis
+    """Spec tree matching the quantized param structure
+    (``parallel.sharding.quantized_specs``): w_int inherits w's spec;
+    w_scale keeps the output-channel shards but replicates every axis
     whose size collapsed to 1 (the fan-in axis, which with stacked layer
     params is dim 1, not dim 0)."""
-    def visit(p, spec):
-        if isinstance(p, dict) and "w_int" in p:
-            wspec = spec["w"] if isinstance(spec, dict) and "w" in spec else ()
-            wlist = list(wspec) + [None] * (p["w_int"].dim() - len(wspec))
-            sshape = p["w_scale"].shape
-            sspec = tuple(None if sshape[i] == 1 else wlist[i]
-                          for i in range(len(sshape)))
-            out = {"w_int": wspec, "w_scale": sspec}
-            if "b" in p:
-                out["b"] = spec.get("b", ()) if isinstance(spec, dict) else ()
-            return out
-        if isinstance(p, dict):
-            return {k: visit(v, spec[k] if isinstance(spec, dict) else spec)
-                    for k, v in p.items()}
-        return spec
-
-    return visit(params, pspecs)
+    return quantized_specs(params, pspecs)
 
 
 # ---------------------------------------------------------------------------
-# the traced step (mesh-independent, so shared by both meshes)
+# the traced step: rank 0's, under the cell's mesh and rules
 # ---------------------------------------------------------------------------
+
+#: the rules that no rank-local form of the port reads yet -> the
+#: ROADMAP.md item that ports it
+NOT_PORTED = {
+    "seq": "ROADMAP.md queue 1 item 8: the sequence-parallel residual "
+           "stream (seqpar)",
+    "experts": "ROADMAP.md queue 1 item 9: expert parallelism (ep)",
+}
+
+
+def not_ported(rules: dict) -> Optional[str]:
+    """The ROADMAP item of the first rule that splits an axis with no
+    rank-local form in the port; None if the port runs the rules."""
+    for axis, item in NOT_PORTED.items():
+        if rules.get(axis) is not None:
+            return item
+    return None
+
 
 def _abstract_trees(cfg: ArchConfig, shape: ShapeConfig, quant_bits: int):
-    """The cell's meta trees: params (quantized for int serve cells), the
-    optimizer state (train) or the caches (decode), and the batch."""
+    """The cell's whole meta trees: params (quantized for int serve
+    cells), the optimizer state (train) or the caches (decode), and the
+    batch. Called without a mesh: the global step's."""
     model = Model(cfg)
     params = model.init(None, device="meta")
     if quant_bits < 16 and shape.kind != "train":
@@ -306,11 +326,37 @@ def _abstract_trees(cfg: ArchConfig, shape: ShapeConfig, quant_bits: int):
     return model, trees
 
 
+def param_specs_of(model: Model, params) -> Any:
+    """The spec tree of ``params`` (float or quantized, whole) under the
+    active rules."""
+    pspecs = model.param_specs()
+    if any("w_int" in path for path, _ in leaves_with_paths(params)):
+        pspecs = quantized_specs(params, pspecs)
+    return pspecs
+
+
+def rank_trees(model: Model, shape: ShapeConfig, trees: Dict[str, Any]):
+    """The rank's trees under the active mesh and rules: its blocks of
+    the params (``shard_tree``), the optimizer state of those blocks, its
+    blocks of the caches (``Model.cache_init`` under the mesh); the batch
+    stays global (the model takes its rows)."""
+    params = shard_tree(trees["params"], param_specs_of(model,
+                                                        trees["params"]))
+    out: Dict[str, Any] = {"params": params, "batch": trees["batch"]}
+    if shape.kind == "train":
+        out["opt"] = make_optimizer().init(params)
+    elif shape.kind == "decode":
+        out["cache"] = model.cache_init(shape.global_batch, shape.seq_len,
+                                        device="meta")
+    return out
+
+
 def trace_step(model: Model, shape: ShapeConfig, trees: Dict[str, Any],
                microbatches: int = 1):
-    """Run the cell's global step once on ``trees`` under the op-trace
-    analysis; returns its ``TraceReport``. The trees may live on any
-    device (meta for the dry run; the card to check it)."""
+    """Run the cell's step once on ``trees`` under the op-trace analysis;
+    returns its ``TraceReport``. The trees may live on any device (meta
+    for the dry run; the card to check it); under a mesh they are the
+    rank's (``rank_trees``) and the step is the rank's."""
     params, batch = trees["params"], trees["batch"]
     if shape.kind == "train":
         step_fn = make_train_step(model, make_optimizer(),
@@ -323,19 +369,6 @@ def trace_step(model: Model, shape: ShapeConfig, trees: Dict[str, Any],
                       device=batch["tokens_or_embeds"].device)
     return analyze_call(model.decode_step, params, trees["cache"],
                         batch["tokens_or_embeds"], cur)[1]
-
-
-@functools.lru_cache(maxsize=1)
-def _traced(cfg: ArchConfig, shape_name: str, quant_bits: int,
-            microbatches: int):
-    """(model, meta trees, report, build s, trace s) of one cell, kept for
-    the next mesh of the same cell."""
-    shape = SHAPES[shape_name]
-    t0 = obs_timer.now()
-    model, trees = _abstract_trees(cfg, shape, quant_bits)
-    t1 = obs_timer.now()
-    report = trace_step(model, shape, trees, microbatches)
-    return model, trees, report, t1 - t0, obs_timer.now() - t1
 
 
 def ensure_process_group(world_size: int = FAKE_WORLD) -> None:
@@ -383,13 +416,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         rules.update(rules_override)
 
     try:
-        model, trees, report, build_s, trace_s = _traced(
-            cfg, shape_name, quant_bits, microbatches)
+        t0 = obs_timer.now()
+        model, trees = _abstract_trees(cfg, shape, quant_bits)
         params = trees["params"]
         with use_mesh_rules(mesh, rules):
-            pspecs = model.param_specs()
-            if quant_bits < 16 and shape.kind != "train":
-                pspecs = _quantized_specs(params, pspecs)
+            pspecs = param_specs_of(model, params)
             params_local = local_bytes(params, pspecs, mesh)
             if shape.kind == "train":
                 opt = trees["opt"]
@@ -403,31 +434,54 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 state_local = params_local
                 result["cache_local_bytes"] = local_bytes(
                     trees["cache"], model.cache_specs(), mesh)
+            item = not_ported(rules)
+            if item is None:
+                local = rank_trees(model, shape, trees)
         n_dev = mesh.size()
-        stats = report.stats
+        if item is None:
+            t1 = obs_timer.now()
+            with use_mesh_rules(mesh, rules):
+                report = trace_step(model, shape, local, microbatches)
+            del local
+            per_device = report.stats
+            flops_dev = float(per_device.flops)
+            coll = {"collective_bytes_per_device":
+                    float(per_device.collective_bytes),
+                    "collectives_by_type": {
+                        k: float(v) for k, v in per_device.by_type.items()},
+                    "collectives_count": {
+                        k: int(v) for k, v in per_device.by_count.items()}}
+            total = (float(per_device.flops) * n_dev,
+                     float(report.bytes_accessed) * n_dev)
+        else:
+            # no rank-local form: the global step, split evenly
+            t1 = obs_timer.now()
+            report = trace_step(model, shape, trees, microbatches)
+            flops_dev = float(report.stats.flops) / n_dev
+            coll = {"collective_bytes_per_device": None,
+                    "collectives_by_type": None, "collectives_count": None,
+                    "not_ported": item}
+            total = (float(report.stats.flops), float(report.bytes_accessed))
+        trace_s = obs_timer.now() - t1
         result.update(
             status="ok",
-            lower_s=round(build_s, 2),
+            lower_s=round(t1 - t0, 2),
             compile_s=round(trace_s, 2),
             n_devices=n_dev,
             batch_axes=list(baxes) if baxes else [],
             params_local_bytes=params_local,
             state_local_bytes=state_local,
             memory_analysis=report.memory_analysis(),
-            xla_cost_analysis={
-                "flops": float(stats.flops),
-                "bytes_accessed": float(report.bytes_accessed),
-            },
-            hlo_flops_per_device=float(stats.flops) / n_dev,
-            collective_bytes_per_device=None,
-            collectives_by_type={},
-            collectives_count={},
+            xla_cost_analysis={"flops": total[0], "bytes_accessed": total[1]},
+            hlo_flops_per_device=flops_dev,
+            **coll,
         )
         if verbose:
+            cb = coll["collective_bytes_per_device"]
             print(f"[dryrun] {arch} x {shape_name} x {mesh_name} ({tag}): OK "
                   f"trace={result['compile_s']}s "
-                  f"flops/dev={result['hlo_flops_per_device']:.3e} "
-                  f"coll B/dev=n/a "
+                  f"flops/dev={flops_dev:.3e} "
+                  f"coll B/dev={'n/a' if cb is None else f'{cb:.3e}'} "
                   f"params/dev={params_local / 2**30:.2f}GiB", flush=True)
             print("  memory_analysis:", result["memory_analysis"], flush=True)
     except Exception as e:  # noqa: BLE001 - a failing cell is a recorded bug
@@ -453,6 +507,11 @@ def _write(result: Dict[str, Any], out_dir: str):
 # CLI
 # ---------------------------------------------------------------------------
 
+def _run_task(task, kw):
+    arch, shape, multi_pod = task
+    return run_cell(arch, shape, multi_pod=multi_pod, **kw)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
@@ -471,6 +530,8 @@ def main(argv=None):
     ap.add_argument("--attn-impl", choices=["auto", "naive", "chunked"])
     ap.add_argument("--seq-parallel", action="store_true")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once, each job a child process")
     args = ap.parse_args(argv)
 
     rules = {"seq": ("model",)} if args.seq_parallel else None
@@ -487,7 +548,7 @@ def main(argv=None):
             ap.error("--arch/--shape or --all")
         cells = [(args.arch, args.shape)]
 
-    n_ok = n_fail = n_skip = 0
+    tasks = []
     for arch, shape in cells:
         for mp in meshes:
             if args.skip_existing:
@@ -498,14 +559,22 @@ def main(argv=None):
                     with open(path) as f:
                         if json.load(f).get("status") == "ok":
                             continue
-            r = run_cell(arch, shape, multi_pod=mp, rules_override=rules,
-                         quant_bits=args.quant, remat=args.remat,
-                         microbatches=args.microbatches,
-                         strategy=args.strategy, attn_impl=args.attn_impl,
-                         out_dir=args.out, tag=args.tag)
-            n_ok += r["status"] == "ok"
-            n_fail += r["status"] == "error"
-            n_skip += r["status"] == "skipped"
+            tasks.append((arch, shape, mp))
+    kw = dict(rules_override=rules, quant_bits=args.quant, remat=args.remat,
+              microbatches=args.microbatches, strategy=args.strategy,
+              attn_impl=args.attn_impl, out_dir=args.out, tag=args.tag)
+    if args.jobs > 1:
+        # the SSM configs' scans trace longest: they start first
+        tasks.sort(key=lambda t: not get_config(t[0]).has_ssm)
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(args.jobs, mp_context=ctx) as pool:
+            results = list(pool.map(_run_task, tasks,
+                                    [kw] * len(tasks)))
+    else:
+        results = [_run_task(t, kw) for t in tasks]
+    n_ok = sum(r["status"] == "ok" for r in results)
+    n_fail = sum(r["status"] == "error" for r in results)
+    n_skip = sum(r["status"] == "skipped" for r in results)
     print(f"[dryrun] done: {n_ok} ok, {n_skip} skipped (by assignment), "
           f"{n_fail} FAILED", flush=True)
     if n_fail:

@@ -23,8 +23,14 @@ allocated: the dry run), on the CPU, on the card. What it counts:
     the ops the call issues (its plain version on the CPU, the output's
     allocation) count nothing. A kernel without a formula raises, so no
     work goes uncounted unseen;
-  * collectives: the result bytes of each ``torch.distributed`` op (the
-    c10d ops and the functional ones), by the reference's kinds;
+  * collectives: the output bytes of each ``torch.distributed`` op on
+    this rank (what it returns, or the output argument that a c10d op
+    which returns only its work handle writes), by the reference's kinds: the reference's
+    measure, a collective's output bytes on the device. The port issues
+    its collectives as c10d ops (``parallel.collectives``, the step's
+    gradient reductions), which reach the dispatch mode below autograd
+    on any backend, torch's fake one on meta tensors too (the dry run's
+    rank-local steps);
   * bytes accessed: every op's operand and result bytes (views and bare
     allocations aside), a kernel's once;
   * memory: the bytes of every live storage, as the caching allocator
@@ -455,7 +461,8 @@ class OpCounter(TorchDispatchMode):
         if ops.inside_kernel():
             return out
         if info.kind is not None:
-            nbytes = float(sum(shape_bytes(t) for t in outs))
+            nbytes = float(sum(shape_bytes(t) for t in _collective_outputs(
+                args, outs)))
             stats = self.stats
             stats.collective_bytes += nbytes
             stats.by_type[info.kind] = stats.by_type.get(info.kind, 0.0) \
@@ -471,6 +478,18 @@ class OpCounter(TorchDispatchMode):
                 sum(t.numel() * t.element_size() for t in ins)
                 + sum(t.numel() * t.element_size() for t in outs))
         return out
+
+
+def _collective_outputs(args, outs) -> List[torch.Tensor]:
+    """The tensors a collective writes: what it returns (the functional
+    ops; the c10d ops that return their outputs), else its first
+    argument, the output c10d takes first (``alltoall_base_`` and
+    ``send`` return only a work handle)."""
+    if outs or not args:
+        return outs
+    written: list = []
+    _leaf(args[0], written, None)
+    return written
 
 
 def analyze_call(fn: Callable, *args, **kwargs) -> Tuple[Any, TraceReport]:

@@ -13,10 +13,11 @@ of the TPU v5e's:
     collective term = collective bytes per device / NVLink 4's 450e9 B/s
                       per direction
 
-The port's dry run records no collective bytes (it has no partitioner:
-``collective_bytes_per_device`` is null). Such a row prints ``n/a`` in
-that column, and the term is left out of ``dominant`` and of the
-overlapped step time; a record that has them gets the reference's term.
+The dry run records the collective bytes of each cell's rank-local step
+(``launch.dryrun``). A record without them (a strategy with no
+rank-local form in the port, ``"not_ported"``) prints ``n/a`` in that
+column, and the term is left out of ``dominant`` and of the overlapped
+step time.
 
 MODEL_FLOPS = 6 * N_active * D (train) / 2 * N_active * D (inference)
 gives the useful fraction of the traced FLOPs (``useful_ratio``), which
@@ -49,7 +50,7 @@ NVLINK_BW = 450e9
 
 __all__ = ["PEAK_BF16", "PEAK_INT8", "HBM_BW", "NVLINK_BW", "RooflineRow",
            "compute_seconds", "memory_seconds", "load_artifacts", "analyze",
-           "render_table", "main"]
+           "render_table", "summary_lines", "main"]
 
 
 @dataclass
@@ -180,6 +181,30 @@ def render_table(rows: List[RooflineRow], mesh: str = "single",
     return "\n".join(lines)
 
 
+def summary_lines(rows: List[RooflineRow], mesh: str = "single",
+                  tag: Optional[str] = "baseline") -> List[str]:
+    """The worst roofline fraction and the most collective-bound cell
+    among the ok rows of ``mesh`` and ``tag``."""
+    ok = [r for r in rows if r.status == "ok" and r.mesh == mesh
+          and (not tag or r.tag == tag)]
+    if not ok:
+        return []
+    worst = min(ok, key=lambda r: r.roofline_fraction)
+    out = ["", f"worst roofline fraction : {worst.arch} x {worst.shape} "
+               f"({worst.roofline_fraction:.1%}, {worst.dominant}-bound)"]
+    known = [r for r in ok if r.t_collective is not None]
+    if known:
+        coll = max(known, key=lambda r: r.t_collective /
+                   max(r.t_total_overlap, 1e-12))
+        out.append(f"most collective-bound   : {coll.arch} x {coll.shape} "
+                   f"(collective {coll.t_collective:.4f}s of "
+                   f"{coll.t_total_overlap:.4f}s)")
+    else:
+        out.append("most collective-bound   : n/a (the records hold no "
+                   "collective bytes)")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="artifacts/dryrun")
@@ -191,22 +216,8 @@ def main(argv=None):
     rows = [analyze(rec) for rec in load_artifacts(args.dir)]
     print(render_table(rows, mesh=args.mesh, tag=args.tag))
 
-    ok = [r for r in rows if r.status == "ok" and r.mesh == args.mesh
-          and r.tag == args.tag]
-    if ok:
-        worst = min(ok, key=lambda r: r.roofline_fraction)
-        print(f"\nworst roofline fraction : {worst.arch} x {worst.shape} "
-              f"({worst.roofline_fraction:.1%}, {worst.dominant}-bound)")
-        known = [r for r in ok if r.t_collective is not None]
-        if known:
-            coll = max(known, key=lambda r: r.t_collective /
-                       max(r.t_total_overlap, 1e-12))
-            print(f"most collective-bound   : {coll.arch} x {coll.shape} "
-                  f"(collective {coll.t_collective:.4f}s of "
-                  f"{coll.t_total_overlap:.4f}s)")
-        else:
-            print("most collective-bound   : n/a (the records hold no "
-                  "collective bytes)")
+    for line in summary_lines(rows, args.mesh, args.tag):
+        print(line)
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump([r.__dict__ for r in rows], f, indent=1)

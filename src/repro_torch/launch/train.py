@@ -22,9 +22,8 @@ divides the axis; the batch over the largest of ("data",) that divides
 of them (``parallel.sharding.shard_tree`` over ``Model.param_specs``)
 and of the optimizer state, takes its rows of each global batch, and the
 checkpoints gather and reshard (``train.steps.make_train_step``,
-``checkpoint``). The mamba and hybrid families have no rank-local form
-yet: under a mesh of more than one rank the launcher refuses them,
-naming the ``ROADMAP.md`` item. Weights come from a ``torch.Generator``
+``checkpoint``), for every family: dense, MoE, mamba and the hybrid
+blocks. Weights come from a ``torch.Generator``
 seeded with 0 (JAX's PRNG is not reproduced). A run resumes from the
 newest checkpoint in ``--ckpt-dir``; on ``ElasticRestart`` (the
 straggler watchdog, taken by every rank alike) the launcher builds the
@@ -52,7 +51,7 @@ from repro_torch.core.qir import resolve_device
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.launch.dryrun import arch_rules, batch_logical_axes
 from repro_torch.launch.mesh import make_elastic_mesh, mesh_devices
-from repro_torch.models.model import SSM_MESH_ITEM, Model
+from repro_torch.models.model import Model
 from repro_torch.optim.adamw import make_optimizer
 from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
 from repro_torch.train.loop import ElasticRestart, LoopConfig, run_training
@@ -110,9 +109,6 @@ def _train(args, cfg, device):
         mesh = make_elastic_mesh(args.model_parallel)
         log.info("mesh %s over %d ranks", dict(zip(
             mesh.mesh_dim_names, mesh.shape)), mesh_devices(mesh))
-        if mesh_devices(mesh) != 1 and cfg.has_ssm:
-            raise NotImplementedError(
-                f"{cfg.name} on a {tuple(mesh.shape)} mesh: {SSM_MESH_ITEM}")
         rules = arch_rules(cfg, mesh, batch_logical_axes(args.batch, mesh))
         log.info("%s on %s", cfg.name, device)
         model = Model(cfg)

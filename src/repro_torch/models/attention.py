@@ -14,8 +14,15 @@ backward is a kernel of its own (``ops.flash_attention_bwd``; the
 reference differentiates its jnp flash twin). ``decode_attention`` and
 ``_decode_ring`` stay plain torch ops, as they are jnp in the reference.
 Under a mesh ``attn_apply`` runs on the rank's heads (its docstring says
-how), with K6 at the rank-local head counts; decode under a mesh of
-more than one rank is not ported.
+how), with K6 at the rank-local head counts. Decode runs over a cache
+split along the sequence ("kv_seq", and the batch): each rank holds
+every kv head of its block of positions, writes the new token's K/V
+only where its block holds the position, computes the partial softmax
+over its positions (masked by global position) and the group combines
+the partial maxima, sums and weighted sums
+(``parallel.collectives.combine_softmax``), as the reference's GSPMD
+lowers its explicit reductions to partial reductions and small
+all-reduces.
 M-RoPE (Qwen2-VL) takes (3, B, S) positions, one row per (t, h, w)
 section of the rotary half-dims; the masks and the kernel read the
 temporal row, which on the flash path must be an arange run.
@@ -29,10 +36,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dtype, _mx, linear_apply, linear_init
-from repro_torch.parallel.collectives import copy_to_group, sum_over_group
-from repro_torch.parallel.sharding import (local_dim, logical_block,
-                                           logical_group)
+from repro_torch.models.layers import (_dtype, _mx, linear_apply, linear_init,
+                                       row_parallel_linear)
+from repro_torch.parallel.collectives import (combine_softmax, copy_to_group,
+                                              gather_blocks)
+from repro_torch.parallel.sharding import (local_dim, local_shape,
+                                           logical_block, logical_group)
 
 NEG_INF = -1e30
 
@@ -192,33 +201,42 @@ def chunked_attention(cfg: ArchConfig, q, k, v, q_pos, k_pos,
     return out.transpose(1, 2)
 
 
-def decode_attention(cfg: ArchConfig, q, k_cache, v_cache, cur_index):
+def decode_attention(cfg: ArchConfig, q, k_cache, v_cache, cur_index,
+                     pos0: int = 0, group=None):
     """Single-token attention against a cache.
 
     q: (B, 1, H, hd); caches: (B, S, K, hd); cur_index: int or (B,) tensor
-    = number of valid cache positions."""
+    = number of valid cache positions. ``pos0``: the global position of
+    the cache's first row, where the cache is a rank's block of the
+    sequence, and ``group`` the ranks of the other blocks, whose partial
+    softmaxes are combined."""
     B, _, H, hd = q.shape
     S, Kh = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, Kh, H // Kh, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).to(torch.float32) \
         * (hd ** -0.5)
-    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    pos = torch.arange(S, dtype=torch.int32, device=q.device) + pos0
     cur = torch.as_tensor(cur_index, device=q.device).expand(B)
     cur = cur[:, None, None, None]
     valid = pos[None, None, None, :] < cur
     if cfg.window > 0:
         valid = valid & (pos[None, None, None, :] >= cur - cfg.window)
-    return _softmax_weighted(s, valid, v_cache).reshape(B, 1, H, hd)
+    return _softmax_weighted(s, valid, v_cache, group).reshape(B, 1, H, hd)
 
 
-def _softmax_weighted(s, valid, v_cache):
-    """Explicit max / exp / sum / weighted sum of the reference's decode."""
+def _softmax_weighted(s, valid, v_cache, group=None):
+    """Explicit max / exp / sum / weighted sum of the reference's decode;
+    over a group of sequence blocks, the partial ones combined."""
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     lsum = p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bkgs,bskh->bkgh", (p / lsum).to(v_cache.dtype),
-                        v_cache)
+    if group is None:
+        return torch.einsum("bkgs,bskh->bkgh", (p / lsum).to(v_cache.dtype),
+                            v_cache)
+    acc = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype),
+                       v_cache).to(torch.float32)
+    return combine_softmax(m, lsum, acc, group).to(v_cache.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -296,15 +314,18 @@ def attn_apply(cfg: ArchConfig, p, x, positions,
     if tp is not None and not heads_split:
         n = local_dim("heads_flat", out.shape[-1])
         out = out.narrow(-1, logical_block("heads_flat")[0] * n, n)
-    return sum_over_group(linear_apply(cfg, p["wo"], out, fsdp_dim=1,
-                                       split=tp), tp)
+    return row_parallel_linear(cfg, p["wo"], out, tp)
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                     device=None):
+    """Zeroed K and V caches (B, S, K, hd), S the window for a ring
+    buffer; under a mesh the rank's block (``attn_cache_specs``: its
+    rows of the batch, its block of the sequence, every kv head)."""
     dtype = dtype or _dtype(cfg)
     cache_len = min(max_len, cfg.window) if cfg.window > 0 else max_len
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    shape = local_shape((batch, cache_len, cfg.n_kv_heads, cfg.hd),
+                        attn_cache_specs(cfg)["k"])
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -314,16 +335,32 @@ def attn_cache_specs(cfg: ArchConfig):
     return {"k": (b, s, None, None), "v": (b, s, None, None)}
 
 
+def _whole_heads(cfg: ArchConfig, lin, x, name: str):
+    """A q / k / v projection of one token with every head on every rank:
+    under a mesh the rank's heads (where the rules split ``name``) are
+    gathered over the group (a few KB a token)."""
+    grp = logical_group(name)
+    return gather_blocks(linear_apply(cfg, lin, x, fsdp_dim=0, split=grp),
+                         grp, 2)
+
+
 def attn_decode(cfg: ArchConfig, p, x, cache, cur_index):
     """One decode step. x (B,1,d); cur_index int or (B,) per-slot tensor.
     Returns (y, cache). The step's K/V are written into ``cache`` in place
     (the reference returns an updated copy; the port saves the copy of the
     whole cache per layer and step), so the returned cache is the one
-    passed in."""
+    passed in.
+
+    Under a mesh (module docstring): q, k and v reach every rank whole;
+    the cache is the rank's block of the sequence ("kv_seq"), written
+    only where it holds the token's position (``cur``, or ``cur mod S``
+    for the ring buffer); the partial softmaxes are combined over the
+    "kv_seq" group; each rank keeps its "heads_flat" block of the output
+    for the row-parallel ``wo``."""
     B = x.shape[0]
-    q = linear_apply(cfg, p["wq"], x)
-    k = linear_apply(cfg, p["wk"], x)
-    v = linear_apply(cfg, p["wv"], x)
+    q = _whole_heads(cfg, p["wq"], x, "heads")
+    k = _whole_heads(cfg, p["wk"], x, "kv_heads")
+    v = _whole_heads(cfg, p["wv"], x, "kv_heads")
     cur = torch.as_tensor(cur_index, dtype=torch.int32,
                           device=x.device).expand(B)
     pos = cur[:, None]
@@ -334,30 +371,49 @@ def attn_decode(cfg: ArchConfig, p, x, cache, cur_index):
     k = apply_rope(k, cos, sin)
 
     S = cache["k"].shape[1]
-    write_idx = (torch.remainder(cur, S) if cfg.window > 0 else cur).long()
+    sq = logical_group("kv_seq")
+    block, n_blocks = logical_block("kv_seq") if sq is not None else (0, 1)
+    pos0, S_all = block * S, S * n_blocks
+    write_idx = (torch.remainder(cur, S_all) if cfg.window > 0
+                 else cur).long()
     bidx = torch.arange(B, device=x.device)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[bidx, write_idx] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, write_idx] = v[:, 0].to(v_cache.dtype)
+    k_new, v_new = k[:, 0].to(k_cache.dtype), v[:, 0].to(v_cache.dtype)
+    if sq is None:
+        k_cache[bidx, write_idx] = k_new
+        v_cache[bidx, write_idx] = v_new
+    else:
+        # the rank's rows of the block: the others rewrite what they hold
+        local = write_idx - pos0
+        mine = ((local >= 0) & (local < S))[:, None, None]
+        local = local.clamp(0, S - 1)
+        k_cache[bidx, local] = torch.where(mine, k_new, k_cache[bidx, local])
+        v_cache[bidx, local] = torch.where(mine, v_new, v_cache[bidx, local])
 
     if cfg.window > 0:
         # ring buffer: every slot valid once cur_index >= S
-        n_valid = torch.clamp(cur + 1, max=S)[:, None, None, None]
-        out = _decode_ring(cfg, q, k_cache, v_cache, n_valid)
+        n_valid = torch.clamp(cur + 1, max=S_all)[:, None, None, None]
+        out = _decode_ring(cfg, q, k_cache, v_cache, n_valid, pos0, sq)
     else:
-        out = decode_attention(cfg, q, k_cache, v_cache, cur + 1)
+        out = decode_attention(cfg, q, k_cache, v_cache, cur + 1, pos0, sq)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
-    return linear_apply(cfg, p["wo"], out), cache
+    tp = logical_group("heads_flat")
+    if tp is not None:
+        n = local_dim("heads_flat", out.shape[-1])
+        out = out.narrow(-1, logical_block("heads_flat")[0] * n, n)
+    return row_parallel_linear(cfg, p["wo"], out, tp), cache
 
 
-def _decode_ring(cfg, q, k_cache, v_cache, n_valid):
+def _decode_ring(cfg, q, k_cache, v_cache, n_valid, pos0: int = 0,
+                 group=None):
     """Window decode against a ring buffer: all slots < n_valid (broadcast
-    (B,1,1,1)) are valid and already within the window by construction."""
+    (B,1,1,1)) are valid and already within the window by construction.
+    ``pos0`` / ``group``: ``decode_attention``'s."""
     B, _, H, hd = q.shape
     S, Kh = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, Kh, H // Kh, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).to(torch.float32) \
         * (hd ** -0.5)
-    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    pos = torch.arange(S, dtype=torch.int32, device=q.device) + pos0
     valid = pos[None, None, None, :] < n_valid
-    return _softmax_weighted(s, valid, v_cache).reshape(B, 1, H, hd)
+    return _softmax_weighted(s, valid, v_cache, group).reshape(B, 1, H, hd)

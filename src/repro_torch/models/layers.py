@@ -181,10 +181,34 @@ def linear_apply(cfg: ArchConfig, p, x: torch.Tensor,
     linear (the int8 serve path) runs on K5 instead.
 
     Under a mesh: w's "fsdp" blocks along ``fsdp_dim`` are gathered
-    first; ``split`` is the group over which w is a block (tensor
+    first (``w_int``'s, and ``w_scale``'s where that axis is its output
+    channels'); ``split`` is the group over which w is a block (tensor
     parallelism), whose max |w| sets the fake-quant scale."""
+    return _linear(cfg, p, x, fsdp_dim, split, None)
+
+
+def row_parallel_linear(cfg: ArchConfig, p, x: torch.Tensor,
+                        group) -> torch.Tensor:
+    """A linear whose w is split along its fan-in over ``group`` (the
+    MLP's and attention's ``wo``, the SSM's ``x_proj`` and ``out_proj``):
+    w's "fsdp" blocks along dim 1 are gathered first, x is the rank's
+    block of the contraction axis, and the partial outputs are summed
+    over ``group``. The int8 path takes the activation's scale over
+    ``group`` too (``_int8_linear``)."""
+    return sum_over_group(_linear(cfg, p, x, 1, group, group), group)
+
+
+def _linear(cfg: ArchConfig, p, x, fsdp_dim, split, x_split):
+    """``linear_apply``'s body; ``x_split``: the group over which x is a
+    block of the contraction axis (``row_parallel_linear``)."""
     if "w_int" in p:
-        y = _int8_linear(cfg, p["w_int"], p["w_scale"], x)
+        w_int, w_scale = p["w_int"], p["w_scale"]
+        if fsdp_dim is not None:
+            fsdp = logical_group("fsdp")
+            w_int = gather_blocks(w_int, fsdp, fsdp_dim)
+            if fsdp_dim > 0:
+                w_scale = gather_blocks(w_scale, fsdp, fsdp_dim)
+        y = _int8_linear(cfg, w_int, w_scale, x, x_split)
     else:
         w = p["w"]
         if fsdp_dim is not None:
@@ -202,28 +226,40 @@ def linear_apply(cfg: ArchConfig, p, x: torch.Tensor,
     return y
 
 
-def _int8_linear(cfg: ArchConfig, w_int, w_scale, x):
+def _int8_linear(cfg: ArchConfig, w_int, w_scale, x, split=None):
     """The reference's ``w_int`` branch: x to int8 codes at one scale for
     the whole tensor (codes in [-128, 127], clamped before the cast),
     K5 over the flattened (M, K) x (K, N) codes with the per-channel scale
     ``s_x * w_scale`` (float32), reshaped and cast to the config's
-    dtype."""
-    x_int, s_x = IntQuantizer(bits=8, signed=True).quantize_int(
-        x.to(torch.float32))
+    dtype. Under a mesh x is a block of the whole tensor, the rank's rows
+    of the batch (and, where ``split`` is given, its block of the
+    contraction axis): the scale is the max over those groups, so the
+    codes are the ones the whole tensor gives."""
+    q = IntQuantizer(bits=8, signed=True)
+    xf = x.to(torch.float32)
+    scale = None
+    if active_mesh() is not None:
+        scale = max_over_group(max_over_group(q.scale(xf),
+                                              logical_group("batch")), split)
+    x_int, s_x = q.quantize_int(xf, scale)
     k = x.shape[-1]
     scale = (s_x.reshape(()) * w_scale).reshape(-1)
     y = ops.qmatmul(x_int.reshape(-1, k), w_int.reshape(k, -1), scale)
     return y.reshape(*x.shape[:-1], *w_int.shape[1:]).to(_dtype(cfg))
 
 
-def quantize_linear_params(p, bits: int = 8):
+def quantize_linear_params(p, bits: int = 8, group=None):
     """A float linear as the int serve form: narrow signed ``bits``-bit
     codes per output channel over the fan-in axis (``w_int``, int8, w's
     shape), their scales (``w_scale``, float32, (1,) + w.shape[1:]) and
-    the bias, if any, as it is."""
+    the bias, if any, as it is. ``group``: the ranks over which w's
+    fan-in is split (w a block of the whole weight), whose max per
+    channel sets the scales."""
     w = p["w"].to(torch.float32)
     q = IntQuantizer(bits=bits, signed=True, narrow=True, axis=0)
-    w_int, s = q.quantize_int(w.reshape(w.shape[0], -1))
+    w2 = w.reshape(w.shape[0], -1)
+    scale = None if group is None else max_over_group(q.scale(w2), group)
+    w_int, s = q.quantize_int(w2, scale)
     out = {"w_int": w_int.reshape(w.shape).to(torch.int8),
            "w_scale": s.reshape((1,) + tuple(w.shape[1:])).to(torch.float32)}
     if "b" in p:
@@ -266,7 +302,7 @@ def head_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     the config's dtype on the way, as in the reference. Under a mesh that
     splits the vocab: the rank's block of the logits."""
     if "w_int" in p:
-        return linear_apply(cfg, p, x).to(torch.float32)
+        return linear_apply(cfg, p, x, fsdp_dim=0).to(torch.float32)
     fsdp = logical_group("fsdp")
     if "table" in p:
         w = gather_blocks(p["table"], fsdp, 1).t()
@@ -307,8 +343,7 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     g = linear_apply(cfg, p["wi_gate"], x, fsdp_dim=0, split=tp)
     u = linear_apply(cfg, p["wi_up"], x, fsdp_dim=0, split=tp)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
-    return sum_over_group(
-        linear_apply(cfg, p["wo"], h, fsdp_dim=1, split=tp), tp)
+    return row_parallel_linear(cfg, p["wo"], h, tp)
 
 
 # ---------------------------------------------------------------------------

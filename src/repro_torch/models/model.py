@@ -58,31 +58,9 @@ from repro_torch.models.layers import (_dtype, _mx, embed_apply, embed_init,
 from repro_torch.parallel.collectives import (max_over_group, sum_detached,
                                               sum_over_batch, sum_over_group)
 from repro_torch.parallel.sharding import (active_mesh, batch_block,
-                                           logical_block, logical_group)
-
-#: the ROADMAP.md items that a mesh of more than one rank still lacks
-SSM_MESH_ITEM = ("ROADMAP.md queue 1: mamba and the hybrid blocks under a "
-                 "multi-rank mesh")
-INFERENCE_MESH_ITEM = ("ROADMAP.md queue 1: prefill and decode under a "
-                       "mesh, with the kv_seq-sharded cache")
-
-
-def _refuse_multi_rank(cfg: ArchConfig, what: str,
-                       inference: bool = False) -> None:
-    """Raise where a mesh of more than one rank is active and ``what``
-    has no rank-local form yet."""
-    mesh = active_mesh()
-    if mesh is None or mesh.size() == 1:
-        return
-    if inference:
-        raise NotImplementedError(
-            f"{what} under a {tuple(mesh.shape)} mesh is not ported "
-            f"({INFERENCE_MESH_ITEM})")
-    if cfg.has_ssm:
-        raise NotImplementedError(f"{cfg.name} ({what}) under a "
-                                  f"{tuple(mesh.shape)} mesh is not ported "
-                                  f"({SSM_MESH_ITEM})")
-
+                                           gather_leaf, logical_block,
+                                           logical_group, logical_to_spec,
+                                           spec_group)
 
 def _lse_and_label_logit(logits, labels):
     """(log-sum-exp over the vocab, the label's logit) of float32 logits;
@@ -203,7 +181,6 @@ class Model:
         """Returns (logits (B, S, V) float32, aux_loss), with autograd.
         Under a mesh: the rank's rows and, where the vocab is split, its
         block of the vocab."""
-        _refuse_multi_rank(self.cfg, "train_logits")
         h, positions, offset = self._inputs_to_h(params, batch)
         h, aux = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
                                  offset)
@@ -242,8 +219,10 @@ class Model:
     def prefill(self, params, batch) -> torch.Tensor:
         """Full-sequence forward: batch {"tokens": (B, S) int} or
         {"embeds": (B, S, d)} (optional "positions" (B, S) or (3, B, S))
-        -> logits (B, S, V) float32."""
-        _refuse_multi_rank(self.cfg, "prefill", inference=True)
+        -> logits (B, S, V) float32. Under a mesh ``batch`` is the global
+        batch and the params the rank's blocks: the rank's rows and, where
+        the vocab is split, its block of the logits (``gather_logits``
+        makes them whole)."""
         h, positions, offset = self._inputs_to_h(params, batch)
         h, _ = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
                                offset)
@@ -253,7 +232,8 @@ class Model:
     def cache_init(self, batch: int, max_len: int, dtype=None, device=None):
         """Zeroed caches (KV for attention sublayers, conv window and
         float32 state for mamba ones), stacked (n_groups, batch, ...) per
-        leaf."""
+        leaf; under a mesh the rank's block of each leaf
+        (``cache_specs``)."""
         dev = resolve_device(device)
         one = tfm.block_cache_init(self.cfg, batch, max_len, dtype,
                                    device=dev)
@@ -277,31 +257,42 @@ class Model:
         alone, as are bare tensors (the MoE's expert weights, norms, the
         mamba conv and ``A_log`` / ``D``) and ``embed``; ``head`` is
         visited unstacked. Groups are quantized one at a time, so no
-        float32 copy of a whole stacked leaf is made."""
+        float32 copy of a whole stacked leaf is made.
 
-        def qlin(p, stacked):
+        Under a mesh ``params`` are the rank's blocks (``param_specs``)
+        and so is the result (``parallel.sharding.quantized_specs``): a
+        weight whose fan-in is split takes each channel's scale over the
+        ranks that split it, so the codes and scales are the blocks of the
+        whole tree's."""
+        specs = self.param_specs() if active_mesh() is not None else None
+
+        def qlin(p, spec, stacked):
+            group = (None if spec is None
+                     else spec_group(spec["w"][1 if stacked else 0]))
             if not stacked:
-                return quantize_linear_params(p, bits)
+                return quantize_linear_params(p, bits, group)
             groups = [quantize_linear_params(
-                {k: v[g] for k, v in p.items()}, bits)
+                {k: v[g] for k, v in p.items()}, bits, group)
                 for g in range(p["w"].shape[0])]
             return {k: torch.stack([q[k] for q in groups]) for k in groups[0]}
 
-        def visit(p, stacked):
+        def visit(p, spec, stacked):
             if isinstance(p, dict) and "w" in p and p["w"].dim() >= (
                     3 if stacked else 2):
-                return qlin(p, stacked)
+                return qlin(p, spec, stacked)
             if isinstance(p, dict):
-                return {k: (v if k == "router" else visit(v, stacked))
-                        for k, v in p.items()}
+                return {k: (v if k == "router" else visit(
+                    v, None if spec is None else spec[k], stacked))
+                    for k, v in p.items()}
             return p
 
         out = {}
         for k, v in params.items():
+            sub = None if specs is None else specs[k]
             if k == "blocks":
-                out[k] = visit(v, True)
+                out[k] = visit(v, sub, True)
             elif k == "head":
-                out[k] = visit(v, False)
+                out[k] = visit(v, sub, False)
             else:
                 out[k] = v
         return out
@@ -312,9 +303,25 @@ class Model:
 
         tokens (B, 1) int, or embeds (B, 1, d) for ``embed_inputs=False``;
         cur_index an int or a (B,) tensor of per-slot positions. Returns
-        (logits (B, 1, V) float32, caches), the caches updated in place."""
-        _refuse_multi_rank(self.cfg, "decode_step", inference=True)
-        h = self._embed(params, tokens_or_embeds)
+        (logits (B, 1, V) float32, caches), the caches updated in place.
+        Under a mesh the tokens (and a per-slot ``cur_index``) are the
+        global batch, ``caches`` the rank's blocks (``cache_init``), and
+        the logits the rank's rows and vocab block, as ``prefill``'s."""
+        h = self._embed(params, batch_block(tokens_or_embeds))
+        if isinstance(cur_index, torch.Tensor) and cur_index.dim() == 1:
+            cur_index = batch_block(cur_index)
         h, caches = tfm.stack_decode(self.cfg, params["blocks"], caches, h,
                                      cur_index)
         return self._head(params, h), caches
+
+
+def gather_logits(logits: torch.Tensor) -> torch.Tensor:
+    """The whole logits (B, S, V) on every rank from the rank's rows and
+    vocab block that ``prefill`` / ``decode_step`` / ``train_logits``
+    return under the active mesh (every rank of the mesh calls it); the
+    logits themselves without one."""
+    if active_mesh() is None:
+        return logits
+    spec = logical_to_spec(("batch",) + (None,) * (logits.dim() - 2)
+                           + ("vocab",))
+    return gather_leaf(logits, spec)

@@ -18,6 +18,22 @@ stack hands each sublayer views of the stacked caches and keeps no
 returned copy.
 
 ``selective_scan_ref`` is the per-step oracle the tests use.
+
+Under a mesh (``parallel.sharding.use_mesh_rules``) the mixer runs on the
+rank's block of the ``d_inner`` channels, as the reference's GSPMD
+partitions it along ``ssm_specs`` (the logical "model" axis): x enters
+by Megatron's ``f``; ``in_proj`` is column-parallel, and since the
+weight's ("fsdp", "model") spec splits its ``2 * d_inner`` columns in
+one piece (on a model axis of 2, rank 0 holds all of ``xs``'s columns
+and rank 1 all of ``z``'s), one all-to-all
+(``parallel.collectives.exchange_column_blocks``) gives each rank its
+channels of both; the checkpoint keeps the reference's layout. The
+conv, ``dt_proj`` (column-parallel), ``A_log``, ``D`` and the scan act
+per channel; ``x_proj`` is row-parallel, so its ``dt_rank + 2 * state``
+outputs are summed over the group (``g``) and enter the per-channel
+work again by ``f``; ``out_proj`` is row-parallel, its partial outputs
+summed. The fsdp blocks of the weights are gathered before use. The
+decode caches hold the rank's channels (``ssm_cache_specs``).
 """
 
 from __future__ import annotations
@@ -27,7 +43,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (_dtype, _mx, _normal, leaf_dtype,
-                                       linear_apply, linear_init)
+                                       linear_apply, linear_init,
+                                       row_parallel_linear)
+from repro_torch.parallel.collectives import (copy_to_group,
+                                              exchange_column_blocks)
+from repro_torch.parallel.sharding import local_shape, logical_group
 
 
 # ---------------------------------------------------------------------------
@@ -171,21 +191,29 @@ def ssm_specs(cfg: ArchConfig):
 
 def _mix(cfg: ArchConfig, p, x, conv_state=None):
     """The shared front of prefill and decode: in_proj, the causal conv,
-    SiLU, x_proj and dt. Returns (xs, z, dt, B_t, C_t, A, new conv
-    state)."""
+    SiLU, x_proj and dt; under a mesh on the rank's channels (module
+    docstring). Returns (xs, z, dt, B_t, C_t, A, new conv state)."""
     dtr, st = cfg.dt_rank, cfg.ssm_state
-    xs, z = torch.chunk(linear_apply(cfg, p["in_proj"], x), 2, dim=-1)
+    tp = logical_group("model")
+    x = copy_to_group(x, tp)
+    xz = linear_apply(cfg, p["in_proj"], x, fsdp_dim=0, split=tp)
+    xs, z = torch.chunk(exchange_column_blocks(xz, tp), 2, dim=-1)
     xs, conv_state = causal_conv1d(xs, p["conv_w"], p["conv_b"], conv_state)
     xs = F.silu(xs.to(torch.float32)).to(x.dtype)
-    dbc = linear_apply(cfg, p["x_proj"], xs)
+    dbc = copy_to_group(row_parallel_linear(cfg, p["x_proj"], xs, tp), tp)
     dt_r, B_t, C_t = torch.split(dbc, [dtr, st, st], dim=-1)
     # dt_proj through linear_apply (QAT fake-quant and the int8 serve
     # path's w_int apply), every leaf but the bias, added in float32 below
     dt_lin = linear_apply(cfg, {k: v for k, v in p["dt_proj"].items()
-                                if k != "b"}, dt_r)
+                                if k != "b"}, dt_r, fsdp_dim=0, split=tp)
     dt = F.softplus(dt_lin.to(torch.float32) + p["dt_proj"]["b"])
     A = -torch.exp(p["A_log"])
     return xs, z, dt, B_t, C_t, A, conv_state
+
+
+def _out(cfg: ArchConfig, p, y):
+    """out_proj, row-parallel under a mesh."""
+    return row_parallel_linear(cfg, p["out_proj"], y, logical_group("model"))
 
 
 def ssm_apply(cfg: ArchConfig, p, x):
@@ -193,17 +221,20 @@ def ssm_apply(cfg: ArchConfig, p, x):
     xs, z, dt, B_t, C_t, A, _ = _mix(cfg, p, x)
     y, _ = selective_scan_chunked(xs, dt, B_t, C_t, A, p["D"], cfg.ssm_chunk)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    return linear_apply(cfg, p["out_proj"], y)
+    return _out(cfg, p, y)
 
 
 def ssm_cache_init(cfg: ArchConfig, batch: int, dtype=None, device=None):
     """The conv window in ``dtype`` (None: the config's) and the float32
-    state."""
+    state; under a mesh the rank's block of each (``ssm_cache_specs``)."""
+    specs = ssm_cache_specs(cfg)
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
-                            dtype=dtype or _dtype(cfg), device=device),
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
-                         dtype=torch.float32, device=device),
+        "conv": torch.zeros(local_shape(
+            (batch, cfg.ssm_conv - 1, cfg.d_inner), specs["conv"]),
+            dtype=dtype or _dtype(cfg), device=device),
+        "h": torch.zeros(local_shape(
+            (batch, cfg.d_inner, cfg.ssm_state), specs["h"]),
+            dtype=torch.float32, device=device),
     }
 
 
@@ -221,4 +252,4 @@ def ssm_decode(cfg: ArchConfig, p, x, cache):
     cache["conv"].copy_(conv_state)
     cache["h"].copy_(h)
     y = y[:, None] * F.silu(z.to(torch.float32)).to(y.dtype)
-    return linear_apply(cfg, p["out_proj"], y), cache
+    return _out(cfg, p, y), cache

@@ -23,7 +23,14 @@ the loss and the MoE's mesh branch:
     over the batch ranks that do not split it and divides every gradient
     by the batch group's size;
   * ``max_over_group``: the elementwise max, a constant under the
-    gradient (the vocab-parallel log-sum-exp's shift).
+    gradient (the vocab-parallel log-sum-exp's shift);
+  * ``exchange_column_blocks``: the all-to-all that turns a rank's
+    contiguous column block of a tensor made of ``parts`` equal parts
+    along its last axis (the mamba ``in_proj``'s ``[xs | z]``) into the
+    rank's block of each part; its backward is the inverse all-to-all;
+  * ``combine_softmax``: forward only (decode), the partial softmaxes
+    of a group's key blocks combined: the running max all-reduced with
+    MAX, the rescaled sums and weighted sums with SUM.
 
 Each skips itself (returns its input, no collective) on a group of None
 or of one rank.
@@ -157,6 +164,57 @@ class _SumOverBatch(torch.autograd.Function):
         return g, None
 
 
+def _exchange_plan(parts: int, m: int, r: int):
+    """Rank ``r`` of ``m`` holds chunks ``r * parts`` .. ``(r + 1) * parts
+    - 1`` of the ``parts * m`` equal column chunks, and needs chunk
+    ``p * m + r`` of each part p. Returns (the chunks it holds, in the
+    order it sends them: by destination ``j % m``; the chunks it sends
+    to each rank; the chunks it receives from each rank). The chunks it
+    receives arrive by source, then by index: part by part."""
+    mine = range(r * parts, (r + 1) * parts)
+    send = sorted(mine, key=lambda j: (j % m, j))
+    to = [sum(1 for j in mine if j % m == q) for q in range(m)]
+    want = [p * m + r for p in range(parts)]
+    frm = [sum(1 for j in want if j // parts == s) for s in range(m)]
+    return send, to, frm
+
+
+def _all_to_all_last(x, group, out_chunks, in_chunks, width):
+    """``all_to_all_single`` along the last axis, in chunks of ``width``
+    columns: ``in_chunks[q]`` chunks of x go to rank q, ``out_chunks[s]``
+    arrive from rank s, in rank order."""
+    buf = x.movedim(-1, 0).contiguous()
+    out = buf.new_empty((sum(out_chunks) * width, *buf.shape[1:]))
+    dist.all_to_all_single(out, buf, [n * width for n in out_chunks],
+                           [n * width for n in in_chunks], group=group)
+    return out.movedim(0, -1)
+
+
+class _ExchangeColumnBlocks(torch.autograd.Function):
+    """The rank's contiguous block of columns -> its chunk of each of
+    the ``parts`` parts (``exchange_column_blocks``); the backward sends
+    each chunk's gradient back where the chunk came from."""
+
+    @staticmethod
+    def forward(ctx, x, group, parts):
+        m, r = dist.get_world_size(group), dist.get_rank(group)
+        width = x.shape[-1] // parts
+        send, to, frm = _exchange_plan(parts, m, r)
+        ctx.group, ctx.width, ctx.plan = group, width, (r, parts, send, to,
+                                                        frm)
+        chunks = x.split(width, dim=-1)
+        x = torch.cat([chunks[j - r * parts] for j in send], dim=-1)
+        return _all_to_all_last(x, group, frm, to, width)
+
+    @staticmethod
+    def backward(ctx, gy):
+        r, parts, send, to, frm = ctx.plan
+        g = _all_to_all_last(gy, ctx.group, to, frm, ctx.width)
+        chunks = g.split(ctx.width, dim=-1)
+        order = sorted(range(parts), key=lambda i: send[i])
+        return torch.cat([chunks[i] for i in order], dim=-1), None, None
+
+
 def gather_blocks(x, group, dim: int):
     return _over_group(_GatherBlocks, x, group, dim)
 
@@ -185,6 +243,41 @@ def max_over_group(x, group):
     y = y.clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
+
+
+def exchange_column_blocks(x, group, parts: int = 2):
+    """x (..., w): this rank's contiguous block, rank by rank, of the
+    last axis of a tensor made of ``parts`` equal parts along it (the
+    mamba ``in_proj``'s output ``[xs | z]``, whose columns the weight's
+    ("fsdp", "model") spec splits in one piece). Returns the rank's
+    block of each part, concatenated part by part: on rank r of m, the
+    columns ``[r * w / parts, (r + 1) * w / parts)`` of every part.
+    One all-to-all; differentiable (its backward is the inverse one)."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    if x.shape[-1] % parts:
+        raise ValueError(f"{x.shape[-1]} columns do not split into "
+                         f"{parts} parts")
+    return _ExchangeColumnBlocks.apply(x, group, parts)
+
+
+def combine_softmax(m, lsum, acc, group):
+    """Combine the partial softmaxes of the group's key blocks, forward
+    only: ``m`` the block's max score, ``lsum`` its sum of exp(s - m),
+    ``acc`` its sum of exp(s - m) v (``m`` and ``lsum`` broadcast against
+    ``acc``). Returns sum_r acc_r e^(m_r - M) / sum_r lsum_r e^(m_r - M),
+    M the group's max: one MAX and one SUM all-reduce (the sums and the
+    weighted sums in one buffer). A block with no valid key has m = -inf
+    in effect (the mask's -1e30) and weighs 0."""
+    if group is None or dist.get_world_size(group) == 1:
+        return acc / lsum
+    big = max_over_group(m, group)
+    w = torch.exp(m - big)
+    n = acc.shape[-1]
+    both = torch.cat([acc * w, (lsum * w).expand(*acc.shape[:-1], 1)],
+                     dim=-1)
+    dist.all_reduce(both, group=group)
+    return both[..., :n] / both[..., n:]
 
 
 def sum_detached(x, group):

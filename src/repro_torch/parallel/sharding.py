@@ -238,6 +238,16 @@ def logical_group(name: str):
     return axis_group(mesh, axes)
 
 
+def spec_group(entry, mesh=None):
+    """The process group over the mesh axes of one spec entry; None
+    where they hold one rank (or without a mesh)."""
+    mesh = mesh if mesh is not None else _STATE.mesh
+    axes = spec_axes(entry)
+    if mesh is None or _block(mesh, axes)[1] == 1:
+        return None
+    return axis_group(mesh, axes)
+
+
 def logical_block(name: str) -> Tuple[int, int]:
     """(this rank's block index, block count) along the logical axis
     ``name``: (0, 1) where it is not split."""
@@ -275,6 +285,21 @@ def local_block(x: torch.Tensor, spec, mesh=None) -> torch.Tensor:
             n = x.shape[d] // count
             x = x.narrow(d, index * n, n)
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def local_shape(shape: Sequence[int], spec, mesh=None) -> Tuple[int, ...]:
+    """The shape of this rank's block of a tensor of ``shape`` under the
+    spec tuple ``spec`` (``local_block``'s, without the tensor)."""
+    mesh = mesh if mesh is not None else _STATE.mesh
+    out = list(shape)
+    if mesh is not None:
+        for d, entry in enumerate(spec):
+            count = _block(mesh, spec_axes(entry))[1]
+            if out[d] % count:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                                 f"split into {count} blocks ({spec})")
+            out[d] //= count
+    return tuple(out)
 
 
 def batch_block(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -338,6 +363,31 @@ def gather_leaf(x: torch.Tensor, spec, mesh=None) -> torch.Tensor:
 def gather_tree(tree, specs, mesh=None):
     """``shard_tree``'s inverse: every leaf whole on every rank."""
     return map_specs(lambda x, s: gather_leaf(x, s, mesh), tree, specs)
+
+
+def quantized_specs(params, pspecs):
+    """The spec tree of ``Model.quantize_params``' tree, from the float
+    tree's ``pspecs``: ``w_int`` takes ``w``'s spec; ``w_scale`` keeps
+    its output-channel entries and replicates every axis of size 1 (the
+    fan-in axis: dim 1 of a stacked leaf, dim 0 of the head); a bias
+    keeps its own. The reference's ``dryrun._quantized_specs``."""
+    def visit(p, spec):
+        if isinstance(p, dict) and "w_int" in p:
+            wspec = spec["w"] if isinstance(spec, dict) and "w" in spec else ()
+            wlist = list(wspec) + [None] * (p["w_int"].dim() - len(wspec))
+            sshape = p["w_scale"].shape
+            sspec = tuple(None if sshape[i] == 1 else wlist[i]
+                          for i in range(len(sshape)))
+            out = {"w_int": wspec, "w_scale": sspec}
+            if "b" in p:
+                out["b"] = spec.get("b", ()) if isinstance(spec, dict) else ()
+            return out
+        if isinstance(p, dict):
+            return {k: visit(v, spec[k] if isinstance(spec, dict) else spec)
+                    for k, v in p.items()}
+        return spec
+
+    return visit(params, pspecs)
 
 
 def mesh_group(mesh):

@@ -5,11 +5,15 @@ In a child process (torch's fake process group is process-wide, and
 other test modules share this worker): the fake group of 512 ranks, the
 production meshes (16, 16) and (2, 16, 16) with the reference's axis
 names; ``run_cell`` on a full-width llama3-8b ``train_4k`` cell on both
-meshes (its record has the reference's keys, the even split of the
-traced FLOPs, no collective bytes) while the process's resident memory
-grows by under ``RSS_LIMIT`` (nothing is allocated for the 8B params,
-their Adam state or the 256 x 4096 batch); ``main`` over a decode cell
-and a cell skipped by assignment, and ``--skip-existing``.
+meshes (its record has the reference's keys; rank 0's own FLOPs, its
+state as the arguments and its collectives, each mesh traced on its
+own) while the process's resident memory grows by under ``RSS_LIMIT``
+(nothing is allocated for the 8B params, their Adam state or the 256 x
+4096 batch); ``main`` over a decode cell and a cell skipped by
+assignment, and ``--skip-existing``; the ``seqpar`` strategy, which has
+no rank-local form, recorded as not ported. In a second child, the
+reference's default dry run, ``--all --mesh both``: 64 ok cells, each
+with its collective bytes, and 16 skipped.
 
 In this process: the meta branches of K5, K6 and K6's backward (the
 kernel's output layout, nothing launched) and no other wrapper's; the
@@ -43,7 +47,8 @@ REFERENCE_KEYS = {
     "xla_cost_analysis", "hlo_flops_per_device",
     "collective_bytes_per_device", "collectives_by_type",
     "collectives_count"}
-WORKER_TIMEOUT_S = 300
+#: the default dry run takes about 270 s on the CPU box
+ALL_TIMEOUT_S = 600
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
 
@@ -79,19 +84,49 @@ def _worker(out_dir: str) -> None:
     dryrun.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k",
                  "--out", out_dir, "--skip-existing"])
     res["files"] = sorted(os.listdir(out_dir))
+    jobs_dir = os.path.join(out_dir, "jobs")
+    dryrun.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k",
+                 "--mesh", "both", "--out", jobs_dir, "--jobs", "2"])
+    res["jobs"] = {}
+    for name in sorted(os.listdir(jobs_dir)):
+        with open(os.path.join(jobs_dir, name)) as f:
+            got = json.load(f)
+        with open(os.path.join(out_dir, name)) as f:
+            want = json.load(f)
+        res["jobs"][name] = [
+            key for key in set(got) | set(want)
+            if key not in ("lower_s", "compile_s")
+            and got.get(key) != want.get(key)]
+    res["seqpar"] = dryrun.run_cell(
+        "internlm2-1.8b", "decode_32k", strategy="seqpar", tag="seqpar",
+        out_dir=os.path.join(out_dir, "strategies"), verbose=False)
     print(json.dumps(res))
 
 
 @pytest.fixture(scope="module")
-def worker(tmp_path_factory):
+def children(tmp_path_factory):
+    """The two children, started at once: this file's ``_worker`` and
+    the reference's default dry run (``--all --mesh both``). Returns
+    ((the worker's JSON, its directory), the dry run's directory)."""
     out = tmp_path_factory.mktemp("dryrun")
+    every = tmp_path_factory.mktemp("dryrun_all")
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), str(out)],
-                       capture_output=True, text=True, env=env,
-                       timeout=WORKER_TIMEOUT_S)
-    assert r.returncode == 0, r.stderr[-4000:]
-    return json.loads(r.stdout.strip().splitlines()[-1]), out
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for cmd in ([sys.executable, os.path.abspath(__file__),
+                          str(out)],
+                         [sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--all", "--mesh", "both", "--out", str(every)])]
+    outs = [p.communicate(timeout=ALL_TIMEOUT_S) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    return (json.loads(outs[0][0].strip().splitlines()[-1]), out), every
+
+
+@pytest.fixture(scope="module")
+def worker(children):
+    return children[0]
 
 
 def test_production_meshes_over_the_fake_group(worker):
@@ -108,22 +143,71 @@ def test_full_width_cell_on_meta_allocates_nothing(worker):
         assert rec["status"] == "ok", rec.get("traceback")
         assert REFERENCE_KEYS <= set(rec)
         assert rec["n_devices"] == n_dev
-        assert rec["collective_bytes_per_device"] is None
-        assert rec["collectives_by_type"] == {} == rec["collectives_count"]
+        # rank 0's collectives: FSDP gathers and their reduce-scatters (as
+        # all-reduces), Megatron's f / g, the loss's, the gradients'
+        assert set(rec["collectives_by_type"]) == {"all-gather",
+                                                   "all-reduce"}
+        assert rec["collective_bytes_per_device"] == sum(
+            rec["collectives_by_type"].values()) > 0
+        assert all(n > 0 for n in rec["collectives_count"].values())
+        # rank 0's own FLOPs; the cost analysis holds every rank's
         flops = rec["xla_cost_analysis"]["flops"]
-        assert rec["hlo_flops_per_device"] == flops / n_dev
+        assert flops == rec["hlo_flops_per_device"] * n_dev
         mem = rec["memory_analysis"]
-        # the whole global state is an argument: params + Adam's m, v
-        assert mem["argument_size_in_bytes"] > 3 * 8e9 * 2
-        assert mem["temp_size_in_bytes"] > 0
+        # the rank's state is its argument: its blocks of the params and
+        # of Adam's m and v (and the step count), beside the global batch
         assert rec["state_local_bytes"] > rec["params_local_bytes"] > 0
-    # one trace, read by both meshes; the per-device split differs
-    assert single["xla_cost_analysis"] == multi["xla_cost_analysis"]
+        assert rec["state_local_bytes"] <= mem["argument_size_in_bytes"] \
+            <= rec["state_local_bytes"] + 256 * 4096 * 4 * 2 + 64
+        assert mem["temp_size_in_bytes"] > 0
+    # each mesh traces its own step: the multi-pod mesh splits the batch
+    # over pod x data, so rank 0 does half the single-pod rank's dots
+    assert multi["hlo_flops_per_device"] == pytest.approx(
+        single["hlo_flops_per_device"] / 2, rel=0.02)
     assert single["batch_axes"] == ["data"]
     assert multi["batch_axes"] == ["pod", "data"]
     # the baseline's FSDP axis is "data" alone (the reference's rule), so
     # the pod axis does not shard the params further
     assert multi["params_local_bytes"] == single["params_local_bytes"]
+
+
+def test_a_strategy_without_a_rank_local_form_is_not_ported(worker):
+    """``seqpar`` shards the residual stream's sequence, which no
+    rank-local form of the port reads: its record says so and holds no
+    collective figures (the global step's FLOPs, split evenly)."""
+    res, _ = worker
+    rec = res["seqpar"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert "ROADMAP.md queue 1" in rec["not_ported"] \
+        and "seqpar" in rec["not_ported"]
+    assert rec["collective_bytes_per_device"] is None
+    assert rec["collectives_by_type"] is None is rec["collectives_count"]
+    assert rec["hlo_flops_per_device"] == \
+        rec["xla_cost_analysis"]["flops"] / rec["n_devices"]
+
+
+def test_every_default_cell_records_its_collectives(children):
+    """``--all --mesh both``: 64 ok cells and 16 skipped by assignment;
+    every ok cell has its rank-local step's collective bytes (no null),
+    and a rank's FLOPs, not an even split of the global count."""
+    _, every = children
+    recs = []
+    for name in sorted(os.listdir(every)):
+        with open(every / name) as f:
+            recs.append(json.load(f))
+    ok = [r for r in recs if r["status"] == "ok"]
+    assert len(ok) == 64 and len(recs) == 80, [
+        (r["arch"], r["shape"], r["status"]) for r in recs
+        if r["status"] not in ("ok", "skipped")]
+    missing = [(r["arch"], r["shape"], r["mesh"]) for r in ok
+               if r["collective_bytes_per_device"] is None
+               or not r["collective_bytes_per_device"] > 0]
+    assert not missing, missing
+    for r in ok:
+        assert r["collective_bytes_per_device"] == sum(
+            r["collectives_by_type"].values())
+        assert r["xla_cost_analysis"]["flops"] == \
+            r["hlo_flops_per_device"] * r["n_devices"]
 
 
 def test_main_writes_ok_and_skipped_records(worker):
@@ -140,6 +224,15 @@ def test_main_writes_ok_and_skipped_records(worker):
     with open(out / res["files"][1]) as f:
         rec = json.load(f)
     assert rec["status"] == "ok" and rec["cache_local_bytes"] > 0
+
+
+def test_jobs_trace_the_same_records_as_one_process(worker):
+    """``--jobs 2`` traces each cell in a child process of its own: the
+    records equal the one-process run's but for the seconds."""
+    res, _ = worker
+    assert res["jobs"] == {
+        "internlm2-1.8b__decode_32k__multi__baseline.json": [],
+        "internlm2-1.8b__decode_32k__single__baseline.json": []}
 
 
 # ---------------------------------------------------------------------------

@@ -29,9 +29,23 @@ reference's HLO analysis of the same graphs.
     counts them. The MoE's one-hot dispatch is not a dot in either
     package.
   * Memory: the arguments, the result and the peak of a known graph.
+  * The rank-local step (``launch.dryrun.rank_trees`` /
+    ``trace_step``) of reduced llama3-8b on a (4, 2) mesh over torch's
+    fake process group of 8 ranks (a child process: the group is
+    process-wide): the collectives the counter sees equal, type by type
+    in count and bytes, the port's own schedule, written out in
+    ``_train_schedule`` / ``_decode_schedule``; its prefill's FLOPs
+    within ``MINIMESH_FLOPS_RTOL`` of the reference's partitioned HLO on
+    the same (4, 2) mesh (8 forced host devices, the in-process lowering
+    of ``tests/test_multidevice.py::test_dryrun_cell_inprocess_minimesh``).
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +70,7 @@ from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.optim.adamw import make_optimizer
 from repro_torch.train.steps import TrainState, make_train_step
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE_RTOL = 0.0
 SSM_TRAIN_RTOL = 0.01
 DEVICES = ("cpu", "meta")
@@ -369,3 +384,223 @@ def test_mamba_reduced_steps_against_the_reference():
     # the port counts the scan's matrix-vector bmm that XLA strength-
     # reduces (module docstring); the gap is that, and small
     assert jt < tt <= jt * (1 + SSM_TRAIN_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the rank-local step on a (4, 2) mesh of the fake process group
+# ---------------------------------------------------------------------------
+
+#: the rank-local prefill's FLOPs against the reference's partitioned HLO
+MINIMESH_FLOPS_RTOL = 0.10
+MINI_DATA, MINI_MODEL = 4, 2
+#: (kind, seq, global batch) of each traced step
+MINI_STEPS = (("train", 16, 8), ("decode", 32, 8), ("prefill", 64, 8))
+
+MINI_PORT = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_fake_process_group, make_elastic_mesh
+from repro_torch.parallel.sharding import use_mesh_rules
+init_fake_process_group({world})
+mesh = make_elastic_mesh({model})
+assert tuple(mesh.shape) == ({data}, {model})
+cfg = get_config("llama3-8b").reduced()
+out = {{}}
+for kind, seq, batch in {steps}:
+    shape = ShapeConfig(kind, seq, batch, kind)
+    model, trees = dryrun._abstract_trees(cfg, shape, 16)
+    rules = dryrun.arch_rules(cfg, mesh,
+                              dryrun.batch_logical_axes(batch, mesh))
+    with use_mesh_rules(mesh, rules):
+        rep = dryrun.trace_step(model, shape,
+                                dryrun.rank_trees(model, shape, trees))
+    out[kind] = {{"by_type": rep.stats.by_type,
+                 "by_count": rep.stats.by_count,
+                 "flops": rep.stats.flops}}
+print(json.dumps(out))
+"""
+
+MINI_REFERENCE = """
+import os, json, dataclasses
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={world}"
+import numpy as np
+import jax
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.configs.base import SHAPES
+from repro.launch.dryrun import arch_rules, batch_shardings, input_specs
+from repro.launch.hlo_analysis import analyze_hlo
+from repro.models.model import Model
+from repro.parallel.sharding import use_mesh_rules
+cfg = get_config("llama3-8b").reduced()
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len={seq},
+                            global_batch={batch})
+mesh = Mesh(np.array(jax.devices()).reshape({data}, {model}),
+            ("data", "model"))
+with use_mesh_rules(mesh, arch_rules(cfg, mesh, ("data",))):
+    model = Model(cfg)
+    psh = jax.tree.map(lambda s: NamedSharding(mesh, s), model.param_specs(),
+                       is_leaf=lambda x: isinstance(x, P))
+    params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    bsh = {{k: v for k, v in batch_shardings(
+        cfg, shape, mesh, ("data",)).items() if k != "labels"}}
+    bs = {{k: v for k, v in input_specs(cfg, shape).items()
+          if k != "labels"}}
+    compiled = jax.jit(model.prefill, in_shardings=(psh, bsh)).lower(
+        params, bs).compile()
+print(json.dumps({{"flops": analyze_hlo(compiled.as_text()).flops}}))
+"""
+
+
+def _child(code: str) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("XLA_FLAGS", None)
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+@pytest.fixture(scope="module")
+def minimesh():
+    """(the port's rank-0 statistics by step kind, the reference's
+    partitioned prefill FLOPs), both children run at once."""
+    fmt = dict(world=MINI_DATA * MINI_MODEL, data=MINI_DATA,
+               model=MINI_MODEL)
+    port = _child(MINI_PORT.format(steps=MINI_STEPS, **fmt))
+    _, seq, batch = MINI_STEPS[2]
+    ref = _child(MINI_REFERENCE.format(seq=seq, batch=batch, **fmt))
+    outs = [p.communicate(timeout=300) for p in (port, ref)]
+    for p, (_, err) in zip((port, ref), outs):
+        assert p.returncode == 0, err[-4000:]
+    return (json.loads(outs[0][0].strip().splitlines()[-1]),
+            json.loads(outs[1][0].strip().splitlines()[-1]))
+
+
+def _count(sched):
+    """{kind: (count, bytes)} of a list of (kind, float32 elements)."""
+    out = {}
+    for kind, n in sched:
+        c, b = out.get(kind, (0, 0.0))
+        out[kind] = (c + 1, b + 4.0 * n)
+    return out
+
+
+def _mini_dims(seq, batch):
+    cfg = get_config("llama3-8b").reduced()
+    m, n = MINI_MODEL, MINI_DATA
+    return cfg, m, n, batch // n * seq
+
+
+def _train_schedule(seq, batch):
+    """The port's collectives in one rank's train step of reduced
+    llama3-8b on the (4, 2) mesh (every rule splits over "model" = 2:
+    heads, kv heads, flattened heads, d_ff, vocab; batch and fsdp over
+    "data" = 4; remat "full"; T = the rank's B / 4 x S tokens; float32):
+
+      * the embedding: the FSDP all-gather of its (V/2, d/4) block, and
+        the all-reduce of the vocab-split lookups (T, d);
+      * each layer, in the forward and again in remat's recompute: the
+        FSDP all-gathers of wq, wk, wv, wo, wi_gate, wi_up and the MLP's
+        wo (7), and Megatron's ``g``, the all-reduce of the attention's
+        and the MLP's partial outputs (T, d) (2), but for the MLP's in
+        the recompute: torch's checkpoint stops recomputing once it
+        holds every tensor the backward saved, and nothing after the
+        block's last all-reduce is saved;
+      * the head: the FSDP all-gather of its (d/4, V/2) block;
+      * the vocab-parallel loss: the all-reduces of the max, the sum of
+        exponentials and the label's logit over the vocab group (T each),
+        and over the batch group the count of labels and the two
+        numerators (scalars);
+      * the backward: the numerators' transposes (2 scalars); the head's
+        ``f`` (T, d) and its FSDP reduce-scatter, an all-reduce of the
+        gathered (d, V/2) gradient (``gather_blocks``' backward, which
+        keeps the rank's block); each layer's 7 such reduce-scatters and
+        the two ``f`` all-reduces of its input's gradient (T, d); the
+        embedding's reduce-scatter;
+      * ``reduce_grads``: the all-reduce over the data group of each
+        gradient that no data rank splits (norm1, norm2 stacked, the
+        final norm); the clipping norm's one all-reduce (a scalar)."""
+    cfg, m, n, T = _mini_dims(seq, batch)
+    d, H, K, hd, f, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.hd, cfg.d_ff, cfg.vocab, cfg.n_layers)
+    weights = [d * H // m * hd, d * K // m * hd, d * K // m * hd,
+               H * hd // m * d, d * f // m, d * f // m, f // m * d]
+    ag = [V // m * d] + weights * (2 * L) + [d * V // m]
+    ar = [T * d] + [T * d] * (2 * L + L) + [T] * 3 + [1] * 3
+    ar += [1] * 2 + [T * d, d * V // m] + (weights + [T * d] * 2) * L
+    ar += [V // m * d] + [L * d, L * d, d] + [1]
+    return _count([("all-gather", x) for x in ag]
+                  + [("all-reduce", x) for x in ar])
+
+
+def _decode_schedule(seq, batch):
+    """The port's collectives in one rank's decode step of reduced
+    llama3-8b on the (4, 2) mesh (Bl = the rank's B / 4 rows, one token
+    each; the cache (Bl, S / 2, K, hd) a layer):
+
+      * the embedding: its FSDP all-gather and the vocab all-reduce
+        (Bl, d);
+      * each layer: the FSDP all-gathers of wq, wk, wv, wo, wi_gate,
+        wi_up and the MLP's wo (7); the all-gathers of the rank's heads of
+        q, k and v, so that every rank holds them whole (Bl H hd,
+        Bl K hd, Bl K hd); the softmax combine over the "kv_seq" group,
+        an all-reduce with MAX of the partial maxima (Bl H) and one of the
+        rescaled weighted sums and sums (Bl H (hd + 1)); Megatron's ``g``
+        after the attention's and the MLP's row-parallel outputs
+        (Bl, d);
+      * the head's FSDP all-gather."""
+    cfg, m, n, Bl = _mini_dims(1, batch)
+    d, H, K, hd, f, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.hd, cfg.d_ff, cfg.vocab, cfg.n_layers)
+    layer_ag = [d * H // m * hd, Bl * H * hd, d * K // m * hd, Bl * K * hd,
+                d * K // m * hd, Bl * K * hd, H * hd // m * d, d * f // m,
+                d * f // m, f // m * d]
+    ag = [V // m * d] + layer_ag * L + [d * V // m]
+    ar = [Bl * d] + [Bl * H, Bl * H * (hd + 1), Bl * d, Bl * d] * L
+    return _count([("all-gather", x) for x in ag]
+                  + [("all-reduce", x) for x in ar])
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_rank_local_collectives_equal_the_ports_schedule(minimesh, kind):
+    """Type by type, the count and the output bytes of every collective
+    of rank 0's step equal the schedule written out in
+    ``_train_schedule`` / ``_decode_schedule`` (no collective goes
+    uncounted: the counter sees each c10d op the step issues, on meta
+    over the fake group)."""
+    port, _ = minimesh
+    _, seq, batch = next(s for s in MINI_STEPS if s[0] == kind)
+    want = (_train_schedule if kind == "train" else _decode_schedule)(
+        seq, batch)
+    got = port[kind]
+    assert set(got["by_count"]) == set(want), got
+    for t, (count, nbytes) in want.items():
+        assert got["by_count"][t] == count, (t, got, want)
+        assert got["by_type"][t] == nbytes, (t, got, want)
+
+
+def test_rank_local_prefill_flops_against_the_partitioned_reference(
+        minimesh):
+    """Rank 0's prefill FLOPs within ``MINIMESH_FLOPS_RTOL`` of the
+    reference's partitioned HLO of the same prefill on the same (4, 2)
+    mesh: each device's share of the split dots plus the work every
+    device repeats."""
+    port, ref = minimesh
+    assert port["prefill"]["flops"] == pytest.approx(
+        ref["flops"], rel=MINIMESH_FLOPS_RTOL)
+
+
+def test_the_exchange_is_counted_as_an_all_to_all(one_rank_group):
+    """The mamba ``in_proj`` exchange (``exchange_column_blocks``) is an
+    all-to-all of the rank's block, output bytes counted, on any group:
+    here a one-rank one, where the collective runs itself."""
+    from repro_torch.parallel.collectives import _ExchangeColumnBlocks
+
+    x = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+    group = dist.group.WORLD
+    y, rep = analyze_call(_ExchangeColumnBlocks.apply, x, group, 2)
+    assert torch.equal(y, x)
+    assert rep.stats.by_type == {"all-to-all": 96.0}
+    assert rep.stats.by_count == {"all-to-all": 1}

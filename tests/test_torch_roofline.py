@@ -7,8 +7,11 @@ constants for the H100's (``core.codesign``: bf16 989e12 FLOP/s, int8
 same record each term equals the reference's term times the ratio of the
 two constants (within ``RTOL``, float rounding of the ratio), the
 useful-FLOPs ratio is identical, and the dominant term and the roofline
-fraction follow. A record without collective bytes (the port's dry run)
-prints ``n/a`` and leaves that term out of ``dominant``.
+fraction follow. The dry run's records carry the rank-local step's
+collective bytes, so the term is filled and "most collective-bound"
+names a cell, in ``main`` and in the bench section; a record without
+them (a strategy the port has no rank-local form of) prints ``n/a`` and
+leaves that term out of ``dominant``.
 """
 
 import json
@@ -142,3 +145,27 @@ def test_bench_section_without_artifacts(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     assert bench_run.main(["--only", "roofline"]) == 0
     assert "no artifacts/dryrun" in capsys.readouterr().out
+
+
+def test_collective_bytes_name_the_most_collective_bound_cell(
+        tmp_path, monkeypatch, capsys):
+    """Records with the dry run's collective bytes: the term is bytes /
+    NVLink's rate, the reference's term scaled by the constants' ratio,
+    and ``main`` and the bench section name the cell whose collective term
+    is the largest share of its bound."""
+    heavy = _fake_record(shape="decode_32k", collective_bytes_per_device=1e13)
+    light = _fake_record(collective_bytes_per_device=1e6)
+    row = troof.analyze(heavy)
+    assert row.t_collective == pytest.approx(1e13 / troof.NVLINK_BW,
+                                             rel=RTOL)
+    assert row.t_collective == pytest.approx(
+        jroof.analyze(heavy).t_collective * jroof.ICI_BW / troof.NVLINK_BW,
+        rel=RTOL)
+    assert row.dominant == "collective"
+    _write_records(tmp_path / "artifacts" / "dryrun", [light, heavy])
+    monkeypatch.chdir(tmp_path)
+    troof.main([])
+    want = "most collective-bound   : llama3-8b x decode_32k"
+    assert want in capsys.readouterr().out
+    assert bench_run.main(["--only", "roofline"]) == 0
+    assert want in capsys.readouterr().out
