@@ -349,7 +349,16 @@ which fails the run with a non-zero exit:
                ok, 8 skipped, no error, every ok cell's useful ratio in
                (0, 1.5]; its wall time; the records go to
                ``chiprun_out/dryrun/``, the tables to
-               ``chiprun_out/roofline.txt``. (b) Three steps that fit one
+               ``chiprun_out/roofline.txt``. Then ``--all --mesh single``
+               under ``--strategy seqpar`` and ``--strategy ep``, the same
+               ``--jobs`` (``_dryrun_strategy``): the baseline's statuses,
+               but under ``ep`` grok-1-314b's traced cells, errors that
+               name the experts' dimension (8 experts on the 16-wide model
+               axis, which the reference's jit refuses too; the run's exit
+               code 1 for them alone); every ok cell with its collective
+               bytes and no ``not_ported`` key; under ``seqpar`` every
+               decode cell the baseline's FLOPs and collectives and every
+               other ok cell reduce-scattering. (b) Three steps that fit one
                card (``DRYRUN_STEPS``): phase 19's internlm2-1.8b train
                step (4 x 4096, 2 microbatches, remat full), a bf16
                llama3-8b prefill of 1 x 4096 and its int8 prefill (K5),
@@ -402,7 +411,8 @@ which fails the run with a non-zero exit:
                for bit to the one-rank step from the gathered state
                (deterministic algorithms on). A rank that fails ends the
                other and the phase; the ranks' logs go to
-               ``chiprun_out/spmd_rank*.log``.
+               ``chiprun_out/spmd_rank*.log``. Phase 26's (a) and (c) run
+               in these ranks, after (b).
 
  25. spmd inference — mamba, the hybrid blocks, prefill and decode under
                a mesh (``phase_spmd_inference``): two ranks sharing the
@@ -422,10 +432,11 @@ which fails the run with a non-zero exit:
                step ms and peak memory a rank. (c) llama3-8b whole on (1,
                2): a bf16 prefill of 1 x 4096 (every K6 launch held
                against its plain version at the rank-local 16 / 4 heads)
-               and 8 decode steps at batch 4 against a 256-position cache
+               and 4 decode steps at batch 4 against a 256-position cache
                split 128 / 128 over the ranks (slots at 17, 64, 100 and
                200), then the same on the int8 tree that
-               ``quantize_params`` makes of the rank's blocks (K5; the
+               ``quantize_params`` makes of the rank's blocks (K5, the
+               row-parallel linears in its int32 accumulator mode; the
                launches of layers 0 and 31 and the head of the prefill,
                and of the first decode step, equal to the plain version
                bit for bit), and again on the int8 tree with float32
@@ -438,13 +449,17 @@ which fails the run with a non-zero exit:
                logits against its run with float32 activations, TF32
                off), the top-1 equal wherever one rank's top-2 margin
                exceeds twice the largest |diff|; on the int8 tree, layer
-               0's wq, wk, wv and wo K5 launches of the mesh take the
-               leading blocks of one rank's codes, weights and scales
-               (and give those of its outputs) bit for bit
-               (``SPMD2_K5_EXACT``), and the logits, in bf16 and float32
-               activations, are a reading beside the tree's noise; the
-               top-1 agreement over all positions is reported; decode
-               step ms; K6 (bf16 and float32) and K5 timed at the
+               0's seven K5 launches of the mesh take the leading blocks
+               of one rank's codes and weights (and, column-parallel, its
+               scales and outputs) bit for bit, and the two ranks' int32
+               blocks of its two row-parallel launches sum to one rank's
+               accumulator bit for bit (``SPMD2_K5_EXACT``); the
+               float32-activation int8 prefill within ``SUBLAYER_TOL`` of
+               one rank's largest |logit| with top-1 equal at every
+               position; its decode steps and the bf16-activation int8
+               logits are a reading beside the tree's noise; the top-1
+               agreement over all positions is reported; decode step ms;
+               K6 (bf16 and float32) and K5 (both modes) timed at the
                rank-local shapes (rows of the kernels line, with both
                ranks' launches). (d)
                jamba-v0.1-52b at its published widths cut to
@@ -463,12 +478,45 @@ which fails the run with a non-zero exit:
                steps traced on meta over a fake group of two ranks
                (``launch.dryrun.rank_trees`` / ``trace_step``), printed
                beside phase 23's records of falcon-mamba-7b train_4k,
-               llama3-8b prefill_32k and decode_32k (single-pod).
+               llama3-8b prefill_32k and decode_32k (single-pod). Phase
+               26's (b) and (d) run in these ranks.
+
+ 26. seqpar and ep — the sequence-parallel residual stream and expert
+               parallelism on two ranks that share the card
+               (``phase_seqpar_ep``); each run sits in phase 24's or 25's
+               ranks beside the one-rank run it reuses (the same weights
+               and inputs), its counters set to 0 before it and read
+               after. (a) Phase 24 (b)'s internlm2-1.8b steps under
+               ``seqpar`` (the residual stream in two 2048-position
+               blocks): losses within 1e-2 of the same one rank's, equal
+               on both ranks; K6 2 x 24 and its backward 24 a step at the
+               baseline mesh's shapes (every launch of the first step held
+               against its plain version); step ms and peak memory beside
+               the baseline mesh's. (b) Phase 25 (c)'s bf16 prefill under
+               ``seqpar`` on the same blocks: within ``SPMD2_NOISE_FACTOR``
+               of bf16's noise against one rank, top-1 as (c); K6 32 a
+               rank, held. (c) llama4-scout-17b-16e at its published
+               widths cut to ``SEQEP_SCOUT_LAYERS`` (1) of its 48 layers
+               and ``SEQEP_SCOUT_EXPERTS`` (4) of its 16 experts (with 16,
+               two ranks and this process overflow the card at the
+               optimizer update; with 8, one rank's step does), bf16, 2 x
+               2048 a step (the naive attention: no K6), 3 steps under
+               ``ep`` on (1, 2) (2 whole experts a rank, the shared expert
+               whole) against rank 0
+               alone: losses within 1e-2. (d)
+               Phase 25 (d)'s jamba under ``ep``: the prefill and 4 decode
+               steps within ``SUBLAYER_TOL`` of the same one rank's largest
+               |logit|; K6 once a rank, held. (e) The collectives of (a)'s
+               and (c)'s first steps, (b)'s prefill and (d)'s prefill and
+               first decode step equal, type by type in count and bytes,
+               the same steps traced on meta over a fake group of two ranks
+               under the same rules (reduce-scatters under ``seqpar``).
 
 Phase 21 runs right after phase 9's serving, before phases 11-16.
 Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
 phase 19 and 20 after it, 22 after those, 23 after 22, 24 after 23, 25
-after 24; the profiles of phases 9, 20 and 21 run last of all. The last lines are
+after 24, 26 after 25; the profiles of phases 9, 20 and 21 run last of
+all. The last lines are
 the kernels JSON line, the card's name and power limit (``nvidia-smi``),
 and ``{"ok": true, "device": {...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
@@ -481,7 +529,9 @@ and for K5 also phase 21's int8 prefill (1 + 225); phase 24's counted
 run adds its two ranks' launches to K6 (2 x 144) and its backward
 (2 x 72); phase 25's add to K6 (2 x (32 + 32 + 32 + 1): the bf16, int8
 and int8 float32-activation prefills of (c), jamba's of (d)) and to K5
-(2 x 2 x 9 x 225: the int8 prefills and 8 decode steps of (c)).
+(2 x 2 x 5 x 225: the int8 prefills and 4 decode steps of (c), 2 x 2 x
+5 x 64 of them in the int32 accumulator mode); phase 26's add to K6
+(2 x (144 + 32 + 1): (a), (b), (d)) and its backward (2 x 72: (a)).
 """
 
 from __future__ import annotations
@@ -4678,7 +4728,8 @@ def _int8_rows(cases, counts):
 
 def _counted_int8(fn, checks):
     """Counters to 0, ``fn()``, counters read; K5's calls caught: the
-    shape (M, K, N) of each, in order, and for the launches whose index is
+    shape (M, K, N) of each, in order (``(M, K, N, "int32")`` for the
+    accumulator mode, ``scale`` None), and for the launches whose index is
     in ``checks`` the output held against ``ref.qmatmul_ref`` bit for bit
     and the inputs kept, one set a shape. Returns (launches, shapes, worst
     |kernel - plain|, {shape: inputs}, ``fn()``'s result)."""
@@ -4692,6 +4743,8 @@ def _counted_int8(fn, checks):
         out = real(x_int, w_int, scale, *a, **kw)
         i = len(shapes)
         shape = (x_int.shape[0], x_int.shape[1], w_int.shape[1])
+        if scale is None:
+            shape += ("int32",)
         shapes.append(shape)
         if i in checks:
             want = ref.qmatmul_ref(x_int, w_int, scale, *a, **kw)
@@ -5092,6 +5145,118 @@ DRYRUN_PROCS = 8
 #: (e) of phase 25 reads these single-pod cells' collectives
 DRYRUN_COLLECTIVE_CELLS = ("falcon-mamba-7b train_4k", "llama3-8b prefill_32k",
                            "llama3-8b decode_32k")
+#: the strategies whose single-pod dry runs phase 23 adds, each under
+#: the same ``--jobs``; under ``ep`` the cells of this config are errors
+#: (its 8 experts do not split over the 16-wide model axis; the
+#: reference's jit refuses that sharding), every other cell's status the
+#: baseline's
+DRYRUN_STRATEGIES = ("seqpar", "ep")
+DRYRUN_EP_REFUSED = "grok-1-314b"
+
+
+def _start_dryrun_strategies(tmp):
+    """Start ``launch.dryrun --all --mesh single --strategy <s> --jobs
+    DRYRUN_PROCS`` for each of ``DRYRUN_STRATEGIES`` beside the baseline's
+    dry run (each run's tail is a few long SSM cells, which leave the
+    others' cores free); ``_wait_dryrun_strategies`` collects them, and
+    a run left behind by a failure is killed at exit."""
+    import atexit
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    procs = {}
+    for st in DRYRUN_STRATEGIES:
+        arts = os.path.join(tmp, "artifacts", st)
+        procs[st] = (arts, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "single", "--strategy", st, "--tag", st, "--jobs",
+             str(DRYRUN_PROCS), "--out", arts], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    def stop():
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return _now(), procs
+
+
+def _wait_dryrun_strategies(started):
+    """{strategy: (its records' directory, (rc, stdout, stderr), seconds
+    from the start)} of ``_start_dryrun_strategies``' runs."""
+    t0, procs = started
+    out = {}
+    for st, (arts, p) in procs.items():
+        so, se = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        out[st] = (arts, (p.returncode, so, se), _now() - t0)
+    return out
+
+
+def _dryrun_strategy(strategy, run, base):
+    """The records of ``launch.dryrun --all --mesh single --strategy
+    <strategy>`` (``run``: ``_wait_dryrun_strategies``' entry) beside the
+    baseline's single-pod records ``base`` ({(arch, shape): record}):
+    the statuses the baseline's (under ``ep`` the applicable cells of
+    ``DRYRUN_EP_REFUSED`` errors naming the experts' dimension, and the
+    run's exit code 1 for them alone), every ok cell with its collective
+    bytes, no ``not_ported`` key; under ``seqpar`` every decode cell the
+    baseline's FLOPs and collectives, every other ok cell reduce-scatters.
+    Returns the counts and the seconds."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.roofline import load_artifacts
+
+    arts, (rc, so, se), wall = run
+    recs = {(r["arch"], r["shape"]): r for r in load_artifacts(arts)}
+    check(set(recs) == set(base), f"dryrun {strategy}: cells "
+                                  f"{sorted(set(recs) ^ set(base))} differ")
+    refused = {k for k, r in base.items() if strategy == "ep"
+               and k[0] == DRYRUN_EP_REFUSED and r["status"] == "ok"}
+    errors = {k for k, r in recs.items() if r["status"] == "error"}
+    check(errors == refused, f"dryrun {strategy}: errors "
+                             f"{[(k, recs[k]['error'][:200]) for k in errors]}"
+                             f", expected {sorted(refused)}")
+    for k in errors:
+        check(recs[k]["error"].startswith("ValueError: dimension 1 of ")
+              and "does not split into 16 blocks" in recs[k]["error"],
+              f"dryrun {strategy} {k}: {recs[k]['error'][:300]}")
+    check(rc == (1 if refused else 0),
+          f"dryrun --strategy {strategy}: rc {rc}: {so[-1000:]} "
+          f"{se[-2000:]}")
+    n_rs = 0
+    for k, r in recs.items():
+        check("not_ported" not in r, f"dryrun {strategy} {k}: not_ported")
+        if k in errors:
+            continue
+        check(r["status"] == base[k]["status"],
+              f"dryrun {strategy} {k}: {r['status']}, the baseline's "
+              f"{base[k]['status']}")
+        if r["status"] != "ok":
+            continue
+        check(r["collective_bytes_per_device"] == sum(
+            r["collectives_by_type"].values()) > 0,
+            f"dryrun {strategy} {k}: collective bytes "
+            f"{r['collective_bytes_per_device']}")
+        if strategy == "seqpar" and SHAPES[k[1]].kind == "decode":
+            for key in ("hlo_flops_per_device", "collectives_count",
+                        "collectives_by_type"):
+                check(r[key] == base[k][key],
+                      f"dryrun seqpar {k}: {key} {r[key]} != the "
+                      f"baseline's {base[k][key]}")
+        elif strategy == "seqpar":
+            check(r["collectives_count"].get("reduce-scatter", 0) > 0,
+                  f"dryrun seqpar {k}: no reduce-scatter: "
+                  f"{r['collectives_count']}")
+            n_rs += 1
+    out = {"s": wall, "ok": sum(r["status"] == "ok" for r in recs.values()),
+           "skipped": sum(r["status"] == "skipped" for r in recs.values()),
+           "error": sorted(f"{a} {b}" for a, b in errors),
+           "reduce_scatter_cells": n_rs}
+    log(f"dryrun --strategy {strategy} --mesh single: {json.dumps(out)} "
+        f"({so.strip().splitlines()[-1] if so.strip() else ''})")
+    return out
 
 
 def _dryrun_all():
@@ -5113,6 +5278,7 @@ def _dryrun_all():
     with tempfile.TemporaryDirectory(prefix="dryrun-",
                                      dir=os.path.join(ROOT, "build")) as tmp:
         arts = os.path.join(tmp, "artifacts", "dryrun")
+        strategies = _start_dryrun_strategies(tmp)
         t0 = _now()
         rc, so, se = _run_module(["repro_torch.launch.dryrun", "--all",
                                   "--mesh", "both", "--jobs",
@@ -5127,6 +5293,11 @@ def _dryrun_all():
         recs = {f"{r['arch']} {r['shape']}": r
                 for r in load_artifacts(arts) if r["mesh"] == "single"}
         out["records"] = {k: recs[k] for k in DRYRUN_COLLECTIVE_CELLS}
+        base = {(r["arch"], r["shape"]): r for r in load_artifacts(arts)
+                if r["mesh"] == "single"}
+        runs = _wait_dryrun_strategies(strategies)
+        out["strategies"] = {st: _dryrun_strategy(st, runs[st], base)
+                             for st in DRYRUN_STRATEGIES}
         for r in load_artifacts(arts):
             check(r["status"] != "ok" or (
                 r["collective_bytes_per_device"] is not None
@@ -5404,14 +5575,19 @@ def _clone_tree(tree):
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
-def _spmd_mesh(shape, cfg, batch):
-    from repro_torch.launch.dryrun import arch_rules, batch_logical_axes
+def _spmd_mesh(shape, cfg, batch, strategy="baseline"):
+    """The (data, model) mesh of ``shape`` over the ranks and its rules:
+    ``arch_rules``, the strategy's on top."""
+    from repro_torch.launch.dryrun import (arch_rules, batch_logical_axes,
+                                           combined_strategy_rules)
     from repro_torch.launch.mesh import make_elastic_mesh
 
     mesh = make_elastic_mesh(shape[1])
     check(tuple(mesh.shape) == tuple(shape), f"mesh {tuple(mesh.shape)}, "
                                              f"expected {shape}")
-    return mesh, arch_rules(cfg, mesh, batch_logical_axes(batch, mesh))
+    rules = arch_rules(cfg, mesh, batch_logical_axes(batch, mesh))
+    rules.update(combined_strategy_rules(strategy, cfg, mesh, None))
+    return mesh, rules
 
 
 def _spmd_small(rank):
@@ -5618,6 +5794,7 @@ def _spmd_full(rank, smi):
            "k6_worst_fwd": worst["fwd"], "k6_worst_fwd_of_max":
            worst["fwd_rel"], "k6_worst_bwd": worst["bwd"],
            "k6_held": [worst["n_fwd"], worst["n_bwd"]]}
+    out["seqpar"] = _spmd_seqpar_train(rank, smi, model, init, opt, batches)
     if rank == 0:
         step = make_train_step(model, opt())
         params = init()
@@ -5640,6 +5817,211 @@ def _spmd_full(rank, smi):
     torch.cuda.empty_cache()
     dist.barrier()
     return out
+
+
+def _spmd_seqpar_train(rank, smi, model, init, opt, batches):
+    """Phase 26 (a): ``_spmd_full``'s model, weights and batches on the
+    same (1, 2) mesh under ``seqpar`` (the residual stream split into
+    two 4096 / 2 sequence blocks): 3 steps, counted, the first under the
+    op-trace analysis (its collectives: (e)) and every K6 and
+    K6-backward launch of it held against its plain version (they must
+    take the baseline mesh's shapes: the layers gather the sequence);
+    the step times and peak memory."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.hlo_analysis import analyze_call
+    from repro_torch.obs import timer
+    from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
+    from repro_torch.train.steps import (TrainState, make_train_step,
+                                         train_state_specs)
+
+    cfg = model.cfg
+    mesh, rules = _spmd_mesh(SPMD_FULL_MESH, cfg, SPMD_FULL_BATCH, "seqpar")
+    caught, losses, step_s = {}, [], []
+    with use_mesh_rules(mesh, rules):
+        specs = train_state_specs(model)
+        params = shard_tree(init(), specs.params)
+        torch.cuda.empty_cache()
+        state = TrainState(params, opt().init(params))
+        step = make_train_step(model, opt())
+        worst, unwrap = _spmd_checked_k6(caught)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            for i in range(SPMD_STEPS):
+                t0 = timer.now()
+                if i == 0:
+                    (state, m), rep = analyze_call(step, state, batches[i])
+                    coll = _collectives(rep)
+                    del rep
+                    unwrap()
+                else:
+                    state, m = step(state, batches[i])
+                losses.append(float(m["loss"]))         # synchronises
+                step_s.append(timer.now() - t0)
+            torch.cuda.synchronize()
+            launches = dict(ops.launches)
+        finally:
+            unwrap()
+        peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers
+    check(launches["flash_attention"] == 2 * SPMD_STEPS * n
+          and launches["flash_attention_bwd"] == SPMD_STEPS * n
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("flash_attention", "flash_attention_bwd")),
+          f"seqpar (a) rank {rank} launches {launches}")
+    check(worst["n_fwd"] == 2 * n and worst["n_bwd"] == n,
+          f"seqpar (a) rank {rank}: held {worst['n_fwd']} forward and "
+          f"{worst['n_bwd']} backward launches of the first step")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    q = caught["fwd"][0]
+    log(f"seqpar (a) rank {rank}: {cfg.name} on {SPMD_FULL_MESH} under "
+        f"seqpar ({smi}): losses {losses}; K6 at q {tuple(q.shape)}; "
+        f"launches {json.dumps(launches)}; step ms "
+        f"{[round(t * 1e3, 3) for t in step_s]} (the first under the "
+        f"op-trace analysis; host clock, through gloo: a smoke reading), "
+        f"peak {peak / 2**30:.3f} GiB; collectives {json.dumps(coll)}")
+    del state, params, step, caught
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
+            "peak_bytes": peak, "launches": launches, "collectives": coll,
+            "k6_q_shape": list(q.shape), "k6_worst_fwd": worst["fwd"],
+            "k6_worst_bwd": worst["bwd"]}
+
+
+#: phase 26 (c): llama4-scout-17b-16e at its published widths (d_model
+#: 5120, experts of d_ff 8192, a shared expert, top-1, 202,048 tokens),
+#: cut to 1 of its 48 layers and 4 of its 16 experts: 2.76 B parameters,
+#: 2 whole experts and half the vocab a rank on (1, 2) under ``ep``. With
+#: all 16 experts (4.27 B) each rank held 32.6 GiB at the optimizer
+#: update (the state, the clipped gradients and the update's float32
+#: temporaries) and two ranks beside this process overflowed the card;
+#: with 8 (3.26 B) the mesh ran (29.9 GiB a rank) but one rank's step
+#: needed more than 70 GiB (its meta trace: 58.0 GiB); with 4 the meta
+#: trace gives 51.4 GiB; 2 x 2048 tokens a step
+SEQEP_SCOUT = "llama4-scout-17b-16e"
+SEQEP_SCOUT_LAYERS = 1
+SEQEP_SCOUT_EXPERTS = 4
+SEQEP_SCOUT_SEQ = 2048
+SEQEP_SCOUT_BATCH = 2
+SEQEP_MESH = (1, 2)
+
+
+def _seqep_scout_config():
+    """Phase 26 (c)'s config: ``SEQEP_SCOUT`` cut in depth and experts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SEQEP_SCOUT)
+    check(cfg.moe_experts == 16 and cfg.moe_top_k == 1,
+          f"{SEQEP_SCOUT}: expected 16 experts, top-1")
+    return dataclasses.replace(cfg, n_layers=SEQEP_SCOUT_LAYERS,
+                               moe_experts=SEQEP_SCOUT_EXPERTS)
+
+
+def _spmd_ep_train(rank, smi):
+    """Phase 26 (c): ``SEQEP_SCOUT`` on ``SEQEP_MESH`` under ``ep``, 3
+    steps counted (the first under the op-trace analysis: (e)); then rank
+    0 alone trains the same weights on the same batches."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.hlo_analysis import analyze_call
+    from repro_torch.models.model import Model
+    from repro_torch.obs import timer
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
+    from repro_torch.train.steps import (TrainState, make_train_step,
+                                         train_state_specs)
+
+    cfg = _seqep_scout_config()
+    check(cfg.dtype == "bfloat16" and cfg.moe_shared_expert,
+          f"{SEQEP_SCOUT}: expected bf16 and a shared expert")
+    model = Model(cfg)
+    batches = _spmd_batches(cfg.vocab, SEQEP_SCOUT_SEQ, SEQEP_SCOUT_BATCH)
+
+    def opt():
+        return make_optimizer(base_lr=3e-4, warmup=2, total=SPMD_STEPS)
+
+    def init():
+        return model.init(torch.Generator(device="cuda").manual_seed(
+            SEED + 43), device="cuda")
+
+    def train(state, trace):
+        step = make_train_step(model, opt())
+        losses, step_s, coll = [], [], None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        for i, b in enumerate(batches):
+            t0 = timer.now()
+            if i == 0 and trace:
+                (state, m), rep = analyze_call(step, state, b)
+                coll = _collectives(rep)
+                del rep
+            else:
+                state, m = step(state, b)
+            losses.append(float(m["loss"]))             # synchronises
+            step_s.append(timer.now() - t0)
+        torch.cuda.synchronize()
+        return (losses, [t * 1e3 for t in step_s], coll,
+                torch.cuda.max_memory_allocated(), dict(ops.launches))
+
+    mesh, rules = _spmd_mesh(SEQEP_MESH, cfg, SEQEP_SCOUT_BATCH, "ep")
+    with use_mesh_rules(mesh, rules):
+        params = shard_tree(init(), train_state_specs(model).params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses, step_ms, coll, peak, launches = train(
+            TrainState(params, opt().init(params)), True)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    log(f"ep (c) rank {rank}: {SEQEP_SCOUT} ({cfg.n_layers} of 48 layers, "
+        f"{cfg.moe_experts} of 16 experts) "
+        f"on {SEQEP_MESH} under ep ({smi}): losses {losses}; launches "
+        f"{json.dumps(launches)}; step ms {[round(t, 3) for t in step_ms]} "
+        f"(the first under the op-trace analysis; host clock, through "
+        f"gloo: a smoke reading), peak {peak / 2**30:.3f} GiB; collectives "
+        f"{json.dumps(coll)}")
+    out = {"losses": losses, "step_ms": step_ms, "peak_bytes": peak,
+           "launches": launches, "collectives": coll}
+    _free_card()
+    dist.barrier()
+    if rank == 0:
+        params = init()
+        one, one_ms, _, one_peak, _ = train(
+            TrainState(params, opt().init(params)), False)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(one_rank_losses=one, one_rank_step_ms=one_ms,
+                   one_rank_peak_bytes=one_peak)
+        log(f"ep (c): {SEQEP_SCOUT} on one rank: losses {one}, step ms "
+            f"{[round(t, 3) for t in one_ms]}, peak "
+            f"{one_peak / 2**30:.3f} GiB")
+    dist.barrier()
+    return out
+
+
+def _free_card():
+    """This process's cached blocks and its cuBLAS workspaces (one a
+    stream: ``time_ms`` captures on a side stream of its own each call)
+    given back to the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
 
 
 def _spmd_ckpt(rank, workdir):
@@ -5722,8 +6104,10 @@ def _spmd_worker(argv):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    out = {"rank": rank, "small": _spmd_small(rank),
-           "full": _spmd_full(rank, smi), "ckpt": _spmd_ckpt(rank, workdir)}
+    # phase 26 (c), the largest, first, on a card this rank has not used
+    out = {"rank": rank, "ep": _spmd_ep_train(rank, smi),
+           "small": _spmd_small(rank), "full": _spmd_full(rank, smi),
+           "ckpt": _spmd_ckpt(rank, workdir)}
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -5787,12 +6171,25 @@ def phase_spmd(smi):
 
     from repro_torch.obs import timer
 
+    import torch
+
     t0 = timer.now()
+    # the ranks need the card's memory (phase 26 (c) trains 51 GB on one
+    # of them): this process's cached blocks are freed first, and the
+    # ranks' segments can grow (two allocators on one card fragment it)
+    gc.collect()
+    reserved = torch.cuda.memory_reserved()
+    _free_card()
+    held = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "reserved_before_gib": reserved / 2**30}
+    log(f"spmd: this process holds {json.dumps(held)} of the card as the "
+        f"ranks start")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="spmd-", dir=os.path.join(ROOT,
                                                                  "build"))
     try:
-        res = _spmd_ranks(workdir)
+        res = _spmd_ranks(workdir, extra_env=SPMD2_RANK_ENV)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for mesh in res[0]["small"]:
@@ -5807,15 +6204,51 @@ def phase_spmd(smi):
     check(all(abs(a - b) <= SPMD_FULL_RTOL * abs(b)
               for a, b in zip(losses, one)),
           f"spmd {SPMD_FULL}: losses {losses} against one rank's {one}")
-    launches = {k: sum(f["launches"][k] for f in full)
+    # phase 26 (a): the seqpar run of the same steps, against the same
+    # one rank; its K6 launches take the baseline mesh's shapes
+    seq = [f["seqpar"] for f in full]
+    check(all(x["losses"] == seq[0]["losses"] for x in seq),
+          f"seqpar (a): the ranks' losses differ: "
+          f"{[x['losses'] for x in seq]}")
+    check(all(abs(a - b) <= SPMD_FULL_RTOL * abs(b)
+              for a, b in zip(seq[0]["losses"], one)),
+          f"seqpar (a) {SPMD_FULL}: losses {seq[0]['losses']} against one "
+          f"rank's {one}")
+    check(all(x["k6_q_shape"] == f["k6_q_shape"]
+              for x, f in zip(seq, full)),
+          f"seqpar (a): K6 at {[x['k6_q_shape'] for x in seq]}, the "
+          f"baseline mesh's at {[f['k6_q_shape'] for f in full]}")
+    # phase 26 (c): ep, against rank 0 alone
+    ep = [r["ep"] for r in res]
+    check(all(x["losses"] == ep[0]["losses"] for x in ep),
+          f"ep (c): the ranks' losses differ: {[x['losses'] for x in ep]}")
+    ep_one = ep[0]["one_rank_losses"]
+    check(all(abs(a - b) <= SPMD_FULL_RTOL * abs(b)
+              for a, b in zip(ep[0]["losses"], ep_one)),
+          f"ep (c) {SEQEP_SCOUT}: losses {ep[0]['losses']} against one "
+          f"rank's {ep_one}")
+    launches = {k: sum(f["launches"][k] + f["seqpar"]["launches"][k]
+                       + e["launches"][k] for f, e in zip(full, ep))
                 for k in ("flash_attention", "flash_attention_bwd")}
     k6_row, bwd_row = full[0]["k6_row"], full[0]["k6_bwd_row"]
-    k6_row["launches"] = launches["flash_attention"]
-    bwd_row["launches"] = launches["flash_attention_bwd"]
-    worst = {"flash_attention": max(f["k6_worst_fwd"] for f in full),
-             "flash_attention_bwd": max(f["k6_worst_bwd"] for f in full)}
+    k6_row["launches"] = sum(f["launches"]["flash_attention"]
+                             + f["seqpar"]["launches"]["flash_attention"]
+                             for f in full)
+    bwd_row["launches"] = sum(f["launches"]["flash_attention_bwd"]
+                              + f["seqpar"]["launches"]["flash_attention_bwd"]
+                              for f in full)
+    check(sum(e["launches"]["flash_attention"]
+              + e["launches"]["flash_attention_bwd"] for e in ep) == 0,
+          f"ep (c) launched K6 at S {SEQEP_SCOUT_SEQ} (the naive attention "
+          f"expected): {[e['launches'] for e in ep]}")
+    worst = {"flash_attention": max(max(f["k6_worst_fwd"],
+                                        f["seqpar"]["k6_worst_fwd"])
+                                    for f in full),
+             "flash_attention_bwd": max(max(f["k6_worst_bwd"],
+                                            f["seqpar"]["k6_worst_bwd"])
+                                        for f in full)}
     details = {"card": smi, "small": res[0]["small"], "full": full,
-               "ckpt": res[0]["ckpt"], "launches": launches,
+               "ep": ep, "ckpt": res[0]["ckpt"], "launches": launches,
                "wall_s": timer.now() - t0}
     log(f"spmd phase ({smi}): (a) {SPMD_SMALL} reduced float32 K6, losses "
         f"{json.dumps({k: v['losses'] for k, v in res[0]['small'].items()})}"
@@ -5845,7 +6278,9 @@ SPMD2_SMALL_OVER = {JAMBA_CONFIG: {"capacity_factor": 4.0}}
 #: (b) falcon-mamba-7b at its published widths (d_model 4096, d_inner
 #: 8192), cut to 16 of its 64 layers (about 2.0 B parameters, so that
 #: two ranks, and then one, train on the card), bf16, remat "full", one
-#: 4096-token sequence a step on (1, 2): 4096 mixer channels a rank
+#: 4096-token sequence a step on (1, 2): 4096 mixer channels a rank. At
+#: 8 layers its third bf16 step left one rank's by 7% (the loss falls
+#: from 11.6 to 3.5 in one step and the bf16 noise grows from there)
 SPMD2_MAMBA = "falcon-mamba-7b"
 SPMD2_MAMBA_LAYERS = 16
 SPMD2_MAMBA_BATCH = 1
@@ -5854,7 +6289,7 @@ SPMD2_MESH = (1, 2)
 #: decode steps at batch 4 against a cache of 256 positions split over
 #: the two ranks (128 a rank), slots at 17, 64, 100 and 200 (rank 1's
 #: block holds the last)
-SPMD2_DECODE_STEPS = 8
+SPMD2_DECODE_STEPS = 4
 SPMD2_DECODE_LEN = 256
 SPMD2_DECODE_CUR = (17, 64, 100, 200)
 #: (d) jamba-v0.1-52b at its published widths, cut to 8 of its 32
@@ -5875,16 +6310,19 @@ SPMD2_JAMBA_DECODE_STEPS = 4
 #: exceeds twice the largest |diff| (``_top1_check``)
 SPMD2_NOISE_FACTOR = {"max": 3.0, "mean": 2.0}
 #: (c)'s int8 tree: K5's first launches of the prefill, layer 0's wq, wk,
-#: wv (column-parallel) and wo (row-parallel). Their inputs are the same
-#: on the mesh and on one rank, up to the block, so rank 0's codes,
-#: weights, scales and (column-parallel) outputs must be the leading
-#: blocks of one rank's bit for bit: a scale not maxed over its group or
-#: a block out of place changes them. Past layer 0's wo the mesh's sum of
-#: partials rounds differently from one rank's, a code at a rounding
-#: boundary flips, and int8 carries the flip onward: the logits then
-#: differ at the int8 tree's own noise, in float32 activations too, so
-#: they are a reading, not a bar
-SPMD2_K5_EXACT = (0, 1, 2, 3)
+#: wv, wo, wi_gate, wi_up and the MLP's wo. Their inputs are the same on
+#: the mesh and on one rank, up to the block, so rank 0's codes, weights
+#: and (column-parallel) scales and outputs must be the leading blocks of
+#: one rank's bit for bit: a scale not maxed over its group or a block
+#: out of place changes them. The row-parallel ones (attention's and the
+#: MLP's wo) run K5's accumulator mode: the two ranks' int32 blocks,
+#: summed, must equal one rank's accumulator of the whole contraction
+#: bit for bit; the one rescale follows the sum, so the mesh's outputs
+#: are one rank's and the float32-activation logits are held to
+#: ``SUBLAYER_TOL`` with top-1 equal everywhere
+SPMD2_K5_EXACT = (0, 1, 2, 3, 4, 5, 6)
+#: the row-parallel launches among them
+SPMD2_K5_ROW_PARALLEL = (3, 6)
 SPMD2_TIMEOUT_S = 900
 #: (b)'s scan saves thousands of 32-64 MiB chunks for its backward: two
 #: ranks' caching allocators fragment the card unless their segments
@@ -5954,10 +6392,10 @@ def _collectives(report):
 
 
 def _spmd2_mamba(rank, smi):
-    """(b): falcon-mamba-7b at full width, 16 layers, on (1, 2): 3 steps,
-    the first under the op-trace analysis (its collectives: (e)), the
-    other two timed; then rank 0 alone trains the same weights on the
-    same batches."""
+    """(b): falcon-mamba-7b at full width, ``SPMD2_MAMBA_LAYERS`` layers,
+    on (1, 2): 3 steps, the first under the op-trace analysis (its
+    collectives: (e)), the other two timed; then rank 0 alone trains the
+    same weights on the same batches."""
     import dataclasses
 
     import torch
@@ -6068,8 +6506,8 @@ def _k5_keep(store, indices):
     def keep(x_int, w_int, scale, *a, **kw):
         out = real(x_int, w_int, scale, *a, **kw)
         if n[0] in indices:
-            store[n[0]] = tuple(t.clone() for t in (x_int, w_int, scale,
-                                                    out))
+            store[n[0]] = tuple(None if t is None else t.clone()
+                                for t in (x_int, w_int, scale, out))
         n[0] += 1
         return out
 
@@ -6080,14 +6518,18 @@ def _k5_keep(store, indices):
     return restore
 
 
-def _k5_blocks_check(label, mesh, one):
+def _k5_blocks_check(label, mesh, one, acc_sums):
     """Rank 0's kept K5 launches ``SPMD2_K5_EXACT`` of the mesh against
-    one rank's: the codes, ``w_int``, the scale vector and, where the
-    rank holds a block of the outputs (column-parallel), the output, each
-    the leading block of one rank's, bit for bit; wo's codes are the
-    rank's block of the contraction axis (row-parallel, its output a
-    partial sum). Returns each launch's split."""
+    one rank's: the codes, ``w_int`` and, where the rank holds a block of
+    the outputs (column-parallel), the scale vector and the output, each
+    the leading block of one rank's, bit for bit; a row-parallel
+    launch's codes are the rank's block of the contraction axis, it runs
+    K5's accumulator mode (no scale), and ``acc_sums[i]``, its int32
+    blocks summed over the ranks, equals one rank's accumulator of the
+    whole contraction (the plain int32 product of its codes) bit for
+    bit. Returns each launch's split."""
     import torch
+    from repro_torch.kernels import ref
 
     splits = []
     for i in SPMD2_K5_EXACT:
@@ -6095,15 +6537,25 @@ def _k5_blocks_check(label, mesh, one):
         split = "k" if m[0].shape[1] < o[0].shape[1] else "n"
         splits.append(split)
         for name, a, b in zip(("codes", "w_int", "scale", "out"), m, o):
-            if name == "out" and split == "k":
+            if split == "k" and name in ("scale", "out"):
                 continue
             block = b[tuple(slice(0, n) for n in a.shape)]
             check(a.dtype == b.dtype and torch.equal(a, block),
                   f"{label}: K5 launch {i} ({split}-split): the mesh's "
                   f"{name} {tuple(a.shape)} is not the leading block of "
                   f"one rank's {tuple(b.shape)}")
-    check(splits == ["n", "n", "n", "k"],
-          f"{label}: layer 0's wq, wk, wv, wo split as {splits}")
+        if split == "k":
+            check(m[2] is None and m[3].dtype == torch.int32,
+                  f"{label}: K5 launch {i} is row-parallel and did not run "
+                  f"the accumulator mode")
+            want = ref.qmatmul_ref(o[0], o[1], None)
+            check(torch.equal(acc_sums[i], want),
+                  f"{label}: K5 launch {i}: the ranks' int32 blocks sum to "
+                  f"{int((acc_sums[i] != want).sum())} values off one "
+                  f"rank's accumulator")
+    check(splits == ["n", "n", "n", "k", "n", "n", "k"],
+          f"{label}: layer 0's wq, wk, wv, wo, wi_gate, wi_up, wo split as "
+          f"{splits}")
     return splits
 
 
@@ -6139,17 +6591,21 @@ def _one_rank_runs(model, params, tokens, dec_tokens):
 
 
 def _against_one_rank(label, model, full, mesh_pre, mesh_steps, tokens,
-                      dec_tokens, int8=None):
+                      dec_tokens, int8=None, extra=None):
     """The mesh's logits against rank 0 alone on the whole tree ``full``
     (bf16, or the int8 tree with bf16 activations), beside the same
     tree's own noise (its float leaves made float32 in place afterwards,
     run with float32 activations, TF32 off) and ``_top1_check``; the
     top-1 agreement over all positions is reported beside the noise
     run's. The bf16 tree is held within ``SPMD2_NOISE_FACTOR`` of its
-    noise. The int8 tree (``int8``: the mesh's kept K5 launches and its
-    float32-activation logits) is held by ``_k5_blocks_check``; its
-    logits in either activation type are a reading
-    (``SPMD2_K5_EXACT``)."""
+    noise, and so are the prefills of ``extra`` ({name: the gathered
+    logits of another mesh run of the same prefill}: phase 26's seqpar
+    one). The int8 tree (``int8``: the mesh's kept K5 launches, the
+    row-parallel launches' int32 blocks summed over the ranks, and its
+    float32-activation logits) is held by ``_k5_blocks_check`` and its
+    float32-activation prefill to ``SUBLAYER_TOL`` with top-1 equal at
+    every position; its decode steps, and its logits in bf16
+    activations, are a reading (``SPMD2_K5_EXACT``)."""
     import dataclasses
 
     import torch
@@ -6172,8 +6628,12 @@ def _against_one_rank(label, model, full, mesh_pre, mesh_steps, tokens,
                            for t, (a, b) in enumerate(zip(mesh_steps,
                                                           one_steps))]}
     if int8:
-        out["k5_layer0_splits"] = _k5_blocks_check(label, int8["kept"],
-                                                   kept)
+        out["k5_layer0_splits"] = _k5_blocks_check(
+            label, int8["kept"], kept, int8["acc_sums"])
+    for name, pre in (extra or {}).items():
+        out[name] = {"prefill": _logits_error(pre, one_pre),
+                     "prefill_top1": _top1_check(f"{label} {name} prefill",
+                                                 pre, one_pre)}
     del kept
     model32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
     held = torch.cuda.memory_allocated()
@@ -6195,7 +6655,14 @@ def _against_one_rank(label, model, full, mesh_pre, mesh_steps, tokens,
     del one_pre
     if int8:
         m_pre, m_steps = int8["float32"]
+        # the bar: the row-parallel outputs are one rank's bit for bit, so
+        # the float32-activation prefill is one rank's to float32 rounding
+        err = _float32_check(f"{label} float32 prefill", m_pre, f_pre)
+        top1 = bool((m_pre.argmax(-1) == f_pre.argmax(-1)).all())
+        check(top1, f"{label} float32 prefill: top-1 differs from one "
+                    f"rank's at some position")
         out["float32"] = {
+            "prefill_max_of_max": err, "prefill_top1_everywhere": top1,
             "prefill": _logits_error(m_pre, f_pre),
             "decode": [_logits_error(a, b) for a, b in zip(m_steps,
                                                             f_steps)],
@@ -6206,6 +6673,9 @@ def _against_one_rank(label, model, full, mesh_pre, mesh_steps, tokens,
     _noise_check(f"{label} prefill", out["prefill"], out["noise_prefill"])
     for t, (e, n) in enumerate(zip(out["decode"], out["noise_decode"])):
         _noise_check(f"{label} decode step {t}", e, n)
+    for name in extra or {}:
+        _noise_check(f"{label} {name} prefill", out[name]["prefill"],
+                     out["noise_prefill"])
     return out
 
 
@@ -6355,6 +6825,11 @@ def _spmd2_llama(rank, smi):
                 bf16 = _mesh_inference(model, params, tokens, dec_tokens)
             finally:
                 unwrap()
+            # phase 26 (b): the same blocks' prefill under seqpar
+            seqpar = _seqpar_prefill(model, params, tokens, mesh, rules)
+            check(seqpar["k6_q_shape"] == list(caught["fwd"][0].shape),
+                  f"seqpar (b): K6 at {seqpar['k6_q_shape']}, the baseline "
+                  f"mesh's at {list(caught['fwd'][0].shape)}")
             qparams = model.quantize_params(params)
             del params
             torch.cuda.empty_cache()
@@ -6364,6 +6839,14 @@ def _spmd2_llama(rank, smi):
                                        checks)
             finally:
                 unkeep()
+            # the row-parallel launches' int32 blocks, summed over the ranks
+            acc_sums = {}
+            for i in SPMD2_K5_ROW_PARALLEL:
+                parts = [torch.empty_like(kept[i][3])
+                         for _ in range(SPMD_RANKS)]
+                dist.all_gather(parts, kept[i][3].contiguous())
+                acc_sums[i] = sum(parts[1:], parts[0])
+                del parts
         if rank == 0:
             # outside the mesh: the whole tree, quantized on one rank
             qfull = model.quantize_params(full)
@@ -6407,21 +6890,25 @@ def _spmd2_llama(rank, smi):
         check(worst_k6["n_fwd"] == n and worst32["n_fwd"] == n,
               f"held {worst_k6['n_fwd']} bf16 and {worst32['n_fwd']} "
               f"float32 K6 launches")
-        out["k6_worst"] = max(worst_k6["fwd"], worst32["fwd"])
+        out["k6_worst"] = max(worst_k6["fwd"], worst32["fwd"],
+                              seqpar["k6_worst"])
         out["k6_worst_of_max"] = max(worst_k6["fwd_rel"], worst32["fwd_rel"])
         out["k5_worst"] = max(int8[5], int8_f32[5])
+        out["seqpar"] = {k: seqpar[k] for k in ("launches", "collectives",
+                                                "prefill_ms", "k6_q_shape")}
         dist.barrier()
         if rank == 0:
             cmp = {"int8": _against_one_rank(
                 f"spmd {LM_CONFIG} int8", model, qfull, int8[0], int8[1],
                 tokens, dec_tokens,
-                int8={"kept": kept, "float32": (int8_f32[0], int8_f32[1])})}
-            del qfull, kept
+                int8={"kept": kept, "acc_sums": acc_sums,
+                      "float32": (int8_f32[0], int8_f32[1])})}
+            del qfull, kept, acc_sums
             gc.collect()
             torch.cuda.empty_cache()
             cmp["bf16"] = _against_one_rank(
                 f"spmd {LM_CONFIG} bf16", model, full, bf16[0], bf16[1],
-                tokens, dec_tokens)
+                tokens, dec_tokens, extra={"seqpar": seqpar["logits"]})
             del full
             torch.cuda.empty_cache()
             out["against_one_rank"] = cmp
@@ -6436,11 +6923,72 @@ def _spmd2_llama(rank, smi):
                 f"spmd inference {SPMD2_MESH} int8 float32 prefill layer 0",
                 q, k, v, kw), reps=3, inner=3)
             out["k5_rows"] = _spmd2_k5_rows(int8[6], int8[7] + int8_f32[7])
-        del bf16, int8, int8_f32, runs, caught, caught32
+        del bf16, int8, int8_f32, runs, caught, caught32, seqpar
         gc.collect()
         torch.cuda.empty_cache()
     dist.barrier()
     return out
+
+
+def _seqpar_prefill(model, params, tokens, mesh, rules):
+    """Phase 26 (b): the prefill of the rank's blocks ``params`` on
+    ``mesh`` under ``rules`` with ``seqpar`` on top (the blocks are the
+    baseline's: "seq" splits no parameter), counted and under the
+    op-trace analysis (its collectives: (e)), every K6 launch held against
+    its plain version: {"logits" (gathered), "launches", "collectives",
+    "prefill_ms", "k6_q_shape", "k6_worst"}."""
+    import torch
+    from repro_torch.launch.dryrun import combined_strategy_rules
+    from repro_torch.launch.hlo_analysis import analyze_call
+    from repro_torch.models.model import gather_logits
+    from repro_torch.parallel.sharding import use_mesh_rules
+
+    rules = dict(rules, **combined_strategy_rules("seqpar", model.cfg, mesh,
+                                                  None))
+    caught = {}
+    worst, unwrap = _spmd_checked_k6(caught)
+
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = _now()
+        logits, rep = analyze_call(model.prefill, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return logits, rep, (_now() - t0) * 1e3
+
+    try:
+        with use_mesh_rules(mesh, rules):
+            launches, _, _, _, (logits, rep, ms) = _counted_int8(prefill,
+                                                                 set())
+            logits = gather_logits(logits)
+    finally:
+        unwrap()
+    n = model.cfg.n_layers
+    check(launches["flash_attention"] == n == worst["n_fwd"]
+          and launches["qmatmul"] == 0,
+          f"seqpar (b) prefill launched {launches}, held {worst['n_fwd']}")
+    check("reduce-scatter" in rep.stats.by_count,
+          f"seqpar (b): no reduce-scatter in {rep.stats.by_count}")
+    out = {"logits": logits, "launches": launches,
+           "collectives": _collectives(rep), "prefill_ms": ms,
+           "k6_q_shape": list(caught["fwd"][0].shape),
+           "k6_worst": worst["fwd"]}
+    log(f"seqpar (b): {model.cfg.name} prefill 1 x {tokens.shape[1]} under "
+        f"seqpar: launches {json.dumps(launches)}, {ms:.3f} ms (under the "
+        f"op-trace analysis, host clock: a smoke reading), collectives "
+        f"{json.dumps(out['collectives'])}")
+    return out
+
+
+def _int_mm_padded(x, w):
+    """``torch._int_mm`` (the library's int8 product, timed beside K5 and
+    used nowhere in the port), its rows padded to the 17 it needs."""
+    import torch
+
+    m = x.shape[0]
+    if m > 16:
+        return torch._int_mm(x, w)
+    return torch._int_mm(torch.nn.functional.pad(x, (0, 0, 0, 17 - m)),
+                         w)[:m]
 
 
 def _spmd2_k5_rows(kept, shapes):
@@ -6451,30 +6999,34 @@ def _spmd2_k5_rows(kept, shapes):
     from repro_torch.kernels import ops, ref
 
     rows = []
-    for (m, k, n), (x, w, sc) in kept.items():
-        nbytes, nops = m * k + k * n + 4 * n + 4 * m * n, k5_ops(m, k, n)
+    for shape, (x, w, sc) in kept.items():
+        m, k, n = shape[:3]
+        acc = sc is None
+        # the accumulator mode reads no scale; its int32 output is 4
+        # bytes an element, as the float32 one
+        nbytes = m * k + k * n + (0 if acc else 4 * n) + 4 * m * n
+        nops = k5_ops(m, k, n)
         row = {"kernel": "qmatmul", "model": f"{LM_CONFIG} int8 on "
                                              f"{SPMD2_MESH}",
                "stage": "prefill" if m > len(SPMD2_DECODE_CUR) else
-               "decode", "shape": f"M={m} K={k} N={n}", "bytes": nbytes,
-               "ops": nops, "launches": shapes.count((m, k, n)),
+               "decode", "shape": f"M={m} K={k} N={n}"
+               + (" int32 accumulator" if acc else ""), "bytes": nbytes,
+               "ops": nops, "launches": shapes.count(shape),
                "ms": time_ms(lambda: ops.qmatmul(x, w, sc), reps=5, inner=5),
                "plain_ms": time_ms(lambda: ref.qmatmul_ref(x, w, sc),
                                    reps=3, inner=1),
                "library_ms": time_ms(
-                   lambda: torch._int_mm(x, w).to(torch.float32) * sc
-                   if m > 16 else
-                   torch._int_mm(torch.nn.functional.pad(x, (0, 0, 0,
-                                                             17 - m)),
-                                 w).to(torch.float32)[:m] * sc,
+                   lambda: _int_mm_padded(x, w) if acc
+                   else _int_mm_padded(x, w).to(torch.float32) * sc,
                    reps=5, inner=5),
                "bound_ms": bound_ms(nbytes, nops, INT8_OPS_PER_S),
                "bound_by": bound_by(nbytes, nops, INT8_OPS_PER_S)}
         rows.append(row)
         log(f"time qmatmul {row['model']} {row['stage']} {row['shape']} x "
             f"{row['launches']} a rank: kernel {row['ms']:.6f} ms, plain "
-            f"{row['plain_ms']:.6f} ms, torch._int_mm + scale "
-            f"{row['library_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms")
+            f"{row['plain_ms']:.6f} ms, torch._int_mm"
+            f"{'' if acc else ' + scale'} {row['library_ms']:.6f} ms, bound "
+            f"{row['bound_ms']:.6f} ms")
     check(sum(r["launches"] for r in rows) == len(shapes),
           "the timed K5 shapes do not cover the mesh's launches")
     return rows
@@ -6555,6 +7107,12 @@ def _spmd2_jamba(rank, smi):
         f"launches {json.dumps(launches)}; collectives {json.dumps(coll)}; "
         f"decode step ms {[round(x, 3) for x in ms]}; prefill and decode "
         f"{out['wall_s']:.3f} s, peak {out['peak_bytes'] / 2**30:.3f} GiB")
+    # phase 26 (d): the same weights and inputs under ep
+    ep = _spmd2_jamba_ep(rank, smi, model, init, tokens, dec_tokens)
+    check(ep["launches"]["flash_attention"] == launches["flash_attention"],
+          f"ep (d) launched {ep['launches']}")
+    out["ep"] = {k: ep[k] for k in ("launches", "collectives", "decode_ms",
+                                    "k6_worst", "peak_bytes")}
     dist.barrier()
     if rank == 0:
         with torch.inference_mode(), full_fp32():
@@ -6566,6 +7124,13 @@ def _spmd2_jamba(rank, smi):
                 "decode": [_float32_check(
                     f"spmd {JAMBA_CONFIG} decode step {t}", a, b)
                     for t, (a, b) in enumerate(zip(steps, one_steps))]}
+            out["ep"]["against_one_rank"] = {
+                "prefill": _float32_check(
+                    f"ep (d) {JAMBA_CONFIG} prefill", ep["pre"], one_pre),
+                "decode": [_float32_check(
+                    f"ep (d) {JAMBA_CONFIG} decode step {t}", a, b)
+                    for t, (a, b) in enumerate(zip(ep["steps"],
+                                                   one_steps))]}
             del one_pre, one_steps
             gc.collect()
             torch.cuda.empty_cache()
@@ -6576,11 +7141,58 @@ def _spmd2_jamba(rank, smi):
         log(f"spmd inference (d): {JAMBA_CONFIG} against one rank "
             f"(float32, max |diff| over max |logit|): "
             f"{json.dumps(out['against_one_rank'])}")
-    del pre, steps, caught
+    del pre, steps, caught, ep
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
     return out
+
+
+def _spmd2_jamba_ep(rank, smi, model, init, tokens, dec_tokens):
+    """Phase 26 (d): (d)'s model, weights and inputs on ``SPMD2_MESH``
+    under ``ep`` (8 of the 16 experts a rank, whole; the dense MLPs
+    whole): the rank's blocks drawn one rank at a time, a counted prefill
+    (K6 held against its plain version) and the decode steps, the first
+    of each under the op-trace analysis (their collectives: (e))."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.parallel.sharding import shard_tree, use_mesh_rules
+
+    mesh, rules = _spmd_mesh(SPMD2_MESH, model.cfg, 1, "ep")
+    caught = {}
+    with torch.inference_mode(), full_fp32(), use_mesh_rules(mesh, rules):
+        params = None
+        for r in range(SPMD_RANKS):
+            if rank == r:
+                full = init()
+                params = shard_tree(full, model.param_specs())
+                del full
+                params = _float32_tree(params)
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        worst, unwrap = _spmd_checked_k6(caught)
+        try:
+            pre, steps, launches, coll, ms, _, _, _ = _mesh_inference(
+                model, params, tokens, dec_tokens)
+        finally:
+            unwrap()
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(worst["n_fwd"] == launches["flash_attention"],
+          f"ep (d): held {worst['n_fwd']} of {launches} K6 launches")
+    log(f"ep (d) rank {rank}: {model.cfg.name} ({model.cfg.n_layers} "
+        f"layers, float32) on {SPMD2_MESH} under ep ({smi}): launches "
+        f"{json.dumps(launches)}; collectives {json.dumps(coll)}; decode "
+        f"step ms {[round(x, 3) for x in ms]}; peak {peak / 2**30:.3f} GiB")
+    return {"pre": pre, "steps": steps, "launches": launches,
+            "collectives": coll, "decode_ms": ms, "k6_worst": worst["fwd"],
+            "peak_bytes": peak}
 
 
 def _spmd2_worker(argv):
@@ -6620,17 +7232,13 @@ def _spmd2_meta_collectives():
     ranks on the (1, 2) mesh: {label: collectives}."""
     import dataclasses
 
-    import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import init_fake_process_group
-    from repro_torch.parallel.sharding import use_mesh_rules
 
     mamba = dataclasses.replace(get_config(SPMD2_MAMBA),
                                 n_layers=SPMD2_MAMBA_LAYERS)
     llama = get_config(LM_CONFIG)
-    cells = {
+    return _meta_collectives({
         "train (b)": (mamba, ShapeConfig("train", TRAIN_SEQ,
                                          SPMD2_MAMBA_BATCH, "train"), 16),
         "prefill bf16 (c)": (llama, ShapeConfig("prefill", LM_SEQ, 1,
@@ -6642,13 +7250,26 @@ def _spmd2_meta_collectives():
             16),
         "decode int8 (c)": (llama, ShapeConfig(
             "decode", SPMD2_DECODE_LEN, len(SPMD2_DECODE_CUR), "decode"), 8),
-    }
+    })
+
+
+def _meta_collectives(cells):
+    """{label: (config, shape, weight bits[, strategy])} -> {label: the
+    collectives of the cell's step traced rank-locally on meta by the dry
+    run's machinery, over torch's fake process group of two ranks on the
+    (1, 2) mesh under the strategy's rules}."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_process_group
+    from repro_torch.parallel.sharding import use_mesh_rules
+
     out = {}
     init_fake_process_group(SPMD_RANKS)
     try:
-        for label, (cfg, shape, bits) in cells.items():
+        for label, (cfg, shape, bits, *strategy) in cells.items():
             model, trees = dryrun._abstract_trees(cfg, shape, bits)
-            mesh, rules = _spmd_mesh(SPMD2_MESH, cfg, shape.global_batch)
+            mesh, rules = _spmd_mesh(SPMD2_MESH, cfg, shape.global_batch,
+                                     *strategy)
             with use_mesh_rules(mesh, rules):
                 rep = dryrun.trace_step(model, shape, dryrun.rank_trees(
                     model, shape, trees))
@@ -6656,6 +7277,112 @@ def _spmd2_meta_collectives():
     finally:
         dist.destroy_process_group()
     return out
+
+
+def phase_seqpar_ep(smi, spmd, spmd2):
+    """Phase 26 (module docstring): (a)-(d) ran in phases 24 and 25's
+    ranks beside the one-rank runs they reuse (and were held there); here
+    (e), each real step's collectives against its meta trace, and the
+    phase's summary. Returns details."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+
+    t0 = _now()
+    train = get_config(SPMD_FULL)
+    scout = _seqep_scout_config()
+    llama = get_config(LM_CONFIG)
+    jamba = dataclasses.replace(get_config(JAMBA_CONFIG),
+                                n_layers=SPMD2_JAMBA_LAYERS, dtype="float32")
+    meta = _meta_collectives({
+        "train seqpar (a)": (train, ShapeConfig(
+            "train", TRAIN_SEQ, SPMD_FULL_BATCH, "train"), 16, "seqpar"),
+        "train ep (c)": (scout, ShapeConfig(
+            "train", SEQEP_SCOUT_SEQ, SEQEP_SCOUT_BATCH, "train"), 16, "ep"),
+        "prefill seqpar (b)": (llama, ShapeConfig(
+            "prefill", LM_SEQ, 1, "prefill"), 16, "seqpar"),
+        "prefill ep (d)": (jamba, ShapeConfig(
+            "prefill", FAMILY_SEQ, 1, "prefill"), 16, "ep"),
+        "decode ep (d)": (jamba, ShapeConfig(
+            "decode", SPMD2_DECODE_LEN, len(SPMD2_DECODE_CUR), "decode"),
+            16, "ep"),
+    })
+    full, ep = spmd["full"][0], spmd["ep"][0]
+    llama_r, jamba_r = spmd2["llama"][0], spmd2["jamba"][0]
+    real = {"train seqpar (a)": full["seqpar"]["collectives"],
+            "train ep (c)": ep["collectives"],
+            "prefill seqpar (b)": llama_r["seqpar"]["collectives"],
+            "prefill ep (d)": jamba_r["ep"]["collectives"]["prefill"],
+            "decode ep (d)": jamba_r["ep"]["collectives"]["decode"]}
+    for label, want in meta.items():
+        check(real[label] == want,
+              f"seqpar/ep (e) {label}: the card's rank-local step counted "
+              f"{json.dumps(real[label])}, its meta trace {json.dumps(want)}")
+    check(real["train seqpar (a)"]["by_count"].get("reduce-scatter", 0) > 0
+          and real["prefill seqpar (b)"]["by_count"].get(
+              "reduce-scatter", 0) > 0,
+          "seqpar (e): the steps under seqpar issued no reduce-scatter")
+    fulls = spmd["full"]
+    details = {
+        "card": smi,
+        "a_seqpar_train": {
+            "config": SPMD_FULL, "mesh": list(SPMD_FULL_MESH),
+            "losses": fulls[0]["seqpar"]["losses"],
+            "baseline_losses": fulls[0]["losses"],
+            "one_rank_losses": fulls[0]["one_rank_losses"],
+            "step_ms": [f["seqpar"]["step_ms"] for f in fulls],
+            "baseline_step_ms": [f["step_ms"] for f in fulls],
+            "peak_bytes": [f["seqpar"]["peak_bytes"] for f in fulls],
+            "baseline_peak_bytes": [f["peak_bytes"] for f in fulls]},
+        "b_seqpar_prefill": {
+            "config": LM_CONFIG,
+            "prefill_ms": [x["seqpar"]["prefill_ms"]
+                           for x in spmd2["llama"]],
+            "against_one_rank": llama_r["against_one_rank"]["bf16"][
+                "seqpar"],
+            "baseline_against_one_rank": llama_r["against_one_rank"][
+                "bf16"]["prefill"],
+            "noise_prefill": llama_r["against_one_rank"]["bf16"][
+                "noise_prefill"]},
+        "c_ep_train": {
+            "config": SEQEP_SCOUT, "layers": SEQEP_SCOUT_LAYERS,
+            "losses": ep["losses"], "one_rank_losses": ep["one_rank_losses"],
+            "step_ms": [x["step_ms"] for x in spmd["ep"]],
+            "one_rank_step_ms": ep["one_rank_step_ms"],
+            "peak_bytes": [x["peak_bytes"] for x in spmd["ep"]],
+            "one_rank_peak_bytes": ep["one_rank_peak_bytes"]},
+        "d_ep_jamba": {
+            "against_one_rank": jamba_r["ep"]["against_one_rank"],
+            "baseline_against_one_rank": jamba_r["against_one_rank"],
+            "decode_ms": [x["ep"]["decode_ms"] for x in spmd2["jamba"]],
+            "peak_bytes": [x["ep"]["peak_bytes"] for x in spmd2["jamba"]]},
+        "e_collectives": {"card": real, "meta": meta},
+        "wall_s": _now() - t0}
+    log(f"seqpar/ep phase ({smi}): (a) {SPMD_FULL} under seqpar on "
+        f"{SPMD_FULL_MESH}: losses {details['a_seqpar_train']['losses']} "
+        f"(baseline mesh {fulls[0]['losses']}, one rank "
+        f"{fulls[0]['one_rank_losses']}), step ms "
+        f"{details['a_seqpar_train']['step_ms']} (baseline mesh "
+        f"{details['a_seqpar_train']['baseline_step_ms']}), peak GiB "
+        f"{[round(b / 2**30, 3) for b in details['a_seqpar_train']['peak_bytes']]}"
+        f" (baseline mesh "
+        f"{[round(b / 2**30, 3) for b in details['a_seqpar_train']['baseline_peak_bytes']]}"
+        f"); (b) {LM_CONFIG} seqpar prefill against one rank "
+        f"{json.dumps(details['b_seqpar_prefill']['against_one_rank'])} "
+        f"(bf16 noise {details['b_seqpar_prefill']['noise_prefill']}); (c) "
+        f"{SEQEP_SCOUT} ({SEQEP_SCOUT_LAYERS} layer) under ep: losses "
+        f"{ep['losses']} against one rank {ep['one_rank_losses']}, step ms "
+        f"{details['c_ep_train']['step_ms']} (one rank "
+        f"{ep['one_rank_step_ms']}), peak GiB "
+        f"{[round(b / 2**30, 3) for b in details['c_ep_train']['peak_bytes']]}"
+        f" (one rank {ep['one_rank_peak_bytes'] / 2**30:.3f}); (d) "
+        f"{JAMBA_CONFIG} under ep against one rank "
+        f"{json.dumps(jamba_r['ep']['against_one_rank'])}; (e) collective "
+        f"bytes a rank, card = meta: "
+        f"{json.dumps({k: v['bytes'] for k, v in real.items()})}; "
+        f"{details['wall_s']:.3f} s")
+    return details
 
 
 def _production_collectives(dryrun_details):
@@ -6721,28 +7448,35 @@ def phase_spmd_inference(smi, dryrun_details):
           f"against one rank's {one}")
     llama, jamba = [r["llama"] for r in res], [r["jamba"] for r in res]
     int8_runs = ("int8", "int8_float32")
+    # with phase 26's (b) (llama3-8b's seqpar prefill, K6 at the baseline
+    # mesh's shape) and (d) (jamba under ep, K6 at the baseline mesh's)
     launches = {
         "flash_attention": sum(x[k]["launches"]["flash_attention"]
                                for x in llama
-                               for k in ("bf16",) + int8_runs)
-        + sum(x["launches"]["flash_attention"] for x in jamba),
+                               for k in ("bf16", "seqpar") + int8_runs)
+        + sum(x["launches"]["flash_attention"]
+              + x["ep"]["launches"]["flash_attention"] for x in jamba),
         "qmatmul": sum(x[k]["launches"]["qmatmul"] for x in llama
                        for k in int8_runs)}
     k6_row = llama[0]["k6_row"]
     k6_row["launches"] = sum(x[k]["launches"]["flash_attention"]
-                             for x in llama for k in ("bf16", "int8"))
+                             for x in llama
+                             for k in ("bf16", "seqpar", "int8"))
     k6_llama_f32_row = llama[0]["k6_f32_row"]
     k6_llama_f32_row["launches"] = sum(
         x["int8_float32"]["launches"]["flash_attention"] for x in llama)
     k6_f32_row = jamba[0]["k6_row"]
     k6_f32_row["launches"] = sum(x["launches"]["flash_attention"]
+                                 + x["ep"]["launches"]["flash_attention"]
                                  for x in jamba)
     k5_rows = llama[0]["k5_rows"]
     for row in k5_rows:
         row["launches"] *= SPMD_RANKS
     check(sum(r["launches"] for r in k5_rows) == launches["qmatmul"],
           "phase 25's K5 rows do not cover the two ranks' launches")
-    worst = {"flash_attention": max(x["k6_worst"] for x in llama + jamba),
+    worst = {"flash_attention": max(
+        [x["k6_worst"] for x in llama + jamba]
+        + [x["ep"]["k6_worst"] for x in jamba]),
              "qmatmul": max(x["k5_worst"] for x in llama)}
     # (e): the real steps' collectives against the meta traces of the
     # same steps, and the production cells of the dry run
@@ -6893,6 +7627,7 @@ def main() -> int:
         spmd_launches, worst_spmd, spmd_rows, spmd = phase_spmd(smi)
         spmd2_launches, worst_spmd2, spmd2_rows, spmd2 = \
             phase_spmd_inference(smi, dryrun)
+        seqpar_ep = phase_seqpar_ep(smi, spmd, spmd2)
         lm["profile"] = phase_lm_profile()
         lm["families"]["profile"] = phase_family_profile()
         lm["int8"]["profile"] = phase_int8_profile()
@@ -6954,7 +7689,7 @@ def main() -> int:
                    "scenarios": scenarios, "serving": serving, "qat": qat,
                    "paper_benches": papers, "mesh": mesh,
                    "dryrun": dryrun, "spmd": spmd,
-                   "spmd_inference": spmd2,
+                   "spmd_inference": spmd2, "seqpar_ep": seqpar_ep,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,

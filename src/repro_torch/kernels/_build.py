@@ -54,10 +54,10 @@ ENTRY_POINTS = {
     # acc, thr, out, M, C, S, channels per block (0: linear), stream
     "multi_threshold": ("multi_threshold_launch",
                         [_P, _P, _P] + [_I] * 4 + [_P]),
-    # x, w, scale, bias (or null), out, M, N, K, relu, requant,
-    # 1 / out_scale, tile, stream
+    # x, w, scale (or null), bias (or null), out, M, N, K, relu, requant,
+    # acc_out, 1 / out_scale, tile, stream
     "qmatmul": ("qmatmul_launch",
-                [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+                [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     # x, w, b, out, M, N, K, in_scale, stream
     "float_head": ("float_head_launch", [_P] * 4 + [_I] * 3 + [_F, _P]),
 }

@@ -6,6 +6,11 @@
 //   y       = max(y, 0)                                  (relu)
 //   out     = y (f32), or clip(rint(y * inv_out_scale), -128, 127) (int8)
 //
+// or, in the accumulator mode (the template flag ACC), the int32 sum
+// itself, with no scale, bias, ReLU or requant: the row-parallel linear
+// of a mesh adds these partial sums over its ranks before the one rescale,
+// so the result is one device's (models/layers.py, row_parallel_linear).
+//
 // Replaces the Pallas kernel repro.kernels.qmatmul.qmatmul (body
 // _qmatmul_kernel, wrapper repro.kernels.ops.qmatmul).
 //
@@ -86,7 +91,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(d), "l"(src), "r"(bytes));
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool ACC>
 __global__ void __launch_bounds__(Cfg<BM, BN, BK, WARPS_M, WARPS_N>::NT)
 qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale,
@@ -249,6 +254,14 @@ qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int i = 0; i < 4; ++i) {
       const int gn = n0 + wn * G::WTN + ni * 8 + 2 * t + (i & 1);
       if (gn >= N) continue;
+      if constexpr (ACC) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const long long gm = m0 + wm * G::WTM + mi * 16 + g + 8 * (i >> 1);
+          if (gm < M) ((int32_t*)out)[gm * N + gn] = acc[mi][ni][i];
+        }
+        continue;
+      }
       const float s = __ldg(scale + gn);
       const float bn = bias != nullptr ? __ldg(bias + gn) : 0.0f;
 #pragma unroll
@@ -273,14 +286,21 @@ qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
 int launch(const void* x, const void* w, const void* scale, const void* bias,
            void* out, int M, int N, int K, int relu, int requant,
-           float inv_scale, cudaStream_t stream) {
+           int acc_out, float inv_scale, cudaStream_t stream) {
   const int async_x = (K & 15) == 0 && ((uintptr_t)x & 15) == 0;
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  qmatmul_kernel<BM, BN, BK, WARPS_M, WARPS_N>
-      <<<grid, Cfg<BM, BN, BK, WARPS_M, WARPS_N>::NT, 0, stream>>>(
-          (const int8_t*)x, (const int8_t*)w, (const float*)scale,
-          (const float*)bias, out, M, N, K, relu, requant, inv_scale,
-          async_x);
+  constexpr int NT = Cfg<BM, BN, BK, WARPS_M, WARPS_N>::NT;
+  if (acc_out)
+    qmatmul_kernel<BM, BN, BK, WARPS_M, WARPS_N, true>
+        <<<grid, NT, 0, stream>>>(
+            (const int8_t*)x, (const int8_t*)w, nullptr, nullptr, out, M, N,
+            K, 0, 0, 0.0f, async_x);
+  else
+    qmatmul_kernel<BM, BN, BK, WARPS_M, WARPS_N, false>
+        <<<grid, NT, 0, stream>>>(
+            (const int8_t*)x, (const int8_t*)w, (const float*)scale,
+            (const float*)bias, out, M, N, K, relu, requant, inv_scale,
+            async_x);
   return (int)cudaGetLastError();
 }
 
@@ -289,21 +309,22 @@ int launch(const void* x, const void* w, const void* scale, const void* bias,
 // Plain C entry point (loaded with ctypes). x (M, K) int8, w (K, N) int8,
 // scale (N,) float32, bias (N,) float32 or null, out (M, N) float32, or
 // int8 when requant is set; all contiguous on the device. inv_scale is the
-// float32 reciprocal of out_scale. tile 0: 32 x 64 blocks of 4 warps, 1:
-// 128 x 128 blocks of 8 warps (the host's qmatmul_plan), k tiles of 128
-// and 64. The launch goes
+// float32 reciprocal of out_scale. acc_out set: out (M, N) int32, the
+// accumulator, and scale, bias, relu, requant and inv_scale unread (scale
+// may be null). tile 0: 32 x 64 blocks of 4 warps, 1: 128 x 128 blocks of
+// 8 warps (the host's qmatmul_plan), k tiles of 128 and 64. The launch goes
 // on `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for a
 // tile that is not built.
 extern "C" int qmatmul_launch(const void* x, const void* w, const void* scale,
                               const void* bias, void* out, int M, int N,
-                              int K, int relu, int requant, float inv_scale,
-                              int tile, void* stream) {
+                              int K, int relu, int requant, int acc_out,
+                              float inv_scale, int tile, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (tile == 0)
     return launch<32, 64, 128, 2, 2>(x, w, scale, bias, out, M, N, K, relu,
-                                requant, inv_scale, st);
+                                requant, acc_out, inv_scale, st);
   if (tile == 1)
     return launch<128, 128, 64, 2, 4>(x, w, scale, bias, out, M, N, K, relu,
-                                  requant, inv_scale, st);
+                                  requant, acc_out, inv_scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1084,8 +1084,10 @@ def qmatmul_plan(m: int, k: int, n: int) -> Dict[str, object]:
            lambda x_int, w_int, scale, bias=None, **kw: {
                "m": x_int.shape[0], "k": x_int.shape[1], "n": w_int.shape[1],
                "bias": bias is not None,
-               "int8_out": kw.get("out_scale") is not None})
-def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
+               "int8_out": kw.get("out_scale") is not None,
+               "acc_out": scale is None})
+def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor,
+            scale: Optional[torch.Tensor],
             bias: Optional[torch.Tensor] = None, *, relu: bool = False,
             out_scale: Optional[float] = None) -> torch.Tensor:
     """Fused int8 stage: int8 x int8 into int32, times the per-channel
@@ -1094,19 +1096,30 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     x_int (M, K) int8, w_int (K, N) int8, scale and bias (N,) float32.
     Returns (M, N) float32, or int8 codes clip(round(y / out_scale)) when
     ``out_scale`` is set (the multiply by its float32 reciprocal, as the
-    Pallas kernel does). Ragged M, N and K need no padding;
-    ``qmatmul_plan`` picks the kernel's tile. On meta tensors: the empty
-    output, nothing launched."""
+    Pallas kernel does). ``scale`` None: the accumulator mode, the (M, N)
+    int32 sums themselves (no bias, ReLU or requant), which a mesh's
+    row-parallel linear adds over its ranks before it rescales. Ragged M,
+    N and K need no padding; ``qmatmul_plan`` picks the kernel's tile. On
+    meta tensors: the empty output, nothing launched."""
     kind = _device_kind(x_int, meta=True)
     _check(x_int, "x_int", torch.int8, 2, x_int.device)
     _check(w_int, "w_int", torch.int8, 2, x_int.device)
-    _check(scale, "scale", torch.float32, 1, x_int.device)
     m, k = x_int.shape
     n = w_int.shape[1]
-    if w_int.shape[0] != k or scale.shape[0] != n:
-        raise ValueError(f"shapes x {tuple(x_int.shape)}, w "
-                         f"{tuple(w_int.shape)}, scale {tuple(scale.shape)} "
-                         f"do not chain")
+    acc_out = scale is None
+    if acc_out:
+        if bias is not None or relu or out_scale is not None:
+            raise ValueError("the accumulator mode takes no bias, ReLU or "
+                             "out_scale")
+        if w_int.shape[0] != k:
+            raise ValueError(f"shapes x {tuple(x_int.shape)}, w "
+                             f"{tuple(w_int.shape)} do not chain")
+    else:
+        _check(scale, "scale", torch.float32, 1, x_int.device)
+        if w_int.shape[0] != k or scale.shape[0] != n:
+            raise ValueError(f"shapes x {tuple(x_int.shape)}, w "
+                             f"{tuple(w_int.shape)}, scale "
+                             f"{tuple(scale.shape)} do not chain")
     if bias is not None:
         _check(bias, "bias", torch.float32, 1, x_int.device)
         if bias.shape[0] != n:
@@ -1117,8 +1130,8 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
         return ref.qmatmul_ref(x_int, w_int, scale, bias, relu=relu,
                                out_scale=out_scale)
     out = torch.empty((m, n), device=x_int.device,
-                      dtype=torch.float32 if out_scale is None
-                      else torch.int8)
+                      dtype=torch.int32 if acc_out else
+                      torch.float32 if out_scale is None else torch.int8)
     if kind == "meta" or out.numel() == 0:
         return out
     plan = qmatmul_plan(m, k, n)
@@ -1127,10 +1140,12 @@ def qmatmul(x_int: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
                          f"{plan['block_n']}")
     inv = 0.0 if out_scale is None else float(np.float32(1.0 / out_scale))
     fn = _build.entry_point("qmatmul")
-    err = fn(x_int.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
+    err = fn(x_int.data_ptr(), w_int.data_ptr(),
+             None if acc_out else scale.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
-             m, n, k, int(relu), int(out_scale is not None), inv,
-             plan["tile"], torch.cuda.current_stream(x_int.device).cuda_stream)
+             m, n, k, int(relu), int(out_scale is not None), int(acc_out),
+             inv, plan["tile"],
+             torch.cuda.current_stream(x_int.device).cuda_stream)
     _raise_on_error("qmatmul", err)
     launches["qmatmul"] += 1
     return out

@@ -35,11 +35,13 @@ def multi_threshold_ref(acc: torch.Tensor, thresholds: torch.Tensor
 
 
 def qmatmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
-                scale: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                scale: Optional[torch.Tensor],
+                bias: Optional[torch.Tensor] = None, *,
                 relu: bool = False,
                 out_scale: Optional[float] = None) -> torch.Tensor:
     """Fused int8 stage: exact integer matmul, per-channel dequant, bias,
-    optional ReLU, optional requant to int8.
+    optional ReLU, optional requant to int8; ``scale`` None: the exact
+    int32 accumulator alone (the kernel's accumulator mode).
 
     x_int (M, K) int8, w_int (K, N) int8, scale and bias (N,) float32.
     The Pallas kernel's order and roundings (``repro.kernels.qmatmul``):
@@ -48,6 +50,8 @@ def qmatmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
     by the float32 reciprocal of ``out_scale``, rounds half to even and
     clips to [-128, 127]. Returns (M, N) float32, or int8 when
     ``out_scale`` is set."""
+    if scale is None:
+        return int_matmul(x_int, w_int)
     y = int_matmul(x_int, w_int).to(torch.float32) * scale.reshape(1, -1)
     y = y + (bias.reshape(1, -1) if bias is not None
              else torch.zeros_like(scale).reshape(1, -1))

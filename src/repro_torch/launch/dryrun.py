@@ -49,13 +49,18 @@ step:
      * ``lower_s``: seconds to build the trees; ``compile_s``: the traced
        step's seconds.
 
-Each mesh traces its own step. Rules that split an axis no rank-local
-form of the port reads (``NOT_PORTED``: the ``seqpar`` and ``ep``
-strategies, ``--seq-parallel``) give a record whose three collective
-fields are null, with a ``"not_ported"`` key naming the ``ROADMAP.md``
-item; its FLOPs are the global step's, split evenly. A failing cell is
-recorded with ``status: "error"`` and its traceback; ``--all`` exits 1
-if any failed.
+Each mesh traces its own step, under every strategy: ``seqpar`` (and
+``--seq-parallel``) splits the residual stream's sequence over the model
+axis, so the blocks gather it and reduce-scatter where the baseline
+all-reduces (a one-token decode step reads no "seq" rule and is the
+baseline's); ``ep`` splits the experts over the model axis and leaves
+the dense MLPs whole; ``fsdp2d``, ``tponly``, ``fsdppod`` and the
+comma-separated mixes change the groups the same code reads. A cell
+whose rules do not fit its dimensions (``ep`` on grok-1-314b: 8 experts
+on a 16-wide model axis; the reference's jit refuses the sharding) and
+any other failing cell is recorded with ``status: "error"``, the error
+naming the dimension, and its traceback; ``--all`` exits 1 if any
+failed.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
@@ -290,24 +295,6 @@ def _quantized_specs(params, pspecs):
 # the traced step: rank 0's, under the cell's mesh and rules
 # ---------------------------------------------------------------------------
 
-#: the rules that no rank-local form of the port reads yet -> the
-#: ROADMAP.md item that ports it
-NOT_PORTED = {
-    "seq": "ROADMAP.md queue 1 item 8: the sequence-parallel residual "
-           "stream (seqpar)",
-    "experts": "ROADMAP.md queue 1 item 9: expert parallelism (ep)",
-}
-
-
-def not_ported(rules: dict) -> Optional[str]:
-    """The ROADMAP item of the first rule that splits an axis with no
-    rank-local form in the port; None if the port runs the rules."""
-    for axis, item in NOT_PORTED.items():
-        if rules.get(axis) is not None:
-            return item
-    return None
-
-
 def _abstract_trees(cfg: ArchConfig, shape: ShapeConfig, quant_bits: int):
     """The cell's whole meta trees: params (quantized for int serve
     cells), the optimizer state (train) or the caches (decode), and the
@@ -434,34 +421,22 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 state_local = params_local
                 result["cache_local_bytes"] = local_bytes(
                     trees["cache"], model.cache_specs(), mesh)
-            item = not_ported(rules)
-            if item is None:
-                local = rank_trees(model, shape, trees)
+            local = rank_trees(model, shape, trees)
         n_dev = mesh.size()
-        if item is None:
-            t1 = obs_timer.now()
-            with use_mesh_rules(mesh, rules):
-                report = trace_step(model, shape, local, microbatches)
-            del local
-            per_device = report.stats
-            flops_dev = float(per_device.flops)
-            coll = {"collective_bytes_per_device":
-                    float(per_device.collective_bytes),
-                    "collectives_by_type": {
-                        k: float(v) for k, v in per_device.by_type.items()},
-                    "collectives_count": {
-                        k: int(v) for k, v in per_device.by_count.items()}}
-            total = (float(per_device.flops) * n_dev,
-                     float(report.bytes_accessed) * n_dev)
-        else:
-            # no rank-local form: the global step, split evenly
-            t1 = obs_timer.now()
-            report = trace_step(model, shape, trees, microbatches)
-            flops_dev = float(report.stats.flops) / n_dev
-            coll = {"collective_bytes_per_device": None,
-                    "collectives_by_type": None, "collectives_count": None,
-                    "not_ported": item}
-            total = (float(report.stats.flops), float(report.bytes_accessed))
+        t1 = obs_timer.now()
+        with use_mesh_rules(mesh, rules):
+            report = trace_step(model, shape, local, microbatches)
+        del local
+        per_device = report.stats
+        flops_dev = float(per_device.flops)
+        coll = {"collective_bytes_per_device":
+                float(per_device.collective_bytes),
+                "collectives_by_type": {
+                    k: float(v) for k, v in per_device.by_type.items()},
+                "collectives_count": {
+                    k: int(v) for k, v in per_device.by_count.items()}}
+        total = (float(per_device.flops) * n_dev,
+                 float(report.bytes_accessed) * n_dev)
         trace_s = obs_timer.now() - t1
         result.update(
             status="ok",
@@ -477,11 +452,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             **coll,
         )
         if verbose:
-            cb = coll["collective_bytes_per_device"]
             print(f"[dryrun] {arch} x {shape_name} x {mesh_name} ({tag}): OK "
                   f"trace={result['compile_s']}s "
                   f"flops/dev={flops_dev:.3e} "
-                  f"coll B/dev={'n/a' if cb is None else f'{cb:.3e}'} "
+                  f"coll B/dev={coll['collective_bytes_per_device']:.3e} "
                   f"params/dev={params_local / 2**30:.2f}GiB", flush=True)
             print("  memory_analysis:", result["memory_analysis"], flush=True)
     except Exception as e:  # noqa: BLE001 - a failing cell is a recorded bug

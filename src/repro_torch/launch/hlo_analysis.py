@@ -146,10 +146,11 @@ def flash_live_pairs(sq, sk, causal, window, q_offset, kv_len) -> int:
 
 def _qmatmul_counts(d) -> Tuple[float, float]:
     """K5: 2 m k n operations; the codes, the scale (and bias) read once,
-    the output written once."""
+    the output written once (4 bytes an element in float32 and in the
+    accumulator mode, which reads no scale)."""
     m, k, n = d["m"], d["k"], d["n"]
-    nbytes = (m * k + k * n + 4 * n * (2 if d["bias"] else 1)
-              + m * n * (1 if d["int8_out"] else 4))
+    vectors = 0 if d["acc_out"] else 4 * n * (2 if d["bias"] else 1)
+    nbytes = m * k + k * n + vectors + m * n * (1 if d["int8_out"] else 4)
     return 2.0 * m * k * n, float(nbytes)
 
 

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (_dtype, _mx, linear_apply, linear_init,
+from repro_torch.models.layers import (_dtype, _mx, enter_split,
+                                       linear_apply, linear_init,
                                        row_parallel_linear)
 from repro_torch.parallel.collectives import (combine_softmax, copy_to_group,
                                               gather_blocks)
@@ -268,11 +269,15 @@ def _rank_proj(cfg: ArchConfig, lin, x, tp, split: bool):
 
 
 def attn_apply(cfg: ArchConfig, p, x, positions,
-               pos_offset: Optional[int] = None):
+               pos_offset: Optional[int] = None, seq=None):
     """Training / prefill forward. x (B,S,d); positions (B,S) or
     (3,B,S). ``pos_offset`` (the model's own positions, an arange from
     it; 0 on every path today) spares the flash branch its check of the
-    positions; None: they come from the caller and are checked.
+    positions; None: they come from the caller and are checked. ``seq``:
+    x is the rank's block of the sequence over that group (the seqpar
+    strategy): the blocks are gathered on the way in, so positions,
+    RoPE and the masks see the whole sequence, and the output is
+    reduce-scattered back onto the rank's block.
 
     Under a mesh the rank computes its block of the heads: "heads_flat"
     splits ``wo``'s fan-in (row-parallel, the partial outputs summed over
@@ -281,11 +286,11 @@ def attn_apply(cfg: ArchConfig, p, x, positions,
     "heads" is, every rank projects all kv heads and keeps the ones its
     q heads read; where "heads" is not split, every rank computes every
     head and keeps its block of the flattened output before ``wo``."""
-    B, S, _ = x.shape
     tp = logical_group("heads_flat")
     heads_split = logical_group("heads") is not None
     kv_split = logical_group("kv_heads") is not None
-    x = copy_to_group(x, tp)
+    x = enter_split(x, "heads_flat", seq)
+    B, S, _ = x.shape
     q = _rank_proj(cfg, p["wq"], x, tp, heads_split)
     k = _rank_proj(cfg, p["wk"], x, tp, kv_split)
     v = _rank_proj(cfg, p["wv"], x, tp, kv_split)
@@ -314,7 +319,7 @@ def attn_apply(cfg: ArchConfig, p, x, positions,
     if tp is not None and not heads_split:
         n = local_dim("heads_flat", out.shape[-1])
         out = out.narrow(-1, logical_block("heads_flat")[0] * n, n)
-    return row_parallel_linear(cfg, p["wo"], out, tp)
+    return row_parallel_linear(cfg, p["wo"], out, "heads_flat", seq)
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
@@ -401,7 +406,7 @@ def attn_decode(cfg: ArchConfig, p, x, cache, cur_index):
     if tp is not None:
         n = local_dim("heads_flat", out.shape[-1])
         out = out.narrow(-1, logical_block("heads_flat")[0] * n, n)
-    return row_parallel_linear(cfg, p["wo"], out, tp), cache
+    return row_parallel_linear(cfg, p["wo"], out, "heads_flat"), cache
 
 
 def _decode_ring(cfg, q, k_cache, v_cache, n_valid, pos0: int = 0,

@@ -55,12 +55,14 @@ from repro_torch.models.layers import (_dtype, _mx, embed_apply, embed_init,
                                        embed_specs, head_apply, leaf_dtype,
                                        norm_apply, norm_init, norm_specs,
                                        quantize_linear_params)
-from repro_torch.parallel.collectives import (max_over_group, sum_detached,
-                                              sum_over_batch, sum_over_group)
+from repro_torch.parallel.collectives import (gather_sequence_whole,
+                                              max_over_group, sequence_block,
+                                              sum_detached, sum_over_batch,
+                                              sum_over_group)
 from repro_torch.parallel.sharding import (active_mesh, batch_block,
                                            gather_leaf, logical_block,
                                            logical_group, logical_to_spec,
-                                           spec_group)
+                                           sequence_group, spec_group)
 
 def _lse_and_label_logit(logits, labels):
     """(log-sum-exp over the vocab, the label's logit) of float32 logits;
@@ -150,21 +152,28 @@ class Model:
         return p
 
     # -- forward ---------------------------------------------------------
-    def _embed(self, params, tokens_or_embeds):
+    def _embed(self, params, tokens_or_embeds, seq=None):
         """Token ids through the table, or embeddings cast to the
-        config's dtype (``embed_inputs=False``)."""
+        config's dtype (``embed_inputs=False``); ``seq``: the group over
+        which the residual stream is split into sequence blocks, of which
+        the rank's is returned."""
         if self.cfg.embed_inputs:
-            return embed_apply(self.cfg, params["embed"], tokens_or_embeds)
-        return tokens_or_embeds.to(_dtype(self.cfg))
+            return embed_apply(self.cfg, params["embed"], tokens_or_embeds,
+                               seq)
+        return sequence_block(tokens_or_embeds.to(_dtype(self.cfg)), seq)
 
     def _inputs_to_h(self, params, batch):
         """(h, positions, their offset): the caller's positions (offset
         None: the attention layers check them), or the arange built here
         (offset 0: nothing is read back from it). Under a mesh that
-        splits the batch, of the rank's rows of the global batch."""
-        h = self._embed(params, batch_block(
-            batch["tokens"] if self.cfg.embed_inputs else batch["embeds"]))
-        B, S = h.shape[:2]
+        splits the batch, of the rank's rows of the global batch; where
+        the rules split the residual stream's sequence
+        (``sequence_group``), h is the rank's block of it (the positions
+        stay whole)."""
+        x = batch_block(batch["tokens"] if self.cfg.embed_inputs
+                        else batch["embeds"])
+        B, S = x.shape[:2]
+        h = self._embed(params, x, sequence_group(S))
         if "positions" in batch:
             pos = batch["positions"]
             return h, batch_block(pos, dim=pos.dim() - 2), None
@@ -172,7 +181,11 @@ class Model:
                                  device=h.device)[None].expand(B, S)
         return h, positions, 0
 
-    def _head(self, params, h):
+    def _head(self, params, h, seq=None):
+        """Logits of the residual stream ``h``; ``seq``: h is the rank's
+        block of the sequence, gathered before the final norm, so the
+        logits and the loss are the whole sequence's."""
+        h = gather_sequence_whole(h, seq)
         h = norm_apply(self.cfg, params["final_norm"], h)
         return head_apply(self.cfg, params["embed"] if self.cfg.tie_embeddings
                           else params["head"], h)
@@ -184,7 +197,8 @@ class Model:
         h, positions, offset = self._inputs_to_h(params, batch)
         h, aux = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
                                  offset)
-        return self._head(params, h), aux
+        return self._head(params, h, sequence_group(positions.shape[-1])), \
+            aux
 
     def loss(self, params, batch):
         """batch {"tokens" (or "embeds"), "labels": (B, S) int} -> (total,
@@ -226,7 +240,7 @@ class Model:
         h, positions, offset = self._inputs_to_h(params, batch)
         h, _ = tfm.stack_apply(self.cfg, params["blocks"], h, positions,
                                offset)
-        return self._head(params, h)
+        return self._head(params, h, sequence_group(positions.shape[-1]))
 
     @torch.inference_mode()
     def cache_init(self, batch: int, max_len: int, dtype=None, device=None):

@@ -42,8 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (_dtype, _mx, _normal, leaf_dtype,
-                                       linear_apply, linear_init,
+from repro_torch.models.layers import (_dtype, _mx, _normal, enter_split,
+                                       leaf_dtype, linear_apply, linear_init,
                                        row_parallel_linear)
 from repro_torch.parallel.collectives import (copy_to_group,
                                               exchange_column_blocks)
@@ -189,18 +189,23 @@ def ssm_specs(cfg: ArchConfig):
     }
 
 
-def _mix(cfg: ArchConfig, p, x, conv_state=None):
+def _mix(cfg: ArchConfig, p, x, conv_state=None, seq=None):
     """The shared front of prefill and decode: in_proj, the causal conv,
     SiLU, x_proj and dt; under a mesh on the rank's channels (module
-    docstring). Returns (xs, z, dt, B_t, C_t, A, new conv state)."""
+    docstring); ``seq``: x is the rank's block of the sequence, gathered
+    on the way in (``layers.enter_split``). Returns (xs, z, dt, B_t, C_t,
+    A, new conv state)."""
     dtr, st = cfg.dt_rank, cfg.ssm_state
     tp = logical_group("model")
-    x = copy_to_group(x, tp)
+    x = enter_split(x, "model", seq)
     xz = linear_apply(cfg, p["in_proj"], x, fsdp_dim=0, split=tp)
     xs, z = torch.chunk(exchange_column_blocks(xz, tp), 2, dim=-1)
     xs, conv_state = causal_conv1d(xs, p["conv_w"], p["conv_b"], conv_state)
     xs = F.silu(xs.to(torch.float32)).to(x.dtype)
-    dbc = copy_to_group(row_parallel_linear(cfg, p["x_proj"], xs, tp), tp)
+    # all-reduced, never reduce-scattered: the scan needs every
+    # position's dt, B and C
+    dbc = copy_to_group(row_parallel_linear(cfg, p["x_proj"], xs, "model"),
+                        tp)
     dt_r, B_t, C_t = torch.split(dbc, [dtr, st, st], dim=-1)
     # dt_proj through linear_apply (QAT fake-quant and the int8 serve
     # path's w_int apply), every leaf but the bias, added in float32 below
@@ -211,17 +216,20 @@ def _mix(cfg: ArchConfig, p, x, conv_state=None):
     return xs, z, dt, B_t, C_t, A, conv_state
 
 
-def _out(cfg: ArchConfig, p, y):
-    """out_proj, row-parallel under a mesh."""
-    return row_parallel_linear(cfg, p["out_proj"], y, logical_group("model"))
+def _out(cfg: ArchConfig, p, y, seq=None):
+    """out_proj, row-parallel under a mesh (reduce-scattered onto the
+    rank's sequence block where ``seq`` is given)."""
+    return row_parallel_linear(cfg, p["out_proj"], y, "model", seq)
 
 
-def ssm_apply(cfg: ArchConfig, p, x):
-    """Training / prefill forward. x (B, T, d) -> (B, T, d)."""
-    xs, z, dt, B_t, C_t, A, _ = _mix(cfg, p, x)
+def ssm_apply(cfg: ArchConfig, p, x, seq=None):
+    """Training / prefill forward. x (B, T, d) -> (B, T, d); ``seq``: x
+    and the output are the rank's blocks of the sequence over that group
+    (the seqpar strategy), the mixer runs on the whole sequence."""
+    xs, z, dt, B_t, C_t, A, _ = _mix(cfg, p, x, seq=seq)
     y, _ = selective_scan_chunked(xs, dt, B_t, C_t, A, p["D"], cfg.ssm_chunk)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    return _out(cfg, p, y)
+    return _out(cfg, p, y, seq)
 
 
 def ssm_cache_init(cfg: ArchConfig, batch: int, dtype=None, device=None):

@@ -43,8 +43,9 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (mlp_apply, mlp_init, mlp_specs,
                                        moe_apply, moe_init, moe_specs,
                                        norm_apply, norm_init, norm_specs)
+from repro_torch.parallel.collectives import copy_to_group
 from repro_torch.parallel.sharding import (active_mesh, active_rules,
-                                           use_mesh_rules)
+                                           sequence_group, use_mesh_rules)
 
 
 def _group(tree, g: int):
@@ -95,26 +96,44 @@ def block_specs(cfg: ArchConfig) -> Dict[str, Any]:
     return p
 
 
+def _norm(cfg: ArchConfig, p, x, seq):
+    """``norm_apply`` on the residual stream; where it is the rank's block
+    of the sequence (``seq``), the norm's parameters enter by Megatron's
+    ``f``, so their gradient sums the blocks' partial ones."""
+    if seq is not None:
+        p = {k: copy_to_group(v, seq) for k, v in p.items()}
+    return norm_apply(cfg, p, x)
+
+
 def block_apply(cfg: ArchConfig, p, x, positions, pos_offset=None):
     """Forward through one block. Returns (x, aux_loss), the aux loss
     summed over the block's MoE sublayers (0 without one).
-    ``pos_offset``: ``attention.attn_apply``'s."""
+    ``pos_offset``: ``attention.attn_apply``'s.
+
+    The residual stream: where the rules split "seq" (the seqpar
+    strategy) and the sequence of ``positions`` (always whole) splits
+    into the group's blocks (``sequence_group``), x and the output are
+    the rank's block of the sequence, as the reference's
+    ``shard(x, ("batch", "seq", None))`` lays them out; the norms run on
+    the block, each mixer and FFN gathers its input's sequence and
+    reduce-scatters its output."""
+    seq = sequence_group(positions.shape[-1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.block_period):
         sub = p[f"sub{i}"]
-        h = norm_apply(cfg, sub["norm1"], x)
+        h = _norm(cfg, sub["norm1"], x, seq)
         if cfg.layer_kind(i) == "attn":
             x = x + attn.attn_apply(cfg, sub["attn"], h, positions,
-                                    pos_offset)
+                                    pos_offset, seq)
         else:
-            x = x + ssm.ssm_apply(cfg, sub["ssm"], h)
+            x = x + ssm.ssm_apply(cfg, sub["ssm"], h, seq)
         if cfg.d_ff > 0:
-            h = norm_apply(cfg, sub["norm2"], x)
+            h = _norm(cfg, sub["norm2"], x, seq)
             if cfg.layer_is_moe(i):
-                y, a = moe_apply(cfg, sub["moe"], h)
+                y, a = moe_apply(cfg, sub["moe"], h, seq)
                 aux = aux + a
             else:
-                y = mlp_apply(cfg, sub["mlp"], h)
+                y = mlp_apply(cfg, sub["mlp"], h, seq)
             x = x + y
     return x, aux
 

@@ -30,7 +30,25 @@ the loss and the MoE's mesh branch:
     rank's block of each part; its backward is the inverse all-to-all;
   * ``combine_softmax``: forward only (decode), the partial softmaxes
     of a group's key blocks combined: the running max all-reduced with
-    MAX, the rescaled sums and weighted sums with SUM.
+    MAX, the rescaled sums and weighted sums with SUM;
+  * the sequence-parallel collectives (Megatron's pair, and the two ends
+    of a replicated computation), over the group whose ranks hold the
+    blocks of the sequence axis of the residual stream (the "seq" rule),
+    block r on group rank r:
+
+      - ``gather_sequence``: the blocks all-gathered into the whole
+        sequence that enters a computation split over the same group;
+        its backward is the reduce-scatter of the ranks' partial
+        gradients onto the rank's block;
+      - ``scatter_sequence_sum``: the ranks' partial sums reduce-scattered
+        onto the rank's block of the sequence (the row-parallel output,
+        int32 accumulators too); its backward is the all-gather;
+      - ``gather_sequence_whole``: the blocks all-gathered into the whole
+        sequence that a computation every rank repeats reads (the
+        router, the final norm); every rank then holds the whole
+        gradient, and its backward keeps the rank's block of it;
+      - ``sequence_block``: the rank's block of a tensor every rank holds
+        whole; its backward is the all-gather of the blocks' gradients.
 
 Each skips itself (returns its input, no collective) on a group of None
 or of one rank.
@@ -162,6 +180,109 @@ class _SumOverBatch(torch.autograd.Function):
         g = gy.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+def _all_gather_dim(x, group, dim):
+    """The group's blocks of ``x`` concatenated along ``dim``, in rank
+    order."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter_dim(x, group, dim):
+    """The group's sum of ``x``, this rank's block of it along ``dim``:
+    one reduce-scatter (the blocks laid out along the leading axis, as
+    ``reduce_scatter_tensor`` takes them)."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"sequence of {x.shape[dim]} does not split into "
+                         f"{n} blocks")
+    buf = x.movedim(dim, 0).contiguous()
+    out = buf.new_empty((buf.shape[0] // n, *buf.shape[1:]))
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    return out.movedim(0, dim)
+
+
+def _rank_block(x, group, dim):
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"sequence of {x.shape[dim]} does not split into "
+                         f"{n} blocks")
+    w = x.shape[dim] // n
+    return x.narrow(dim, r * w, w)
+
+
+class _GatherSequence(torch.autograd.Function):
+    """All-gather of the sequence blocks; backward: reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _reduce_scatter_dim(gy, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSequenceSum(torch.autograd.Function):
+    """Reduce-scatter of partial sums onto the rank's block; backward:
+    all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _all_gather_dim(gy, ctx.group, ctx.dim), None, None
+
+
+class _GatherSequenceWhole(torch.autograd.Function):
+    """All-gather of the sequence blocks into a computation every rank
+    repeats; backward: the rank's block of the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return (_rank_block(gy, ctx.group, ctx.dim).contiguous(), None,
+                None)
+
+
+class _SequenceBlock(torch.autograd.Function):
+    """The rank's block of a tensor every rank holds whole; backward:
+    all-gather of the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _rank_block(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _all_gather_dim(gy, ctx.group, ctx.dim), None, None
+
+
+def gather_sequence(x, group, dim: int = 1):
+    return _over_group(_GatherSequence, x, group, dim)
+
+
+def scatter_sequence_sum(x, group, dim: int = 1):
+    return _over_group(_ScatterSequenceSum, x, group, dim)
+
+
+def gather_sequence_whole(x, group, dim: int = 1):
+    return _over_group(_GatherSequenceWhole, x, group, dim)
+
+
+def sequence_block(x, group, dim: int = 1):
+    return _over_group(_SequenceBlock, x, group, dim)
 
 
 def _exchange_plan(parts: int, m: int, r: int):

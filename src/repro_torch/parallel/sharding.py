@@ -14,6 +14,8 @@ Logical activation / parameter axes map onto mesh axes through
     vocab/heads/mlp/experts -> model   tensor parallelism
     fsdp         -> data            parameter + optimizer-state FSDP
     kv_seq       -> model           sequence-sharded KV cache for decode
+    seq          -> None            the residual stream's sequence
+                                    (model under the seqpar strategy)
 
 ``use_mesh_rules`` activates a mesh and rules for the calling thread and
 restores the previous ones on exit; rules naming an axis the mesh lacks
@@ -30,7 +32,11 @@ The SPMD form, one process a rank: the model code partitions itself
 (``models.layers``, ``models.attention``, ``models.model``), reading the
 active rules through ``logical_group`` (the process group that splits a
 logical axis), ``logical_block`` (the rank's block index along it) and
-``local_dim`` (the rank-local size of a dimension). A rank holds the
+``local_dim`` (the rank-local size of a dimension); ``sequence_group``
+is the group over which the residual stream of a sequence is split, and
+``same_split`` tells whether two logical axes split over the same mesh
+axes (so that a sequence gather can be the entry of a tensor-parallel
+computation). A rank holds the
 blocks that the spec trees give: ``local_block`` is the rank's
 contiguous block of a full tensor under a spec, in rank order along each
 split dimension (JAX's ``NamedSharding`` block layout: a dimension split
@@ -236,6 +242,24 @@ def logical_group(name: str):
     if math.prod(_size(mesh, a) for a in axes) == 1:
         return None
     return axis_group(mesh, axes)
+
+
+def sequence_group(seq_len: int):
+    """The group over which the residual stream of a ``seq_len``-token
+    sequence is split into blocks (the "seq" rule, the seqpar
+    strategy); None where the rules leave it whole, or where ``seq_len``
+    does not split into the group's blocks (a one-token decode step)."""
+    group = logical_group("seq")
+    if group is None or seq_len % dist.get_world_size(group):
+        return None
+    return group
+
+
+def same_split(a: str, b: str) -> bool:
+    """Whether the logical axes ``a`` and ``b`` split over the same mesh
+    axes under the active rules (both split)."""
+    ra, rb = _STATE.rules.get(a), _STATE.rules.get(b)
+    return ra is not None and _axes(ra) == _axes(rb or ())
 
 
 def spec_group(entry, mesh=None):

@@ -531,6 +531,24 @@ def test_qmatmul_kernel_equals_plain(cuda, m, k, n, relu, bias, out_scale):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("m,k,n", [(37, 70, 50), (4, 4096, 96),
+                                   (129, 200, 17), (4096, 2048, 1024),
+                                   (4, 32768, 8)])
+def test_qmatmul_accumulator_mode_equals_plain(cuda, m, k, n):
+    """K5's accumulator mode (``scale=None``) on both tiles: the int32
+    sums of its plain version, bit for bit, codes at the extremes."""
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    x[0], w[:, 0] = -128, -127
+    want = ops.qmatmul(x, w, None)                       # plain, on the CPU
+    before = ops.launches["qmatmul"]
+    got = ops.qmatmul(x.to(cuda), w.to(cuda), None)
+    torch.cuda.synchronize()
+    assert ops.launches["qmatmul"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("m,k,n,s", [(37, 19, 70, 7), (1024, 490, 256, 7),
                                      (130, 65, 129, 255)])
 def test_threshold_matmul_every_tile_equals_plain(cuda, m, k, n, s):

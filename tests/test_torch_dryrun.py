@@ -10,8 +10,13 @@ state as the arguments and its collectives, each mesh traced on its
 own) while the process's resident memory grows by under ``RSS_LIMIT``
 (nothing is allocated for the 8B params, their Adam state or the 256 x
 4096 batch); ``main`` over a decode cell and a cell skipped by
-assignment, and ``--skip-existing``; the ``seqpar`` strategy, which has
-no rank-local form, recorded as not ported. In a second child, the
+assignment, and ``--skip-existing``; the strategies' rank-local steps
+(``STRATEGY_CELLS``): a ``seqpar`` prefill gathers the sequence and
+reduce-scatters where the baseline all-reduces, a ``seqpar`` decode step
+is the baseline's, an ``ep`` cell records its collectives, and ``ep`` on
+grok-1-314b (8 experts on a 16-wide model axis) errors, naming the
+dimension, as the reference's jit refuses the sharding. In a second
+child, the
 reference's default dry run, ``--all --mesh both``: 64 ok cells, each
 with its collective bytes, and 16 skipped.
 
@@ -47,8 +52,21 @@ REFERENCE_KEYS = {
     "xla_cost_analysis", "hlo_flops_per_device",
     "collective_bytes_per_device", "collectives_by_type",
     "collectives_count"}
-#: the default dry run takes about 270 s on the CPU box
+#: the default dry run takes about 270 s on the CPU box in one process;
+#: its child traces ``ALL_JOBS`` cells at once (the records are the same:
+#: ``test_jobs_trace_the_same_records_as_one_process``)
 ALL_TIMEOUT_S = 600
+ALL_JOBS = 3
+#: (arch, shape, strategy) cells the worker traces beside the defaults,
+#: each in a few seconds
+STRATEGY_CELLS = (
+    ("internlm2-1.8b", "prefill_32k", "baseline"),
+    ("internlm2-1.8b", "prefill_32k", "seqpar"),
+    ("internlm2-1.8b", "decode_32k", "baseline"),
+    ("internlm2-1.8b", "decode_32k", "seqpar"),
+    ("llama4-scout-17b-16e", "prefill_32k", "ep"),
+    ("grok-1-314b", "decode_32k", "ep"),
+)
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
 
@@ -97,9 +115,11 @@ def _worker(out_dir: str) -> None:
             key for key in set(got) | set(want)
             if key not in ("lower_s", "compile_s")
             and got.get(key) != want.get(key)]
-    res["seqpar"] = dryrun.run_cell(
-        "internlm2-1.8b", "decode_32k", strategy="seqpar", tag="seqpar",
-        out_dir=os.path.join(out_dir, "strategies"), verbose=False)
+    res["strategies"] = {
+        f"{arch} {shape} {strategy}": dryrun.run_cell(
+            arch, shape, strategy=strategy, tag=strategy,
+            out_dir=os.path.join(out_dir, "strategies"), verbose=False)
+        for arch, shape, strategy in STRATEGY_CELLS}
     print(json.dumps(res))
 
 
@@ -117,7 +137,8 @@ def children(tmp_path_factory):
              for cmd in ([sys.executable, os.path.abspath(__file__),
                           str(out)],
                          [sys.executable, "-m", "repro_torch.launch.dryrun",
-                          "--all", "--mesh", "both", "--out", str(every)])]
+                          "--all", "--mesh", "both", "--jobs", str(ALL_JOBS),
+                          "--out", str(every)])]
     outs = [p.communicate(timeout=ALL_TIMEOUT_S) for p in procs]
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-4000:]
@@ -171,19 +192,63 @@ def test_full_width_cell_on_meta_allocates_nothing(worker):
     assert multi["params_local_bytes"] == single["params_local_bytes"]
 
 
-def test_a_strategy_without_a_rank_local_form_is_not_ported(worker):
-    """``seqpar`` shards the residual stream's sequence, which no
-    rank-local form of the port reads: its record says so and holds no
-    collective figures (the global step's FLOPs, split evenly)."""
+def _strategy(res, arch, shape, strategy):
+    rec = res["strategies"][f"{arch} {shape} {strategy}"]
+    assert "not_ported" not in rec
+    return rec
+
+
+def test_seqpar_and_ep_cells_record_their_collectives(worker):
+    """Every strategy traces rank 0's own step: a ``seqpar`` prefill
+    gathers the residual stream's sequence blocks where the baseline's
+    layers take theirs whole and reduce-scatters their outputs where the
+    baseline all-reduces them (one of each a sublayer, and the
+    embedding's sum), on the same FLOPs; an ``ep`` prefill records its
+    collectives (the experts' sum over the model group among them)."""
     res, _ = worker
-    rec = res["seqpar"]
-    assert rec["status"] == "ok", rec.get("traceback")
-    assert "ROADMAP.md queue 1" in rec["not_ported"] \
-        and "seqpar" in rec["not_ported"]
-    assert rec["collective_bytes_per_device"] is None
-    assert rec["collectives_by_type"] is None is rec["collectives_count"]
-    assert rec["hlo_flops_per_device"] == \
-        rec["xla_cost_analysis"]["flops"] / rec["n_devices"]
+    base = _strategy(res, "internlm2-1.8b", "prefill_32k", "baseline")
+    seq = _strategy(res, "internlm2-1.8b", "prefill_32k", "seqpar")
+    for rec in (base, seq):
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert REFERENCE_KEYS <= set(rec)
+        assert rec["collective_bytes_per_device"] == sum(
+            rec["collectives_by_type"].values()) > 0
+    n = base["collectives_count"]["all-reduce"]
+    assert "reduce-scatter" not in base["collectives_count"]
+    assert seq["collectives_count"] == {
+        "all-gather": base["collectives_count"]["all-gather"] + n,
+        "reduce-scatter": n}
+    assert seq["hlo_flops_per_device"] == pytest.approx(
+        base["hlo_flops_per_device"], rel=1e-3)
+    ep = _strategy(res, "llama4-scout-17b-16e", "prefill_32k", "ep")
+    assert ep["status"] == "ok", ep.get("traceback")
+    assert ep["collective_bytes_per_device"] == sum(
+        ep["collectives_by_type"].values()) > 0
+    assert ep["collectives_count"]["all-reduce"] > 0
+
+
+def test_a_seqpar_decode_cell_is_the_baselines(worker):
+    """A one-token decode step reads no "seq" rule (the reference's
+    ``block_decode`` never shards the sequence): its FLOPs and collectives
+    are the baseline's."""
+    res, _ = worker
+    base = _strategy(res, "internlm2-1.8b", "decode_32k", "baseline")
+    seq = _strategy(res, "internlm2-1.8b", "decode_32k", "seqpar")
+    assert base["status"] == seq["status"] == "ok"
+    for key in ("hlo_flops_per_device", "collective_bytes_per_device",
+                "collectives_by_type", "collectives_count"):
+        assert seq[key] == base[key], key
+
+
+def test_ep_refuses_an_expert_count_the_model_axis_does_not_split(worker):
+    """grok-1-314b's 8 experts on the 16-wide model axis: the cell is an
+    error, as the reference's (its jit refuses the in_sharding), and the
+    error names the experts' dimension."""
+    res, _ = worker
+    rec = _strategy(res, "grok-1-314b", "decode_32k", "ep")
+    assert rec["status"] == "error"
+    assert rec["error"].startswith("ValueError: dimension 1 of (64, 8, ")
+    assert "does not split into 16 blocks" in rec["error"]
 
 
 def test_every_default_cell_records_its_collectives(children):

@@ -37,7 +37,10 @@ reference's HLO analysis of the same graphs.
     ``_train_schedule`` / ``_decode_schedule``; its prefill's FLOPs
     within ``MINIMESH_FLOPS_RTOL`` of the reference's partitioned HLO on
     the same (4, 2) mesh (8 forced host devices, the in-process lowering
-    of ``tests/test_multidevice.py::test_dryrun_cell_inprocess_minimesh``).
+    of ``tests/test_multidevice.py::test_dryrun_cell_inprocess_minimesh``),
+    and so the prefills of the strategies (``MINI_STRATEGIES``: reduced
+    llama3-8b under ``seqpar``, reduced grok-1 under ``ep``), each under
+    the same rules on both sides.
 """
 
 import dataclasses
@@ -305,11 +308,19 @@ def test_qmatmul_counts_once_by_its_formula(device):
     out, rep = analyze_call(ops.qmatmul, *(t.to(device) for t in (x, w, sc)))
     assert rep.stats.flops == 2 * m * k * n
     assert rep.kernels == [("qmatmul", {"m": m, "k": k, "n": n,
-                                        "bias": False, "int8_out": False},
+                                        "bias": False, "int8_out": False,
+                                        "acc_out": False},
                             2.0 * m * k * n,
                             float(m * k + k * n + 4 * n + 4 * m * n))]
     assert rep.bytes_accessed == m * k + k * n + 4 * n + 4 * m * n
     assert out.shape == (m, n) and out.dtype == torch.float32
+    # the accumulator mode: the same operations, no scale read, 4 bytes
+    # an output element
+    out, rep = analyze_call(ops.qmatmul, x.to(device), w.to(device), None)
+    assert rep.stats.flops == 2 * m * k * n
+    assert rep.kernels[0][1]["acc_out"] is True
+    assert rep.bytes_accessed == m * k + k * n + 4 * m * n
+    assert out.shape == (m, n) and out.dtype == torch.int32
     assert set(KERNEL_COUNTS) == {"qmatmul", "flash_attention",
                                   "flash_attention_bwd"}
 
@@ -395,6 +406,9 @@ MINIMESH_FLOPS_RTOL = 0.10
 MINI_DATA, MINI_MODEL = 4, 2
 #: (kind, seq, global batch) of each traced step
 MINI_STEPS = (("train", 16, 8), ("decode", 32, 8), ("prefill", 64, 8))
+#: the prefills traced on both sides under a strategy's rules:
+#: (arch, strategy)
+MINI_STRATEGIES = (("llama3-8b", "seqpar"), ("grok-1-314b", "ep"))
 
 MINI_PORT = """
 import json
@@ -419,6 +433,19 @@ for kind, seq, batch in {steps}:
     out[kind] = {{"by_type": rep.stats.by_type,
                  "by_count": rep.stats.by_count,
                  "flops": rep.stats.flops}}
+kind, seq, batch = {steps}[-1]
+shape = ShapeConfig(kind, seq, batch, kind)
+for arch, strategy in {strategies}:
+    cfg = get_config(arch).reduced()
+    model, trees = dryrun._abstract_trees(cfg, shape, 16)
+    rules = dryrun.arch_rules(cfg, mesh,
+                              dryrun.batch_logical_axes(batch, mesh))
+    rules.update(dryrun.combined_strategy_rules(strategy, cfg, mesh, shape))
+    with use_mesh_rules(mesh, rules):
+        rep = dryrun.trace_step(model, shape,
+                                dryrun.rank_trees(model, shape, trees))
+    out[arch + " " + strategy] = {{"flops": rep.stats.flops,
+                                  "by_count": rep.stats.by_count}}
 print(json.dumps(out))
 """
 
@@ -430,27 +457,35 @@ import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.configs import get_config
 from repro.configs.base import SHAPES
-from repro.launch.dryrun import arch_rules, batch_shardings, input_specs
+from repro.launch.dryrun import (arch_rules, batch_shardings,
+                                 combined_strategy_rules, input_specs)
 from repro.launch.hlo_analysis import analyze_hlo
 from repro.models.model import Model
 from repro.parallel.sharding import use_mesh_rules
-cfg = get_config("llama3-8b").reduced()
 shape = dataclasses.replace(SHAPES["train_4k"], seq_len={seq},
                             global_batch={batch})
 mesh = Mesh(np.array(jax.devices()).reshape({data}, {model}),
             ("data", "model"))
-with use_mesh_rules(mesh, arch_rules(cfg, mesh, ("data",))):
-    model = Model(cfg)
-    psh = jax.tree.map(lambda s: NamedSharding(mesh, s), model.param_specs(),
-                       is_leaf=lambda x: isinstance(x, P))
-    params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
-    bsh = {{k: v for k, v in batch_shardings(
-        cfg, shape, mesh, ("data",)).items() if k != "labels"}}
-    bs = {{k: v for k, v in input_specs(cfg, shape).items()
-          if k != "labels"}}
-    compiled = jax.jit(model.prefill, in_shardings=(psh, bsh)).lower(
-        params, bs).compile()
-print(json.dumps({{"flops": analyze_hlo(compiled.as_text()).flops}}))
+out = {{}}
+for arch, strategy in (("llama3-8b", "baseline"),) + {strategies}:
+    cfg = get_config(arch).reduced()
+    rules = arch_rules(cfg, mesh, ("data",))
+    rules.update(combined_strategy_rules(strategy, cfg, mesh, shape))
+    with use_mesh_rules(mesh, rules):
+        model = Model(cfg)
+        psh = jax.tree.map(lambda s: NamedSharding(mesh, s),
+                           model.param_specs(),
+                           is_leaf=lambda x: isinstance(x, P))
+        params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+        bsh = {{k: v for k, v in batch_shardings(
+            cfg, shape, mesh, ("data",)).items() if k != "labels"}}
+        bs = {{k: v for k, v in input_specs(cfg, shape).items()
+              if k != "labels"}}
+        compiled = jax.jit(model.prefill, in_shardings=(psh, bsh)).lower(
+            params, bs).compile()
+    key = "flops" if strategy == "baseline" else arch + " " + strategy
+    out[key] = analyze_hlo(compiled.as_text()).flops
+print(json.dumps(out))
 """
 
 
@@ -468,9 +503,11 @@ def minimesh():
     partitioned prefill FLOPs), both children run at once."""
     fmt = dict(world=MINI_DATA * MINI_MODEL, data=MINI_DATA,
                model=MINI_MODEL)
-    port = _child(MINI_PORT.format(steps=MINI_STEPS, **fmt))
+    port = _child(MINI_PORT.format(steps=MINI_STEPS,
+                                   strategies=MINI_STRATEGIES, **fmt))
     _, seq, batch = MINI_STEPS[2]
-    ref = _child(MINI_REFERENCE.format(seq=seq, batch=batch, **fmt))
+    ref = _child(MINI_REFERENCE.format(seq=seq, batch=batch,
+                                       strategies=MINI_STRATEGIES, **fmt))
     outs = [p.communicate(timeout=300) for p in (port, ref)]
     for p, (_, err) in zip((port, ref), outs):
         assert p.returncode == 0, err[-4000:]
@@ -590,6 +627,22 @@ def test_rank_local_prefill_flops_against_the_partitioned_reference(
     port, ref = minimesh
     assert port["prefill"]["flops"] == pytest.approx(
         ref["flops"], rel=MINIMESH_FLOPS_RTOL)
+
+
+@pytest.mark.parametrize("arch,strategy", MINI_STRATEGIES)
+def test_rank_local_strategy_prefill_flops_against_the_reference(
+        minimesh, arch, strategy):
+    """Rank 0's prefill FLOPs under ``seqpar`` (the sequence gathered
+    before each layer, the same dots) and ``ep`` (the rank's 2 of the 4
+    experts, their whole d_ff) within ``MINIMESH_FLOPS_RTOL`` of the
+    reference's partitioned HLO under the same rules; ``seqpar``
+    reduce-scatters where the baseline all-reduces."""
+    port, ref = minimesh
+    key = f"{arch} {strategy}"
+    assert port[key]["flops"] == pytest.approx(ref[key],
+                                               rel=MINIMESH_FLOPS_RTOL)
+    if strategy == "seqpar":
+        assert port[key]["by_count"]["reduce-scatter"] > 0
 
 
 def test_the_exchange_is_counted_as_an_all_to_all(one_rank_group):

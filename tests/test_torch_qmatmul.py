@@ -64,6 +64,54 @@ def test_qmatmul_plain_matches_pallas_interpret_and_oracle(m, k, n, relu):
     np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
 
 
+#: K5's accumulator mode: ragged M, N and K, decode's M = 4, and
+#: grok-1's d_ff, the deepest contraction of any int8 linear (K = 32768)
+ACC_SHAPES = [(37, 70, 50), (4, 4096, 96), (129, 200, 17), (4, 32768, 8)]
+
+
+@pytest.mark.parametrize("m,k,n", ACC_SHAPES)
+def test_qmatmul_accumulator_mode_equals_the_reference_int32_dot(m, k, n):
+    """``scale=None``: the int32 sums, equal bit for bit to the
+    reference's ``jax.lax.dot_general(..., preferred_element_type=
+    jnp.int32)`` (its int8 linear's dot, ``repro.models.layers``), codes
+    at the extremes included; and the two K blocks of a row-parallel
+    split sum to the whole contraction's sums."""
+    import jax
+
+    rng = np.random.default_rng(m + k + n)
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    x[0, :] = -128
+    w[:, 0] = -127
+    got = tops.qmatmul(*_t(x, w), None)
+    want = np.asarray(jax.lax.dot_general(
+        jnp.asarray(x), jnp.asarray(w), (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    h = k // 2
+    blocks = [tops.qmatmul(*_t(np.ascontiguousarray(x[:, part]),
+                               w[part]), None)
+              for part in (slice(0, h), slice(h, k))]
+    halves = blocks[0] + blocks[1]
+    assert torch.equal(halves, got)
+
+
+def test_qmatmul_accumulator_mode_takes_no_epilogue():
+    x, w = torch.zeros(4, 8, dtype=torch.int8), torch.zeros(8, 3,
+                                                            dtype=torch.int8)
+    for kw in ({"relu": True}, {"out_scale": 0.5}):
+        with pytest.raises(ValueError, match="accumulator"):
+            tops.qmatmul(x, w, None, **kw)
+    with pytest.raises(ValueError, match="accumulator"):
+        tops.qmatmul(x, w, None, torch.zeros(3))
+    with pytest.raises(ValueError, match="chain"):
+        tops.qmatmul(x, w[:4], None)
+    meta = tops.qmatmul(x.to("meta"), w.to("meta"), None)
+    assert (meta.device.type, meta.dtype, tuple(meta.shape)) == (
+        "meta", torch.int32, (4, 3))
+
+
 @pytest.mark.parametrize("out_scale", [0.125, 0.5, 0.03, 0.3])
 @pytest.mark.parametrize("relu", [False, True])
 def test_qmatmul_requant_int8_exact(out_scale, relu):

@@ -31,7 +31,16 @@ warmup=1, total=10)``, as the reference's
     loss is the global mean, not a mean of the ranks' means;
   * reduced llama3-8b with its embedding table tied to the head, and
     reduced qwen2-vl-2b (seeded normal frames in place of tokens, q / k /
-    v biases, M-RoPE), on (2, 2).
+    v biases, M-RoPE), on (2, 2);
+  * the strategies of ``launch.dryrun.strategy_rules`` on top of
+    ``arch_rules``, on both sides (``STRATEGY``): ``seqpar`` on reduced
+    llama3-8b on (2, 2) and (1, 4) (the residual stream split into
+    sequence blocks over the model axis: 8 or 4 of the 16 positions a
+    rank); ``ep`` on reduced grok-1 (4 experts, top-2) and reduced
+    llama4-scout (4 experts, top-1, a shared expert) on (2, 2) and
+    (1, 4) (2 or 1 whole experts a rank, the dense MLPs whole), at a
+    capacity factor of 4 (no token dropped, whatever the dispatch
+    grouping).
 
 Bars: the port's 3 losses within rtol 2e-3 of the reference's 4-device
 run of the same config (``LOSS_RTOL``, the reference's own bar between 8
@@ -48,7 +57,11 @@ checkpoint; the checkpoint's arrays against a one-rank save of the
 gathered state, bit for bit); ``launch.train --reduced
 --model-parallel 2`` in the four-rank group (mesh {data: 2, model: 2},
 a falling loss) on llama3-8b and on falcon-mamba-7b; ``shard_tree`` /
-``gather_tree`` round trips of every config's spec tree.
+``gather_tree`` round trips of every config's spec tree; a checkpoint of
+reduced grok-1's train state written under the baseline rules on (2, 2),
+restored under ``ep`` on (1, 4), written again there and restored under
+the baseline on (2, 2): every restore the blocks of the state, both
+checkpoints the same arrays, bit for bit.
 """
 
 import dataclasses
@@ -69,7 +82,8 @@ from repro_torch.checkpoint.checkpoint import restore, save
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core.pytree import leaves, leaves_with_paths, unflatten_like
 from repro_torch.data.synthetic import SyntheticTokens
-from repro_torch.launch.dryrun import arch_rules, batch_logical_axes
+from repro_torch.launch.dryrun import (arch_rules, batch_logical_axes,
+                                      combined_strategy_rules)
 from repro_torch.launch.mesh import make_elastic_mesh
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.optim.adamw import make_optimizer
@@ -103,7 +117,23 @@ CASES = {
     "masked_2x2": ("llama3-8b", {}, (2, 2), 1, True),
     "tied_2x2": ("llama3-8b", {"tie_embeddings": True}, (2, 2), 1, False),
     "qwen2vl_2x2": ("qwen2-vl-2b", {}, (2, 2), 1, False),
+    "llama_seqpar_2x2": ("llama3-8b", {}, (2, 2), 1, False),
+    "llama_seqpar_1x4": ("llama3-8b", {}, (1, 4), 1, False),
+    "grok_ep_2x2": ("grok-1-314b", {"capacity_factor": 4.0}, (2, 2), 1,
+                    False),
+    "grok_ep_1x4": ("grok-1-314b", {"capacity_factor": 4.0}, (1, 4), 1,
+                    False),
+    "scout_ep_2x2": ("llama4-scout-17b-16e", {"capacity_factor": 4.0},
+                     (2, 2), 1, False),
+    "scout_ep_1x4": ("llama4-scout-17b-16e", {"capacity_factor": 4.0},
+                     (1, 4), 1, False),
 }
+#: case -> the strategy whose rules it runs under (the baseline's
+#: otherwise), on both sides
+STRATEGY = {name: strategy for name in CASES
+            for strategy in ("seqpar", "ep") if f"_{strategy}_" in name}
+#: the checkpoint reshard's config and its two (strategy, mesh) layouts
+RESHARD = ("grok-1-314b", (("baseline", (2, 2)), ("ep", (1, 4))))
 
 
 def _reference_runs():
@@ -112,7 +142,8 @@ def _reference_runs():
     step on any mesh shape)."""
     first, out = {}, {}
     for name, (arch, over, _, micro, masked) in CASES.items():
-        key = json.dumps([arch, over, micro, masked], sort_keys=True)
+        key = json.dumps([arch, over, micro, masked,
+                          STRATEGY.get(name, "baseline")], sort_keys=True)
         out[name] = first.setdefault(key, name)
     return out
 
@@ -157,6 +188,13 @@ def _opt():
     return make_optimizer(base_lr=1e-3, warmup=1, total=10)
 
 
+def _rules(cfg, mesh, strategy="baseline"):
+    """``arch_rules`` of the mesh, the strategy's rules on top."""
+    rules = arch_rules(cfg, mesh, batch_logical_axes(BATCH, mesh))
+    rules.update(combined_strategy_rules(strategy, cfg, mesh, None))
+    return rules
+
+
 # ---------------------------------------------------------------------------
 # the four ranks
 # ---------------------------------------------------------------------------
@@ -169,7 +207,7 @@ def _case(name, inputs):
     model = Model(cfg)
     mesh = make_elastic_mesh(shape[1])
     assert tuple(mesh.shape) == shape
-    rules = arch_rules(cfg, mesh, batch_logical_axes(BATCH, mesh))
+    rules = _rules(cfg, mesh, STRATEGY.get(name, "baseline"))
     step = make_train_step(model, _opt(), microbatches=micro)
     with use_mesh_rules(mesh, rules):
         specs = train_state_specs(model)
@@ -220,6 +258,41 @@ def _elastic(inputs, workdir, rank):
             state, m = step(restored, batches[1])
             out.update(step=at, loss=float(m["loss"]),
                        params=gather_tree(state.params, specs.params))
+    dist.barrier()
+    return out
+
+
+def _reshard(inputs, workdir, rank):
+    """``RESHARD``'s train state after one step under the first layout,
+    saved; restored under the second, saved again; restored under the
+    first. Returns whether each restore holds the rank's blocks of the
+    whole state bit for bit (rank 0 also writes the whole state one rank
+    would save)."""
+    arch, layouts = RESHARD
+    cfg = _cfg(arch, {"capacity_factor": 4.0})
+    model = Model(cfg)
+    weights = inputs["weights"]["reshard"]
+    out = {}
+    for i, (strategy, shape) in enumerate(layouts + layouts[:1]):
+        mesh = make_elastic_mesh(shape[1])
+        with use_mesh_rules(mesh, _rules(cfg, mesh, strategy)):
+            specs = train_state_specs(model)
+            if i == 0:
+                params = shard_tree(params_from_numpy(weights, cfg, "cpu"),
+                                    specs.params)
+                state, _ = make_train_step(model, _opt())(
+                    TrainState(params, _opt().init(params)),
+                    inputs["batches"]["reshard"][0])
+                whole = gather_tree(state, specs)
+            else:
+                state, at, _ = restore(os.path.join(
+                    workdir, f"ckpt_reshard{i - 1}"), whole, specs=specs)
+                out[f"blocks_equal{i}"] = at == 1 and all(
+                    torch.equal(a, local_block(b, s)) for a, b, s in zip(
+                        leaves(state), leaves(whole), spec_leaves(specs)))
+            if i < 2:
+                save(os.path.join(workdir, f"ckpt_reshard{i}"), 1, state,
+                     specs=specs)
     dist.barrier()
     return out
 
@@ -299,6 +372,7 @@ def _worker(rank, world, init, workdir):
                         weights_only=False)
     res = {name: _case(name, inputs) for name in CASES}
     res["elastic"] = _elastic(inputs, workdir, rank)
+    res["reshard"] = _reshard(inputs, workdir, rank)
     res["roundtrips"] = _roundtrips()
     res["launcher"] = _launcher(workdir)
     torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
@@ -320,7 +394,7 @@ import jax, jax.numpy as jnp
 from jax.sharding import Mesh
 assert jax.device_count() == 4
 from repro.configs import get_config
-from repro.launch.dryrun import arch_rules
+from repro.launch.dryrun import arch_rules, combined_strategy_rules
 from repro.models.model import Model
 from repro.optim.adamw import make_optimizer
 from repro.parallel.sharding import use_mesh_rules
@@ -329,7 +403,7 @@ from repro.train.steps import TrainState, make_train_step
 work = {work!r}
 cases = json.load(open(os.path.join(work, "cases.json")))
 out = {{}}
-for name, (arch, over, shape, micro, _) in cases.items():
+for name, (arch, over, shape, micro, _, strategy) in cases.items():
     cfg = dataclasses.replace(get_config(arch).reduced(), **over)
     z = np.load(os.path.join(work, name + ".npz"))
     params = {{}}
@@ -343,7 +417,9 @@ for name, (arch, over, shape, micro, _) in cases.items():
         node[leaf] = jnp.asarray(z[key])
     mesh = Mesh(np.array(jax.devices()).reshape(shape), ("data", "model"))
     opt = make_optimizer(base_lr=1e-3, warmup=1, total=10)
-    with use_mesh_rules(mesh, arch_rules(cfg, mesh, ("data",))), mesh:
+    rules = arch_rules(cfg, mesh, ("data",))
+    rules.update(combined_strategy_rules(strategy, cfg, mesh, None))
+    with use_mesh_rules(mesh, rules), mesh:
         state = TrainState(params=params, opt=opt.init(params))
         step = jax.jit(make_train_step(Model(cfg), opt, microbatches=micro))
         losses = []
@@ -377,9 +453,13 @@ def runs(tmp_path_factory):
     inputs["weights"]["elastic"] = _weights(ELASTIC, {}, seed=3)
     inputs["batches"]["elastic"] = _batches(
         get_config(ELASTIC).reduced(), False)
+    inputs["weights"]["reshard"] = _weights(RESHARD[0], {}, seed=4)
+    inputs["batches"]["reshard"] = _batches(
+        get_config(RESHARD[0]).reduced(), False)
     torch.save(inputs, work / "inputs.pt")
     (work / "cases.json").write_text(json.dumps(
-        {name: CASES[name] for name in set(REFERENCE_RUN.values())}))
+        {name: (*CASES[name], STRATEGY.get(name, "baseline"))
+         for name in set(REFERENCE_RUN.values())}))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")]),
         OMP_NUM_THREADS="1")
@@ -415,8 +495,8 @@ def _one_thread():
 
 
 def _one_rank(name):
-    """The port on one process (no mesh): the first step's gradients and
-    the 3 steps' losses."""
+    """The port on one process (no mesh, so under no strategy): the first
+    step's gradients and the 3 steps' losses."""
     arch, over, _, micro, masked = CASES[name]
     cfg = _cfg(arch, over)
     model = Model(cfg)
@@ -525,6 +605,25 @@ def test_launcher_trains_llama_and_falcon_mamba_on_four_ranks(runs):
         assert losses[-1] < losses[0], losses
         for r in range(WORLD):
             assert ranks[r]["launcher"][key] == losses
+
+
+def test_checkpoint_reshards_between_baseline_and_ep(runs):
+    """``RESHARD``: one step under the baseline rules on (2, 2), a
+    checkpoint, restored under ``ep`` on (1, 4) (each rank now holds 1 of
+    the 4 experts whole, the dense weights as the baseline splits them)
+    and saved again, then restored under the baseline on (2, 2): each
+    restore holds the rank's blocks of the state, and the two
+    checkpoints hold the same arrays, bit for bit."""
+    ranks, _, work = runs
+    for r in range(WORLD):
+        assert ranks[r]["reshard"] == {"blocks_equal1": True,
+                                       "blocks_equal2": True}
+    step_dir = "step_0000000001"
+    with np.load(work / "ckpt_reshard0" / step_dir / "arrays.npz") as a, \
+            np.load(work / "ckpt_reshard1" / step_dir / "arrays.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)])

@@ -38,13 +38,31 @@ are the same function.
     ``prefill`` / ``decode_step`` with the dry run's in_shardings (one
     run a config and cur mode, on (2, 2)); the gathered caches within
     ``CACHE_TOL`` of the one-rank port's.
-  * int8 (``INT8``): reduced llama3-8b on (2, 2), ``quantize_params`` of
-    the rank's blocks equal, bit for bit, to the blocks of the one-rank
-    tree (``quantized_specs``); its prefill and 6 decode steps within
-    1e-4 of the largest |logit| of the one-rank int8 port's, and every
-    K5 call's int8 codes equal to the rank's block of the one-rank
-    call's (the activation scale taken over the batch and, for a
-    row-parallel linear, the model group).
+  * The strategies of ``launch.dryrun.strategy_rules`` on top of
+    ``arch_rules``, on both sides (``STRATEGY_TRAIN``,
+    ``STRATEGY_INFER``): ``seqpar`` training of falcon-mamba-7b and
+    jamba on (2, 2) and (1, 4), jamba's (1, 4) run at a capacity factor
+    of 1.0, so that tokens are dropped and the mesh must drop the same
+    ones (its dispatch runs on the data shard's whole sequence, gathered
+    before the router); ``"seqpar,ep"`` jamba training on (1, 4); the
+    prefill and the slot mode's 6 decode steps of llama3-8b and
+    qwen2-vl-2b under ``seqpar`` (decode reads no "seq" rule), of grok-1
+    and llama4-scout (capacity factor 4) under ``ep``, and of jamba
+    under ``"seqpar,ep"``, each on (2, 2) and (1, 4). The same bars as
+    the baseline's, against the reference's run under the same rules
+    (one run a config and strategy) and the one-rank port.
+  * int8 (``INT8_MESHES``): reduced llama3-8b on (2, 2) and (1, 4),
+    ``quantize_params`` of the rank's blocks equal, bit for bit, to the
+    blocks of the one-rank tree (``quantized_specs``); every
+    row-parallel linear's output (attention's and the MLP's ``wo``: K5's
+    int32 blocks summed over the model group, then the one rescale)
+    equal, bit for bit, to the rank's rows of one rank's linear on the
+    gathered input and weights; the float32 prefill logits within
+    ``INT8_PREFILL_TOL`` (1e-6) of the one-rank int8 logits' largest
+    |logit|, with top-1 equal everywhere, its 6 decode steps within
+    ``INT8_TOL``; and every K5 call's int8 codes equal to the rank's
+    block of the one-rank call's (the activation scale taken over the
+    batch and, for a row-parallel linear, the model group).
 """
 
 import dataclasses
@@ -63,12 +81,14 @@ from repro_torch.configs import get_config
 from repro_torch.core.pytree import leaves, leaves_with_paths, unflatten_like
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.kernels import ops
-from repro_torch.launch.dryrun import arch_rules, batch_logical_axes
+from repro_torch.launch.dryrun import (arch_rules, batch_logical_axes,
+                                      combined_strategy_rules)
 from repro_torch.launch.mesh import make_elastic_mesh
 from repro_torch.models.model import Model, gather_logits, params_from_numpy
 from repro_torch.optim.adamw import make_optimizer
-from repro_torch.parallel.sharding import (gather_tree, quantized_specs,
-                                           shard_tree, use_mesh_rules)
+from repro_torch.parallel.sharding import (gather_tree, logical_group,
+                                           quantized_specs, shard_tree,
+                                           use_mesh_rules)
 from repro_torch.train.steps import (TrainState, batch_to_device,
                                      make_train_step, step_grads,
                                      train_state_specs)
@@ -98,15 +118,27 @@ CACHE_TOL_DEFAULT = 1e-6
 #: one ulp of float32, the relative noise ``_one_ulp_noise`` puts on
 #: every linear's output
 ULP = 2.0 ** -23
-#: the int8 logits: of the one-rank int8 logits' largest |logit|
+#: the int8 decode logits: of the one-rank int8 logits' largest |logit|
 INT8_TOL = 1e-4
-WORKER_TIMEOUT_S = 240
+#: the int8 prefill logits: the row-parallel outputs are one rank's bit
+#: for bit, so only the float32 rounding of other sums is left
+INT8_PREFILL_TOL = 1e-6
+WORKER_TIMEOUT_S = 300
 JAMBA = {"capacity_factor": 4.0}
+#: a capacity factor at which reduced jamba's experts drop tokens
+JAMBA_DROPS = {"capacity_factor": 1.0}
+#: name -> (arch, config fields replaced, mesh, strategy)
 TRAIN_CASES = {
-    "mamba_2x2": ("falcon-mamba-7b", {}, (2, 2)),
-    "mamba_1x4": ("falcon-mamba-7b", {}, (1, 4)),
-    "jamba_2x2": ("jamba-v0.1-52b", JAMBA, (2, 2)),
-    "jamba_1x4": ("jamba-v0.1-52b", JAMBA, (1, 4)),
+    "mamba_2x2": ("falcon-mamba-7b", {}, (2, 2), "baseline"),
+    "mamba_1x4": ("falcon-mamba-7b", {}, (1, 4), "baseline"),
+    "jamba_2x2": ("jamba-v0.1-52b", JAMBA, (2, 2), "baseline"),
+    "jamba_1x4": ("jamba-v0.1-52b", JAMBA, (1, 4), "baseline"),
+    "mamba_seqpar_2x2": ("falcon-mamba-7b", {}, (2, 2), "seqpar"),
+    "mamba_seqpar_1x4": ("falcon-mamba-7b", {}, (1, 4), "seqpar"),
+    "jamba_seqpar_2x2": ("jamba-v0.1-52b", JAMBA, (2, 2), "seqpar"),
+    "jamba_seqpar_drops_1x4": ("jamba-v0.1-52b", JAMBA_DROPS, (1, 4),
+                               "seqpar"),
+    "jamba_seqpar_ep_1x4": ("jamba-v0.1-52b", JAMBA, (1, 4), "seqpar,ep"),
 }
 INFER_MODELS = {
     "llama": ("llama3-8b", {}),
@@ -114,12 +146,23 @@ INFER_MODELS = {
     "qwen2vl": ("qwen2-vl-2b", {}),
     "mamba": ("falcon-mamba-7b", {}),
     "jamba": ("jamba-v0.1-52b", JAMBA),
+    "grok": ("grok-1-314b", {"capacity_factor": 4.0}),
+    "scout": ("llama4-scout-17b-16e", {"capacity_factor": 4.0}),
 }
 MESHES = ((2, 2), (1, 4))
 CUR_MODES = ("scalar", "slots")
-INFER_CASES = [(m, shape, cur) for m in INFER_MODELS for shape in MESHES
-               for cur in CUR_MODES]
-INT8 = ("llama3-8b", (2, 2))
+#: (model, strategy) -> the cur modes it runs
+INFER_RUNS = {(m, "baseline"): CUR_MODES
+              for m in ("llama", "danube", "qwen2vl", "mamba", "jamba")}
+INFER_RUNS.update({("llama", "seqpar"): ("slots",),
+                   ("qwen2vl", "seqpar"): ("slots",),
+                   ("grok", "ep"): ("slots",),
+                   ("scout", "ep"): ("slots",),
+                   ("jamba", "seqpar,ep"): ("slots",)})
+INFER_CASES = [(m, st, shape, cur) for (m, st), modes in INFER_RUNS.items()
+               for shape in MESHES for cur in modes]
+INT8 = "llama3-8b"
+INT8_MESHES = ((2, 2), (1, 4))
 
 
 def _cfg(arch, over):
@@ -200,17 +243,24 @@ def _decode(model, params, inputs, mode, device="cpu"):
 # the four ranks
 # ---------------------------------------------------------------------------
 
-def _mesh(cfg, shape, batch):
+def _mesh(cfg, shape, batch, strategy="baseline"):
     mesh = make_elastic_mesh(shape[1])
     assert tuple(mesh.shape) == shape
-    return mesh, arch_rules(cfg, mesh, batch_logical_axes(batch, mesh))
+    rules = arch_rules(cfg, mesh, batch_logical_axes(batch, mesh))
+    rules.update(combined_strategy_rules(strategy, cfg, mesh, None))
+    return mesh, rules
+
+
+def _ref_key(arch, over, strategy):
+    """The name of the reference's run of a config under a strategy."""
+    return json.dumps([arch, over, strategy], sort_keys=True)
 
 
 def _train_case(name, inputs):
-    arch, over, shape = TRAIN_CASES[name]
+    arch, over, shape, strategy = TRAIN_CASES[name]
     cfg = _cfg(arch, over)
     model = Model(cfg)
-    mesh, rules = _mesh(cfg, shape, TRAIN_BATCH)
+    mesh, rules = _mesh(cfg, shape, TRAIN_BATCH, strategy)
     step = make_train_step(model, _opt())
     batches = inputs["train"][arch]
     with use_mesh_rules(mesh, rules):
@@ -228,24 +278,24 @@ def _train_case(name, inputs):
     return {"losses": losses, "grads": grads}
 
 
-def _infer_case(key, inputs):
-    """A prefill and each cur mode's decode steps on one mesh: the
-    gathered logits and caches."""
+def _infer_case(key, strategy, inputs):
+    """A prefill and each cur mode's decode steps on each mesh under the
+    strategy: the gathered logits and caches."""
     arch, over = INFER_MODELS[key]
     cfg = _cfg(arch, over)
     model = Model(cfg)
     out = {}
     for shape in MESHES:
-        mesh, rules = _mesh(cfg, shape, B)
+        mesh, rules = _mesh(cfg, shape, B, strategy)
         with use_mesh_rules(mesh, rules):
             params = shard_tree(params_from_numpy(
                 inputs["weights"][arch], cfg, "cpu"), model.param_specs())
             x = inputs["infer"][arch]
             pre = gather_logits(model.prefill(params, batch_to_device(
                 x["prefill"], "cpu")))
-            for mode in CUR_MODES:
+            for mode in INFER_RUNS[key, strategy]:
                 steps, caches = _decode(model, params, x, mode)
-                out[key, shape, mode] = {
+                out[key, strategy, shape, mode] = {
                     "prefill": pre,
                     "decode": [gather_logits(s) for s in steps],
                     "caches": gather_tree(caches, model.cache_specs())}
@@ -269,8 +319,58 @@ class _Codes:
         ops.qmatmul = self._real
 
 
-def _int8_case(inputs):
-    arch, shape = INT8
+def _gather_dim(x, group, dim):
+    if group is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _RowParallel:
+    """Wraps ``layers.row_parallel_linear`` (and the names ``attention``
+    and ``ssm`` import) under a mesh: each call also gathers its input
+    (the batch's rows, the contraction axis's blocks) and its weights
+    whole, runs one rank's linear on them (no mesh) and keeps whether the
+    rank's output is that output's block of rows, bit for bit."""
+
+    def __init__(self):
+        from repro_torch.models import attention, layers, ssm
+        self.modules = (layers, attention, ssm)
+        self.real = layers.row_parallel_linear
+        self.equal = []
+
+    def __enter__(self):
+        real, equal = self.real, self.equal
+
+        def wrapped(cfg, p, x, name, seq=None):
+            y = real(cfg, p, x, name, seq)
+            tp, batch = logical_group(name), logical_group("batch")
+            fsdp = logical_group("fsdp")
+            xs = _gather_dim(_gather_dim(x, tp, -1), batch, 0)
+            whole = {"w_int": _gather_dim(_gather_dim(p["w_int"], tp, 0),
+                                          fsdp, 1),
+                     "w_scale": _gather_dim(p["w_scale"], fsdp, 1)}
+            with use_mesh_rules(None):
+                want = real(cfg, whole, xs, name)
+            rows = want.shape[0] // (1 if batch is None
+                                     else dist.get_world_size(batch))
+            r = 0 if batch is None else dist.get_rank(batch)
+            equal.append(y.dtype == want.dtype and torch.equal(
+                y, want[r * rows:(r + 1) * rows]))
+            return y
+
+        for m in self.modules:
+            m.row_parallel_linear = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.row_parallel_linear = self.real
+
+
+def _int8_case(inputs, shape):
+    arch = INT8
     cfg = _cfg(arch, {})
     model = Model(cfg)
     full = params_from_numpy(inputs["weights"][arch], cfg, "cpu")
@@ -289,8 +389,10 @@ def _int8_case(inputs):
                 x["prefill"], "cpu")))
             steps, _ = _decode(model, q, x, "slots")
         steps = [gather_logits(s) for s in steps]
+        with _RowParallel() as rows:
+            model.prefill(q, batch_to_device(x["prefill"], "cpu"))
     return {"blocks_equal": blocks_equal, "prefill": pre, "decode": steps,
-            "codes": codes.codes,
+            "codes": codes.codes, "row_parallel_equal": rows.equal,
             "coords": [mesh.get_local_rank("data"),
                        mesh.get_local_rank("model")]}
 
@@ -303,9 +405,9 @@ def _worker(rank, world, init, workdir):
                         weights_only=False)
     res = {"train": {name: _train_case(name, inputs)
                      for name in TRAIN_CASES}, "infer": {}}
-    for key in INFER_MODELS:
-        res["infer"].update(_infer_case(key, inputs))
-    res["int8"] = _int8_case(inputs)
+    for key, strategy in INFER_RUNS:
+        res["infer"].update(_infer_case(key, strategy, inputs))
+    res["int8"] = {shape: _int8_case(inputs, shape) for shape in INT8_MESHES}
     torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
@@ -325,7 +427,7 @@ import jax, jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 assert jax.device_count() == 4
 from repro.configs import get_config
-from repro.launch.dryrun import arch_rules
+from repro.launch.dryrun import arch_rules, combined_strategy_rules
 from repro.models.model import Model
 from repro.optim.adamw import make_optimizer
 from repro.parallel.sharding import use_mesh_rules
@@ -333,7 +435,9 @@ from repro.train.steps import TrainState, make_train_step
 
 work, part = {work!r}, {part!r}
 spec = json.load(open(os.path.join(work, part + "_cases.json")))
-mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+meshes = {{shape: Mesh(np.array(jax.devices()).reshape(shape),
+                      ("data", "model")) for shape in ((2, 2), (1, 4))}}
+mesh = meshes[2, 2]
 
 
 def load(name):
@@ -353,28 +457,35 @@ def named(tree):
                         is_leaf=lambda x: isinstance(x, P))
 
 
+def rules(cfg, strategy, mesh=mesh):
+    r = arch_rules(cfg, mesh, ("data",))
+    r.update(combined_strategy_rules(strategy, cfg, mesh, None))
+    return r
+
+
 out = {{"train": {{}}, "infer": {{}}}}
-for arch, over in spec["train"]:
+for key, arch, over, strategy, shape in spec["train"]:
     cfg = dataclasses.replace(get_config(arch).reduced(), **over)
     params = load("weights_" + arch)
     batches = load("train_" + arch)
     opt = make_optimizer(base_lr=1e-3, warmup=1, total=10)
-    with use_mesh_rules(mesh, arch_rules(cfg, mesh, ("data",))), mesh:
+    m = meshes[tuple(shape)]
+    with use_mesh_rules(m, rules(cfg, strategy, m)), m:
         state = TrainState(params=params, opt=opt.init(params))
         step = jax.jit(make_train_step(Model(cfg), opt))
         losses = []
         for t in range({steps}):
             state, m = step(state, batches[str(t)])
             losses.append(float(m["loss"]))
-    out["train"][arch] = losses
+    out["train"][key] = losses
 
-for arch, over, max_len in spec["infer"]:
+for key, arch, over, strategy, max_len, modes in spec["infer"]:
     cfg = dataclasses.replace(get_config(arch).reduced(), **over)
     model = Model(cfg)
     params = load("weights_" + arch)
     x = load("infer_" + arch)
     res = {{}}
-    with use_mesh_rules(mesh, arch_rules(cfg, mesh, ("data",))), mesh:
+    with use_mesh_rules(mesh, rules(cfg, strategy)), mesh:
         psh = named(model.param_specs())
         bspec = {{"tokens": P("data", None), "embeds": P("data", None, None),
                  "positions": P(None, "data", None)}}
@@ -387,7 +498,7 @@ for arch, over, max_len in spec["infer"]:
         csh = named(model.cache_specs())
         decode = jax.jit(model.decode_step, in_shardings=(
             psh, csh, tok_sh, NamedSharding(mesh, P())))
-        for mode in ("scalar", "slots"):
+        for mode in modes:
             cache = model.cache_init({batch}, max_len)
             steps = []
             for t in range({decode_steps}):
@@ -396,9 +507,43 @@ for arch, over, max_len in spec["infer"]:
                                        cur)
                 steps.append(np.asarray(logits).tolist())
             res[mode] = steps
-    out["infer"][arch] = res
+    out["infer"][key] = res
 json.dump(out, open(os.path.join(work, part + ".json"), "w"))
 """
+
+
+#: the reference's processes, run at once: jamba's train steps (each
+#: compile takes long) in two, the other train steps and the strategies'
+#: prefill and decode in a third, the baseline's in a fourth
+REFERENCE_PARTS = ("ref_jamba", "ref_jamba2", "ref_rest", "ref_infer")
+
+
+def _reference_parts():
+    """part -> {"train": [[key, arch, over, strategy, mesh]], "infer":
+    [[key, arch, over, strategy, max_len, modes]]}: one run a config and
+    strategy, a train run on the mesh of the config's first case (GSPMD
+    computes the same step on any mesh where no token is dropped; where
+    the experts drop tokens, the data axis splits the dispatch, and the
+    run takes the case's mesh)."""
+    train = {}
+    for arch, over, shape, strategy in TRAIN_CASES.values():
+        key = _ref_key(arch, over, strategy)
+        train.setdefault(key, [key, arch, over, strategy, shape])
+    jamba = [v for v in train.values() if v[1] == "jamba-v0.1-52b"]
+    parts = {"ref_jamba": {"train": jamba[:2], "infer": []},
+             "ref_jamba2": {"train": jamba[2:], "infer": []},
+             "ref_rest": {"train": [v for v in train.values()
+                                    if v[1] != "jamba-v0.1-52b"],
+                          "infer": []},
+             "ref_infer": {"train": [], "infer": []}}
+    for (m, strategy), modes in INFER_RUNS.items():
+        arch, over = INFER_MODELS[m]
+        part = "ref_infer" if strategy == "baseline" else "ref_rest"
+        parts[part]["infer"].append([_ref_key(arch, over, strategy), arch,
+                                     over, strategy,
+                                     _max_len(_cfg(arch, over)),
+                                     list(modes)])
+    return parts
 
 
 def _flat_numpy(tree, prefix=""):
@@ -412,12 +557,12 @@ def _save(path, arrays):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The four ranks' results and the reference's, both started at once:
-    ({rank: results}, reference, inputs). The reference runs in two
-    processes, each with four host devices."""
+    ({rank: results}, reference, inputs). The reference runs in
+    ``REFERENCE_PARTS`` processes, each with four host devices."""
     work = tmp_path_factory.mktemp("spmd_inference")
-    archs = sorted({a for a, _, _ in TRAIN_CASES.values()}
+    archs = sorted({a for a, _, _, _ in TRAIN_CASES.values()}
                    | {a for a, _ in INFER_MODELS.values()})
-    over = {a: o for a, o, _ in TRAIN_CASES.values()}
+    over = {a: o for a, o, _, _ in TRAIN_CASES.values()}
     over.update({a: o for a, o in INFER_MODELS.values()})
     inputs = {"weights": {}, "train": {}, "infer": {}}
     for arch in archs:
@@ -425,7 +570,7 @@ def runs(tmp_path_factory):
         inputs["weights"][arch] = _weights(arch, over[arch])
         _save(work / f"weights_{arch}.npz",
               _flat_numpy(inputs["weights"][arch]))
-    for arch, o, _ in TRAIN_CASES.values():
+    for arch, o, _, _ in TRAIN_CASES.values():
         inputs["train"][arch] = _train_batches(_cfg(arch, o))
         _save(work / f"train_{arch}.npz", {
             f"{t}/{k}": v for t, b in enumerate(inputs["train"][arch])
@@ -440,15 +585,8 @@ def runs(tmp_path_factory):
                            for t, v in enumerate(x["cur"][mode])})
         _save(work / f"infer_{arch}.npz", arrays)
     torch.save(inputs, work / "inputs.pt")
-    # two reference processes at once: jamba's train step alone (its
-    # compile takes half the reference's time), the rest in the other
-    (work / "ref_jamba_cases.json").write_text(json.dumps({
-        "train": [["jamba-v0.1-52b", JAMBA]], "infer": []}))
-    (work / "ref_rest_cases.json").write_text(json.dumps({
-        "train": [[a, over[a]] for a in sorted(
-            {a for a, _, _ in TRAIN_CASES.values()} - {"jamba-v0.1-52b"})],
-        "infer": [[a, o, _max_len(_cfg(a, o))]
-                  for a, o in INFER_MODELS.values()]}))
+    for part, cases in _reference_parts().items():
+        (work / f"{part}_cases.json").write_text(json.dumps(cases))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")]),
         OMP_NUM_THREADS="1")
@@ -463,14 +601,14 @@ def runs(tmp_path_factory):
             work=str(work), part=part, steps=STEPS, batch=B,
             decode_steps=DECODE_STEPS))],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for part in ("ref_jamba", "ref_rest")]
+        for part in REFERENCE_PARTS]
     logs = [p.communicate(timeout=WORKER_TIMEOUT_S)[0].decode()
             for p in procs + refs]
     assert all(p.returncode == 0 for p in procs + refs), logs
     ranks = {r: torch.load(work / f"rank{r}.pt", weights_only=False)
              for r in range(WORLD)}
     reference = {"train": {}, "infer": {}}
-    for part in ("ref_jamba", "ref_rest"):
+    for part in REFERENCE_PARTS:
         got = json.loads((work / f"{part}.json").read_text())
         for key in reference:
             reference[key].update(got[key])
@@ -573,11 +711,12 @@ def test_mamba_and_hybrid_training_match_reference_and_one_rank(runs, name):
     on one rank; the first step's gradients within ``GRAD_TOL`` of each
     leaf's largest |g| of the one-rank port."""
     ranks, reference, inputs = runs
-    arch, over, _ = TRAIN_CASES[name]
+    arch, over, _, strategy = TRAIN_CASES[name]
     losses = [ranks[r]["train"][name]["losses"] for r in range(WORLD)]
     assert all(ls == losses[0] for ls in losses), losses
-    np.testing.assert_allclose(losses[0], reference["train"][arch],
-                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(
+        losses[0], reference["train"][_ref_key(arch, over, strategy)],
+        rtol=LOSS_RTOL)
     grads, one = _one_rank_train(arch, over, inputs)
     np.testing.assert_allclose(losses[0], one, rtol=LOSS_RTOL)
     for r in range(WORLD):
@@ -591,21 +730,26 @@ def one_rank_infer(runs):
             for key, (arch, over) in INFER_MODELS.items()}
 
 
-@pytest.mark.parametrize("key,shape,mode", INFER_CASES, ids=[
-    f"{k}-{s[0]}x{s[1]}-{c}" for k, s, c in INFER_CASES])
+def _infer_id(key, strategy, shape, mode):
+    mid = "" if strategy == "baseline" else strategy.replace(",", "+") + "-"
+    return f"{key}-{mid}{shape[0]}x{shape[1]}-{mode}"
+
+
+@pytest.mark.parametrize("key,strategy,shape,mode", INFER_CASES,
+                         ids=[_infer_id(*c) for c in INFER_CASES])
 def test_prefill_and_decode_match_reference_and_one_rank(
-        runs, one_rank_infer, key, shape, mode):
+        runs, one_rank_infer, key, strategy, shape, mode):
     """The prefill's and every decode step's gathered logits, the same on
     every rank, within ``LOGIT_TOL`` of the one-rank port's and of the
-    reference's 4-device run; the gathered caches after the steps
-    within ``CACHE_TOL`` of the one-rank port's."""
+    reference's 4-device run under the same rules; the gathered caches
+    after the steps within ``CACHE_TOL`` of the one-rank port's."""
     ranks, reference, _ = runs
-    arch, _ = INFER_MODELS[key]
+    arch, over = INFER_MODELS[key]
     one = one_rank_infer[key]
-    ref = reference["infer"][arch]
-    got = ranks[0]["infer"][key, shape, mode]
+    ref = reference["infer"][_ref_key(arch, over, strategy)]
+    got = ranks[0]["infer"][key, strategy, shape, mode]
     for r in range(1, WORLD):
-        other = ranks[r]["infer"][key, shape, mode]
+        other = ranks[r]["infer"][key, strategy, shape, mode]
         assert torch.equal(other["prefill"], got["prefill"])
         assert all(torch.equal(a, b) for a, b in zip(other["decode"],
                                                      got["decode"]))
@@ -625,15 +769,19 @@ def test_prefill_and_decode_match_reference_and_one_rank(
             path, err, scale)
 
 
-def test_int8_blocks_codes_and_logits_match_one_rank(runs):
-    """The int8 serve path on (2, 2): ``quantize_params`` of the rank's
+@pytest.mark.parametrize("shape", INT8_MESHES, ids=[
+    f"{s[0]}x{s[1]}" for s in INT8_MESHES])
+def test_int8_blocks_codes_and_logits_match_one_rank(runs, shape):
+    """The int8 serve path on the mesh: ``quantize_params`` of the rank's
     blocks equal to the blocks of the one-rank tree; every K5 call's
     codes the rank's block of the one-rank call's (its rows of the
     batch; its block of the contraction axis where the linear is
-    row-parallel); the logits within ``INT8_TOL`` of the one-rank int8
-    logits' largest |logit|."""
+    row-parallel); every row-parallel output one rank's on the gathered
+    input, bit for bit; the prefill logits within ``INT8_PREFILL_TOL``
+    of the one-rank int8 logits' largest |logit| with top-1 equal at
+    every position, the decode steps' within ``INT8_TOL``."""
     ranks, _, inputs = runs
-    arch, _ = INT8
+    arch = INT8
     one = _one_rank_infer(arch, {}, inputs, bits=8)
     want_pre = one["prefill"]
     want_steps = one["slots"]["decode"]
@@ -648,19 +796,23 @@ def test_int8_blocks_codes_and_logits_match_one_rank(runs):
         model.prefill(params, batch_to_device(x["prefill"], "cpu"))
         _decode(model, params, x, "slots")
     for r in range(WORLD):
-        res = ranks[r]["int8"]
+        res = ranks[r]["int8"][shape]
         assert res["blocks_equal"]
+        # attention's and the MLP's wo, each of the 2 layers
+        assert res["row_parallel_equal"] == [True] * 2 * cfg.n_layers
         scale = float(want_pre.abs().max())
         err = float((res["prefill"] - want_pre).abs().max())
-        assert err <= INT8_TOL * scale, (err, scale)
+        assert err <= INT8_PREFILL_TOL * scale, (err, scale)
+        assert torch.equal(res["prefill"].argmax(-1), want_pre.argmax(-1))
         for got, want in zip(res["decode"], want_steps):
             scale = float(want.abs().max())
             err = float((got - want).abs().max())
             assert err <= INT8_TOL * scale, (err, scale)
         data, model_rank = res["coords"]
+        n_data = shape[0]
         assert len(res["codes"]) == len(codes.codes)
         for mine, whole in zip(res["codes"], codes.codes):
-            rows = whole.shape[0] // 2
+            rows = whole.shape[0] // n_data
             block = whole[data * rows:(data + 1) * rows]
             if mine.shape[1] != block.shape[1]:
                 width = mine.shape[1]
