@@ -511,14 +511,52 @@ which fails the run with a non-zero exit:
                first decode step equal, type by type in count and bytes,
                the same steps traced on meta over a fake group of two ranks
                under the same rules (reduce-scatters under ``seqpar``).
+ 27. programs — the compiled programs (``core.programs.Program``: one
+               CUDA graph per input shape, captured at the first call and
+               replayed). (a) ``phase_programs``: the four Table-1 models
+               at full width in both dispatch modes under phase 14's
+               tuned configs: ``offline`` at 1 and 1024 rows, the codes
+               (the schedule without its float head), every segment
+               program of ``streaming_compiled`` at the tuned micro-batch
+               and of ``submit_wave`` full and a third filled: each replay
+               equals the eager run of the function its graph captured
+               bit for bit, launches what that run launches and what the
+               capture recorded (``offline``: ``MAIN_PATH_LAUNCHES`` and
+               the head), and two replays do not alias;
+               ``streaming_compiled`` and ``submit_wave`` give their
+               segments' replays; ``apply_tuned`` drops every graph; a
+               capture of a function that reads the host raises (twice:
+               no eager fallback) and holds no graph (in a child process:
+               an aborted capture can keep the caching allocator from
+               handing memory back); a
+               1-row ``offline`` eagerly and by replay, p50 and p90 of
+               ``PROGRAM_TIMED_CALLS`` synchronised calls on the host
+               clock, beside its device time. (b) ``_engine_programs``,
+               run where phases 20 and 21 hold the models (llama3-8b
+               whole in bf16 and int8, jamba at ``JAMBA_LAYERS``,
+               falcon-mamba-7b whole in float32): ``ServeEngine``'s
+               tokens through its decode and prefill graphs equal its
+               eager steps' on the same 8 requests (4 slots); a decode
+               step at ``PROGRAM_DECODE_CUR`` replayed and run eagerly
+               from the same cache gives the same logits and caches bit
+               for bit and the same launches (the int8 step's graph holds
+               K5's 225); the step's host ms each way beside phases 9's
+               and 21's eager readings; the profiles of phases 9, 20 and
+               21 add the replayed step (``torch.profiler`` sees the
+               graph's kernels): its busy and idle share.
+
+``python3 chip_smoke.py --mamba-gap`` runs only phase 25 (b)'s
+falcon-mamba-7b cut to ``MAMBA_GAP_LAYERS`` layers, in bf16 and in
+float32 (TF32 off), on (1, 2) and on one rank, and prints the losses and
+the mesh's relative gap from one rank.
 
 Phase 21 runs right after phase 9's serving, before phases 11-16.
-Phase 16 runs after phase 15, phase 17 after it, phase 18 after that,
-phase 19 and 20 after it, 22 after those, 23 after 22, 24 after 23, 25
-after 24, 26 after 25; the profiles of phases 9, 20 and 21 run last of
-all. The last lines are
-the kernels JSON line, the card's name and power limit (``nvidia-smi``),
-and ``{"ok": true, "device": {...}}``. Per-shape details go to
+Phase 16 runs after phase 15, phase 27 (a) after it, 17 after that, 18
+after 17, phase 19 and 20 after it, 22 after those, 23 after 22, 24
+after 23, 25 after 24, 26 after 25; the profiles of phases 9, 20 and 21
+run last of all. The last lines are the kernels JSON line, the card's
+name and power limit (``nvidia-smi``), and ``{"ok": true, "device":
+{...}}``. Per-shape details go to
 ``chiprun_out/chip_smoke_details.json`` (the serving readings under
 ``"serving"``, training under ``"lm"`` / ``"train"``). Each kernel's
 ``launches`` comes from its own main path's counted run: phase 3 for
@@ -1904,10 +1942,12 @@ def phase_lm_profile():
     decode = _decode_call(model, params, g)
     model.prefill(params, batch)
     decode()
+    replay = _replayed(decode)
     out = {"prefill": _device_breakdown(lambda: model.prefill(params, batch)),
-           "decode": _device_breakdown(decode)}
+           "decode": _device_breakdown(decode),
+           "decode_replay": _device_breakdown(replay)}
     out["decode_ms_after_profiling"] = _host_ms(decode, 10)
-    for k in ("prefill", "decode"):
+    for k in ("prefill", "decode", "decode_replay"):
         log(f"lm profile {LM_CONFIG} bf16 {k}: {json.dumps(out[k])}")
     log(f"lm decode after profiling: {out['decode_ms_after_profiling']:.3f} "
         f"ms per step (host clock, median of 10, synchronised)")
@@ -2037,6 +2077,7 @@ def phase_lm_serving():
         f"span, host clock); every request equals its sequential greedy "
         f"decode")
     del eng, params
+    gc.collect()
     torch.cuda.empty_cache()
     return stats
 
@@ -3353,7 +3394,8 @@ class _Recorder:
 
 def phase_im2col_k1(entries, smi):
     """K1 on the im2col lowering of full-width IC and CNV: counters set to 0
-    around one ``offline`` of Table 6's Offline pool (48 rows) under
+    around one eager ``offline`` (``_run_all``) of Table 6's Offline pool
+    (48 rows) under
     ``conv_lowering="im2col"``; K1 launches one a conv stage (and CNV's
     hidden FCs run on K3 in auto dispatch); each K1 launch, on the patch
     matrix it was given, equals ``ref.threshold_matmul_ref`` bit for bit
@@ -3373,13 +3415,15 @@ def phase_im2col_k1(entries, smi):
         i2c = compile_graph(cm.graph, in_scale=cm.graph.meta["in_scale"],
                             device=cm.device, conv_lowering="im2col")
         n_conv = cm.schedule.n_fused_conv
+        # ``offline``'s function run eagerly: a graph's replay (or its
+        # capture) would pass the wrappers by (or twice)
         with _Recorder("threshold_matmul") as k1:
             _reset_launches()
-            y_i2c = i2c.offline(x)
+            y_i2c = i2c._run_all(x)
             got = _launches_now()
         with _Recorder("conv_threshold") as k2:
             _reset_launches()
-            y_dir = cm.offline(x)
+            y_dir = cm._run_all(x)
             got_dir = _launches_now()
         check(torch.equal(y_i2c, y_dir),
               f"{name}: im2col and direct lowerings differ")
@@ -3795,6 +3839,7 @@ def _train_full(smi):
             f"layer {layer} on its training inputs {tuple(q.shape)} "
             f"(strides {q.stride()})", q, k, v, out, lse, do, kw, got))
     del state, model
+    gc.collect()         # the train state sits in a reference cycle
     torch.cuda.empty_cache()
     q, k, v, out, lse, do, kw, _ = caught[0]
     row = _bwd_case(q, k, v, out, lse, do, kw,
@@ -4429,14 +4474,19 @@ def _hold_slot_state(eng):
     return checked
 
 
-def _serve(model, params, prompts, hold=False):
-    """``ServeEngine`` (4 slots, max_len 256) on ``prompts`` with 8 new
-    tokens each; returns (outputs, stats, checked slot-state leaves)."""
+def _serve(model, params, prompts, hold=False, graphs=True):
+    """``ServeEngine`` (4 slots, max_len 256; ``graphs=False``: its decode
+    and prefill programs replaced by their eager forms, every step eager)
+    on ``prompts`` with 8 new tokens each; returns (outputs, stats,
+    checked slot-state leaves, the engine)."""
     import torch
     from repro_torch.obs import timer
     from repro_torch.serving.engine import Request, ServeEngine
 
     eng = ServeEngine(model, params, n_slots=4, max_len=256, device="cuda")
+    if not graphs:
+        eng.decode_program = eng.decode_program.eager
+        eng.prefill_program = eng.prefill_program.eager
     checked = _hold_slot_state(eng) if hold else []
     reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
             for i, p in enumerate(prompts)]
@@ -4451,16 +4501,18 @@ def _serve(model, params, prompts, hold=False):
     stats = dict(eng.stats(), steps=steps, engine_s=engine_s,
                  prompt_tokens=int(sum(len(p) for p in prompts)),
                  new_tokens=int(sum(len(r.output) for r in reqs)))
-    return [r.output for r in reqs], stats, checked
+    return [r.output for r in reqs], stats, checked, eng
 
 
 def _jamba(smi):
     """(b) jamba-v0.1-52b in bf16 at its published widths, ``JAMBA_LAYERS``
     of 32 layers: the counted prefill (2 K6 launches), then
-    ``ServeEngine`` twice on 8 seeded requests: the same tokens both times,
-    and after every insert the slot's mamba state equal to the batch-1
-    prefill's bit for bit. The MoE choices the 4-slot decode batch drops
-    (capacity 1 a expert) are counted in the first run."""
+    ``ServeEngine`` twice on 8 seeded requests, eagerly and through its
+    graphs (phase 27 (b), ``_engine_programs``): the same tokens both
+    times, and after every insert of the eager run the slot's mamba state
+    equal to the batch-1 prefill's bit for bit. The MoE choices the
+    4-slot decode batch drops (capacity 1 a expert) are counted in the
+    eager run."""
     import torch
     from repro_torch.models import layers
     from repro_torch.models import transformer as tfm
@@ -4486,11 +4538,14 @@ def _jamba(smi):
 
     tfm.moe_apply = counting
     try:
-        first, stats, checked = _serve(model, params, prompts, hold=True)
+        first, stats, checked, eng = _serve(model, params, prompts,
+                                            hold=True, graphs=False)
+        del eng
     finally:
         tfm.moe_apply = real
-    second, stats2, _ = _serve(model, params, prompts)
-    check(first == second, f"jamba engine runs differ: {first} != {second}")
+    _, stats2, det["programs"] = _engine_programs(
+        f"{JAMBA_CONFIG} {cfg.dtype} ({JAMBA_LAYERS} layers)", model, params,
+        prompts, eager=(first, stats))
     n_drop = int(sum(int(d) for d in drops))
     steps = _decode_ms(model, params, g)
     det["serving"] = dict(stats2, instrumented_engine_s=stats["engine_s"],
@@ -4504,9 +4559,10 @@ def _jamba(smi):
         f"4 slots): {len(prompts)} requests, {stats2['prompt_tokens']} "
         f"prompt and {stats2['new_tokens']} new tokens in {stats2['steps']} "
         f"engine steps, {stats2['engine_s']:.3f} s, "
-        f"{stats2['throughput_tok_s']:.3f} tokens/s (the first run, with the "
-        f"slot-state and drop checks on its path, {stats['engine_s']:.3f} s); "
-        f"both runs give the same tokens; {len(checked)} inserts, "
+        f"{stats2['throughput_tok_s']:.3f} tokens/s through the graphs (the "
+        f"eager run, with the slot-state and drop checks on its path, "
+        f"{stats['engine_s']:.3f} s); both runs give the same tokens; "
+        f"{len(checked)} inserts, "
         f"{sum(checked)} mamba leaves equal to their batch-1 prefill bit for "
         f"bit; {n_drop} MoE choices dropped over {len(drops)} decode-batch "
         f"MoE calls; a decode step alone {steps['batch1']:.3f} ms at batch 1, "
@@ -4520,8 +4576,9 @@ def _jamba(smi):
 
 def _falcon_engine(smi):
     """(c) falcon-mamba-7b at full width and depth in float32 (TF32 off):
-    ``ServeEngine`` on 8 seeded requests, each request's tokens equal to
-    its own sequential greedy decode."""
+    ``ServeEngine`` on 8 seeded requests, eagerly and through its graphs
+    (phase 27 (b)), each request's tokens equal to its own sequential
+    greedy decode."""
     import torch
     from repro_torch.core.qir import full_fp32
 
@@ -4529,7 +4586,8 @@ def _falcon_engine(smi):
     model, params, g, det = _family_model(name, SEED + 21, dtype="float32")
     prompts = _engine_prompts(model.cfg.vocab, SEED + 21)
     with full_fp32():
-        outputs, stats, _ = _serve(model, params, prompts)
+        outputs, stats, det["programs"] = _engine_programs(
+            f"{name} float32", model, params, prompts)
         for i, (p, out) in enumerate(zip(prompts, outputs)):
             want = _greedy(model, params, p, 8, 256)
             check(out == want, f"{name} request {i}: engine {out} != "
@@ -4665,7 +4723,8 @@ def phase_family_profile():
 
 def _decode_profiles(name, model, params, g):
     """One decode step at batch 4 and at batch 1 under ``torch.profiler``,
-    each after an untraced one."""
+    each after an untraced one; then a batch-4 step replayed from its
+    graph (phase 27 (b))."""
     out = {}
     for b in (4, 1):
         decode = _decode_call(model, params, g, b)
@@ -4673,6 +4732,10 @@ def _decode_profiles(name, model, params, g):
         out[f"decode_batch{b}"] = d = _device_breakdown(decode)
         log(f"family profile {name} {model.cfg.dtype} decode batch {b}: "
             f"{json.dumps(d)}")
+    out["decode_batch4_replay"] = d = _device_breakdown(
+        _replayed(_decode_call(model, params, g, 4)))
+    log(f"family profile {name} {model.cfg.dtype} decode batch 4 replayed: "
+        f"{json.dumps(d)}")
     return out
 
 
@@ -4769,9 +4832,11 @@ def _counted_int8(fn, checks):
     return launches, shapes, worst[0], kept, out
 
 
-def phase_int8_serve(smi):
-    """Phase 21 (module docstring). Returns (K5 launches of the counted
-    prefill, worst |kernel - plain|, timing rows, details)."""
+def phase_int8_serve(smi, lm_decode_ms):
+    """Phase 21 (module docstring), and phase 27 (b)'s llama3-8b engines
+    (``lm_decode_ms``: phase 9's eager bf16 decode step, printed beside
+    theirs). Returns (K5 launches of the counted prefill, worst |kernel -
+    plain|, timing rows, details)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.examples.serve_lm import serve
@@ -4779,6 +4844,7 @@ def phase_int8_serve(smi):
     from repro_torch.models.model import Model
     from repro_torch.obs import timer
 
+    gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(LM_CONFIG)
     model = Model(cfg)
@@ -4871,6 +4937,23 @@ def phase_int8_serve(smi):
         f"{times['prefill_bf16']} ms, int8 {times['prefill_int8']} ms; "
         f"decode batch 4 bf16 {times['decode_bf16']} ms, int8 "
         f"{times['decode_int8']} ms")
+    prompts = _engine_prompts(cfg.vocab, SEED + 24)
+    out["programs"] = {}
+    for label, tree in (("bf16", params), ("int8", qparams)):
+        _, _, res = _engine_programs(f"{LM_CONFIG} {label}", model, tree,
+                                     prompts)
+        k5 = res["launches_a_step"].get("qmatmul", 0)
+        check(k5 == (K5_PER_PASS if label == "int8" else 0),
+              f"{LM_CONFIG} {label}: the decode step's graph holds {k5} K5 "
+              f"launches")
+        res["eager_readings_ms"] = {
+            "phase 9 bf16 decode (batch 4)": lm_decode_ms,
+            f"phase 21 {label} decode": times[f"decode_{label}"]}
+        out["programs"][label] = res
+        log(f"programs {LM_CONFIG} {label}: a decode step replayed "
+            f"{res['decode_step_ms']['replay']:.3f} ms beside phase 21's "
+            f"eager {times[f'decode_{label}']} ms and phase 9's bf16 "
+            f"{lm_decode_ms:.3f} ms ({smi})")
     for label, tree in (("bf16", params), ("int8", qparams)):
         eng, steps, dt = serve(model, tree, device="cuda")
         st = eng.stats()
@@ -4935,10 +5018,12 @@ def phase_int8_profile():
     decode = _decode_call(model, qparams, g)
     model.prefill(qparams, batch)
     decode()
+    replay = _replayed(decode)
     out = {"prefill": _device_breakdown(lambda: model.prefill(qparams,
                                                                batch)),
-           "decode": _device_breakdown(decode)}
-    for k in ("prefill", "decode"):
+           "decode": _device_breakdown(decode),
+           "decode_replay": _device_breakdown(replay)}
+    for k in ("prefill", "decode", "decode_replay"):
         d = out[k]
         if d is not None:
             d["k5_share_of_busy"] = d["ms_by_family"]["qmatmul"] / d[
@@ -6279,8 +6364,10 @@ SPMD2_SMALL_OVER = {JAMBA_CONFIG: {"capacity_factor": 4.0}}
 #: 8192), cut to 16 of its 64 layers (about 2.0 B parameters, so that
 #: two ranks, and then one, train on the card), bf16, remat "full", one
 #: 4096-token sequence a step on (1, 2): 4096 mixer channels a rank. At
-#: 8 layers its third bf16 step left one rank's by 7% (the loss falls
-#: from 11.6 to 3.5 in one step and the bf16 noise grows from there)
+#: 8 layers its third bf16 step leaves one rank's by 6.6%: bf16 noise
+#: (the loss falls from 11.6 to 3.5 in one step and the noise grows from
+#: there), for in float32 (TF32 off) the same cut stays within 9.3e-6 of
+#: one rank at every step (``--mamba-gap``, ``MAMBA_GAP_LAYERS``)
 SPMD2_MAMBA = "falcon-mamba-7b"
 SPMD2_MAMBA_LAYERS = 16
 SPMD2_MAMBA_BATCH = 1
@@ -6391,16 +6478,19 @@ def _collectives(report):
             "by_count": {k: int(v) for k, v in s.by_count.items()}}
 
 
-def _spmd2_mamba(rank, smi):
-    """(b): falcon-mamba-7b at full width, ``SPMD2_MAMBA_LAYERS`` layers,
-    on (1, 2): 3 steps, the first under the op-trace analysis (its
-    collectives: (e)), the other two timed; then rank 0 alone trains the
-    same weights on the same batches."""
+def _spmd2_mamba(rank, smi, n_layers=SPMD2_MAMBA_LAYERS, float32=False):
+    """(b): falcon-mamba-7b at full width, ``n_layers`` layers, on (1, 2):
+    3 steps, the first under the op-trace analysis (its collectives:
+    (e)), the other two timed; then rank 0 alone trains the same weights
+    on the same batches. ``float32``: the weights and the steps in
+    float32 with TF32 off (``--mamba-gap``)."""
+    import contextlib
     import dataclasses
 
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
+    from repro_torch.core.qir import full_fp32
     from repro_torch.launch.hlo_analysis import analyze_call
     from repro_torch.models.model import Model
     from repro_torch.obs import timer
@@ -6409,11 +6499,13 @@ def _spmd2_mamba(rank, smi):
     from repro_torch.train.steps import (TrainState, make_train_step,
                                          train_state_specs)
 
-    cfg = dataclasses.replace(get_config(SPMD2_MAMBA),
-                              n_layers=SPMD2_MAMBA_LAYERS)
+    cfg = dataclasses.replace(get_config(SPMD2_MAMBA), n_layers=n_layers)
     check(cfg.dtype == "bfloat16" and cfg.remat == "full"
           and cfg.d_inner == 8192, f"{SPMD2_MAMBA}: expected bf16, remat "
                                    f"full and d_inner 8192")
+    if float32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    precision = full_fp32 if float32 else contextlib.nullcontext
     model = Model(cfg)
     batches = _spmd_batches(cfg.vocab, TRAIN_SEQ, SPMD2_MAMBA_BATCH)
 
@@ -6426,7 +6518,7 @@ def _spmd2_mamba(rank, smi):
 
     mesh, rules = _spmd_mesh(SPMD2_MESH, cfg, SPMD2_MAMBA_BATCH)
     losses, step_s = [], []
-    with use_mesh_rules(mesh, rules):
+    with use_mesh_rules(mesh, rules), precision():
         specs = train_state_specs(model)
         params = shard_tree(init(), specs.params)
         torch.cuda.empty_cache()
@@ -6460,7 +6552,7 @@ def _spmd2_mamba(rank, smi):
     out = {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
            "peak_bytes": peak, "peak_reserved_bytes": peak_reserved,
            "collectives": coll,
-           "n_layers": cfg.n_layers}
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype}
     dist.barrier()
     if rank == 0:
         params = init()
@@ -6470,7 +6562,8 @@ def _spmd2_mamba(rank, smi):
         torch.cuda.reset_peak_memory_stats()
         for b in batches:
             t0 = timer.now()
-            state, m = step(state, b)
+            with precision():
+                state, m = step(state, b)
             one.append(float(m["loss"]))
             one_s.append(timer.now() - t0)
         out["one_rank_losses"] = one
@@ -7225,6 +7318,87 @@ def _spmd2_worker(argv):
     return 0
 
 
+#: ``--mamba-gap``: phase 25 (b)'s falcon-mamba-7b cut to this depth,
+#: trained in bf16 and in float32 (TF32 off), each on (1, 2) and on one
+#: rank: whether the bf16 gap of this depth from one rank is bf16's own
+#: noise (it closes in float32) or the mesh's (it stays)
+MAMBA_GAP_LAYERS = 8
+
+
+def _mamba_gap_worker(argv):
+    """One rank of ``--mamba-gap`` (``chip_smoke.py --mamba-gap-worker
+    RANK WORLD INIT DIR``): phase 25 (b) at ``MAMBA_GAP_LAYERS`` layers in
+    bf16, then in float32; results to ``DIR/rank<RANK>.json``."""
+    rank, world, init, workdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    out = {"rank": rank, "card": smi}
+    for key, f32 in (("bfloat16", False), ("float32", True)):
+        t0 = _now()
+        out[key] = _spmd2_mamba(rank, smi, MAMBA_GAP_LAYERS, float32=f32)
+        out[key + "_s"] = _now() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def mamba_gap() -> int:
+    """``python3 chip_smoke.py --mamba-gap``: falcon-mamba-7b at its
+    published widths cut to ``MAMBA_GAP_LAYERS`` layers, phase 25 (b)'s
+    three steps on (1, 2) over two ``gloo`` ranks that share the card and
+    on rank 0 alone, in bf16 and in float32 (TF32 off). Prints each
+    step's losses and the mesh's relative gap from one rank, a JSON line
+    of them (also ``chiprun_out/mamba_gap.json``). Needs one card; runs
+    no kernel of ``csrc/``."""
+    import shutil
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="mamba-gap-",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        res = _spmd_ranks(workdir, "--mamba-gap-worker", "mamba_gap_rank",
+                          SPMD2_TIMEOUT_S, SPMD2_RANK_ENV)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out = {"card": res[0]["card"], "n_layers": MAMBA_GAP_LAYERS}
+    for key in ("bfloat16", "float32"):
+        mesh = res[0][key]["losses"]
+        one = res[0][key]["one_rank_losses"]
+        out[key] = {"mesh": mesh, "one_rank": one,
+                    "rel_gap": [abs(a - b) / abs(b)
+                                for a, b in zip(mesh, one)],
+                    "mesh_step_ms": res[0][key]["step_ms"],
+                    "one_rank_step_ms": res[0][key]["one_rank_step_ms"],
+                    "seconds": res[0][key + "_s"]}
+        log(f"mamba gap {SPMD2_MAMBA} {MAMBA_GAP_LAYERS} layers {key}: "
+            f"mesh {SPMD2_MESH} losses {mesh}, one rank {one}, relative gap "
+            f"{[f'{g:.3g}' for g in out[key]['rel_gap']]} ({out['card']})")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "mamba_gap.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    log(json.dumps(out))
+    return 0
+
+
 def _spmd2_meta_collectives():
     """(e): the same steps as (b) and (c) (the train step, the prefills
     and the first decode steps) traced rank-locally on meta by
@@ -7520,6 +7694,328 @@ def phase_spmd_inference(smi, dryrun_details):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the compiled programs, one CUDA graph per input shape
+# ---------------------------------------------------------------------------
+
+#: host-clock calls a 1-row ``offline`` is timed over, eagerly and by replay
+PROGRAM_TIMED_CALLS = 1000
+#: the decode step the engines' graphs are held on: slot positions (of a
+#: 256-long cache)
+PROGRAM_DECODE_CUR = (17, 64, 100, 200)
+
+
+def _nonzero(launches):
+    return {k: n for k, n in launches.items() if n}
+
+
+def _fresh(a, b):
+    """Whether two results share no memory."""
+    return (a.untyped_storage().data_ptr()
+            != b.untyped_storage().data_ptr())
+
+
+def _held_replay(label, prog, *args):
+    """``prog(*args)``: the first call (warm-up and capture), then a replay
+    counted alone, which must equal ``prog.fn`` run eagerly on the same
+    inputs bit for bit (every output leaf) and launch what the eager run
+    launches, the launches the graph recorded at its capture; a second
+    replay must not alias the first. For a function without side
+    effects. Returns (the replay's output, its launches)."""
+    import torch
+    from repro_torch.core.pytree import leaves
+    from repro_torch.kernels import ops
+
+    prog(*args)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got = prog(*args)
+    torch.cuda.synchronize()
+    replay = _nonzero(ops.launches)
+    again = prog(*args)
+    ops.reset_launches()
+    want = prog.eager(*args)
+    torch.cuda.synchronize()
+    eager = _nonzero(ops.launches)
+    for g, w, a in zip(leaves(got), leaves(want), leaves(again)):
+        check(g.dtype == w.dtype and g.shape == w.shape
+              and torch.equal(g, w),
+              f"{label}: the replay differs from the eager run (max |diff| "
+              f"{float((g.double() - w.double()).abs().max()):.3g})")
+        check(torch.equal(a, g) and _fresh(a, g),
+              f"{label}: two replays differ or alias")
+    recorded = [_nonzero(v) for v in prog.replay_launches().values()]
+    check(replay == eager and replay in recorded,
+          f"{label}: a replay launched {replay}, the eager run {eager}, the "
+          f"capture recorded {recorded}")
+    return got, replay
+
+
+def _segments_held(label, cm, wave):
+    """``wave`` through every segment program, each held by
+    ``_held_replay`` (a host boundary's stages eagerly); returns the last
+    wave and the programs' summed launches."""
+    total = {}
+    for k, seg in enumerate(cm.segments):
+        if not seg.compiled:     # a host boundary: no program
+            wave = cm._per_micro(cm.schedule.stages[seg.start:seg.stop],
+                                 wave)
+            continue
+        wave, n = _held_replay(f"{label} segment {k}", cm._segment_fn(k),
+                               wave)
+        for key, v in n.items():
+            total[key] = total.get(key, 0) + v
+    return wave, total
+
+
+def _host_percentiles(fn, n):
+    """p50 and p90 host-clock ms of ``n`` synchronised calls, after one."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import timer
+
+    fn()
+    torch.cuda.synchronize()
+    vals = []
+    for _ in range(n):
+        t0 = timer.now()
+        fn()
+        torch.cuda.synchronize()
+        vals.append((timer.now() - t0) * 1e3)
+    return {"p50_ms": float(np.percentile(vals, 50)),
+            "p90_ms": float(np.percentile(vals, 90))}
+
+
+#: a program whose function reads a value on the host, in a child process
+#: (``_failed_capture``): prints a JSON list of its two calls' errors and
+#: the graphs it holds
+FAILED_CAPTURE_CHILD = """
+import json, torch
+from repro_torch.core.programs import Program
+prog = Program(lambda x: x * float(x.sum()), "cuda", name="host-read")
+x = torch.ones(4, device="cuda")
+errors = []
+for _ in range(2):
+    try:
+        prog(x)
+    except RuntimeError as e:
+        errors.append(str(e))
+print(json.dumps({"errors": errors, "graphs": len(prog)}))
+"""
+
+
+def _failed_capture():
+    """A program whose function reads a value on the host: its call must
+    raise, hold no graph, and raise again on the next call (no eager
+    fallback). In a child process: an aborted capture can leave the
+    process's caching allocator unable to hand its cached memory back to
+    the card, and later phases need all of it. Returns the error's
+    text."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FAILED_CAPTURE_CHILD], capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=SRC))
+    check(proc.returncode == 0, f"the failed-capture child exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    errors = got["errors"]
+    check(len(errors) == 2 and got["graphs"] == 0
+          and all("capture" in e for e in errors),
+          f"a capture that reads the host: {got}")
+    return errors[0]
+
+
+def phase_programs(models, tuned, smi):
+    """Phase 27 (a) (module docstring). Returns {model/mode: readings}."""
+    import torch
+    from repro_torch.deploy import compile_graph
+    from repro_torch.obs import timer
+
+    t_phase = timer.now()
+    out = {"failed_capture": _failed_capture()}
+    log(f"programs: a capture that reads the host raises, twice, and holds "
+        f"no graph: {out['failed_capture'][:160]}")
+    for name, g, s, x in models:
+        for mode, mega in MODES:
+            label = f"{name}/{mode}"
+            cm = compile_graph(g, in_scale=s, device="cuda", megakernel=mega)
+            cm.apply_tuned(tuned[name].tuned)
+            cm.set_megakernel(mega)
+            mb = cm.default_micro_batch
+            want = {k: n for k, n in zip(TINY_KERNELS,
+                                         MAIN_PATH_LAUNCHES[label]) if n}
+            want[HEAD_KERNEL] = 1
+            for rows in (1, BATCH):
+                _, n = _held_replay(f"{label} offline {rows} rows",
+                                    cm._offline,
+                                    torch.as_tensor(x[:rows]))
+                check(n == want, f"{label} offline {rows} rows: a replay "
+                                 f"launched {n}, expected {want}")
+            headless = _headless(cm)
+            codes, n = _held_replay(f"{label} offline codes",
+                                    headless._offline, torch.as_tensor(x))
+            check(n == {k: v for k, v in want.items() if k != HEAD_KERNEL},
+                  f"{label} codes: a replay launched {n}")
+            del headless
+            # streaming_compiled at the tuned micro-batch, segment by segment
+            x_p, rows, n_micro = cm._pad_micro(x, mb)
+            wave = x_p.reshape((n_micro, mb) + tuple(x_p.shape[1:]))
+            y_stream, stream_l = _segments_held(f"{label} stream mb {mb}",
+                                                cm, wave)
+            y, _ = cm.streaming_compiled(x)
+            check(torch.equal(y, y_stream.reshape(
+                (n_micro * mb,) + tuple(y_stream.shape[2:]))[:rows]),
+                f"{label}: streaming_compiled differs from its segments")
+            # submit_wave, full and a third filled: one graph a segment
+            wave_l = None
+            for fill in (mb, max(1, mb // 3)):
+                w = torch.zeros((1, mb) + tuple(x.shape[1:]),
+                                dtype=torch.int32)
+                w[0, :fill] = torch.as_tensor(x[:fill])
+                y_wave, wave_l = _segments_held(
+                    f"{label} wave {fill}/{mb}", cm, w.cuda())
+                got, mask = cm.submit_wave(x[:fill], micro_batch=mb)
+                check(mask.sum() == fill and torch.equal(got, y_wave[0]),
+                      f"{label}: submit_wave of {fill}/{mb} rows differs "
+                      f"from its segments")
+            progs = cm.programs()
+            graphs = {p.name: len(p) for p in progs}
+            check(graphs["offline"] == 2 and all(graphs.values()),
+                  f"{label}: graphs held {graphs}")
+            cm.apply_tuned(tuned[name].tuned)
+            check(all(len(p) == 0 for p in progs)
+                  and len(cm._offline) == 0,
+                  f"{label}: apply_tuned kept a graph")
+            cm.set_megakernel(mega)
+            # 1-row offline, eagerly and by replay, on the host clock
+            x1 = x[:1]
+            x1_dev = torch.as_tensor(x1, device="cuda")
+            eager = _host_percentiles(
+                lambda: cm._offline.fn(torch.as_tensor(x1, device="cuda")),
+                PROGRAM_TIMED_CALLS)
+            replay = _host_percentiles(lambda: cm.offline(x1),
+                                       PROGRAM_TIMED_CALLS)
+            dev = time_ms(lambda: cm._run_all(x1_dev))
+            out[label] = r = {
+                "micro_batch": mb, "graphs": graphs,
+                "launches_offline": want, "launches_stream": stream_l,
+                "launches_wave": wave_l, "eager_1row": eager,
+                "replay_1row": replay, "device_ms_1row": dev,
+                "device_share_eager": dev / eager["p50_ms"],
+                "device_share_replay": dev / replay["p50_ms"]}
+            log(f"programs {label} (mb {mb}): offline at 1 and {BATCH} rows, "
+                f"the codes, streaming_compiled and submit_wave ({mb} and "
+                f"{max(1, mb // 3)} rows) replay their eager runs bit for "
+                f"bit; graphs {json.dumps(graphs)}, dropped by apply_tuned; "
+                f"launches a replay: offline {json.dumps(want)}, stream "
+                f"{json.dumps(stream_l)}, wave {json.dumps(wave_l)}; 1-row "
+                f"offline eager p50 {eager['p50_ms']:.6f} / p90 "
+                f"{eager['p90_ms']:.6f} ms, replay p50 "
+                f"{replay['p50_ms']:.6f} / p90 {replay['p90_ms']:.6f} ms "
+                f"(host clock, synchronised, {PROGRAM_TIMED_CALLS} calls); "
+                f"device {dev:.6f} ms, {r['device_share_eager']:.1%} of the "
+                f"eager p50, {r['device_share_replay']:.1%} of the replay's "
+                f"({smi})")
+            del cm
+            gc.collect()
+    out["phase_s"] = timer.now() - t_phase
+    log(f"programs (a): {len(models) * len(MODES)} models and modes in "
+        f"{out['phase_s']:.3f} s")
+    return out
+
+
+def _drop_graphs(cms):
+    """Drop every graph of the compiled models ``cms`` and hand their
+    memory back to the card."""
+    import torch
+
+    for cm in cms:
+        for prog in cm.programs():
+            prog.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _engine_programs(label, model, params, prompts, eager=None):
+    """Phase 27 (b) on one model: ``ServeEngine`` eagerly (``eager``: the
+    outputs and stats of an eager run already made) and through its
+    graphs on the same requests, the tokens equal; then, on the graph
+    engine's caches, one decode step at ``PROGRAM_DECODE_CUR`` by replay
+    and eagerly from the same cache (restored): logits and caches equal
+    bit for bit, the launches equal; a decode step's host ms each way.
+    Returns (the graph engine's outputs and stats, readings)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pytree import leaves
+    from repro_torch.kernels import ops
+
+    if eager is None:
+        outs_e, stats_e, _, _ = _serve(model, params, prompts, graphs=False)
+    else:
+        outs_e, stats_e = eager
+    outs, stats, _, eng = _serve(model, params, prompts)
+    check(outs == outs_e, f"{label}: the engine's graphs give {outs}, its "
+                          f"eager steps {outs_e}")
+    prog = eng.decode_program
+    check(len(prog) == 1 and len(eng.prefill_program) == 1,
+          f"{label}: {len(prog)} decode and {len(eng.prefill_program)} "
+          f"prefill graphs, expected one each")
+    (recorded,) = [_nonzero(v) for v in prog.replay_launches().values()]
+    tok = torch.as_tensor(eng.last_token)
+    cur = torch.as_tensor(np.asarray(PROGRAM_DECODE_CUR, np.int32))
+    snap = [c.clone() for c in leaves(eng.caches)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    got, _ = prog(tok, cur)
+    torch.cuda.synchronize()
+    replay_l = _nonzero(ops.launches)
+    after = [c.clone() for c in leaves(eng.caches)]
+    with torch.inference_mode():
+        for c, s in zip(leaves(eng.caches), snap):
+            c.copy_(s)
+    ops.reset_launches()
+    want, _ = prog.eager(tok, cur)
+    torch.cuda.synchronize()
+    eager_l = _nonzero(ops.launches)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"{label}: the decode step's replay "
+                                  f"differs from its eager run (max |diff| "
+                                  f"{err:.3g})")
+    check(all(torch.equal(a, c) for a, c in zip(after, leaves(eng.caches))),
+          f"{label}: the replay's caches differ from the eager step's")
+    check(replay_l == eager_l == recorded,
+          f"{label}: a replay launched {replay_l}, the eager step {eager_l}, "
+          f"the capture recorded {recorded}")
+    del snap, after
+    ms = {"eager": _host_ms(lambda: prog.eager(tok, cur), 10),
+          "replay": _host_ms(lambda: prog(tok, cur), 10)}
+    res = {"tokens_equal": True, "launches_a_step": replay_l,
+           "decode_step_ms": ms,
+           "engine_s": {"eager": stats_e["engine_s"],
+                        "graphs": stats["engine_s"]},
+           "tok_s": {"eager": stats_e["throughput_tok_s"],
+                     "graphs": stats["throughput_tok_s"]}}
+    log(f"programs {label}: the engine's tokens through its graphs equal its "
+        f"eager steps' ({len(prompts)} requests, 4 slots); a decode step's "
+        f"replay equals its eager run bit for bit (logits, caches), "
+        f"{json.dumps(replay_l)} launches each; a decode step "
+        f"{ms['eager']:.3f} ms eager, {ms['replay']:.3f} ms replayed; the "
+        f"engine {stats_e['engine_s']:.3f} s eager, {stats['engine_s']:.3f} "
+        f"s with graphs (host clock, synchronised)")
+    del eng
+    gc.collect()
+    return outs, stats, res
+
+
+def _replayed(decode):
+    """``decode`` (a ``_decode_call`` closure) as a program: its logits."""
+    from repro_torch.core.programs import Program
+
+    prog = Program(lambda: decode()[0], "cuda", name="decode")
+    prog()
+    prog()
+    return prog
+
+
 def _now():
     from repro_torch.obs import timer
 
@@ -7601,7 +8097,8 @@ def main() -> int:
         del k6_case
         lm["depth_cut_max_diff"] = phase_lm_depth_cut()
         lm["serving"] = phase_lm_serving()
-        k5_int8, worst_int8, int8_rows, lm["int8"] = phase_int8_serve(smi)
+        k5_int8, worst_int8, int8_rows, lm["int8"] = phase_int8_serve(
+            smi, lm["decode_ms_per_step"])
         worst_k45, k5_big = phase_k4_k5()
         worst_tiles = phase_k1_tiles()
         bench_launches, bench_rows, worst_bench, bench = phase_kernel_bench()
@@ -7616,6 +8113,11 @@ def main() -> int:
         trace = phase_trace_export(tuned, models[0][3], smi)
         scenarios = phase_scenarios(models, tuned, smi)
         serving = phase_serving(models, tuned, smi)
+        programs = phase_programs(models, tuned, smi)
+        # the tiny models' graphs (their pools take GBs at 1024 rows) go
+        # before the LM phases, which need the card's memory
+        _drop_graphs([cm for cm, _, _ in results.values()]
+                     + list(tuned.values()))
         qat = phase_qat(smi, nonzero)
         papers = phase_paper_benches(smi)
         train_launches, worst_train, k6_bwd_row, lm["train"] = \
@@ -7690,6 +8192,7 @@ def main() -> int:
                    "paper_benches": papers, "mesh": mesh,
                    "dryrun": dryrun, "spmd": spmd,
                    "spmd_inference": spmd2, "seqpar_ep": seqpar_ep,
+                   "programs": programs,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,
@@ -7710,4 +8213,8 @@ if __name__ == "__main__":
         sys.exit(_spmd_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--spmd-inference-worker"]:
         sys.exit(_spmd2_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mamba-gap-worker"]:
+        sys.exit(_mamba_gap_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mamba-gap"]:
+        sys.exit(mamba_gap())
     sys.exit(main())

@@ -11,6 +11,7 @@
 from repro_torch.deploy.executor import (  # noqa: F401
     DEFAULT_MICRO_BATCH,
     CompiledTinyModel,
+    CompiledTorchModel,
     StreamingStats,
     compile_graph,
     stage_work,

@@ -8,14 +8,14 @@ The port of ``repro.deploy.executor``. ``compile_graph`` lowers a QIR graph
     Offline);
   * **streaming_compiled** — the schedule grouped into *segments*
     (``lower.group_segments``, split at host boundaries); each segment runs
-    the whole micro-batched wave as one segment program, a Python function
-    that loops over the wave's micro-batches (the reference's
-    ``jax.lax.map`` program);
+    the whole micro-batched wave as one segment program, which loops over
+    the wave's micro-batches (the reference's ``jax.lax.map`` program);
   * **streaming_host** — the queue-loop pipeline whose per-stage queue
     capacities come from ``core.dataflow.optimize_fifo_depths``, kept for
     its observable occupancy; bit-identical to the other two;
   * **submit_wave** — one partly filled wave through the segment
-    programs, the serving router's entry point.
+    programs, the serving router's entry point (on the card staged
+    through a pinned host buffer, one per lane and wave size).
 
 Every fused integer stage calls a kernel wrapper (``kernels.ops``):
 ``threshold_matmul`` for dense stages and im2col conv stages,
@@ -29,20 +29,34 @@ reach a plain version; on the CPU they run the plain versions, which give
 the reference's integers. The unfused per-node interpreter
 (``reference``) is kept as the baseline.
 
-Each segment program is rebuilt per call; capturing one CUDA graph per
-(segment, wave shape) is later work (it would bypass the launch counters).
+On the card ``offline`` and each compiled segment's wave program are
+compiled programs (``core.programs.Program``): one CUDA graph per input
+shape, captured at the first call with that shape and replayed after it,
+the reference's one jit program per shape (its ``lax.map`` over the
+micro-batches is the segment graph's unrolled loop); the replays add the
+graph's launches to the wrappers' counters. ``_rebuild`` (so
+``apply_tuned`` and ``set_megakernel``) drops every program, as the
+reference drops its stale jit closures. On the CPU the same functions
+run eagerly.
+
+``CompiledTorchModel`` is the deployment wrapper for a model with no QIR
+export, the port of ``CompiledJaxModel``: ``offline`` is the whole
+forward as one program.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.dataflow import micro_batch_stage, optimize_fifo_depths
+from repro_torch.core.programs import Program
+from repro_torch.core.pytree import tree_map
 from repro_torch.core.qir import Graph, resolve_device
 from repro_torch.deploy.lower import (
     FlattenStage,
@@ -122,6 +136,11 @@ class CompiledTinyModel:
         #: obs.Tracer sink for segment/stage spans and FIFO occupancy
         #: counters; NULL_TRACER keeps every instrumentation site a no-op
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        #: submit_wave's pinned host buffers and the event of each one's
+        #: last copy, by (stream, wave shape, dtype)
+        self._staging: Dict[tuple, Tuple[torch.Tensor, object]] = {}
+        self._offline: Optional[Program] = None
+        self._segment_programs: Dict[int, Program] = {}
         self._rebuild()
 
     def set_tracer(self, tracer) -> "CompiledTinyModel":
@@ -132,10 +151,10 @@ class CompiledTinyModel:
     def set_megakernel(self, mode: Optional[bool],
                        budget_bytes: Optional[int] = None
                        ) -> "CompiledTinyModel":
-        """Re-plan megakernel dispatch (None = auto / True / False);
-        ``budget_bytes`` overrides the planner's L2 budget for weights and
-        banks (tests force the staged fallback with a tiny one) and None
-        restores the default. Returns self."""
+        """Re-plan megakernel dispatch (None = auto / True / False) and drop
+        the compiled programs; ``budget_bytes`` overrides the planner's L2
+        budget for weights and banks (tests force the staged fallback with
+        a tiny one) and None restores the default. Returns self."""
         self.megakernel = mode
         self.megakernel_budget_bytes = budget_bytes
         self._rebuild()
@@ -143,24 +162,39 @@ class CompiledTinyModel:
 
     def dispatch_state(self) -> tuple:
         """The planned dispatch: mode, budget, segments, megakernel plans,
-        their transposed banks and the FIFO plan cache. ``restore_dispatch``
-        takes it back, so a caller can switch between two planned modes
-        without planning again."""
+        their transposed banks, the FIFO plan cache and the compiled
+        programs. ``restore_dispatch`` takes it back, so a caller can
+        switch between two planned modes without planning (or capturing)
+        again."""
         return (self.megakernel, self.megakernel_budget_bytes,
                 self.segments, self._mega_plans, self._mega_by_start,
-                self._mega_args, self._plan_cache)
+                self._mega_args, self._plan_cache, self._offline,
+                self._segment_programs)
 
     def restore_dispatch(self, state: tuple) -> "CompiledTinyModel":
         """Reinstate a ``dispatch_state``; returns self."""
         (self.megakernel, self.megakernel_budget_bytes, self.segments,
          self._mega_plans, self._mega_by_start, self._mega_args,
-         self._plan_cache) = state
+         self._plan_cache, self._offline, self._segment_programs) = state
         return self
+
+    def programs(self) -> List[Program]:
+        """The compiled programs made so far: ``offline``'s, then each
+        segment's that has run."""
+        return [self._offline] + [self._segment_programs[k]
+                                  for k in sorted(self._segment_programs)]
 
     def _rebuild(self):
         """Group the schedule into segments and plan one megakernel run per
         segment; the offline path and the segment programs dispatch
-        through the plans."""
+        through the plans. Drops every compiled program: a graph holds
+        the stage parameters and plans it was captured with (the
+        reference's ``_rebuild`` drops its stale jit closures)."""
+        if self._offline is not None:
+            for prog in self.programs():
+                prog.clear()
+        self._offline = Program(self._run_all, self.device, name="offline")
+        self._segment_programs = {}
         self._mega_plans: Dict[int, MegakernelSegment] = {}
         self._mega_by_start: Dict[int, MegakernelSegment] = {}
         #: each plan's weights packed and banks transposed once to the
@@ -252,12 +286,22 @@ class CompiledTinyModel:
                 i += 1
         return h
 
+    def _program_input(self, x_int) -> torch.Tensor:
+        """``x_int`` for a program: on the card a host array stays on the
+        host, and the program copies it into its graph's input buffer (a
+        device tensor is copied on the device); on the CPU, the tensor."""
+        if self.device.type != "cuda":
+            return self._input(x_int)
+        return (x_int if isinstance(x_int, torch.Tensor)
+                else torch.as_tensor(np.asarray(x_int)))
+
     def offline(self, x_int) -> torch.Tensor:
         """Full batch through every stage (MLPerf Offline), planned runs as
-        one megakernel launch each; returns the last stage's output on the
-        model's device (work may still be queued on the card: synchronise
-        before reading a clock)."""
-        return self._run_all(self._input(x_int))
+        one megakernel launch each, as one compiled program (one CUDA graph
+        per (rows, dtype) on the card); returns the last stage's output on
+        the model's device (work may still be queued on the card:
+        synchronise before reading a clock)."""
+        return self._offline(self._program_input(x_int))
 
     def stage_outputs(self, x_int) -> List[torch.Tensor]:
         """Per-stage outputs (integer codes for fused stages), every stage on
@@ -457,9 +501,12 @@ class CompiledTinyModel:
                              f"for a wave of {n} rows")
         mask = np.concatenate([mask, np.zeros(mb - n, bool)])
         # pad and zero the invalid rows on the host: one wave shape per lane
-        buf = np.zeros((mb,) + xb.shape[1:], xb.dtype)
-        buf[:n][mask[:n]] = xb[mask[:n]]
-        wave = torch.as_tensor(buf[None], device=self.device)
+        buf, wave, done = self._stage_wave((1, mb) + xb.shape[1:], xb.dtype)
+        buf[...] = 0
+        buf[0, :n][mask[:n]] = xb[mask[:n]]
+        if done is not None:
+            wave = wave.to(self.device, non_blocking=True)
+            done.record(torch.cuda.current_stream(self.device))
         try:
             wave = self._run_segments(wave, 1, mode="submit_wave")
         except Exception as e:
@@ -469,6 +516,26 @@ class CompiledTinyModel:
                 f"wave of {n}/{mb} rows failed in the compiled segment "
                 f"pipeline: {type(e).__name__}: {e}") from e
         return wave[0], mask
+
+    def _stage_wave(self, shape, dtype):
+        """(numpy view, tensor, event) of the host buffer a wave of
+        ``shape`` is written into. On the card, a pinned buffer, one per
+        (current stream, shape, dtype), which the wave is copied from
+        asynchronously; the event marks the end of its last copy, which
+        has finished before the buffer is written again. On the CPU, a
+        new array (event None)."""
+        if self.device.type != "cuda":
+            buf = np.zeros(shape, dtype)
+            return buf, torch.from_numpy(buf), None
+        key = (torch.cuda.current_stream(self.device).cuda_stream, shape,
+               np.dtype(dtype).str)
+        staged = self._staging.get(key)
+        if staged is None:
+            t = torch.from_numpy(np.zeros(shape, dtype)).pin_memory()
+            staged = self._staging[key] = (t, torch.cuda.Event())
+        t, done = staged
+        done.synchronize()
+        return t.numpy(), t, done
 
     def _run_segments(self, wave, n_micro: int, mode: str):
         """Push a stacked wave through every segment program, recording one
@@ -505,36 +572,48 @@ class CompiledTinyModel:
         return torch.stack([self._chain(stages, wave[i])
                             for i in range(wave.shape[0])])
 
-    def _segment_fn(self, k: int) -> Callable:
-        """The program running segment k's whole micro-batch wave.
+    def _segment_fn(self, k: int) -> Program:
+        """The program running segment k's whole micro-batch wave, made at
+        its first use (one CUDA graph per wave shape on the card; its
+        ``fn`` is the eager wave function).
 
         Staged form: every micro-batch through the segment's stage chain
-        in turn. When the planner admitted a megakernel for this segment,
-        the planned run executes as ONE launch over the *flattened* wave
-        instead (row-independent stages make the flattening exact); only
-        the segment's remainder stages before and after it (e.g. the float
-        head) still go micro-batch by micro-batch."""
+        in turn (unrolled inside the one graph, as the reference's
+        ``lax.map`` sits inside its one program). When the planner
+        admitted a megakernel for this segment, the planned run executes
+        as ONE launch over the *flattened* wave instead (row-independent
+        stages make the flattening exact); only the segment's remainder
+        stages before and after it (e.g. the float head) still go
+        micro-batch by micro-batch."""
+        prog = self._segment_programs.get(k)
+        if prog is not None:
+            return prog
         seg = self.segments[k]
         plan = self._mega_plans.get(k)
         stages = self.schedule.stages
+        me = weakref.proxy(self)     # the program must not keep self alive
+
         if plan is None:
-            return lambda wave: self._per_micro(stages[seg.start:seg.stop],
-                                                wave)
-        pre = stages[seg.start:plan.start]
-        post = stages[plan.stop:seg.stop]
+            def run_wave(wave):
+                return me._per_micro(stages[seg.start:seg.stop], wave)
+        else:
+            pre = stages[seg.start:plan.start]
+            post = stages[plan.stop:seg.stop]
 
-        def run_wave(wave):
-            if pre:
-                wave = self._per_micro(pre, wave)
-            n_micro, mb = wave.shape[0], wave.shape[1]
-            flat = self._apply_mega(plan, wave.reshape(
-                (n_micro * mb,) + tuple(wave.shape[2:])))
-            wave = flat.reshape((n_micro, mb) + tuple(flat.shape[1:]))
-            if post:
-                wave = self._per_micro(post, wave)
-            return wave
+            def run_wave(wave):
+                if pre:
+                    wave = me._per_micro(pre, wave)
+                n_micro, mb = wave.shape[0], wave.shape[1]
+                flat = me._apply_mega(plan, wave.reshape(
+                    (n_micro * mb,) + tuple(wave.shape[2:])))
+                wave = flat.reshape((n_micro, mb) + tuple(flat.shape[1:]))
+                if post:
+                    wave = me._per_micro(post, wave)
+                return wave
 
-        return run_wave
+        prog = self._segment_programs[k] = Program(
+            run_wave, self.device, name=f"segment{k}")
+        return prog
 
     def streaming_compiled(self, x_int, micro_batch: Optional[int] = None
                            ) -> Tuple[torch.Tensor, StreamingStats]:
@@ -594,3 +673,34 @@ def compile_graph(graph: Graph, in_scale: float = 1.0 / 127.0,
         if mode != "off":
             cm.apply_tuned(autotune_model(cm, mode=mode))
     return cm
+
+
+class CompiledTorchModel:
+    """Deployment wrapper for models without a QIR export path, the port
+    of ``CompiledJaxModel``: ``offline`` is the whole forward
+    ``fwd(params, x)`` as one compiled program (one CUDA graph per input
+    shape on the card, ``core.programs``), ``reference`` the eager
+    forward. ``params`` (a tree of tensors or arrays) moves to ``device``
+    (None: the card, and no silent CPU fallback)."""
+
+    def __init__(self, fwd: Callable, params, name: str = "torch",
+                 device=None):
+        self.name = name
+        self.device = resolve_device(device)
+        self.params = tree_map(
+            lambda t: torch.as_tensor(t).to(self.device), params)
+        self._fwd = fwd
+        self._offline = Program(self.reference, self.device,
+                                name=f"{name}.offline")
+
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def offline(self, x) -> torch.Tensor:
+        return self._offline(self._input(x))
+
+    def reference(self, x) -> torch.Tensor:
+        return self._fwd(self.params, self._input(x))
+
+    def predict(self, x) -> torch.Tensor:
+        return torch.argmax(self.offline(x), dim=-1)

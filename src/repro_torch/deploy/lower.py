@@ -347,12 +347,19 @@ class RefChainStage:
     out_dim: int
     in_scale: float
     in_bits: int = 8
+    #: the initializers as tensors, by device: copied from the host once,
+    #: so a call makes no copy (and a CUDA graph can capture it)
+    consts: Dict[torch.device, Dict[str, torch.Tensor]] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     def apply_ref(self, x_float):
         dev = x_float.device
-        env: Dict[str, torch.Tensor] = {
-            k: torch.as_tensor(np.asarray(v), device=dev)
-            for k, v in self.initializers.items()}
+        consts = self.consts.get(dev)
+        if consts is None:
+            consts = self.consts[dev] = {
+                k: torch.as_tensor(np.asarray(v), device=dev)
+                for k, v in self.initializers.items()}
+        env: Dict[str, torch.Tensor] = dict(consts)
         env[self.in_name] = x_float
         with full_fp32():
             for node in self.nodes:

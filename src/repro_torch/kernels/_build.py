@@ -129,11 +129,22 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[Path]:
     return [_lib_path(n) for n in names]
 
 
+def _capturing() -> bool:
+    import torch
+
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def entry_point(name: str):
-    """The ctypes function of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes function of ``csrc/<name>.cu``, built on first use (never
+    while a CUDA graph is being captured: a graph's warm-up builds)."""
     fn = _LOADED.get(name)
     if fn is not None:
         return fn
+    if _capturing():
+        raise RuntimeError(f"{name}.cu is not loaded and a CUDA graph is "
+                           f"being captured: run the call once first")
     (lib_path,) = build_all([name])
     symbol, argtypes = ENTRY_POINTS[name]
     with _LOCK:

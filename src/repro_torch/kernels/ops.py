@@ -16,7 +16,16 @@ Each one checks its arguments, then:
 
 ``launches`` counts kernel launches per kernel, and only those: the plain
 versions do not count, so a run can show that it went through the
-kernels (``reset_launches`` before, read after).
+kernels (``reset_launches`` before, read after). A replayed CUDA graph
+(``core.programs``) launches its kernels without the wrappers; the
+program adds the launches its capture recorded.
+
+The wrappers can be captured into a CUDA graph: on the card a call reads
+only shapes and Python values on the host (its plan), makes no host
+sync, copies nothing from host memory and makes no tensor from Python
+values; its kernel's library must be loaded before a capture (a
+program's warm-up call loads it; ``_build.entry_point`` raises inside a
+capture otherwise).
 
 ``qmatmul``, ``flash_attention`` and ``flash_attention_bwd`` also take
 tensors on the ``meta`` device: they check their arguments and return

@@ -316,13 +316,18 @@ class Model:
         """One token for every sequence in the batch.
 
         tokens (B, 1) int, or embeds (B, 1, d) for ``embed_inputs=False``;
-        cur_index an int or a (B,) tensor of per-slot positions. Returns
+        cur_index an int, or a 0-d or (B,) tensor of per-slot positions on
+        the device, which the step never reads on the host (so a CUDA
+        graph can capture it; an int is made such a tensor first). Returns
         (logits (B, 1, V) float32, caches), the caches updated in place.
         Under a mesh the tokens (and a per-slot ``cur_index``) are the
         global batch, ``caches`` the rank's blocks (``cache_init``), and
         the logits the rank's rows and vocab block, as ``prefill``'s."""
         h = self._embed(params, batch_block(tokens_or_embeds))
-        if isinstance(cur_index, torch.Tensor) and cur_index.dim() == 1:
+        if not isinstance(cur_index, torch.Tensor):
+            cur_index = torch.tensor(cur_index, dtype=torch.int32,
+                                     device=h.device)
+        if cur_index.dim() == 1:
             cur_index = batch_block(cur_index)
         h, caches = tfm.stack_decode(self.cfg, params["blocks"], caches, h,
                                      cur_index)

@@ -11,9 +11,11 @@ the least outstanding modeled work — the queueing-theory argument for
 join-shortest-queue over round-robin under heterogeneous wave sizes.
 
 Wave execution is split into ``submit`` (``submit_wave`` under the
-replica's stream, which copies the wave to the model's device itself;
-the call returns before the card has finished, and a CUDA event recorded
-after it marks the wave's end) and the returned ``WaveHandle``'s
+replica's stream, which copies the wave to the model's device itself and
+replays the segment programs' graphs there: a graph is keyed on the
+stream, so replicas that share a model never share its buffers; the
+call returns before the card has finished, and a CUDA event recorded
+after the replay marks the wave's end) and the returned ``WaveHandle``'s
 ``wait`` — the seam the dispatch engines (``serve.dispatch``) are built
 on. ``run_wave`` remains as the blocking submit-then-wait composition.
 

@@ -10,6 +10,19 @@ reference's semantics:
   * every engine step decodes all slots with a per-slot ``cur_index``
     vector; finished sequences free their slot at once.
 
+On the card the decode step and the single-token prefill step are
+compiled programs (``core.programs``): one CUDA graph each per engine
+(its ``n_slots``, ``max_len`` and dtype), captured at the first call and
+replayed, the reference's two jit programs. The decode graph takes the
+tokens and the per-slot positions in its input buffers, updates the
+engine's caches in place and ends in the argmax, so one ``.cpu()`` of
+the next tokens is the step's only read; the prefill replays the batch-1
+graph once a prompt token into one batch-1 cache the engine keeps, the
+position a device tensor (the reference's ``lax.scan`` of decode steps,
+without a program per prompt length). A step taken while a mesh is
+active (``gloo``'s collectives cannot be captured) runs the same
+functions eagerly (``Program.eager``). On the CPU they run eagerly.
+
 Mamba sublayers' conv windows and states go into the slot as the KV
 caches do, each leaf in the slot cache's dtype. Configs that take
 embeddings (``embed_inputs=False``) are refused: the engine feeds token
@@ -32,10 +45,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.pytree import tree_map
+from repro_torch.core.programs import Program
+from repro_torch.core.pytree import leaves, tree_map
 from repro_torch.core.qir import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.obs import timer as obs_timer
+from repro_torch.parallel.sharding import active_mesh
 
 
 @dataclasses.dataclass
@@ -75,18 +90,50 @@ class ServeEngine:
         self.last_token = np.zeros((n_slots, 1), np.int32)
         self.queue: List[Request] = []
         self.finished: List[Request] = []
+        #: the batch-1 cache every prefill steps into (zeroed first)
+        self.one_cache = None
+        self.decode_program = Program(self._decode_fn, self.device,
+                                      "decode_step")
+        self.prefill_program = Program(self._prefill_fn, self.device,
+                                       "prefill_step")
+
+    def _decode_fn(self, tokens, cur):
+        """One decode step of every slot: (logits (n_slots, 1, V), the
+        next tokens (n_slots,) int32); the caches are updated in place."""
+        logits, _ = self.model.decode_step(self.params, self.caches, tokens,
+                                           cur)
+        return logits, torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+
+    def _prefill_fn(self, token, cur):
+        """One prompt token (1, 1) at position ``cur`` (a 0-d tensor) into
+        the batch-1 cache: its logits (1, 1, V)."""
+        logits, _ = self.model.decode_step(self.params, self.one_cache,
+                                           token, cur)
+        return logits
+
+    @staticmethod
+    def _run(program: Program):
+        """The program, or its eager form while a mesh is active."""
+        return program if active_mesh() is None else program.eager
 
     # -- prefill one request into a slot via single-token steps (exact KV) --
+    @torch.inference_mode()
     def _prefill_one(self, tokens: np.ndarray):
-        """Tokens (P,) one decode step at a time into a batch-1 cache;
+        """Tokens (P,) one decode step at a time into the batch-1 cache;
         returns (cache, logits (1, 1, V) of the last step)."""
-        cache = self.model.cache_init(1, self.max_len, device=self.device)
+        if self.one_cache is None:
+            self.one_cache = self.model.cache_init(1, self.max_len,
+                                                   device=self.device)
+        for leaf in leaves(self.one_cache):
+            leaf.zero_()
         toks = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)
+        pos = torch.arange(toks.shape[0], dtype=torch.int32,
+                           device=self.device)
+        step = self._run(self.prefill_program)
         logits = None
         for i in range(toks.shape[0]):
-            logits, cache = self.model.decode_step(self.params, cache,
-                                                   toks[i].view(1, 1), i)
-        return cache, logits
+            logits = step(toks[i].view(1, 1), pos[i])
+        return self.one_cache, logits
 
     def submit(self, req: Request):
         n = len(req.prompt)
@@ -141,14 +188,12 @@ class ServeEngine:
             return
 
         # per-slot positions: the decode step takes a (B,) cur_index vector,
-        # so slots at different sequence lengths advance together.
-        cur = torch.as_tensor(self.positions, dtype=torch.int32,
-                              device=self.device)
-        tokens = torch.as_tensor(self.last_token, device=self.device)
-        logits, self.caches = self.model.decode_step(self.params, self.caches,
-                                                     tokens, cur)
-        next_tokens = torch.argmax(logits[:, 0], dim=-1).to(
-            torch.int32).cpu().numpy()
+        # so slots at different sequence lengths advance together; both
+        # go from the host into the program's input buffers
+        cur = torch.as_tensor(self.positions.astype(np.int32))
+        tokens = torch.as_tensor(self.last_token)
+        _, next_tokens = self._run(self.decode_program)(tokens, cur)
+        next_tokens = next_tokens.cpu().numpy()
 
         for i, req in enumerate(self.active):
             if req is None:
