@@ -251,11 +251,13 @@ which fails the run with a non-zero exit:
                ``torch.use_deterministic_algorithms(True)``:
                ``run_training`` with a crash at step 3 and a resume ends
                with a checkpoint equal bit for bit to an uninterrupted
-               run's (checkpoints under ``build/``, removed after; bytes,
-               save and restore seconds printed); (c) ``weight_bits=8`` at
-               2 layers, two steps with finite losses; (d)
+               run's, every run's step a ``StepProgram`` (one CUDA graph)
+               and the resume a new program over a state of another seed
+               (checkpoints under ``build/``, removed after; bytes, save
+               and restore seconds printed); (c) ``weight_bits=8`` at 2
+               layers, two steps with finite losses; (d)
                ``repro_torch.launch.train.main`` with ``--reduced`` on the
-               card. (b) runs in a child process whose environment sets
+               card, its 10 steps through one graph. (b) runs in a child process whose environment sets
                ``CUBLAS_WORKSPACE_CONFIG`` before its CUDA starts: set in
                this process it would slow every later cuBLAS call.
  20. LM families — MoE, mamba, the jamba hybrid, M-RoPE and embedding
@@ -544,6 +546,38 @@ which fails the run with a non-zero exit:
                and 21's eager readings; the profiles of phases 9, 20 and
                21 add the replayed step (``torch.profiler`` sees the
                graph's kernels): its busy and idle share.
+ 28. train programs — the training steps and the stage programs as CUDA
+               graphs (``phase_train_programs``), in a child process
+               (its graphs' pools stay out of this one). (a) KWS and AD QAT at
+               phase 17's full width and steps through
+               ``core.codesign.tiny_adam``'s step program and its eager
+               function from the same initial parameters and batches:
+               every loss, parameter and the counter bit for bit; host ms
+               a step (p50 / p90, synchronised), device kernels, busy ms
+               and idle share of one step each way (``torch.profiler``).
+               (b) Under deterministic algorithms
+               (``CUBLAS_WORKSPACE_CONFIG`` set before its CUDA starts):
+               full-width internlm2-1.8b as phase 19 (a) trains it, 1 +
+               ``TRAIN_PROGRAM_REPLAYS`` eager steps, then the same steps
+               from the same seeded state through ``StepProgram`` (the
+               first call warms up and captures, the rest replay):
+               metrics, parameters, m, v and the counter bit for bit, K6
+               and K6-backward launches of every replay equal the eager
+               step's by the wrappers; step ms, peak memory and one step
+               of each under ``torch.profiler`` (the card's activity);
+               K6's forward timed on a caught launch of the eager steps.
+               (c) Run inside phase 19: (b)'s crash and resume at depth 2
+               go through step programs (the crash path saves the program
+               run's state; a new model, state of another seed and program
+               resume from it into that state's own tensors, equal to the
+               uninterrupted run bit for bit), and (d)'s launcher on one
+               rank runs its 10 steps through its program (one graph) and
+               logs it. (d) The four Table-1 models at
+               full width in both modes: ``stage_outputs`` and
+               ``streaming_host`` replayed through the stage programs
+               equal the same calls through each stage's eager function
+               bit for bit, with the same launches; ``stage_latencies`` at
+               1 row each way.
 
 ``python3 chip_smoke.py --mamba-gap`` runs only phase 25 (b)'s
 falcon-mamba-7b cut to ``MAMBA_GAP_LAYERS`` layers, in bf16 and in
@@ -552,7 +586,8 @@ the mesh's relative gap from one rank.
 
 Phase 21 runs right after phase 9's serving, before phases 11-16.
 Phase 16 runs after phase 15, phase 27 (a) after it, 17 after that, 18
-after 17, phase 19 and 20 after it, 22 after those, 23 after 22, 24
+after 17, phase 19 after it, 28 after 19, 20 after 28, 22 after those,
+23 after 22, 24
 after 23, 25 after 24, 26 after 25; the profiles of phases 9, 20 and 21
 run last of all. The last lines are the kernels JSON line, the card's
 name and power limit (``nvidia-smi``), and ``{"ok": true, "device":
@@ -569,7 +604,9 @@ run adds its two ranks' launches to K6 (2 x 144) and its backward
 and int8 float32-activation prefills of (c), jamba's of (d)) and to K5
 (2 x 2 x 5 x 225: the int8 prefills and 4 decode steps of (c), 2 x 2 x
 5 x 64 of them in the int32 accumulator mode); phase 26's add to K6
-(2 x (144 + 32 + 1): (a), (b), (d)) and its backward (2 x 72: (a)).
+(2 x (144 + 32 + 1): (a), (b), (d)) and its backward (2 x 72: (a));
+phase 28 (b)'s replays add theirs (``TRAIN_PROGRAM_REPLAYS`` x 2 x 24 x
+2 to K6, x 2 x 24 to its backward).
 """
 
 from __future__ import annotations
@@ -1243,6 +1280,8 @@ def phase_main_path_checks(models, results):
                             conv_lowering="direct")
         want = cpu.stage_outputs(x[:rows])
         got = cm.stage_outputs(torch.as_tensor(x).cuda())
+        for prog in cm._stage_programs.values():   # 1024-row graphs: the
+            prog.clear()                           # LM phases need memory
         for i, (a, b) in enumerate(zip(got, want)):
             a = a[:rows].cpu()
             if b.dtype.is_floating_point:
@@ -1701,6 +1740,19 @@ def phase_flash_synthetic():
     return worst
 
 
+def _busy_us(spans):
+    """(the union's length, the whole span) of sorted (start, end)
+    intervals, in their unit."""
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return busy + cur_e - cur_s, spans[-1][1] - spans[0][0]
+
+
 def _device_breakdown(fn):
     """Device time of one call of ``fn`` by kernel family, from a
     ``torch.profiler`` trace: K6, K5, matmuls (cuBLAS), everything else; the
@@ -1739,15 +1791,7 @@ def _device_breakdown(fn):
                                                    "cutlass", "sm90_"))
                else "other")
         by[fam] += e.time_range.elapsed_us() / 1e3
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
+    busy, span = _busy_us(spans)
     return {"kernels": len(kern), "span_ms": span / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1 - busy / span,
             "ms_by_family": by,
@@ -3916,14 +3960,19 @@ def _train_resume(smi):
     ``CUBLAS_WORKSPACE_CONFIG``): ``run_training`` for ``TRAIN_CUT_STEPS``
     steps uninterrupted, and again with a crash at step
     ``TRAIN_CRASH_AT`` and a resume; the two final checkpoints must be
-    equal bit for bit. Checkpoints go to a temporary directory under
-    ``build/``."""
+    equal bit for bit. Every run's step is a ``StepProgram`` (one CUDA
+    graph over the run's state, as the launcher runs it; phase 28 (c)):
+    the crash path saves the program run's state, and the resume is a new
+    model, state (another seed) and program, restored in place.
+    Checkpoints go to a temporary directory under ``build/``."""
     import dataclasses
     import shutil
 
     import torch
     from repro_torch.checkpoint.checkpoint import latest_step
     from repro_torch.configs import get_config
+    from repro_torch.core.programs import StepProgram
+    from repro_torch.core.pytree import leaves
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.obs import timer
     from repro_torch.optim.adamw import make_optimizer
@@ -3935,14 +3984,25 @@ def _train_resume(smi):
     data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, seed=SEED)
     marks = {}
 
-    def run(directory, hook=None):
+    def run(directory, hook=None, seed=SEED + 9):
         opt = make_optimizer(base_lr=3e-4, warmup=2, total=TRAIN_CUT_STEPS)
-        model, state = _train_state(cfg, SEED + 9, opt)
+        model, state = _train_state(cfg, seed, opt)
+        held = leaves(state)
+        prog = StepProgram(make_train_step(model, opt, TRAIN_MICROBATCHES),
+                           "cuda", name="train_step")
         lcfg = LoopConfig(total_steps=TRAIN_CUT_STEPS, ckpt_every=1000,
                           ckpt_dir=directory, keep_n=1, log_every=1)
-        return run_training(make_train_step(model, opt, TRAIN_MICROBATCHES),
-                            state, lambda s: data.batch(s, TRAIN_BATCH), lcfg,
-                            step_hook=hook)
+        try:
+            return run_training(prog, state,
+                                lambda s: data.batch(s, TRAIN_BATCH), lcfg,
+                                step_hook=hook)
+        finally:
+            check(len(prog) == 1 and all(
+                a is b for a, b in zip(leaves(state), held)),
+                f"lm train resume: the run held {len(prog)} graphs or left "
+                f"other state tensors")
+            del state, model, prog
+            gc.collect()
 
     def crash(step):
         if step == TRAIN_CRASH_AT:
@@ -3977,7 +4037,9 @@ def _train_resume(smi):
                      for f in os.listdir(ckpt))
         torch.cuda.empty_cache()
         t0 = timer.now()
-        resumed = run(crash_dir, first_step)
+        # a new model, state (another seed: the restore overwrites it in
+        # place) and program resume from the program run's checkpoint
+        resumed = run(crash_dir, first_step, seed=SEED + 19)
         restore_s = marks["resumed"] - t0
         check(resumed.resumed_from == TRAIN_CRASH_AT
               and resumed.final_step == whole.final_step == TRAIN_CUT_STEPS,
@@ -3993,9 +4055,10 @@ def _train_resume(smi):
         torch.use_deterministic_algorithms(was)
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"lm train resume ({TRAIN_CONFIG} full width, {TRAIN_CUT_LAYERS} "
-        f"layers, deterministic algorithms): crash at step {TRAIN_CRASH_AT},"
-        f" resumed to {TRAIN_CUT_STEPS}, final state equal to the "
-        f"uninterrupted run bit for bit; checkpoint {nbytes} B, crash-path "
+        f"layers, deterministic algorithms, every run through a step "
+        f"program): crash at step {TRAIN_CRASH_AT}, a new program resumed "
+        f"to {TRAIN_CUT_STEPS} from the checkpoint the program run wrote, "
+        f"final state equal to the uninterrupted run bit for bit; checkpoint {nbytes} B, crash-path "
         f"save {save_s:.3f} s, restore {restore_s:.3f} s (host clock; "
         f"{smi}); losses {losses}")
     return {"checkpoint_bytes": nbytes, "crash_save_s": save_s,
@@ -4033,11 +4096,29 @@ def _train_quantized():
 
 def _train_launcher():
     """(d) ``repro_torch.launch.train``'s ``main`` on the card (--reduced,
-    10 steps), with a checkpoint every 5 steps under ``build/``."""
+    10 steps), with a checkpoint every 5 steps under ``build/``: one rank,
+    so every step goes through its step program (one CUDA graph, the state
+    donated; phase 28 (c)), and the launcher's log says so."""
+    import logging
     import shutil
 
+    from repro_torch.core import programs
     from repro_torch.launch import train as launch_train
 
+    calls = []
+    real_call = programs.StepProgram.__call__
+
+    def counted(self, state, batch):
+        out = real_call(self, state, batch)
+        calls.append(len(self))
+        return out
+
+    said = []
+    handler = logging.Handler()
+    handler.emit = lambda record: said.append(record.getMessage())
+    logger = logging.getLogger("repro_torch.launch.train")
+    logger.addHandler(handler)
+    programs.StepProgram.__call__ = counted
     tmp = tempfile.mkdtemp(prefix="launch-train-",
                            dir=os.path.join(ROOT, "build"))
     try:
@@ -4046,13 +4127,21 @@ def _train_launcher():
                                  "64", "--ckpt-every", "5", "--ckpt-dir",
                                  tmp, "--device", "cuda"])
     finally:
+        programs.StepProgram.__call__ = real_call
+        logger.removeHandler(handler)
         shutil.rmtree(tmp, ignore_errors=True)
     check(res.final_step == 10 and res.resumed_from is None,
           f"launch.train ended at {res.final_step}")
     loss = res.metrics_history[-1]["loss"] if res.metrics_history else None
     check(loss is not None and math.isfinite(loss), f"launch loss {loss}")
+    told = [m for m in said if m.startswith("train step:")]
+    check(calls == [1] * 10 and told == [
+        "train step: a CUDA graph program, state donated"],
+          f"launch.train: {len(calls)} program steps holding {calls} graphs"
+          f" and the log {told}, expected 10 through one graph")
     log(f"lm train launcher (--reduced, 10 steps, cuda): final loss "
-        f"{loss:.6f}")
+        f"{loss:.6f}; its 10 steps went through its step program (one CUDA "
+        f"graph), and it logged {told[0]!r}")
     return loss
 
 
@@ -8022,6 +8111,427 @@ def _now():
     return timer.now()
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the training steps and the stage programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: replayed launcher steps of (b), after the call that warms up and
+#: captures, held against as many eager steps from the same state
+TRAIN_PROGRAM_REPLAYS = 3
+#: (a): Table 1's two trainings at full width and full steps
+QAT_PROGRAM_RUNS = (("kws", 150), ("ad", 120))
+
+
+def _p50_p90(vals):
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(vals, 50)),
+            "p90_ms": float(np.percentile(vals, 90))}
+
+
+def _device_idle(fn):
+    """(device kernels, busy ms, span ms, idle share) of one call of
+    ``fn`` from a ``torch.profiler`` trace of the card's activity alone
+    (no host events, so the trace costs the host little): the busy time
+    is the union of the kernels' intervals, the idle share the rest of
+    the span from the first kernel's start to the last one's end. None
+    when the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, span = _busy_us(spans)
+    return {"kernels": len(spans), "busy_ms": busy / 1e3,
+            "span_ms": span / 1e3, "idle_share": 1 - busy / span}
+
+
+def _qat_run(name, steps, graphed):
+    """One QAT run of Table 1's ``name`` at full width through
+    ``codesign.tiny_adam``'s program (``graphed``) or its eager function,
+    from the seeded initial parameters on the same batches, each step
+    synchronised on the host clock. Returns (the run's readings, the
+    program, its state, the first batch)."""
+    import torch
+    from repro_torch.bench import table1_models as t1
+    from repro_torch.core import codesign
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.kernels import ops
+
+    if name == "kws":
+        model = t1.KWSMLP()
+        loss_fn, batches, _ = t1.kws_problem(steps, "cuda", model)
+    else:
+        model = t1.ADAutoencoder()
+        loss_fn, batches = t1.ad_problem(
+            steps, "cuda", model,
+            t1.SyntheticMelWindows(dim=model.in_dim, seed=0))
+    net = model.init(torch.Generator().manual_seed(0)).to("cuda")
+    prog, state = codesign.tiny_adam(loss_fn, net, lr=2e-3)
+    step = prog if graphed else prog.eager
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with full_fp32():
+        for t in range(steps):
+            t0 = _now()
+            state, loss = step(state, batches[t])
+            torch.cuda.synchronize()
+            ms.append((_now() - t0) * 1e3)
+            losses.append(loss)
+    run = {"losses": [float(v) for v in torch.stack(losses).cpu()],
+           "params": [t.detach().clone() for t in state[0]],
+           "counter": int(state[3]), "first_step_ms": ms[0],
+           "step_ms": _p50_p90(ms[1:]), "launches": _nonzero(ops.launches),
+           "graphs": len(prog)}
+    return run, prog, state, batches[0]
+
+
+def _qat_programs(smi):
+    """(a) KWS and AD QAT at full width and steps, eagerly and through the
+    step program from the same initial parameters and batches: every loss
+    and parameter bit for bit; host ms a step (synchronised), the device
+    kernels of one step eagerly and by replay and the replay's busy ms
+    and idle share (``torch.profiler``)."""
+    import torch
+    from repro_torch.core.qir import full_fp32
+
+    out = {}
+    for name, steps in QAT_PROGRAM_RUNS:
+        eager, prog_e, state_e, b0 = _qat_run(name, steps, False)
+        graph, prog, state, _ = _qat_run(name, steps, True)
+        check(graph["losses"] == eager["losses"],
+              f"qat {name}: the replayed losses differ from the eager run's "
+              f"at steps {[i for i, (a, b) in enumerate(zip(graph['losses'], eager['losses'])) if a != b][:5]}")
+        check(all(torch.equal(a, b) for a, b in zip(graph["params"],
+                                                     eager["params"]))
+              and graph["counter"] == eager["counter"] == steps,
+              f"qat {name}: the replayed run's parameters differ from the "
+              f"eager run's")
+        check(graph["graphs"] == 1 and eager["graphs"] == 0,
+              f"qat {name}: {graph['graphs']} graphs")
+        with full_fp32():
+            prof_e = _device_idle(lambda: prog_e.eager(state_e, b0))
+            prof_r = _device_idle(lambda: prog(state, b0))
+        check(prof_e is not None and prof_r is not None,
+              f"qat {name}: the profiler saw no device work")
+        out[name] = r = {
+            "steps": steps, "losses_first_last": [eager["losses"][0],
+                                                  eager["losses"][-1]],
+            "eager_step_ms": eager["step_ms"],
+            "replay_step_ms": graph["step_ms"],
+            "capture_step_ms": graph["first_step_ms"],
+            "kernels_a_step": {"eager": prof_e["kernels"],
+                               "replay": prof_r["kernels"]},
+            "busy_ms": {"eager": prof_e["busy_ms"],
+                        "replay": prof_r["busy_ms"]},
+            "idle_share": {"eager": prof_e["idle_share"],
+                           "replay": prof_r["idle_share"]},
+            "wrapper_launches": graph["launches"]}
+        log(f"train programs (a) qat {name} ({steps} steps, full width; "
+            f"{smi}): replayed losses and parameters equal the eager run's "
+            f"bit for bit (loss {eager['losses'][0]:.6f} -> "
+            f"{eager['losses'][-1]:.6f}); host ms a step eager p50 "
+            f"{eager['step_ms']['p50_ms']:.6f} / p90 "
+            f"{eager['step_ms']['p90_ms']:.6f}, replayed p50 "
+            f"{graph['step_ms']['p50_ms']:.6f} / p90 "
+            f"{graph['step_ms']['p90_ms']:.6f} (the capturing first step "
+            f"{graph['first_step_ms']:.3f}); device kernels a step "
+            f"{prof_e['kernels']} eager / {prof_r['kernels']} replayed; "
+            f"busy {prof_e['busy_ms']:.6f} / {prof_r['busy_ms']:.6f} ms, "
+            f"idle share {prof_e['idle_share']:.1%} / "
+            f"{prof_r['idle_share']:.1%} (torch.profiler, the card's "
+            f"activity, one step)")
+        del prog, prog_e, state, state_e
+        gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _catch_k6_forward(caught):
+    """Keep the first K6 forward launch's inputs in ``caught`` (the
+    launch goes through as it is); returns the restorer."""
+    from repro_torch.kernels import ops
+
+    real = ops._flash_forward
+
+    def fwd(q, k, v, causal, window, q_offset, kv_len, want_lse):
+        if "fwd" not in caught:
+            caught["fwd"] = tuple(t.detach().clone() for t in (q, k, v)) + (
+                dict(causal=causal, window=window, q_offset=q_offset,
+                     kv_len=kv_len),)
+        return real(q, k, v, causal, window, q_offset, kv_len, want_lse)
+
+    ops._flash_forward = fwd
+    return lambda: setattr(ops, "_flash_forward", real)
+
+
+def _launcher_graph_vs_eager(smi):
+    """(b) Full-width internlm2-1.8b (phase 19 (a)'s config: bf16, 4 x
+    4096 in 2 microbatches) under deterministic algorithms: ``1 +
+    TRAIN_PROGRAM_REPLAYS`` eager steps, then the same steps from the same
+    seeded state through ``StepProgram`` (the first call warms up and
+    captures, the rest replay); losses, metrics, parameters, m, v and the
+    counter equal bit for bit, each replay launches the eager step's K6
+    and K6-backward counts; step ms, peak memory, and one more step of
+    each under ``torch.profiler``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.programs import StepProgram
+    from repro_torch.core.pytree import leaves
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(TRAIN_CONFIG)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ, seed=SEED)
+    n = 1 + TRAIN_PROGRAM_REPLAYS
+    batches = [data.batch(i, TRAIN_BATCH) for i in range(n + 1)]
+    runs = {}
+    caught = {}
+    for mode in ("eager", "graph"):
+        opt = make_optimizer(base_lr=3e-4, warmup=2, total=TRAIN_STEPS)
+        model, state = _train_state(cfg, SEED + 8, opt)
+        step = make_train_step(model, opt, microbatches=TRAIN_MICROBATCHES)
+        prog = StepProgram(step, "cuda", name="train_step")
+        call = prog.eager if mode == "eager" else prog
+        restore = _catch_k6_forward(caught) if mode == "eager" else None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, ms, launches = [], [], []
+        try:
+            for i in range(n):
+                ops.reset_launches()
+                t0 = _now()
+                state, met = call(state, batches[i])
+                torch.cuda.synchronize()
+                ms.append((_now() - t0) * 1e3)
+                launches.append({k: ops.launches[k] for k in (
+                    "flash_attention", "flash_attention_bwd")})
+                metrics.append({k: float(v) for k, v in met.items()})
+        finally:
+            if restore is not None:
+                restore()
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        if mode == "eager":
+            host = [t.detach().to("cpu", copy=True) for t in leaves(state)]
+            bad = []
+        else:           # leaf by leaf: one copy of the state on the host
+            bad = [i for i, (t, h) in enumerate(zip(leaves(state), host))
+                   if not torch.equal(t.detach().cpu(), h)]
+        prof = _device_idle(lambda: call(state, batches[n]))
+        check(prof is not None, f"train programs (b) {mode}: the profiler "
+                                f"saw no device work")
+        runs[mode] = {"metrics": metrics, "step_ms": ms, "launches": launches,
+                      "peak_bytes": peak, "reserved_bytes": reserved,
+                      "bad_leaves": bad, "graphs": len(prog),
+                      "profile": prof}
+        del state, model, prog, call, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    e, g = runs["eager"], runs["graph"]
+    check(g["metrics"] == e["metrics"],
+          f"train programs (b): the program's metrics {g['metrics']} differ "
+          f"from the eager steps' {e['metrics']}")
+    check(not g["bad_leaves"],
+          f"train programs (b): the program's state differs from the eager "
+          f"steps' at leaves {g['bad_leaves'][:5]} of {len(host)}")
+    check(g["graphs"] == 1, f"train programs (b): {g['graphs']} graphs")
+    check(all(r == e["launches"][0] for r in g["launches"][1:])
+          and all(r == e["launches"][0] for r in e["launches"])
+          and g["launches"][0] == e["launches"][0]
+          and e["launches"][0]["flash_attention_bwd"] > 0,
+          f"train programs (b): K6 / K6-backward launches a step eager "
+          f"{e['launches']}, the program (capture, replays) {g['launches']}")
+    replays = {k: sum(r[k] for r in g["launches"][1:])
+               for k in ("flash_attention", "flash_attention_bwd")}
+    out = {"eager_step_ms": e["step_ms"], "graph_step_ms": g["step_ms"],
+           "losses": [m["loss"] for m in e["metrics"]],
+           "launches_a_step": e["launches"][0], "replay_launches": replays,
+           "peak_bytes": {"eager": e["peak_bytes"], "graph": g["peak_bytes"]},
+           "reserved_bytes": {"eager": e["reserved_bytes"],
+                              "graph": g["reserved_bytes"]},
+           "profile": {"eager": e["profile"], "graph": g["profile"]},
+           "state_leaves": len(host)}
+    del runs, e, g, host
+    q, k, v, kw = caught.pop("fwd")
+    torch.use_deterministic_algorithms(False)    # the yardsticks
+    try:
+        out["k6_row"] = time_case(flash_case(
+            "train layer 0 (phase 28)", q, k, v, kw, model=TRAIN_CONFIG),
+            reps=5, inner=10)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    return out
+
+
+def _train_programs_child(smi):
+    """Phase 28's (a) and (d), then (b) under deterministic algorithms
+    (the caller set ``CUBLAS_WORKSPACE_CONFIG`` before CUDA started), in
+    this process; the result is JSON."""
+    import torch
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == CUBLAS_DETERMINISTIC,
+          "deterministic cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before "
+          "CUDA initialises")
+    out = {"qat": _qat_programs(smi),
+           "stages": _stage_programs(load_models(), smi)}
+    torch.use_deterministic_algorithms(True)
+    out["launcher"] = _launcher_graph_vs_eager(smi)
+    return out
+
+
+def _train_programs_in_child(smi):
+    """Phase 28 in a child process of this script (its environment sets
+    ``CUBLAS_WORKSPACE_CONFIG``; the graphs' pools and cached blocks stay
+    out of this process, whose later phases and ranks need the card);
+    its log lines are passed on, its result comes back as JSON on its
+    last line."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    code = (f"import json, sys\nsys.path[:0] = [{SRC!r}, {ROOT!r}]\n"
+            f"import chip_smoke\n"
+            f"res = chip_smoke._train_programs_child({smi!r})\n"
+            f"print(json.dumps(res))\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC)
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    check(r.returncode == 0 and lines, f"the train programs' child failed "
+                                       f"(exit {r.returncode}): "
+                                       f"{r.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def _stage_programs(models, smi):
+    """(d) The four Table-1 models at full width in both dispatch modes:
+    ``stage_outputs`` and ``streaming_host`` (the default micro-batch)
+    through the stage programs equal the same calls through each stage's
+    eager function bit for bit, with the same launches; ``stage_latencies``
+    eagerly and by replay."""
+    import torch
+    from repro_torch.deploy import compile_graph
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name, g, s, x in models:
+        for mode, mega in MODES:
+            label = f"{name}/{mode}"
+            cm = compile_graph(g, in_scale=s, device="cuda", megakernel=mega)
+            real = cm._stage_fn
+            got = {}
+            for how in ("eager", "graph"):
+                if how == "eager":
+                    cm._stage_fn = lambda i, real=real: real(i).eager
+                else:               # the captures; the replays are held
+                    cm.stage_outputs(x)
+                    cm.streaming_host(x)
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                outs = cm.stage_outputs(x)
+                torch.cuda.synchronize()
+                launched = _nonzero(ops.launches)
+                y, _ = cm.streaming_host(x)
+                rows = cm.stage_latencies(x[:1])
+                got[how] = (outs, launched, y, rows)
+                if how == "eager":
+                    del cm._stage_fn
+            (eo, el, ey, er), (go, gl, gy, gr) = got["eager"], got["graph"]
+            check(len(go) == len(eo) and all(torch.equal(a, b)
+                                             for a, b in zip(go, eo)),
+                  f"stage programs {label}: stage_outputs through the stage "
+                  f"programs differ from the eager stages")
+            check(torch.equal(gy, ey) and torch.equal(gy, cm.offline(x)),
+                  f"stage programs {label}: streaming_host through the stage "
+                  f"programs differs from the eager stages or offline")
+            check(gl == el and gl, f"stage programs {label}: launches {gl} "
+                                   f"by the programs, {el} eagerly")
+            graphs = {p.name: len(p) for p in cm.programs()
+                      if p.name.startswith("stage")}
+            check(len(graphs) == len(cm.schedule.stages)
+                  and all(graphs.values()),
+                  f"stage programs {label}: graphs {graphs}")
+            out[label] = r = {
+                "stages": len(go), "launches": gl, "graphs": graphs,
+                "stage_ms": {row["stage"]: [er_["ms"], row["ms"]]
+                             for er_, row in zip(er, gr)}}
+            log(f"train programs (d) stage programs {label}: stage_outputs "
+                f"({BATCH} rows) and streaming_host (micro-batch "
+                f"{cm.default_micro_batch}) through the stage programs equal "
+                f"the eager stages bit for bit, launches {json.dumps(gl)}; "
+                f"stage_latencies at 1 row, ms eager / replayed "
+                f"{json.dumps({k: [round(a, 6), round(b, 6)] for k, (a, b) in r['stage_ms'].items()})} "
+                f"(host clock, synchronised; {smi})")
+            for prog in cm.programs():
+                prog.clear()
+            del cm, real, got
+            gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_programs(smi, k6_bwd_row):
+    """Phase 28 (module docstring), in a child process. Returns (the K6
+    and K6-backward launches of (b)'s replays, their timing rows,
+    details)."""
+    t0 = _now()
+    out = _train_programs_in_child(smi)
+    out["phase_s"] = _now() - t0
+    child = out["launcher"]
+    replays = child["replay_launches"]
+    k6_row = dict(child["k6_row"], launches=replays["flash_attention"])
+    bwd_row = dict(k6_bwd_row, launches=replays["flash_attention_bwd"],
+                   stage="train layer 0 (phase 28 replays)")
+    e, g = child["eager_step_ms"], child["graph_step_ms"]
+    gib = {k: v / 2**30 for k, v in child["peak_bytes"].items()}
+    prof = child["profile"]
+    log(f"train programs (b) {TRAIN_CONFIG} full width, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_MICROBATCHES} microbatches, deterministic "
+        f"algorithms ({smi}): {TRAIN_PROGRAM_REPLAYS} replayed steps after "
+        f"the capturing call equal the eager steps bit for bit (losses "
+        f"{child['losses']}, metrics, {child['state_leaves']} state leaves: "
+        f"parameters, m, v, the counter); step ms eager "
+        f"{[round(v, 3) for v in e]}, program (warm-up and capture, then "
+        f"replays) {[round(v, 3) for v in g]}; idle share of one step "
+        f"{prof['eager']['idle_share']:.1%} eager / "
+        f"{prof['graph']['idle_share']:.1%} replayed (busy "
+        f"{prof['eager']['busy_ms']:.3f} / {prof['graph']['busy_ms']:.3f} ms,"
+        f" {prof['eager']['kernels']} / {prof['graph']['kernels']} device "
+        f"kernels); peak memory {gib['eager']:.3f} GiB eager, "
+        f"{gib['graph']:.3f} GiB with the graph; K6 / K6 backward a step "
+        f"{json.dumps(child['launches_a_step'])} eagerly and by each "
+        f"replay; (c) is phase 19 (b) and (d), every run through a step "
+        f"program; phase 28 {out['phase_s']:.3f} s")
+    return replays, [k6_row, bwd_row], out
+
+
+_CLOCK = []
+
+
+def _clock(label):
+    """Log the wall seconds since the previous phase ended (the first
+    call: since the script's timer started)."""
+    now = _now()
+    if _CLOCK:
+        log(f"phase wall time: {label} {now - _CLOCK[-1]:.3f} s "
+            f"(script {now - _CLOCK[0]:.3f} s)")
+    _CLOCK.append(now)
+
+
 def kernels_line(rows, launches, worst):
     """One entry per kernel. ``launches`` is the counted main-path run of
     the kernel's path: one offline call of each of the four models in each
@@ -8075,33 +8585,57 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     try:
         t0 = timer.now()
+        _clock("start")
         libs = _build.build_all()
+        _clock("build_all")
         log(f"build: {len(libs)} kernels in {timer.now() - t0:.3f} s: "
             f"{[os.path.basename(str(p)) for p in libs]}")
         imma = phase_int8_sass()
+        _clock("phase_int8_sass")
         worst_syn = phase_kernels_synthetic()
+        _clock("phase_kernels_synthetic")
         models = load_models()
+        _clock("load_models")
         results, launches, per_run = phase_main_path(models)
+        _clock("phase_main_path")
         cases, worst_main, nonzero = phase_main_path_checks(models, results)
+        _clock("phase_main_path_checks")
         phase_goldens()
+        _clock("phase_goldens")
         bitwise = phase_streaming(models, results)
+        _clock("phase_streaming")
         rows, e2e = phase_times(cases, results, models)
+        _clock("phase_times")
         k3_active = phase_k3_occupancy()
+        _clock("phase_k3_occupancy")
         k1_tiles = phase_k1_tile_times(cases)
+        _clock("phase_k1_tile_times")
         split = phase_k12_split(cases)
+        _clock("phase_k12_split")
+        del cases        # their inputs: the LM phases and ranks need room
         wide, worst_wide = phase_full_width()
+        _clock("phase_full_width")
         worst_flash = phase_flash_synthetic()
+        _clock("phase_flash_synthetic")
         lm_launches, worst_lm, k6_case, lm = phase_lm_prefill()
+        _clock("phase_lm_prefill")
         k6_row, lm["k6"] = phase_k6_times(k6_case)
+        _clock("phase_k6_times")
         k6_rows = [k6_row]
         del k6_case
         lm["depth_cut_max_diff"] = phase_lm_depth_cut()
+        _clock("phase_lm_depth_cut")
         lm["serving"] = phase_lm_serving()
+        _clock("phase_lm_serving")
         k5_int8, worst_int8, int8_rows, lm["int8"] = phase_int8_serve(
             smi, lm["decode_ms_per_step"])
+        _clock("phase_int8_serve")
         worst_k45, k5_big = phase_k4_k5()
+        _clock("phase_k4_k5")
         worst_tiles = phase_k1_tiles()
+        _clock("phase_k1_tiles")
         bench_launches, bench_rows, worst_bench, bench = phase_kernel_bench()
+        _clock("phase_kernel_bench")
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         with tempfile.TemporaryDirectory(
                 prefix="autotune-", dir=os.path.join(ROOT, "build")) as c1, \
@@ -8110,29 +8644,49 @@ def main() -> int:
                 tempfile.TemporaryDirectory(
                     prefix="autotune-", dir=os.path.join(ROOT, "build")) as c3:
             tuned, autotune_agree = phase_autotune(models, (c1, c2, c3))
+        _clock("phase_autotune")
         trace = phase_trace_export(tuned, models[0][3], smi)
+        _clock("phase_trace_export")
         scenarios = phase_scenarios(models, tuned, smi)
+        _clock("phase_scenarios")
         serving = phase_serving(models, tuned, smi)
+        _clock("phase_serving")
         programs = phase_programs(models, tuned, smi)
+        _clock("phase_programs")
         # the tiny models' graphs (their pools take GBs at 1024 rows) go
         # before the LM phases, which need the card's memory
         _drop_graphs([cm for cm, _, _ in results.values()]
                      + list(tuned.values()))
         qat = phase_qat(smi, nonzero)
+        _clock("phase_qat")
         papers = phase_paper_benches(smi)
+        _clock("phase_paper_benches")
         train_launches, worst_train, k6_bwd_row, lm["train"] = \
             phase_lm_train(smi)
+        _clock("phase_lm_train")
+        prog_launches, prog_rows, train_programs = phase_train_programs(
+            smi, k6_bwd_row)
+        _clock("phase_train_programs")
         fam_k6, worst_fam, fam_rows, lm["families"] = phase_families(smi)
+        _clock("phase_families")
         k6_rows += fam_rows
         mesh = phase_mesh(smi)
+        _clock("phase_mesh")
         dryrun = phase_dryrun(smi)
+        _clock("phase_dryrun")
         spmd_launches, worst_spmd, spmd_rows, spmd = phase_spmd(smi)
+        _clock("phase_spmd")
         spmd2_launches, worst_spmd2, spmd2_rows, spmd2 = \
             phase_spmd_inference(smi, dryrun)
+        _clock("phase_spmd_inference")
         seqpar_ep = phase_seqpar_ep(smi, spmd, spmd2)
+        _clock("phase_seqpar_ep")
         lm["profile"] = phase_lm_profile()
+        _clock("phase_lm_profile")
         lm["families"]["profile"] = phase_family_profile()
+        _clock("phase_family_profile")
         lm["int8"]["profile"] = phase_int8_profile()
+        _clock("phase_int8_profile")
         jamba = lm["families"][JAMBA_CONFIG]
         log(f"lm summary ({smi}): prefill {lm['prefill_ms']:.3f} ms "
             f"(B=1, S={LM_SEQ}, bf16), decode {lm['decode_ms_per_step']:.3f}"
@@ -8168,11 +8722,11 @@ def main() -> int:
                     **{k: bench_launches[k] for k in BENCH_KERNELS}}
         launches["qmatmul"] += k5_int8
         for k, n in list(spmd_launches.items()) + list(
-                spmd2_launches.items()):
+                spmd2_launches.items()) + list(prog_launches.items()):
             launches[k] += n
         line = kernels_line(rows + k6_rows + bench_rows + [k6_bwd_row]
-                            + int8_rows + spmd_rows + spmd2_rows, launches,
-                            worst)
+                            + int8_rows + spmd_rows + spmd2_rows + prog_rows,
+                            launches, worst)
     except (SmokeFailure, AssertionError, RuntimeError, ValueError,
             TypeError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
@@ -8192,7 +8746,7 @@ def main() -> int:
                    "paper_benches": papers, "mesh": mesh,
                    "dryrun": dryrun, "spmd": spmd,
                    "spmd_inference": spmd2, "seqpar_ep": seqpar_ep,
-                   "programs": programs,
+                   "programs": programs, "train_programs": train_programs,
                    "autotune_agreement": autotune_agree,
                    "trace_export": {"path": trace[0], "bytes": trace[1]},
                    "k12": {"imma": imma, "k1_tiles": k1_tiles,

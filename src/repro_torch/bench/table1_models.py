@@ -95,14 +95,11 @@ def _train(model, loss_fn, batches, steps, lr, device, seed):
     return net, losses, step_ms
 
 
-def train_kws(steps: int = 150, device=None, seed: int = 0,
-              model: Optional[KWSMLP] = None, lr: float = 2e-3) -> Dict:
-    """Train the KWS MLP with QAT (the reference's ``_kws_quality``):
-    batches of 64 from ``SyntheticMFCC(seed=0)``, class-weighted CE.
-    Returns the net, its losses, each step's host ms, and the QAT accuracy
-    on 500 balanced samples."""
+def kws_problem(steps: int, device, model: KWSMLP):
+    """(loss_fn, the ``steps`` batches on ``device``, the data) of the KWS
+    MLP's QAT: batches of 64 from ``SyntheticMFCC(seed=0)``,
+    class-weighted CE."""
     dev = resolve_device(device)
-    model = model or KWSMLP()
     data = SyntheticMFCC(dim=model.in_dim, n_classes=model.n_classes,
                          seed=0)
     w = torch.tensor(1.0 / data.class_probs(), dtype=torch.float32)
@@ -120,6 +117,17 @@ def train_kws(steps: int = 150, device=None, seed: int = 0,
         lab = logits.gather(1, y[:, None])[:, 0]
         return torch.mean((lse - lab) * w[y])
 
+    return loss_fn, batches, data
+
+
+def train_kws(steps: int = 150, device=None, seed: int = 0,
+              model: Optional[KWSMLP] = None, lr: float = 2e-3) -> Dict:
+    """Train the KWS MLP with QAT (the reference's ``_kws_quality``,
+    ``kws_problem``). Returns the net, its losses, each step's host ms,
+    and the QAT accuracy on 500 balanced samples."""
+    dev = resolve_device(device)
+    model = model or KWSMLP()
+    loss_fn, batches, data = kws_problem(steps, dev, model)
     net, losses, step_ms = _train(model, loss_fn, batches, steps, lr, dev,
                                   seed)
     x, y = data.batch(77_777, 500, balanced=True)
@@ -129,6 +137,20 @@ def train_kws(steps: int = 150, device=None, seed: int = 0,
     return {"model": model, "net": net, "losses": losses,
             "step_ms": step_ms, "quality": acc, "eval": (x, y),
             "calibration": data.batch(0, 64)[0]}
+
+
+def ad_problem(steps: int, device, model: ADAutoencoder,
+               data: SyntheticMelWindows):
+    """(loss_fn, the ``steps`` batches on ``device``) of the AD
+    autoencoder's QAT: batches of 64 normals from ``data``, MSE."""
+    dev = resolve_device(device)
+    batches = [torch.tensor(data.batch(s, 64)[0], device=dev)
+               for s in range(steps)]
+
+    def loss_fn(net, x):
+        return torch.mean(torch.square(model.apply(net, x, train=False) - x))
+
+    return loss_fn, batches
 
 
 def train_ad(steps: int = 120, device=None, seed: int = 0,
@@ -143,12 +165,7 @@ def train_ad(steps: int = 120, device=None, seed: int = 0,
     dev = resolve_device(device)
     model = model or ADAutoencoder()
     data = data or SyntheticMelWindows(dim=model.in_dim, seed=0)
-    batches = [torch.tensor(data.batch(s, 64)[0], device=dev)
-               for s in range(steps)]
-
-    def loss_fn(net, x):
-        return torch.mean(torch.square(model.apply(net, x, train=False) - x))
-
+    loss_fn, batches = ad_problem(steps, dev, model, data)
     net, losses, step_ms = _train(model, loss_fn, batches, steps, lr, dev,
                                   seed)
     x, y = data.batch(10_000, n_eval, anomaly_frac=0.25)

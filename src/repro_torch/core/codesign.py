@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.programs import StepProgram
 from repro_torch.core.qir import full_fp32
 
 # ---------------------------------------------------------------------------
@@ -36,6 +37,44 @@ def _tensors(params) -> List[torch.Tensor]:
     if isinstance(params, torch.nn.Module):
         return list(params.parameters())
     return list(params)
+
+
+def tiny_adam(loss_fn: Callable, params, lr: float = 1e-3
+              ) -> Tuple[StepProgram, Tuple]:
+    """(the step program, its state) of Adam on every parameter of
+    ``params`` (an ``nn.Module`` or a list of tensors), the reference's
+    ``step_fn``: the state is (parameters, m, v, the step counter), the
+    counter an int32 tensor on the parameters' device; a step of the
+    program (or its ``eager``) on ``(state, batch)`` updates the state in
+    place and returns it with the loss. Eager steps and the graph's run
+    the same function."""
+    ps = _tensors(params)
+    device = ps[0].device
+    m = [torch.zeros_like(p) for p in ps]
+    v = [torch.zeros_like(p) for p in ps]
+    t = torch.zeros((), dtype=torch.int32, device=device)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def step(state, batch):
+        ps, m, v, t = state
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        with torch.no_grad():
+            t.add_(1)
+            tf = t.to(torch.float32)
+            c1 = 1 - b1 ** tf
+            c2 = 1 - b2 ** tf
+            for p, m_, v_, g in zip(ps, m, v, grads):
+                if g is None:
+                    g = torch.zeros_like(p)
+                m_.copy_(b1 * m_ + (1 - b1) * g)
+                v_.copy_(b2 * v_ + (1 - b2) * g ** 2)
+                mh = m_ / c1
+                vh = v_ / c2
+                p.copy_(p - lr * mh / (torch.sqrt(vh) + eps))
+        return state, loss.detach()
+
+    return StepProgram(step, device, name="train_tiny"), (ps, m, v, t)
 
 
 def train_tiny(
@@ -51,33 +90,20 @@ def train_tiny(
 
     The update is the reference's: m = b1 m + (1 - b1) g, v = b2 v +
     (1 - b2) g^2, p -= lr * mh / (sqrt(vh) + eps) with mh, vh corrected
-    by 1 - b^(t+1) in float32. A parameter the loss does not reach gets a
-    zero gradient. The losses stay on the device and are read once at the
-    end (one synchronisation, not one a step). The steps run in full
-    float32 (``full_fp32``: no TF32 on the card)."""
+    by 1 - b^(t+1), float32 tensors on the device computed from the step
+    counter, as the reference computes them in its jitted step. A
+    parameter the loss does not reach gets a zero gradient. The steps run
+    through ``tiny_adam``'s program (on the card one CUDA graph, its
+    state donated) in full float32 (``full_fp32``: no TF32 on the card).
+    The losses stay on the device and are read once at the end (one
+    synchronisation, not one a step)."""
     del seed                      # the reference's step takes no key either
-    ps = _tensors(params)
-    m = [torch.zeros_like(p) for p in ps]
-    v = [torch.zeros_like(p) for p in ps]
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    prog, state = tiny_adam(loss_fn, params, lr)
     losses = []
     with full_fp32():
         for t in range(steps):
-            loss = loss_fn(params, batch_fn(t))
-            grads = torch.autograd.grad(loss, ps, allow_unused=True)
-            tf = torch.tensor(t + 1, dtype=torch.float32)
-            c1 = float(1 - b1 ** tf)
-            c2 = float(1 - b2 ** tf)
-            with torch.no_grad():
-                for p, m_, v_, g in zip(ps, m, v, grads):
-                    if g is None:
-                        g = torch.zeros_like(p)
-                    m_.copy_(b1 * m_ + (1 - b1) * g)
-                    v_.copy_(b2 * v_ + (1 - b2) * g ** 2)
-                    mh = m_ / c1
-                    vh = v_ / c2
-                    p.copy_(p - lr * mh / (torch.sqrt(vh) + eps))
-            losses.append(loss.detach())
+            state, loss = prog(state, batch_fn(t))
+            losses.append(loss)
     return params, torch.stack(losses).tolist() if losses else []
 
 

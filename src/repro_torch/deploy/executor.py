@@ -33,8 +33,11 @@ On the card ``offline`` and each compiled segment's wave program are
 compiled programs (``core.programs.Program``): one CUDA graph per input
 shape, captured at the first call with that shape and replayed after it,
 the reference's one jit program per shape (its ``lax.map`` over the
-micro-batches is the segment graph's unrolled loop); the replays add the
-graph's launches to the wrappers' counters. ``_rebuild`` (so
+micro-batches is the segment graph's unrolled loop), and so is each stage
+on its own (``_stage_fn``: ``stage_outputs``, ``stage_latencies``,
+``streaming_host`` and the segments left uncompiled, as the reference's
+``_stage_fns``); the replays add the graph's launches to the wrappers'
+counters. ``_rebuild`` (so
 ``apply_tuned`` and ``set_megakernel``) drops every program, as the
 reference drops its stale jit closures. On the CPU the same functions
 run eagerly.
@@ -141,6 +144,7 @@ class CompiledTinyModel:
         self._staging: Dict[tuple, Tuple[torch.Tensor, object]] = {}
         self._offline: Optional[Program] = None
         self._segment_programs: Dict[int, Program] = {}
+        self._stage_programs: Dict[int, Program] = {}
         self._rebuild()
 
     def set_tracer(self, tracer) -> "CompiledTinyModel":
@@ -169,20 +173,24 @@ class CompiledTinyModel:
         return (self.megakernel, self.megakernel_budget_bytes,
                 self.segments, self._mega_plans, self._mega_by_start,
                 self._mega_args, self._plan_cache, self._offline,
-                self._segment_programs)
+                self._segment_programs, self._stage_programs)
 
     def restore_dispatch(self, state: tuple) -> "CompiledTinyModel":
         """Reinstate a ``dispatch_state``; returns self."""
         (self.megakernel, self.megakernel_budget_bytes, self.segments,
          self._mega_plans, self._mega_by_start, self._mega_args,
-         self._plan_cache, self._offline, self._segment_programs) = state
+         self._plan_cache, self._offline, self._segment_programs,
+         self._stage_programs) = state
         return self
 
     def programs(self) -> List[Program]:
         """The compiled programs made so far: ``offline``'s, then each
-        segment's that has run."""
-        return [self._offline] + [self._segment_programs[k]
-                                  for k in sorted(self._segment_programs)]
+        segment's that has run, then each stage's that has run."""
+        return ([self._offline]
+                + [self._segment_programs[k]
+                   for k in sorted(self._segment_programs)]
+                + [self._stage_programs[k]
+                   for k in sorted(self._stage_programs)])
 
     def _rebuild(self):
         """Group the schedule into segments and plan one megakernel run per
@@ -195,6 +203,7 @@ class CompiledTinyModel:
                 prog.clear()
         self._offline = Program(self._run_all, self.device, name="offline")
         self._segment_programs = {}
+        self._stage_programs = {}
         self._mega_plans: Dict[int, MegakernelSegment] = {}
         self._mega_by_start: Dict[int, MegakernelSegment] = {}
         #: each plan's weights packed and banks transposed once to the
@@ -303,12 +312,26 @@ class CompiledTinyModel:
         synchronise before reading a clock)."""
         return self._offline(self._program_input(x_int))
 
+    def _stage_fn(self, i: int) -> Program:
+        """Stage i on its own kernel as a compiled program (one CUDA graph
+        per input shape on the card), made at its first use: the
+        reference's per-stage jit programs (``_stage_fns``)."""
+        prog = self._stage_programs.get(i)
+        if prog is None:
+            stage = self.schedule.stages[i]
+            me = weakref.proxy(self)  # the program must not keep self alive
+            prog = self._stage_programs[i] = Program(
+                lambda h: me._apply_stage(stage, h), self.device,
+                name=f"stage{i}")
+        return prog
+
     def stage_outputs(self, x_int) -> List[torch.Tensor]:
         """Per-stage outputs (integer codes for fused stages), every stage on
-        its own kernel — the parity surface the exactness tests check."""
+        its own kernel through its stage program — the parity surface the
+        exactness tests check."""
         outs, h = [], self._input(x_int)
-        for s in self.schedule.stages:
-            h = self._apply_stage(s, h)
+        for i in range(len(self.schedule.stages)):
+            h = self._stage_fn(i)(h)
             outs.append(h)
         return outs
 
@@ -328,22 +351,27 @@ class CompiledTinyModel:
 
     # -- per-stage timing -------------------------------------------------
     def stage_latencies(self, x, iters: int = 5) -> List[Dict[str, object]]:
-        """Median wall time per stage on one representative batch.
+        """Median wall time per stage program on one representative batch.
 
-        Per stage: one discarded warm call, then ``iters`` timed calls, each
-        ending in a device synchronise, median reported. Stages run in
-        schedule order on the previous stage's real output. Every timed
-        sample is also recorded as a ``stage`` span on the tracer."""
+        Per stage: one compiling call (on the card its graph's capture),
+        one discarded warm call, then ``iters`` timed calls (replays on
+        the card), each ending in a device synchronise, median reported.
+        Stages run in schedule order on the previous stage's real output.
+        Every timed sample is also recorded as a ``stage`` span on the
+        tracer."""
         tr = self.tracer
         out = []
         h = self._input(x)
-        for s in self.schedule.stages:
-            y = self._apply_stage(s, h)
+        for i, s in enumerate(self.schedule.stages):
+            fn = self._stage_fn(i)
+            y = fn(h)
+            self._sync()
+            fn(h)
             self._sync()
             times = []
             for it in range(max(iters, 1)):
                 t0 = obs_timer.now()
-                self._apply_stage(s, h)
+                fn(h)
                 self._sync()
                 t1 = obs_timer.now()
                 if tr.enabled:
@@ -444,7 +472,7 @@ class CompiledTinyModel:
                 if queues[si] and len(queues[si + 1]) < out_cap:
                     idx, h = queues[si].popleft()
                     t0 = obs_timer.now() if tr.enabled else 0.0
-                    h = self._apply_stage(stages[si], h)
+                    h = self._stage_fn(si)(h)
                     queues[si + 1].append((idx, h))
                     max_occ[si + 1] = max(max_occ[si + 1], len(queues[si + 1]))
                     if tr.enabled:
@@ -548,10 +576,11 @@ class CompiledTinyModel:
             if seg.compiled:
                 wave = self._segment_fn(k)(wave)
             else:
-                # host boundary: the fallback interpreter, per micro-batch
-                wave = torch.stack([self._chain(
-                    self.schedule.stages[seg.start:seg.stop], wave[i])
-                    for i in range(n_micro)])
+                # host boundary: the stage programs, per micro-batch
+                outs = [wave[i] for i in range(n_micro)]
+                for si in range(seg.start, seg.stop):
+                    outs = [self._stage_fn(si)(h) for h in outs]
+                wave = torch.stack(outs)
             if tr.enabled:
                 tr.add_span("segment", t0, obs_timer.now(), cat="executor",
                             tid=k + 1,

@@ -23,7 +23,10 @@ of them (``parallel.sharding.shard_tree`` over ``Model.param_specs``)
 and of the optimizer state, takes its rows of each global batch, and the
 checkpoints gather and reshard (``train.steps.make_train_step``,
 ``checkpoint``), for every family: dense, MoE, mamba and the hybrid
-blocks. Weights come from a ``torch.Generator``
+blocks. The step is a ``core.programs.StepProgram``, as the reference
+jits it with the state donated: on one rank on the card, one CUDA graph
+per batch shape that updates the state's own tensors; over a mesh of
+more than one rank it runs eagerly (the log says which). Weights come from a ``torch.Generator``
 seeded with 0 (JAX's PRNG is not reproduced). A run resumes from the
 newest checkpoint in ``--ckpt-dir``; on ``ElasticRestart`` (the
 straggler watchdog, taken by every rank alike) the launcher builds the
@@ -47,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.programs import StepProgram
 from repro_torch.core.qir import resolve_device
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.launch.dryrun import arch_rules, batch_logical_axes
@@ -102,6 +106,22 @@ def main(argv=None):
             dist.destroy_process_group()
 
 
+def _step_program(step, device, mesh):
+    """The train step as the reference's donated jit program: a
+    ``StepProgram`` (on the card one CUDA graph per batch shape over the
+    state's own tensors). Over a mesh of more than one rank the step runs
+    through the program's ``eager``: a graph cannot hold the mesh's
+    ``gloo`` collectives."""
+    prog = StepProgram(step, device, name="train_step")
+    if mesh.size() > 1:
+        log.info("train step: eager over the mesh's %d ranks (a CUDA graph "
+                 "cannot hold their collectives)", mesh.size())
+        return prog.eager
+    log.info("train step: %s", "a CUDA graph program, state donated"
+             if device.type == "cuda" else f"eager on {device}")
+    return prog
+
+
 def _train(args, cfg, device):
     data = SyntheticTokens(vocab=cfg.vocab, seq_len=args.seq)
     restarts = 0
@@ -119,7 +139,8 @@ def _train(args, cfg, device):
                 torch.Generator(device=device).manual_seed(0),
                 device=device), specs.params)
         state = TrainState(params=params, opt=opt.init(params))
-        step_fn = make_train_step(model, opt, microbatches=args.microbatches)
+        step_fn = _step_program(make_train_step(
+            model, opt, microbatches=args.microbatches), device, mesh)
 
         def batch_fn(step):
             # host arrays; the step copies them to the device

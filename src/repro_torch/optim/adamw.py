@@ -1,9 +1,9 @@
 """AdamW + gradient clipping + cosine LR schedule over trees of tensors.
 
 The port of ``repro.optim.adamw``. The optimizer state (m, v in float32)
-mirrors the parameters' tree; m and v are updated in place, and so are the
-parameters (``adamw_update`` returns the same tensors), which keeps a
-full-width state to one copy on the card. The arithmetic keeps the
+mirrors the parameters' tree; m, v, the step counter and the parameters
+are updated in place (``adamw_update`` returns the same tensors), which
+keeps a full-width state to one copy on the card. The arithmetic keeps the
 reference's op order and roundings: every product and sum is its own
 float32 op (no ``alpha=`` or ``addcmul``, which would fuse a multiply-add),
 the bias corrections are float32 powers of the step, and the update is
@@ -68,7 +68,10 @@ def clip_by_global_norm(grads, max_norm: float, specs=None):
     own dtype, and the norm before scaling). ``specs`` (the gradients'
     spec tree) under a mesh: ``grads`` are the rank's blocks and the norm
     is the whole gradient's."""
-    if specs is None or active_mesh() is None:
+    mesh = active_mesh()
+    if specs is None or mesh is None or mesh.size() == 1:
+        # a mesh of one rank splits nothing: the meshless sum, in leaf
+        # order (GSPMD does nothing on a one-device axis)
         gn = torch.sqrt(sum(_sumsq(g) for g in leaves(grads)))
     else:
         gn = torch.sqrt(_global_sumsq(grads, specs))
@@ -89,9 +92,10 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
 ) -> Tuple[Any, AdamWState]:
-    """One AdamW step. m, v and the parameters are updated in place and
-    returned (with the incremented step)."""
-    step = state.step + 1
+    """One AdamW step. m, v, the parameters and the step counter are
+    updated in place and returned, so a compiled step's state is the one
+    set of tensors it was given (the reference's donated state)."""
+    step = state.step.add_(1)
     t = step.to(torch.float32)
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t

@@ -4,7 +4,9 @@ preemption safety, deterministic resume.
 The port of ``repro.train.loop``:
 
   * **auto-resume**: on start, the loop restores the latest checkpoint if one
-    exists; the data pipeline is a pure function of step, so resume is exact.
+    exists, into the initial state's tensors in place (a compiled step,
+    ``core.programs.StepProgram``, holds them); the data pipeline is a
+    pure function of step, so resume is exact.
   * **preemption / crash**: checkpoints are atomic (checkpoint/), so a kill
     at any instant loses at most `ckpt_every` steps; an exception inside
     the loop saves the last finished step's state synchronously before it
@@ -36,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager, latest_step
+from repro_torch.core.pytree import leaves
 from repro_torch.obs import timer as obs_timer
 from repro_torch.parallel.sharding import active_mesh, mesh_group
 
@@ -96,6 +99,17 @@ def _all_ranks_agree(flag: bool, specs) -> bool:
     return bool(t.item())
 
 
+def _restore_into(state, restored):
+    """``restored`` copied into ``state``'s tensors in place (a compiled
+    step holds them as its graphs' buffers: they are the state, and a
+    restore must not put other tensors in their stead); returns
+    ``state``."""
+    with torch.no_grad():
+        for dst, src in zip(leaves(state), leaves(restored)):
+            dst.copy_(src)
+    return state
+
+
 def run_training(
     train_step: Callable,
     init_state: Any,
@@ -117,7 +131,8 @@ def run_training(
     start = 0
     resumed_from = None
     if latest_step(cfg.ckpt_dir) is not None:
-        state, start, _ = mgr.restore_latest(init_state)
+        restored, start, _ = mgr.restore_latest(init_state)
+        state = _restore_into(init_state, restored)
         resumed_from = start
         log.info("resumed from step %d", start)
 

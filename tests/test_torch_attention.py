@@ -29,6 +29,7 @@ from repro.models import attention as jattn
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 

@@ -27,6 +27,7 @@ from repro_torch.deploy import FusedConvThresholdStage, FusedThresholdStage
 from repro_torch.deploy import autotune as tat
 from repro_torch.deploy import compile_graph as tcompile
 from repro_torch.kernels import ops as tops
+from _torch_threads import one_torch_thread  # noqa: F401
 
 IN_SCALE = 1.0 / 127.0
 MBS = (1, 2, 4, 8, 16, 32, 64)

@@ -34,6 +34,7 @@ from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWState, adamw_init
 from repro_torch.train.steps import TrainState
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "internlm2-1.8b"
 

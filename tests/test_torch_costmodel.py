@@ -41,6 +41,7 @@ from repro_torch.deploy import compile_graph as tcompile
 from repro_torch.models import tiny as ttiny
 from repro_torch.obs import Tracer, export_prediction_records
 from repro_torch.obs import timer as ttimer
+from _torch_threads import one_torch_thread  # noqa: F401
 
 MBS = (1, 2, 4, 8, 16, 32, 64)
 #: the features the port's planners set differently from the reference's

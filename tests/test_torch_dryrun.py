@@ -42,6 +42,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import dryrun
 from repro_torch.models import attention as tattn
 from repro_torch.models.model import Model
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RSS_LIMIT = 1 << 30
 #: the keys of the reference's ok record (``repro.launch.dryrun.run_cell``)
@@ -131,7 +132,7 @@ def children(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     every = tmp_path_factory.mktemp("dryrun_all")
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env)
              for cmd in ([sys.executable, os.path.abspath(__file__),

@@ -24,6 +24,7 @@ from repro_torch.core.qir import Graph as TGraph
 from repro_torch.deploy import compile_graph as tcompile
 from repro_torch.deploy import lower as tlower
 from repro_torch.kernels import ops as tops
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 MODELS = ("kws", "ad", "ic", "cnv")

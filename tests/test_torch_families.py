@@ -48,6 +48,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serving.engine import Request, ServeEngine
+from _torch_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_TOL = 1e-4          # of each leaf's largest |reference gradient|

@@ -30,6 +30,7 @@ from test_torch_serve import (
     run_both,
     traced_router,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _svc(ns, service_s):

@@ -72,6 +72,7 @@ from repro_torch.launch.hlo_analysis import (KERNEL_COUNTS, HloStats,
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.optim.adamw import make_optimizer
 from repro_torch.train.steps import TrainState, make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE_RTOL = 0.0

@@ -44,6 +44,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import ssm as tssm
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serving.engine import Request, ServeEngine
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["llama3-8b", "falcon-mamba-7b", "qwen2-vl-2b", "jamba-v0.1-52b"]
 #: Quantized logits. The float32 paths that feed each activation

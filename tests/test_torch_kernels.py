@@ -16,6 +16,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import conv_threshold as tct
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bank(rng, acc, n, s, sort=True):

@@ -42,6 +42,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serving.engine import Request, ServeEngine
+from _torch_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 CASES = [("llama3-8b", "chunked"), ("llama3-8b", "naive"),

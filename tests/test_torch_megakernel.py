@@ -33,6 +33,7 @@ from repro_torch.core.streamline import ThresholdDense as TTD
 from repro_torch.deploy import lower as tlower
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")

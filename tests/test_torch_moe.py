@@ -33,6 +33,7 @@ from repro.models import layers as jlayers
 from repro_torch.configs import get_config
 from repro_torch.models import layers
 from repro_torch.models.model import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NAMES = ["grok-1-314b", "jamba-v0.1-52b", "llama4-scout-17b-16e"]

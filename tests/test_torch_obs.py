@@ -27,6 +27,7 @@ from repro_torch.obs import export as texport
 from repro_torch.obs import report as treport
 from repro_torch.obs import timer as ttimer
 from repro_torch.obs.tracer import Tracer as TTracer
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 class TickClock:

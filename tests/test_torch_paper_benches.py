@@ -43,6 +43,7 @@ from repro_torch.core.qir import Graph as TGraph
 from repro_torch.costmodel import bootstrap_rows as tbootstrap_rows
 from repro_torch.deploy import compile_graph as tcompile
 from repro_torch.deploy import executor as texecutor
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "golden")

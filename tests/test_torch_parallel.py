@@ -59,6 +59,7 @@ from repro_torch.optim.adamw import make_optimizer
 from repro_torch.parallel import collectives as tcoll
 from repro_torch.parallel import sharding as tsharding
 from repro_torch.train import steps as tsteps
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)     # float32 MoE against the reference
 #: two ranks' partial sums over d_ff against one sum: float32 rounding

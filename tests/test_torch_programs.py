@@ -38,6 +38,7 @@ from repro_torch.deploy.autotune import TunedConfig
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serving.engine import Request, ServeEngine
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -336,3 +337,72 @@ def test_offline_replays_equal_the_eager_program_and_count_launches(cuda):
     wave, mask = cm.submit_wave(x[:5], micro_batch=16)
     assert torch.equal(wave[torch.as_tensor(mask, device=cuda)],
                        cm.offline(x[:5]))
+
+
+@pytest.mark.cuda
+def test_step_program_replays_equal_eager_steps_and_keep_the_state(cuda):
+    """``train_tiny``'s step (``codesign.tiny_adam``) on a small 3-bit KWS
+    MLP: five steps through the program (a warm-up that captures, then
+    replays) equal five eager steps from the same parameters bit for bit,
+    losses and parameters; the state is the tensors it was given, one
+    graph holds the step; ``stage_outputs`` through the stage programs
+    equals the stages run eagerly."""
+    from repro_torch.core import codesign
+    from repro_torch.core.pytree import leaves
+    from repro_torch.core.qir import full_fp32
+    from repro_torch.models.tiny import KWSMLP
+
+    model = KWSMLP(in_dim=40, width=24, n_classes=5)
+    rng = np.random.default_rng(0)
+    batches = [(torch.tensor(rng.standard_normal((16, 40)),
+                             dtype=torch.float32, device=cuda),
+                torch.tensor(rng.integers(0, 5, 16), device=cuda))
+               for _ in range(5)]
+
+    def loss_fn(net, batch):
+        x, y = batch
+        logits = model.apply(net, x, train=False)
+        return torch.mean(torch.logsumexp(logits, -1)
+                          - logits.gather(1, y[:, None])[:, 0])
+
+    runs = []
+    for graphed in (False, True):
+        net = model.init(torch.Generator().manual_seed(1)).to(cuda)
+        prog, state = codesign.tiny_adam(loss_fn, net, lr=1e-2)
+        held = leaves(state)
+        losses = []
+        with full_fp32():
+            for b in batches:
+                state, loss = (prog if graphed else prog.eager)(state, b)
+                assert all(a is c for a, c in zip(leaves(state), held))
+                losses.append(loss)
+        runs.append((torch.stack(losses), [p.detach().clone()
+                                            for p in state[0]], len(prog)))
+    (le, pe, ge), (lg, pg, gg) = runs
+    assert ge == 0 and gg == 1
+    assert torch.equal(le, lg)
+    assert all(torch.equal(a, b) for a, b in zip(pe, pg))
+    g, x = _golden_kws()
+    cm = compile_graph(g, in_scale=g.meta["in_scale"], device=cuda,
+                       megakernel=False)
+    cm.stage_outputs(x)
+    got = cm.stage_outputs(x)
+    h = torch.as_tensor(x, device=cuda)
+    for s, y in zip(cm.schedule.stages, got):
+        h = cm._apply_stage(s, h)
+        assert torch.equal(y, h)
+    assert all(len(p) == 1 for p in cm._stage_programs.values())
+
+
+@pytest.mark.cuda
+def test_a_view_of_the_input_outlives_the_next_call(cuda):
+    """A function that returns a view of its input (a flatten stage): the
+    first call's result (the warm-up's) and every replay's keep their
+    values when the next call copies another input into the graph's
+    buffer."""
+    prog = Program(lambda x: x.reshape(-1), cuda, name="flatten")
+    xs = [torch.full((2, 3), float(i), device=cuda) for i in range(3)]
+    outs = [prog(x) for x in xs]
+    torch.cuda.synchronize()
+    for i, y in enumerate(outs):
+        assert torch.equal(y, torch.full((6,), float(i), device=cuda))

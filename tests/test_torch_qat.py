@@ -35,6 +35,7 @@ from repro_torch.core import codesign as tcodesign
 from repro_torch.core import qlayers as tql
 from repro_torch.core import quantizers as tq
 from repro_torch.models import tiny as ttiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(tree):

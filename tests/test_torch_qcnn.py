@@ -23,6 +23,7 @@ from repro_torch.bench import models as bench_models
 from repro_torch.core import qir as tqir
 from repro_torch.deploy import compile_graph as tcompile
 from repro_torch.models import tiny as ttiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 #: (port model, reference model) pairs: the paper's widths, then the
 #: reduced widths the compiled-code tests run

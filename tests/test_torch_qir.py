@@ -17,6 +17,7 @@ import torch
 from repro.core import qir as jqir
 from repro.models.tiny import ADAutoencoder, KWSMLP
 from repro_torch.core import qir as tqir
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 MODELS = ("kws", "ad", "ic", "cnv")

@@ -30,6 +30,7 @@ from repro.kernels.ref import qmatmul_ref as jqm_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _qmm_inputs(rng, m, k, n, lo=1e-3, hi=1e-2):

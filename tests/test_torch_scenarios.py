@@ -28,6 +28,7 @@ from repro_torch.core.qir import Graph as TGraph
 from repro_torch.deploy import compile_graph as tcompile
 from repro_torch.deploy import scenarios as tsc
 from repro_torch.obs import timer as ttimer
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -24,6 +24,7 @@ from repro_torch.core import qir as tqir
 from repro_torch.core import search as tsearch
 from repro_torch.core import streamline as tstream
 from repro_torch.data import synthetic as tsyn
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _np(tree):

@@ -35,6 +35,7 @@ from repro.core.qir import Graph as JGraph
 from repro.deploy import compile_graph as jcompile
 from repro_torch.core.qir import Graph as TGraph
 from repro_torch.deploy import compile_graph as tcompile
+from _torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 MODELS = ("kws", "ad", "ic", "cnv")

@@ -49,6 +49,7 @@ from repro_torch.launch import dryrun as tdry
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import make_optimizer
 from repro_torch.parallel import sharding as tsharding
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # The reference's dry run sets XLA_FLAGS for 512 host devices when it is
 # imported. Bring this process's backend up first, with its own flags, and

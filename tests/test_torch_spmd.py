@@ -93,6 +93,7 @@ from repro_torch.parallel.sharding import (gather_tree, local_block,
 from repro_torch.train.steps import (TrainState, batch_to_device,
                                      make_train_step, step_grads,
                                      train_state_specs)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
@@ -594,10 +595,14 @@ def test_launcher_trains_llama_and_falcon_mamba_on_four_ranks(runs):
     """``launch.train --reduced --model-parallel 2`` in the four-rank
     group: the mesh (2, 2), llama3-8b for 30 steps and falcon-mamba-7b
     (its mixer on 64 of 128 channels a rank) for 20, each with the same
-    falling losses on every rank."""
+    falling losses on every rank; over four ranks the step runs through
+    its program's eager function, and the launcher says so."""
     ranks, _, _ = runs
     launch = ranks[0]["launcher"]
     assert "mesh {'data': 2, 'model': 2} over 4 ranks" in launch["lines"]
+    assert launch["lines"].count(
+        "train step: eager over the mesh's 4 ranks (a CUDA graph cannot "
+        "hold their collectives)") == 2
     assert launch["final_step"] == 30 and launch["mamba_final_step"] == 20
     for key, n in (("losses", 3), ("mamba_losses", 2)):
         losses = launch[key]

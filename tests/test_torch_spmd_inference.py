@@ -100,6 +100,7 @@ from repro_torch.parallel.sharding import (gather_tree, logical_group,
 from repro_torch.train.steps import (TrainState, batch_to_device,
                                      make_train_step, step_grads,
                                      train_state_specs)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4

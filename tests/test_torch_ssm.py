@@ -32,6 +32,7 @@ from repro.models import ssm as jssm
 from repro_torch.configs import get_config
 from repro_torch.models import ssm
 from repro_torch.models.model import params_from_numpy
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -28,6 +28,7 @@ from repro_torch.deploy import compile_graph as tcompile
 from repro_torch.kernels import ops as tops
 from repro_torch.obs.tracer import Tracer as TTracer
 from repro_torch.serve.faults import FaultError, WaveError
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")

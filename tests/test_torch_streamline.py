@@ -15,6 +15,7 @@ from repro.core import quantizers as jq
 from repro.core import streamline as js
 from repro_torch.core import quantizers as tq
 from repro_torch.core import streamline as ts
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _dense_params(rng, fan_in, fan_out, bn=True, zero_col=None):

@@ -57,6 +57,7 @@ from repro_torch.optim import adamw
 from repro_torch.train import loop as tloop
 from repro_torch.train.loop import LoopConfig, TornStateError, run_training
 from repro_torch.train.steps import TrainState, make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "internlm2-1.8b"
 LOSS_RTOL = 1e-5
@@ -547,20 +548,35 @@ def test_pipeline_order_close_and_resume_match_reference(start):
     assert not tp._thread.is_alive()
 
 
-def test_launcher_trains_resumes_and_refuses_model_parallel(tmp_path):
+def test_launcher_trains_resumes_and_takes_model_parallel_on_one_rank(
+        tmp_path, monkeypatch):
+    """The launcher trains, resumes, and takes ``--model-parallel`` on one
+    rank (the mesh is (1, 1)); every step of a one-rank run goes through
+    its step program (``core.programs.StepProgram``)."""
+    from repro_torch.core import programs
     from repro_torch.launch import train as launch
 
+    steps = []
+    call = programs.StepProgram.__call__
+
+    def counted(self, state, batch):
+        steps.append(self.name)
+        return call(self, state, batch)
+
+    monkeypatch.setattr(programs.StepProgram, "__call__", counted)
     args = ["--arch", ARCH, "--reduced", "--steps", "4", "--batch", "2",
             "--seq", "16", "--ckpt-every", "2", "--device", "cpu",
             "--ckpt-dir", str(tmp_path)]
     res = launch.main(args)
     assert res.final_step == 4 and res.resumed_from is None
+    assert steps == ["train_step"] * 4
     again = launch.main(args[:4] + ["6"] + args[5:])
     assert again.resumed_from == 4 and again.final_step == 6
     # --model-parallel is no longer refused: on one rank the elastic mesh
     # is (1, 1), as the reference's on one device, and the run resumes
     mp = launch.main(args[:4] + ["8"] + args[5:] + ["--model-parallel", "2"])
     assert mp.resumed_from == 6 and mp.final_step == 8
+    assert steps == ["train_step"] * 8
     # a MoE config trains too (the loop logs its metrics every 10 steps)
     moe = launch.main(["--arch", "grok-1-314b", "--reduced", "--steps", "10",
                        "--batch", "2", "--seq", "16", "--device", "cpu",
