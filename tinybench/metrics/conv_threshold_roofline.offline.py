@@ -1,0 +1,9 @@
+"""K2's (``conv_threshold``) share of its roofline in the offline cells."""
+
+from tinybench.metrics._roofline import conv_threshold_roofline
+
+UNIT = "%"
+
+
+def read(ctx):
+    return conv_threshold_roofline(ctx, "offline")
